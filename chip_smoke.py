@@ -9,15 +9,23 @@ Phases (any failure raises and the script exits non-zero):
   2. build    — compiles every ``src/repro_torch/kernels/csrc/*.cu`` with
                 nvcc (all at once) and prints build time and ptxas output;
   3. kernels  — holds each CUDA kernel against its plain PyTorch version on
-                the card (tolerances of tests/test_kernels.py) and times
-                kernel, plain version and one torch.matmul yardstick with
+                the card (mix and Gram at tests/test_kernels.py's
+                tolerances, the four channel kernels bitwise) and times
+                kernel, plain version and one PyTorch library call with
                 CUDA events, beside the byte/FLOP bound;
   4. agree    — a small label-shift run on the card against the same run
-                on the CPU (same init, same draws);
+                on the CPU (same init, same draws); one uplink crossing
+                bitwise across the devices; a small run with a sampler and
+                a qsgd channel on both devices;
   5. main     — run_federated for ucfl, ucfl_k4 and fedavg on the paper's
                 §IV-A.1 scenario (n=10000, m=20, LeNet-5, D=47,571), with
                 launch counters showing every mix and the UCFL Δ went
-                through the kernels.
+                through the kernels;
+  6. channel  — the same scenario through the uplink channel: ucfl_k4
+                with UniformFraction(0.5) and qsgd:8 over a tiered link,
+                ucfl with topk:0.1, fedavg with the identity channel (its
+                clock must equal phase 5's fedavg clock exactly), with
+                launch counters and exact History.comm_bits.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -36,9 +44,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
-from repro_torch.fl import (FLConfig, SYSTEMS, TorchDraws,  # noqa: E402
-                            run_federated)
+from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
+                            TorchDraws, UniformFraction, run_federated)
+from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.quantize import (  # noqa: E402
+    qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
+from repro_torch.kernels.topk_threshold import (  # noqa: E402
+    row_resident, topk_threshold_cuda)
 from repro_torch.models import lenet  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -210,8 +223,126 @@ def check_gram(gen) -> dict:
     return row
 
 
+def same(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Bitwise check (NaN where NaN, equal elsewhere); returns max |err|."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(torch.isnan(got), nan)
+            or not torch.equal(got[~nan], want[~nan])):
+        raise AssertionError(f"{name}: kernel not bitwise equal to its plain "
+                             "version")
+    return 0.0
+
+
+def check_channel_kernels(gen) -> list:
+    """The four channel kernels bitwise against their plain versions on
+    ragged shapes, bits 2/4/8, top-k k in {1, 10, ceil(D/10), D, D+1}, an
+    all-zero row and a row with one NaN; then timed at the main path's
+    (20, 47,571) with qsgd:8 and topk:0.1."""
+    shapes = [(MAIN["m"], D_LENET), (3, 1), (5, 1000), (7, 4099), (2, 70000)]
+    for m, d in shapes:
+        x = torch.randn((m, d), generator=gen, device="cuda") * 3
+        u = torch.rand((m, d), generator=gen, device="cuda")
+        if m > 2:
+            x[1] = 0.0                           # absmax 0: levels, values 0
+            x[2, d // 2] = float("nan")          # absmax NaN: row all NaN
+        amax = rowwise_absmax_cuda(x)
+        same(f"rowwise_absmax ({m}, {d})", amax, ref.rowwise_absmax_ref(x))
+        for bits in (2, 4, 8):
+            q = qsgd_quantize_cuda(x, u, amax, bits)
+            want_q, _ = ref.qsgd_quantize_ref(x, u, bits, absmax=amax)
+            rows = [i for i in range(m) if not (m > 2 and i == 2)]
+            same(f"qsgd_quantize ({m}, {d}) bits={bits}", q[rows],
+                 want_q[rows])
+            deq = qsgd_dequantize_cuda(q, amax, bits)
+            same(f"qsgd_dequantize ({m}, {d}) bits={bits}", deq,
+                 ref.qsgd_dequantize_ref(q, amax, bits))
+            if m > 2 and not (bool(torch.all(q[1] == 0))
+                              and bool(torch.all(deq[1] == 0))
+                              and bool(torch.isnan(deq[2]).all())):
+                raise AssertionError("qsgd: zero row not zero or NaN row "
+                                     "not NaN")
+        absx = x.abs()
+        if m > 2:
+            absx[2, d // 2] = 0.0
+        for k in sorted({1, 10, -(-d // 10), d, d + 1}):
+            t = topk_threshold_cuda(absx, k)
+            same(f"topk_threshold ({m}, {d}) k={k}", t,
+                 ref.topk_threshold_ref(absx, k))
+            if k <= d:
+                kth = torch.kthvalue(absx, d - k + 1, dim=1,
+                                     keepdim=True).values
+                if not (bool(torch.all(t <= kth))
+                        and bool(torch.all((absx >= t).sum(1) >= k))):
+                    raise AssertionError(f"topk_threshold ({m}, {d}) k={k}: "
+                                         "above the k-th value or < k kept")
+            elif bool(torch.any(t != 0)):
+                raise AssertionError(f"topk_threshold k={k} > D not 0")
+        print(f"  channel kernels ({m:2d}, {d:6d}): absmax, quantize, "
+              f"dequantize (bits 2/4/8), topk_threshold bitwise equal"
+              f"{'' if d < 58000 else ' (top-k row re-read from global)'}",
+              flush=True)
+    if not row_resident(D_LENET) or row_resident(70000):
+        raise AssertionError("topk_threshold: unexpected shared-memory path")
+
+    m, d, bits = MAIN["m"], D_LENET, 8
+    x = torch.randn((m, d), generator=gen, device="cuda") * 1e-2
+    u = torch.rand((m, d), generator=gen, device="cuda")
+    amax = rowwise_absmax_cuda(x)
+    q = qsgd_quantize_cuda(x, u, amax, bits)
+    scale = amax * ref.qsgd_levels(bits)[1].cuda()
+    k = -(-d // 10)
+    absx = x.abs()
+    md, b4 = m * d, 4 * m
+    specs = [
+        ("rowwise_absmax", "quantize.cu", "quantize.py:59",
+         lambda: rowwise_absmax_cuda(x), lambda: ref.rowwise_absmax_ref(x),
+         lambda: torch.linalg.vector_norm(x, math.inf, dim=1),
+         4 * md + b4, md,
+         lambda: same("absmax", rowwise_absmax_cuda(x),
+                      ref.rowwise_absmax_ref(x))),
+        ("qsgd_quantize", "quantize.cu", "quantize.py:104",
+         lambda: qsgd_quantize_cuda(x, u, amax, bits),
+         lambda: ref.qsgd_quantize_ref(x, u, bits, absmax=amax),
+         None, 12 * md + b4, 5 * md,
+         lambda: same("quantize", qsgd_quantize_cuda(x, u, amax, bits),
+                      ref.qsgd_quantize_ref(x, u, bits, absmax=amax)[0])),
+        ("qsgd_dequantize", "quantize.cu", "quantize.py:136",
+         lambda: qsgd_dequantize_cuda(q, amax, bits),
+         lambda: ref.qsgd_dequantize_ref(q, amax, bits),
+         lambda: torch.mul(q, scale), 8 * md + b4, 2 * md,
+         lambda: same("dequantize", qsgd_dequantize_cuda(q, amax, bits),
+                      ref.qsgd_dequantize_ref(q, amax, bits))),
+        ("topk_threshold", "topk_threshold.cu", "topk_threshold.py:60",
+         lambda: topk_threshold_cuda(absx, k),
+         lambda: ref.topk_threshold_ref(absx, k),
+         lambda: torch.kthvalue(absx, d - k + 1, dim=1),
+         4 * md + b4, (ref.TOPK_ITERS + 1) * md,
+         lambda: same("topk", topk_threshold_cuda(absx, k),
+                      ref.topk_threshold_ref(absx, k))),
+    ]
+    rows = []
+    for name, src, tpu, kern, plain, lib, n_bytes, n_ops, check in specs:
+        err = check()
+        b, by = bound_ms(n_bytes, n_ops)
+        row = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{src}",
+                   replaces=f"src/repro/kernels/{tpu}", max_abs_err=err,
+                   ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=b,
+                   bound_by=by,
+                   library_ms=None if lib is None else time_ms(lib))
+        lib_s = ("none" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms")
+        print(f"  {name} ({m}, {d}) f32: kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  library {lib_s}  bound {b:.4f} ms "
+              f"({by})", flush=True)
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the round engine
+# phases 4-6: the round engine
 
 
 def small_agreement() -> None:
@@ -249,17 +380,82 @@ def small_agreement() -> None:
           f"{perr:.2e}, max |Δacc| {acc_err:.4f})", flush=True)
 
 
-def main_path() -> dict:
-    t0 = time.perf_counter()
-    fed = scenario_label_shift(0, n=MAIN["n"], m=MAIN["m"], device="cuda")
-    torch.cuda.synchronize()
-    print(f"  data: x {tuple(fed.x.shape)}  x_val {tuple(fed.x_val.shape)}  "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    fl = FLConfig(rounds=MAIN["rounds"], local_steps=MAIN["local_steps"],
-                  batch_size=MAIN["batch_size"], eval_every=MAIN["eval_every"])
+def uplink_agreement() -> None:
+    """One uplink crossing (narrow LeNet, m=6, 3 participants, a non-zero
+    residual) through uplink_roundtrip on the card and on the CPU: new
+    params and residuals bitwise equal, for qsgd:4 and topk:0.25."""
+    cfg = lenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
+    gen = torch.Generator().manual_seed(21)
+    p0 = lenet.init_params(gen, cfg, device="cpu")
+    m = 6
+    prev = {k: v[None].repeat((m,) + (1,) * v.dim()) for k, v in p0.items()}
+    stacked = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+               for k, v in prev.items()}
+    ef = {k: 0.01 * torch.randn(v.shape, generator=gen)
+          for k, v in prev.items()}
+    mask = torch.tensor([True, False, True, False, False, True])
+    d = sum(v.numel() for v in p0.values())
+    noise = torch.rand((m, d), generator=gen)
+    cuda = lambda t: {k: v.cuda() for k, v in t.items()}
+    for spec in ("qsgd:4", "topk:0.25"):
+        codec = get_codec(spec)
+        before = dict(ops.LAUNCHES)
+        want = uplink_roundtrip(codec, stacked, prev, ef, noise, mask)
+        got = uplink_roundtrip(codec, cuda(stacked), cuda(prev), cuda(ef),
+                               noise.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                    if ops.LAUNCHES[k] != before[k]}
+        for part, g, w in (("params", got[0], want[0]),
+                           ("residuals", got[1], want[1])):
+            for k in w:
+                if not torch.equal(g[k].cpu(), w[k]):
+                    raise AssertionError(f"uplink {spec}: {part} {k} differ "
+                                         "cuda vs cpu")
+        print(f"  uplink_roundtrip {spec} (m=6, 3 sending, D={d}): cuda "
+              f"bitwise equal to cpu; launches {launched}", flush=True)
+
+
+def channel_agreement() -> None:
+    """ucfl_k2 with UniformFraction(0.5) and a qsgd:8 channel over a tiered
+    link, on the card and on the CPU, from the same init and the same
+    draws: comm, comm_bits, clock and stream plan equal, accuracies within
+    two argmax flips.  Final params are not compared: a last-bit
+    difference in the local update can move a stochastic-rounding floor
+    by one level, and the next rounds carry that on."""
+    fed_cpu = scenario_label_shift(3, n=600, m=6, device="cpu")
+    fed_gpu = FederatedData(*(t.to("cuda") for t in fed_cpu))
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    fl = FLConfig(rounds=3, local_steps=3, batch_size=16, eval_every=1)
+    runs = {}
+    for dev, fed in (("cpu", fed_cpu), ("cuda", fed_gpu)):
+        runs[dev] = run_federated(
+            "ucfl_k2", fed, fl=fl, system=SYSTEMS["wireless_slow"],
+            sampler=UniformFraction(0.5),
+            channel=Channel(codec="qsgd:8", link="tiered:4"),
+            model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+            draws=TorchDraws(11, "cpu"), device=dev)
+    a, b = runs["cpu"], runs["cuda"]
+    if (a.comm != b.comm or a.comm_bits != b.comm_bits or a.time != b.time
+            or list(a.extras.assignment) != list(b.extras.assignment)):
+        raise AssertionError("cuda and cpu channel runs disagree on comm, "
+                             "comm_bits, clock or stream plan")
+    flip = 1.0 / (fed_cpu.m * fed_cpu.x_val.shape[1])
+    acc_err = max(abs(x - y) for x, y in zip(a.mean_acc + a.worst_acc,
+                                             b.mean_acc + b.worst_acc))
+    if acc_err > 2 * flip + 1e-6:
+        raise AssertionError(f"channel run accuracies differ by {acc_err}")
+    print(f"  ucfl_k2 + UniformFraction(0.5) + qsgd:8/tiered:4 n=600 m=6: "
+          f"cuda agrees with cpu (comm_bits {tuple(b.comm_bits[0])}, clock "
+          f"{b.time[-1]:.4f}, max |Δacc| {acc_err:.4f})", flush=True)
+
+
+def main_path(fed, fl) -> dict:
+    """The three channel-less runs; returns {spec: History}."""
     system = SYSTEMS["wireless_slow"]
     m, rounds = MAIN["m"], MAIN["rounds"]
-    ops.reset_launches()          # counts from here on are the main path's
+    hists = {}
     for spec in ("ucfl", "ucfl_k4", "fedavg"):
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
@@ -297,7 +493,83 @@ def main_path() -> dict:
               f"{h.worst_acc[-1]:.4f}  time {h.time[-1]:.4f}  launches "
               f"{launched}  wall {wall:.2f} s ({wall / rounds * 1e3:.1f} "
               f"ms/round incl. setup)", flush=True)
-    return dict(ops.LAUNCHES)
+        hists[spec] = h
+    return hists
+
+
+def channel_path(fed, fl, base_clock: list) -> None:
+    """The uplink channel at full width: ucfl_k4 + UniformFraction(0.5) +
+    qsgd:8 over tiered:4, ucfl + topk:0.1, fedavg + the identity channel
+    (whose clock must equal ``base_clock``, the channel-less fedavg's)."""
+    system = SYSTEMS["wireless_slow"]
+    m, rounds = MAIN["m"], MAIN["rounds"]
+    d = D_LENET
+    qsgd_bits, topk_bits = d * 8 + 32, -(-d // 10) * 64
+    runs = [
+        ("ucfl_k4", dict(sampler=UniformFraction(0.5),
+                         channel=Channel(codec="qsgd:8", link="tiered:4")),
+         dict(rowwise_absmax=rounds, qsgd_quantize=rounds,
+              qsgd_dequantize=rounds, topk_threshold=0, gram_matrix=1),
+         lambda s: (s * qsgd_bits, (m // 2) * qsgd_bits)),
+        ("ucfl", dict(channel=Channel(codec="topk:0.1")),
+         dict(rowwise_absmax=0, qsgd_quantize=0, qsgd_dequantize=0,
+              topk_threshold=rounds, gram_matrix=1),
+         lambda s: (s * topk_bits, m * topk_bits)),
+        ("fedavg", dict(channel=Channel()),
+         dict(rowwise_absmax=0, qsgd_quantize=0, qsgd_dequantize=0,
+              topk_threshold=0, gram_matrix=0),
+         lambda s: (s * 32 * d, m * 32 * d)),
+    ]
+    for spec, kw, want_launch, want_bits in runs:
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        h = run_federated(spec, fed, fl=fl, system=system, seed=0,
+                          keep_state=True, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        want_launch["mixing_aggregate"] = rounds * MAIN["leaves"]
+        if launched != want_launch:
+            raise AssertionError(f"{spec}: launches {launched}, want "
+                                 f"{want_launch}")
+        streams = h.comm[0].n_streams
+        if [tuple(c) for c in h.comm_bits] != [want_bits(streams)] * rounds:
+            raise AssertionError(f"{spec}: comm_bits {h.comm_bits[:2]}..., "
+                                 f"want {want_bits(streams)} every round")
+        if not all(math.isfinite(a) for a in h.mean_acc + h.worst_acc):
+            raise AssertionError(f"{spec}: non-finite accuracy {h.mean_acc}")
+        if not h.mean_acc[-1] > 2.0 / 47:
+            raise AssertionError(f"{spec}: final mean_acc {h.mean_acc[-1]} "
+                                 "not above 2/47")
+        res, codec = h.final_residual, kw["channel"].codec
+        up = ""
+        if codec.is_identity:
+            if res is not None or h.time != base_clock:
+                raise AssertionError(f"{spec}: identity channel clock "
+                                     f"{h.time} != channel-less {base_clock}")
+        elif not all(bool(torch.isfinite(v).all()) for v in res.values()):
+            raise AssertionError(f"{spec}: non-finite residual stack")
+        else:
+            # device time of one round's uplink crossing at this size: the
+            # codec's kernels plus the ravel, unravel and EF elementwise ops
+            st = h.final_params
+            prev = {k: v * 0.5 for k, v in st.items()}
+            noise = torch.rand((m, d), device="cuda")
+            mask = (torch.arange(m, device="cuda") < m // 2
+                    if "sampler" in kw else None)
+            counts = dict(ops.LAUNCHES)       # timing launches do not count
+            up_ms = time_ms(lambda: uplink_roundtrip(codec, st, prev, res,
+                                                     noise, mask))
+            ops.LAUNCHES.update(counts)
+            up = f"  uplink {up_ms:.4f} ms/round (device)"
+        print(f"  {spec:8s} {h.extra['channel']['codec']:9s} link "
+              f"{h.extra['channel']['link']:8s} streams {streams:2d}  "
+              f"mean_acc {[round(a, 4) for a in h.mean_acc]}  worst_acc "
+              f"{h.worst_acc[-1]:.4f}  time {h.time[-1]:.4f}  comm_bits "
+              f"{tuple(h.comm_bits[0])}  launches "
+              f"{ {k: v for k, v in launched.items() if v} }  wall "
+              f"{wall:.2f} s ({wall / rounds * 1e3:.1f} ms/round incl. "
+              f"setup){up}", flush=True)
 
 
 def main() -> int:
@@ -326,21 +598,40 @@ def main() -> int:
     print("[kernels] kernel vs plain version on the card "
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_mixing(gen), check_gram(gen)]
+    rows = [check_mixing(gen), check_gram(gen)] + check_channel_kernels(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)
 
-    print("[agree] small run, cuda against cpu", flush=True)
+    print("[agree] small runs and one uplink crossing, cuda against cpu",
+          flush=True)
     small_agreement()
+    uplink_agreement()
+    channel_agreement()
 
+    t0 = time.perf_counter()
+    fed = scenario_label_shift(0, n=MAIN["n"], m=MAIN["m"], device="cuda")
+    torch.cuda.synchronize()
+    fl = FLConfig(rounds=MAIN["rounds"], local_steps=MAIN["local_steps"],
+                  batch_size=MAIN["batch_size"], eval_every=MAIN["eval_every"])
     print(f"[main] run_federated n={MAIN['n']} m={MAIN['m']} LeNet-5 "
-          f"D={D_LENET}", flush=True)
-    launches = main_path()
+          f"D={D_LENET}  data: x {tuple(fed.x.shape)}  x_val "
+          f"{tuple(fed.x_val.shape)}  {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    ops.reset_launches()          # counts from here on are the main path's
+    hists = main_path(fed, fl)
+    launches = dict(ops.LAUNCHES)
+    print(f"  [main] launches {launches}", flush=True)
+
+    print(f"[channel] run_federated n={MAIN['n']} m={MAIN['m']} through the "
+          f"uplink channel ({card})", flush=True)
+    ops.reset_launches()          # and from here on the channel path's
+    channel_path(fed, fl, hists["fedavg"].time)
+    print(f"  [channel] launches {dict(ops.LAUNCHES)}", flush=True)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]] + ops.LAUNCHES[r["name"]]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main "
-                                 "path")
+                                 "or channel path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,12 +1,13 @@
 """User-centric mixing coefficients (paper Eq. 6).
 
 Counterpart of `repro/core/mixing.py` (`mixing_matrix`,
-`fedavg_weights`):
+`fedavg_weights`, `groupwise_weights`):
 
     w_{i,j} ∝ (n_j / n_i) · exp( −Δ_{i,j} / (2 σ_i σ_j) ),   normalized over j.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,18 @@ def fedavg_weights(n: torch.Tensor) -> torch.Tensor:
     """The FedAvg special case: every row is n / Σn."""
     w = n.float() / n.sum()
     return w[None, :].expand(n.shape[0], n.shape[0]).contiguous()
+
+
+def groupwise_weights(n: torch.Tensor, group: np.ndarray
+                      ) -> torch.Tensor:
+    """Block-diagonal FedAvg rule: row i averages over i's group, weighted
+    by dataset size (the oracle baseline).  Built on the host in numpy
+    f32, as the reference builds it, then placed on ``n``'s device."""
+    group = np.asarray(group)
+    m = len(group)
+    wmat = np.zeros((m, m), np.float32)
+    nn = n.cpu().numpy()
+    for g in np.unique(group):
+        idx = np.where(group == g)[0]
+        wmat[np.ix_(idx, idx)] = nn[idx] / nn[idx].sum()
+    return torch.from_numpy(wmat).to(n.device)

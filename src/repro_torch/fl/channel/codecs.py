@@ -1,0 +1,457 @@
+"""Uplink compression codecs with error feedback.
+
+Counterpart of `repro/fl/channel/codecs.py`.  A `Codec` is one lossy (or
+identity) channel code for the client->server update payload; the
+simulation never materializes packed bitstreams.  A codec exposes
+
+  * ``roundtrip(flat, noise)`` — decode(encode(·)) on the (m, D)
+    client-flat view: the values the SERVER sees.  Rows are independent
+    clients.  ``noise`` is the (m, D) U[0, 1) stochastic-rounding noise,
+    drawn by the caller (`fl.draws`) for a codec with ``needs_noise``,
+    else None (the reference draws it from a key inside the codec).
+  * ``payload_bits(tree)`` — exact wire bits for one client's payload of
+    ``tree``'s size (per-element code bits + per-client side info).
+
+Registered codecs (spec grammar ``<family>[:<param>[:<param>]]``):
+
+  identity              lossless float passthrough (bit-parity anchor)
+  qsgd:<bits>           signed stochastic uniform quantization, b ∈ [2, 8]:
+                        d·b bits + one 32-bit per-client scale
+  topk:<frac>           magnitude top-k, k = ⌈frac·d⌉: k · (32-bit value +
+                        32-bit index)
+  adaptive[:min[:max]]  per-client qsgd bits picked from the link profile
+  adaptive_topk[:min[:max]]  per-client top-k counts from the link profile
+
+`QSGD` and `TopK` run the channel kernels through `kernels.ops` (the
+hand-written CUDA kernels on the card, their plain versions on the CPU),
+as the reference's ``"pallas"`` backend does.  The bound adaptive codecs
+are plain torch on both devices, as the reference's are on both of its
+backends.  Not ported yet: the reference's ``"jnp"`` backend (exact
+``top_k`` masks, first-index ties), which belongs to the mesh placement
+(ROADMAP.md Queue 1 item 15), and the at-rest format (`encode`,
+`decode`, `store_bound`) of the serving plane (item 11).
+
+Error feedback: the engine keeps a per-client residual stack e_i; each
+round the codec transmits v = Δ + e and the new residual is
+e' = v − decode(v), so everything the channel drops is retransmitted
+later.  `uplink_roundtrip` owns that algebra.
+"""
+from __future__ import annotations
+
+import abc
+import math
+from typing import Any, ClassVar, Dict, Optional, Tuple, Type
+
+import numpy as np
+import torch
+
+from repro_torch.fl.channel.payload import (stacked_ravel, stacked_unravel,
+                                            tree_bits, tree_size)
+from repro_torch.fl.placement.base import where_clients
+from repro_torch.kernels import ops
+
+_LATER_AT_REST = ("the codecs' at-rest format (encode/decode/store_bound) is "
+                  "not ported yet: ROADMAP.md Queue 1 item 11 (serving)")
+
+
+class Codec(abc.ABC):
+    """One uplink channel code; subclass + `@register_codec` to add."""
+
+    name: ClassVar[str]
+    is_identity: ClassVar[bool] = False
+    # whether `roundtrip` reads stochastic-rounding noise (the engine
+    # draws `draws.codec_noise` only then)
+    needs_noise: ClassVar[bool] = False
+
+    @property
+    def spec(self) -> str:
+        """Registry spec string that reconstructs this instance."""
+        return self.name
+
+    @abc.abstractmethod
+    def payload_bits(self, tree: Any) -> int:
+        """Exact uplink bits for ONE client's payload of ``tree``'s size."""
+
+    @abc.abstractmethod
+    def roundtrip(self, flat: torch.Tensor,
+                  noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """decode(encode(flat)) per row; (m, D) f32 -> (m, D) f32."""
+
+    def encode(self, flat, noise):
+        raise NotImplementedError(_LATER_AT_REST)
+
+    def decode(self, payload, d=None):
+        raise NotImplementedError(_LATER_AT_REST)
+
+    def store_bound(self, payload, d):
+        raise NotImplementedError(_LATER_AT_REST)
+
+    def bind_link(self, link: Any, tree: Any) -> "Codec":
+        """Specialize this codec to a resolved `LinkProfile` (the engine
+        calls it from `init_channel`).  Fixed codecs return themselves;
+        the adaptive ones return a bound instance with per-client
+        parameters."""
+        return self
+
+    def per_client_bits(self, tree: Any, m: int) -> np.ndarray:
+        """(m,) exact uplink bits per client (vector sibling of
+        `payload_bits`; non-uniform only for link-bound adaptive codecs)."""
+        return np.full(m, self.payload_bits(tree), dtype=np.int64)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Codec) and self.spec == other.spec
+
+    def __hash__(self) -> int:
+        return hash(self.spec)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.spec!r})"
+
+
+CODECS: Dict[str, Type[Codec]] = {}
+
+
+def register_codec(cls: Type[Codec]) -> Type[Codec]:
+    CODECS[cls.name] = cls
+    return cls
+
+
+@register_codec
+class Identity(Codec):
+    """Lossless passthrough: raw dtype bits; the engine skips the value
+    path entirely (the bit-parity anchor)."""
+
+    name = "identity"
+    is_identity = True
+
+    def payload_bits(self, tree: Any) -> int:
+        return tree_bits(tree)
+
+    def roundtrip(self, flat, noise):
+        return flat
+
+
+@register_codec
+class QSGD(Codec):
+    """Stochastic uniform quantization onto ``{-s..s}·scale`` per client,
+    s = 2^(b−1) − 1, scale = max|x|/s.  Unbiased given the scale:
+    E[roundtrip(x)] = x (stochastic rounding ``floor(y + u)``).  Three
+    kernel launches on the card: absmax, quantize, dequantize."""
+
+    name = "qsgd"
+    needs_noise = True
+
+    def __init__(self, bits: int = 8):
+        if not 2 <= int(bits) <= 8:
+            raise ValueError(f"qsgd bits must be in [2, 8], got {bits}")
+        self.bits = int(bits)
+
+    @property
+    def spec(self) -> str:
+        return f"{self.name}:{self.bits}"
+
+    def payload_bits(self, tree: Any) -> int:
+        return tree_size(tree) * self.bits + 32     # + per-client scale
+
+    def roundtrip(self, flat, noise):
+        return ops.qsgd_roundtrip(flat, noise, bits=self.bits)
+
+
+@register_codec
+class TopK(Codec):
+    """Magnitude top-k sparsification: keep each client's coordinates at
+    or above its k-th largest |x| (the threshold kernel's cutoff; ties
+    all kept), zero the rest.  Biased — error feedback is what makes it
+    converge (the residual carries the tail).  One kernel launch on the
+    card."""
+
+    name = "topk"
+
+    def __init__(self, frac: float = 0.1):
+        if not 0.0 < float(frac) <= 1.0:
+            raise ValueError(f"topk frac must be in (0, 1], got {frac}")
+        self.frac = float(frac)
+
+    @property
+    def spec(self) -> str:
+        return f"{self.name}:{self.frac:g}"
+
+    def k(self, d: int) -> int:
+        return max(1, min(d, int(math.ceil(self.frac * d))))
+
+    def payload_bits(self, tree: Any) -> int:
+        return self.k(tree_size(tree)) * (32 + 32)  # (value, index) pairs
+
+    def roundtrip(self, flat, noise):
+        absx = flat.abs()
+        thresh = ops.topk_threshold(absx, k=self.k(flat.shape[1]))
+        return torch.where(absx >= thresh, flat, torch.zeros_like(flat))
+
+
+def _uplink_rate(link: Any) -> np.ndarray:
+    """Uplink bits per T_dl of each client."""
+    return np.asarray(link.dl_rate, np.float64) / np.asarray(link.ul_ratio,
+                                                             np.float64)
+
+
+@register_codec
+class Adaptive(Codec):
+    """Rate-adaptive uplink code: each client's qsgd bit width is picked
+    from its `LinkProfile` so that EVERY upload fits the time budget of
+    the slowest client sending the minimum spec.  Spec ``adaptive``
+    (bits ∈ [2, 8]), ``adaptive:<min_bits>`` or
+    ``adaptive:<min_bits>:<max_bits>``.  The engine runs the instance
+    `bind_link` returns; an unbound adaptive codec's value path raises.
+    On a uniform profile every client lands exactly on ``min_bits``."""
+
+    name = "adaptive"
+
+    def __init__(self, min_bits: int = 2, max_bits: int = 8):
+        if not 2 <= int(min_bits) <= int(max_bits) <= 8:
+            raise ValueError("adaptive bits must satisfy 2 <= min <= max "
+                             f"<= 8, got [{min_bits}, {max_bits}]")
+        self.min_bits = int(min_bits)
+        self.max_bits = int(max_bits)
+
+    @property
+    def spec(self) -> str:
+        if self.max_bits != 8:
+            return f"{self.name}:{self.min_bits}:{self.max_bits}"
+        if self.min_bits != 2:
+            return f"{self.name}:{self.min_bits}"
+        return self.name
+
+    def payload_bits(self, tree: Any) -> int:
+        raise RuntimeError("adaptive codec is link-dependent: the engine "
+                           "binds it in init_channel; call "
+                           "bind_link(link, tree) first")
+
+    def roundtrip(self, flat, noise):
+        raise RuntimeError("adaptive codec is link-dependent; "
+                           "bind_link(link, tree) first")
+
+    def bind_link(self, link: Any, tree: Any) -> "Codec":
+        d = tree_size(tree)
+        # the budget is the slowest client transmitting the minimum spec:
+        # nobody is charged more than the fixed qsgd:<min_bits> round
+        rate = _uplink_rate(link)
+        budget = (d * self.min_bits + 32) / rate.min()
+        bits = np.floor((budget * rate - 32.0) / d)
+        bits = np.clip(bits, self.min_bits, self.max_bits).astype(np.int64)
+        return BoundAdaptive(self.spec, bits)
+
+
+class BoundAdaptive(Codec):
+    """`Adaptive` specialized to one resolved link: a per-client qsgd bit
+    vector.  Not registered — only `Adaptive.bind_link` constructs it."""
+
+    name = "adaptive"
+    needs_noise = True
+
+    def __init__(self, spec: str, bits: np.ndarray):
+        self._spec = str(spec)
+        self.bits = np.asarray(bits, np.int64)
+
+    @property
+    def spec(self) -> str:
+        return self._spec
+
+    def payload_bits(self, tree: Any) -> int:
+        """Scalar (downlink/broadcast) payload: the LARGEST assigned width;
+        the per-client uplink truth is `per_client_bits`."""
+        return tree_size(tree) * int(self.bits.max()) + 32
+
+    def per_client_bits(self, tree: Any, m: int) -> np.ndarray:
+        if m != self.bits.shape[0]:
+            raise ValueError(f"bound for m={self.bits.shape[0]} clients, "
+                             f"asked for {m}")
+        return tree_size(tree) * self.bits + 32
+
+    def roundtrip(self, flat, noise):
+        """The plain QSGD arithmetic with the level count a per-row (m, 1)
+        column (the kernels take one scalar level count); rows whose width
+        equals b match ``qsgd:<b>`` bit for bit."""
+        s = torch.tensor(2.0 ** (self.bits - 1) - 1.0, dtype=torch.float32,
+                         device=flat.device)[:, None]
+        amax = flat.abs().amax(dim=1, keepdim=True)
+        scale = amax * s.reciprocal()
+        inv = torch.where(scale > 0, scale.reciprocal(),
+                          torch.zeros_like(scale))
+        q = torch.minimum(torch.maximum(torch.floor(flat * inv + noise), -s),
+                          s)
+        return q * scale
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, BoundAdaptive) and self._spec == other._spec
+                and np.array_equal(self.bits, other.bits))
+
+    def __hash__(self) -> int:
+        return hash((self._spec, self.bits.tobytes()))
+
+    def __repr__(self) -> str:
+        return (f"BoundAdaptive({self._spec!r}, "
+                f"bits=[{self.bits.min()}..{self.bits.max()}])")
+
+
+@register_codec
+class AdaptiveTopK(Codec):
+    """Rate-adaptive top-k: each client's kept-coordinate count is picked
+    from its `LinkProfile` so that every upload fits the time budget of
+    the slowest client sending the minimum fraction.  Spec
+    ``adaptive_topk`` (frac ∈ [0.05, 1]), ``adaptive_topk:<min_frac>`` or
+    ``adaptive_topk:<min_frac>:<max_frac>``.  Run it with error feedback;
+    the engine runs the instance `bind_link` returns."""
+
+    name = "adaptive_topk"
+
+    def __init__(self, min_frac: float = 0.05, max_frac: float = 1.0):
+        if not 0.0 < float(min_frac) <= float(max_frac) <= 1.0:
+            raise ValueError("adaptive_topk fracs must satisfy 0 < min <= "
+                             f"max <= 1, got [{min_frac}, {max_frac}]")
+        self.min_frac = float(min_frac)
+        self.max_frac = float(max_frac)
+
+    @property
+    def spec(self) -> str:
+        if self.max_frac != 1.0:
+            return f"{self.name}:{self.min_frac:g}:{self.max_frac:g}"
+        if self.min_frac != 0.05:
+            return f"{self.name}:{self.min_frac:g}"
+        return self.name
+
+    def payload_bits(self, tree: Any) -> int:
+        raise RuntimeError("adaptive_topk codec is link-dependent: the "
+                           "engine binds it in init_channel; call "
+                           "bind_link(link, tree) first")
+
+    def roundtrip(self, flat, noise):
+        raise RuntimeError("adaptive_topk codec is link-dependent; "
+                           "bind_link(link, tree) first")
+
+    def bind_link(self, link: Any, tree: Any) -> "Codec":
+        d = tree_size(tree)
+        k_of = lambda frac: max(1, min(d, int(math.ceil(frac * d))))
+        k_min, k_max = k_of(self.min_frac), k_of(self.max_frac)
+        rate = _uplink_rate(link)
+        budget = (k_min * 64) / rate.min()
+        ks = np.floor(budget * rate / 64.0)
+        ks = np.clip(ks, k_min, k_max).astype(np.int64)
+        return BoundAdaptiveTopK(self.spec, ks)
+
+
+class BoundAdaptiveTopK(Codec):
+    """`AdaptiveTopK` specialized to one resolved link: a per-client
+    kept-coordinate vector.  Not registered."""
+
+    name = "adaptive_topk"
+
+    def __init__(self, spec: str, ks: np.ndarray):
+        self._spec = str(spec)
+        self.ks = np.asarray(ks, np.int64)
+
+    @property
+    def spec(self) -> str:
+        return self._spec
+
+    def payload_bits(self, tree: Any) -> int:
+        """Scalar (downlink/broadcast) payload: the LARGEST assigned k."""
+        return int(self.ks.max()) * (32 + 32)
+
+    def per_client_bits(self, tree: Any, m: int) -> np.ndarray:
+        if m != self.ks.shape[0]:
+            raise ValueError(f"bound for m={self.ks.shape[0]} clients, "
+                             f"asked for {m}")
+        return self.ks * (32 + 32)
+
+    def roundtrip(self, flat, noise):
+        """Per-row k-th-magnitude threshold from a descending sort (ties at
+        the threshold all kept), plain torch: the kernel takes one k."""
+        a = flat.abs()
+        srt = torch.sort(a, dim=1, descending=True).values
+        rows = torch.arange(flat.shape[0], device=flat.device)
+        ks = torch.as_tensor(self.ks - 1, device=flat.device)
+        thr = srt[rows, ks][:, None]
+        return torch.where(a >= thr, flat, torch.zeros_like(flat))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, BoundAdaptiveTopK)
+                and self._spec == other._spec
+                and np.array_equal(self.ks, other.ks))
+
+    def __hash__(self) -> int:
+        return hash((self._spec, self.ks.tobytes()))
+
+    def __repr__(self) -> str:
+        return (f"BoundAdaptiveTopK({self._spec!r}, "
+                f"ks=[{self.ks.min()}..{self.ks.max()}])")
+
+
+def get_codec(spec) -> Codec:
+    """``"identity" | "qsgd:<bits>" | "topk:<frac>" | "adaptive[:<min>
+    [:<max>]]" | "adaptive_topk[:<min>[:<max>]]"`` -> Codec instance
+    (instances pass through)."""
+    if isinstance(spec, Codec):
+        return spec
+    family, _, param = str(spec).partition(":")
+    cls = CODECS.get(family)
+    if cls is None:
+        raise ValueError(f"unknown codec {spec!r}; families: "
+                         f"{sorted(CODECS)}")
+    if not param:
+        return cls()
+    conv = int if family in ("qsgd", "adaptive") else float
+    try:
+        args = [conv(p) for p in param.split(":")]
+    except ValueError:
+        raise ValueError(f"bad codec parameter in {spec!r}") from None
+    try:
+        return cls(*args)
+    except TypeError:
+        raise ValueError(f"too many parameters in {spec!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# error-feedback uplink (engine entry point)
+
+
+def uplink_roundtrip(codec: Codec, stacked: Dict[str, torch.Tensor],
+                     prev: Dict[str, torch.Tensor],
+                     ef: Dict[str, torch.Tensor],
+                     noise: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor]) -> Tuple[Any, Any]:
+    """The EF uplink algebra: transmit v = Δ + e, return
+    ``(prev + decode(v), v − decode(v))`` with non-participant rows
+    untouched.  ``noise`` (m, D) feeds the codec's stochastic rounding in
+    the flat view's column order (sorted keys)."""
+    v = {k: (stacked[k] - prev[k]) + ef[k] for k in stacked}
+    dec = stacked_unravel(codec.roundtrip(stacked_ravel(v), noise), v)
+    new_ef = {k: v[k] - dec[k] for k in v}
+    # residuals ride in f32; the model stack keeps its own dtype
+    new_stacked = {k: (p + dec[k]).to(p.dtype) for k, p in prev.items()}
+    if mask is not None:
+        # non-participants transmitted nothing: model and residual rows
+        # stay exactly as they were
+        new_stacked = where_clients(mask, new_stacked, stacked)
+        new_ef = where_clients(mask, new_ef, ef)
+    return new_stacked, new_ef
+
+
+def apply_uplink(codec: Codec, stacked: Any, prev: Any, ef: Any,
+                 noise: Optional[torch.Tensor],
+                 mask: Optional[torch.Tensor] = None) -> Tuple[Any, Any]:
+    """One uplink crossing with error feedback: ``stacked``/``prev`` are
+    the post-/pre-update client stacks, ``ef`` the residual stack; returns
+    the server-side models and the carried-forward residuals.  Rows where
+    ``mask`` is False are untouched; an identity codec returns its inputs
+    unchanged."""
+    if codec.is_identity:
+        return stacked, ef
+    return uplink_roundtrip(codec, stacked, prev, ef, noise, mask)
+
+
+def zeros_like_stack(stacked: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Fresh all-zero error-feedback residual stack shaped like
+    ``stacked`` (f32 whatever the model dtype)."""
+    return {k: torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+            for k, l in stacked.items()}

@@ -10,7 +10,14 @@ object with two methods instead:
         ``randint(0, 2**30) % max(n_i, 1) % n_slots`` (the reference's
         rule, `repro/fl/placement/host.py:35-37`);
     kmeans_first(m) -> int
-        the first k-means centre of the UCFL stream plan.
+        the first k-means centre of the UCFL stream plan;
+    permutation(rnd, m) -> (m,) int64 on the CPU
+        a random order of the clients, drawn only for a sampler that
+        needs one (``UniformFraction`` keeps its first k);
+    codec_noise(rnd, shape) -> (m, D) float32 in [0, 1)
+        the stochastic-rounding noise of a QSGD uplink (the reference's
+        ``uniform(fold_in(kround, 2), shape)``), drawn only for a codec
+        that needs noise.
 
 `TorchDraws` is the default and draws from `torch.Generator`s.  A parity
 test passes an object that replays the reference's key chain instead.
@@ -39,15 +46,18 @@ def init_generator(seed: int, device: DeviceLike = "cuda") -> torch.Generator:
 
 
 class TorchDraws:
-    """Default draws: batches from a generator on ``device``, the k-means
-    start from a CPU generator; seeds split from ``seed`` so that neither
-    stream repeats the model-init stream."""
+    """Default draws: batches and codec noise from generators on
+    ``device``, the k-means start and the client permutations from CPU
+    generators; seeds split from ``seed`` so that no stream repeats
+    another or the model-init stream."""
 
     def __init__(self, seed: int = 0, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
-        _, s_batch, s_kmeans = split_seed(seed, 3)
+        _, s_batch, s_kmeans, s_perm, s_noise = split_seed(seed, 5)
         self._batch = torch.Generator(device=self.device).manual_seed(s_batch)
         self._kmeans_seed = s_kmeans
+        self._perm = torch.Generator().manual_seed(s_perm)
+        self._noise = torch.Generator(device=self.device).manual_seed(s_noise)
 
     def batch_indices(self, rnd: int, n: torch.Tensor, n_slots: int,
                       batch_size: int, local_steps: int) -> torch.Tensor:
@@ -60,3 +70,10 @@ class TorchDraws:
     def kmeans_first(self, m: int) -> int:
         gen = torch.Generator().manual_seed(self._kmeans_seed)
         return int(torch.randint(0, m, (), generator=gen))
+
+    def permutation(self, rnd: int, m: int) -> torch.Tensor:
+        return torch.randperm(m, generator=self._perm)
+
+    def codec_noise(self, rnd: int, shape) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self._noise,
+                          device=self.device, dtype=torch.float32)

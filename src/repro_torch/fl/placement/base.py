@@ -2,7 +2,8 @@
 
 Counterpart of `repro/fl/placement/base.py`, with the hooks the eventful
 round engine uses: build the local-update step, stack the common
-initialization into the client-stacked dict, place the data, apply a
+initialization into the client-stacked dict, place the data, roll back
+non-participants, pass the uplink through the channel codec, apply a
 mixing matrix or a `StreamPlan`, and evaluate the personalized models.
 Strategies route every mix through `RoundContext.mix` / `mix_plan`,
 which dispatch here.
@@ -25,11 +26,16 @@ def stack_params(params: Dict[str, torch.Tensor], m: int
             for k, v in params.items()}
 
 
-def where_clients(mask: torch.Tensor, new: Dict[str, torch.Tensor],
-                  old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Per-client select over stacked dicts (leading dim m)."""
-    return {k: torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)),
-                           a, old[k]) for k, a in new.items()}
+def where_clients(mask: torch.Tensor, new: Any, old: Any) -> Any:
+    """Per-client select over stacked trees (leading dim m): nested dicts
+    such as the optimizer state ``{"mu": {...} or None, "step": (m,)}``
+    keep their structure, None stays None."""
+    if new is None:
+        return None
+    if isinstance(new, dict):
+        return {k: where_clients(mask, a, old[k]) for k, a in new.items()}
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                       old)
 
 
 class Placement(abc.ABC):
@@ -54,6 +60,20 @@ class Placement(abc.ABC):
     def place_data(self, fed: FederatedData) -> Tuple[Any, Any, Any]:
         """Place the stacked client train arrays ``(x, y, n)``."""
         return fed.x, fed.y, fed.n
+
+    def select(self, mask: torch.Tensor, new: Any, old: Any) -> Any:
+        """Participation rollback: keep ``old`` where ``mask`` is False."""
+        return where_clients(mask, new, old)
+
+    def uplink(self, codec: Any, stacked: Any, prev: Any, ef: Any,
+               noise: Optional[torch.Tensor],
+               mask: Optional[torch.Tensor] = None) -> Tuple[Any, Any]:
+        """Pass the participating clients' updates through the channel
+        codec with error feedback: returns the server-side ``(stacked',
+        ef')``.  Rows where ``mask`` is False are untouched; an identity
+        codec returns the inputs unchanged."""
+        from repro_torch.fl.channel import apply_uplink
+        return apply_uplink(codec, stacked, prev, ef, noise, mask)
 
     @abc.abstractmethod
     def mix(self, stacked: Any, w: torch.Tensor) -> Any:

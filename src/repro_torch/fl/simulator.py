@@ -2,22 +2,30 @@
 
 Counterpart of the eventful half of `repro/fl/simulator.py`
 (`run_federated` with ``superstep=False``, which the reference pins as
-bit-identical to its fused default).  The engine owns the local update,
-evaluation and the analytic clock; the `Strategy` owns aggregation and the
-`Placement` the layout:
+bit-identical to its fused default), without its fault, quorum and
+hierarchy branches.  The engine owns the local update, client sampling,
+the uplink channel, evaluation and the analytic clock; the `Strategy`
+owns aggregation and the `Placement` the layout:
 
     run_federated("ucfl_k4", fed, fl=FLConfig(rounds=20),
+                  sampler=UniformFraction(0.5),
+                  channel=Channel(codec="qsgd:8", link="tiered:4"),
                   system=SYSTEMS["wireless_slow"])
 
 Every round: draw the minibatch slots, run every client's local SGD,
-let the strategy mix (Y = W Θ on the card, one kernel launch per leaf),
-charge the round on the clock, evaluate every ``eval_every`` rounds.
+roll the non-participants of the sampler's mask back to their pre-round
+model and optimizer state, pass the participants' update v = Δ + e
+through the channel codec with error feedback (on the card: the QSGD or
+top-k kernels), let the strategy mix (Y = W Θ on the card, one kernel
+launch per leaf), charge the round on the clock (through the link
+profile when a channel is attached) and in `History.comm_bits`, and
+evaluate every ``eval_every`` rounds.
 
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
-Options that belong to later slices of the port (samplers, channel,
-faults, hierarchy, async, paging, the fused superstep) raise
-`NotImplementedError` naming their ROADMAP item.
+Options that belong to later slices of the port (faults, hierarchy,
+async, paging, the fused superstep) raise `NotImplementedError` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,13 +36,18 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+import torch
+
 from repro_torch.data.federated import FederatedData
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fl.comm import SystemModel
+from repro_torch.fl.channel import (Channel, ChannelCost, resolve_channel,
+                                    round_downlink_time, tree_bits,
+                                    zeros_like_stack)
+from repro_torch.fl.comm import SYSTEMS, SystemModel
 from repro_torch.fl.draws import TorchDraws, init_generator
 from repro_torch.fl.placement import Placement, resolve_placement
-from repro_torch.fl.strategies import (CommCost, RoundContext, Strategy,
-                                       StrategyExtras, get_strategy)
+from repro_torch.fl.strategies import (ClientSampler, CommCost, RoundContext,
+                                       Strategy, StrategyExtras, get_strategy)
 from repro_torch.models import lenet
 
 
@@ -59,13 +72,18 @@ class History:
     worst_acc: List[float] = field(default_factory=list)
     time: List[float] = field(default_factory=list)
     comm: List[CommCost] = field(default_factory=list)
+    # bits-based sibling of `comm`, one entry per round — populated only
+    # when the run carries a Channel
+    comm_bits: List[ChannelCost] = field(default_factory=list)
     extras: Optional[StrategyExtras] = None
     # legacy mapping view, filled by the engine from `comm` + `extras`
     extra: Dict[str, Any] = field(default_factory=dict)
     # populated when run_federated(keep_state=True): the final client-
-    # stacked params / optimizer state (still on the device)
+    # stacked params / optimizer state (still on the device), and the
+    # error-feedback residual stack of a lossy channel
     final_params: Any = None
     final_opt_state: Any = None
+    final_residual: Any = None
 
 
 class NonFiniteEvalWarning(RuntimeWarning):
@@ -74,8 +92,6 @@ class NonFiniteEvalWarning(RuntimeWarning):
 
 # What each option waits for, by its item in ROADMAP.md's Queue 1.
 _LATER = {
-    "sampler": "item 5 (client samplers, with local/oracle)",
-    "channel": "item 6 (channel)",
     "superstep": "item 8 (superstep)",
     "async_cfg": "item 9 (async runtime)",
     "paging": "item 12 (paging)",
@@ -130,14 +146,112 @@ def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
     return update_fn, stacked, opt_state, data, ctx, state
 
 
-def charge_round(history: History, cost: CommCost, m: int,
-                 system: Optional[SystemModel], t_accum: float) -> float:
-    """One round's comm and clock accounting (system clock only: every
-    client participates); returns the updated clock."""
+def init_channel(channel: Optional[Channel], ctx: RoundContext,
+                 stacked: Any, system: Optional[SystemModel], m: int):
+    """Channel prologue: payload bits, resolved link profile and the
+    error-feedback residual stack.  Returns ``(payload, link, model_bits,
+    ef, channel)``, all None/0 without a channel.  The link is resolved
+    first (against the wired model when no ``system`` consumes it, so
+    ``extra["channel"]`` records it), then the codec is bound to it: rate-
+    adaptive codecs pick their per-client parameters here, so callers use
+    the RETURNED channel from this point on."""
+    if channel is None:
+        return None, None, 0, None, None
+    model_bits = tree_bits(ctx.params0)
+    link = channel.resolve_link(system if system is not None
+                                else SYSTEMS["wired"], model_bits, m)
+    codec = channel.codec.bind_link(link, ctx.params0)
+    if codec is not channel.codec:
+        channel = dataclasses.replace(channel, codec=codec)
+    ef = None if codec.is_identity else zeros_like_stack(stacked)
+    payload = codec.payload_bits(ctx.params0)
+    return payload, link, model_bits, ef, channel
+
+
+def per_client_uplink_bits(channel: Optional[Channel], ctx: RoundContext,
+                           payload: Optional[int],
+                           m: int) -> Optional[np.ndarray]:
+    """(m,) per-client uplink payload vector when the bound codec's bits
+    are NOT uniform (rate-adaptive codecs), else None — keeping the fixed-
+    codec accounting on its exact scalar path."""
+    if channel is None:
+        return None
+    vec = channel.codec.per_client_bits(ctx.params0, m)
+    return None if np.all(vec == payload) else vec
+
+
+def channel_uplink(placement: Placement, channel: Channel, stacked: Any,
+                   prev: Any, ef: Any, draws: Any, rnd: int,
+                   mask: Optional[torch.Tensor]):
+    """One round's uplink crossing (lossy codecs only): the codec's noise
+    comes from ``draws.codec_noise`` in the flat view's (m, D) layout (the
+    reference's ``uniform(fold_in(kround, 2), (m, D))``); residuals carry
+    forward only with error feedback on."""
+    noise = None
+    if channel.codec.needs_noise:
+        m = next(iter(stacked.values())).shape[0]
+        d = sum(leaf[0].numel() for leaf in stacked.values())
+        noise = draws.codec_noise(rnd, (m, d)).to(
+            next(iter(stacked.values())).device)
+    stacked, new_ef = placement.uplink(channel.codec, stacked, prev, ef,
+                                       noise, mask)
+    return stacked, (new_ef if channel.error_feedback else ef)
+
+
+def channel_extra(history: History, channel: Channel, link,
+                  model_bits: int, ul_payload: int) -> None:
+    """`History.extra["channel"]`: codec/link identity, per-payload bits
+    and the run's cumulative bit totals."""
+    history.extra["channel"] = {
+        "codec": channel.codec.spec,
+        "error_feedback": bool(channel.error_feedback),
+        "link": link.name if link is not None else None,
+        "model_bits": int(model_bits),
+        "payload_bits": int(ul_payload),
+        "dl_bits_total": int(sum(c.dl_bits for c in history.comm_bits)),
+        "ul_bits_total": int(sum(c.ul_bits for c in history.comm_bits)),
+    }
+
+
+def charge_round(history: History, cost: CommCost,
+                 mask_np: Optional[np.ndarray], m: int, payload: int, link,
+                 system: Optional[SystemModel], channel: Optional[Channel],
+                 t_accum: float, assignment: Optional[np.ndarray] = None,
+                 ul_bits_pc: Optional[np.ndarray] = None) -> float:
+    """One round's comm/bits/clock accounting; returns the updated clock.
+    ``mask_np`` is the host-side participation row (None or all-True =
+    full cohort), ``assignment`` the strategy's client→stream map
+    (membership-aware broadcast charging, None = the cohort-slowest upper
+    bound), ``ul_bits_pc`` the (m,) per-client uplink payload vector
+    (rate-adaptive codecs; None = ``payload`` per client)."""
     history.comm.append(cost)
+    n_part, participants = m, None
+    if channel is not None or system is not None:
+        # the round only waits for the clients that computed: H_|S| under
+        # partial participation, not H_m
+        if mask_np is not None and not mask_np.all():
+            n_part = int(mask_np.sum())
+            participants = np.where(mask_np)[0]
+    if channel is not None:
+        # downlink streams move the codec-compressed model
+        if ul_bits_pc is None:
+            ul_bits = n_part * payload
+        else:
+            idx = participants if participants is not None else slice(None)
+            ul_bits = int(np.sum(ul_bits_pc[idx]))
+        history.comm_bits.append(ChannelCost(
+            dl_bits=(cost.n_streams + cost.n_unicasts) * payload,
+            ul_bits=ul_bits))
     if system is not None:
-        t_accum += system.round_time(m, n_streams=cost.n_streams,
-                                     n_unicasts=cost.n_unicasts)
+        if link is not None:
+            ul = payload if ul_bits_pc is None else ul_bits_pc
+            t_accum += (system.compute_time(n_part)
+                        + link.max_uplink_time(ul, participants)
+                        + round_downlink_time(link, cost, payload,
+                                              participants, assignment))
+        else:
+            t_accum += system.round_time(n_part, n_streams=cost.n_streams,
+                                         n_unicasts=cost.n_unicasts)
     return t_accum
 
 
@@ -175,14 +289,14 @@ def finalize_history(history: History, strategy: Strategy, state: Any,
 def run_federated(algorithm: Union[str, Strategy, None] = None,
                   fed: Optional[FederatedData] = None, *,
                   strategy: Optional[Strategy] = None,
-                  sampler: Optional[Any] = None,
+                  sampler: Optional[ClientSampler] = None,
                   fl: Optional[FLConfig] = None,
                   model_init: Optional[Callable] = None,
                   loss_fn: Callable = lenet.loss_fn,
                   acc_fn: Callable = lenet.accuracy,
                   system: Optional[SystemModel] = None,
                   placement: Optional[Placement] = None,
-                  channel: Optional[Any] = None,
+                  channel: Union[str, Channel, None] = None,
                   keep_state: bool = False,
                   async_cfg: Optional[Any] = None,
                   superstep: Optional[bool] = None,
@@ -200,15 +314,19 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     ``"ucfl_k4"``) or a `Strategy`; alternatively pass ``strategy=``.
     ``fed`` must live on ``device``.  ``model_init`` is called with a
     `torch.Generator` on ``device`` and returns the param dict (default:
-    LeNet-5 sized to the scenario).  ``draws`` supplies the run's random
-    draws (default `TorchDraws(seed, device)`).  ``keep_state=True``
-    attaches the final stacked params / opt state to the History.
-    ``superstep`` None or False runs this eventful loop; True raises, as
-    do the options of later slices.
+    LeNet-5 sized to the scenario).  ``sampler`` (`UniformFraction`,
+    `FullParticipation`) selects each round's participants (default:
+    everyone).  ``channel`` (a `Channel` or codec spec string) turns on
+    bit-level payload accounting, uplink compression with error feedback
+    and per-client link timing; ``Channel()`` (identity codec, uniform
+    link) is bit-identical to no channel.  ``draws`` supplies the run's
+    random draws (default `TorchDraws(seed, device)`).
+    ``keep_state=True`` attaches the final stacked params / opt state to
+    the History.  ``superstep`` None or False runs this eventful loop;
+    True raises, as do the options of later slices.
     """
-    later = dict(sampler=sampler, channel=channel, async_cfg=async_cfg,
-                 paging=paging, hierarchy=hierarchy, faults=faults,
-                 robust_agg=robust_agg, min_quorum=min_quorum,
+    later = dict(async_cfg=async_cfg, paging=paging, hierarchy=hierarchy,
+                 faults=faults, robust_agg=robust_agg, min_quorum=min_quorum,
                  superstep=superstep or None)
     for name, value in later.items():
         if value is not None:
@@ -224,26 +342,54 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                          f"device={str(device)!r}")
     fl = FLConfig() if fl is None else fl
     placement = resolve_placement(placement)
+    channel = resolve_channel(channel)
+    lossy = channel is not None and not channel.codec.is_identity
     draws = TorchDraws(seed, dev) if draws is None else draws
+    m = fed.m
     update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
         draws, dev)
+    payload, link, model_bits, ef, channel = init_channel(
+        channel, ctx, stacked, system, m)
+    ul_bits_pc = per_client_uplink_bits(channel, ctx, payload, m)
 
     history = History()
     t_accum = 0.0
     for rnd in range(fl.rounds):
         idx = draws.batch_indices(rnd, n, x.shape[1], fl.batch_size,
                                   fl.local_steps)
-        prev = stacked        # the update is functional: prev stays intact
+        # the update is functional: prev and prev_opt stay intact
+        prev, prev_opt = stacked, opt_state
         stacked, opt_state = update_fn(stacked, opt_state, x, y,
                                        idx.to(x.device))
-        ctx.rnd = rnd
+        mask_np = mask = None
+        if sampler is not None:
+            cpu_mask = sampler.sample(rnd, m, draws)
+            if cpu_mask is not None:
+                # non-participants keep their pre-round model and optimizer
+                mask_np, mask = cpu_mask.numpy(), cpu_mask.to(dev)
+                stacked = placement.select(mask, stacked, prev)
+                opt_state = placement.select(mask, opt_state, prev_opt)
+        if lossy:
+            # the server receives the codec's decode(encode(Δ + residual))
+            stacked, ef = channel_uplink(placement, channel, stacked, prev,
+                                         ef, draws, rnd, mask)
+        ctx.rnd, ctx.participation = rnd, mask
         stacked, state = strategy.aggregate(state, stacked, prev, ctx)
-        t_accum = charge_round(history, strategy.comm(state), fed.m, system,
-                               t_accum)
+        # the client->stream map is read only where a link profile charges
+        # per stream (it syncs with the card)
+        assignment = None if link is None else strategy.membership(state)
+        t_accum = charge_round(history, strategy.comm(state), mask_np, m,
+                               payload, link, system, channel, t_accum,
+                               assignment, ul_bits_pc)
         if rnd % fl.eval_every == 0 or rnd == fl.rounds - 1:
             mean_acc, worst_acc = placement.evaluate(acc_fn, stacked, fed)
             record_eval(history, rnd, mean_acc, worst_acc, t_accum)
 
-    return finalize_history(history, strategy, state, keep_state, stacked,
-                            opt_state)
+    history = finalize_history(history, strategy, state, keep_state, stacked,
+                               opt_state)
+    if channel is not None:
+        channel_extra(history, channel, link, model_bits, payload)
+        if keep_state:
+            history.final_residual = ef
+    return history

@@ -29,8 +29,8 @@ class CommCost(NamedTuple):
 
 @dataclass
 class RoundContext:
-    """Everything a strategy may read about the run; ``rnd`` is set by the
-    engine each round."""
+    """Everything a strategy may read about the run; ``rnd`` and
+    ``participation`` are set by the engine each round."""
     fed: FederatedData
     fl: Any                         # FLConfig (kept untyped to avoid a cycle)
     loss_fn: Callable
@@ -40,6 +40,7 @@ class RoundContext:
     draws: Any                      # the run's `fl.draws` object
     placement: Any                  # the run's `Placement`
     rnd: int = 0
+    participation: Optional[torch.Tensor] = None   # (m,) bool, None = all
 
     @property
     def m(self) -> int:

@@ -12,6 +12,10 @@ that its path went through the kernels:
     ops.LAUNCHES["mixing_aggregate"] = 0
     run_federated("ucfl", fed)
     assert ops.LAUNCHES["mixing_aggregate"] == rounds * n_leaves
+
+The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
+``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
+(one per top-k uplink).
 """
 from __future__ import annotations
 
@@ -22,8 +26,14 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.mixing_aggregate import mixing_aggregate_cuda
 from repro_torch.kernels.pairwise_sqdist import gram_matrix_cuda
+from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
+                                          qsgd_quantize_cuda,
+                                          rowwise_absmax_cuda)
+from repro_torch.kernels.topk_threshold import topk_threshold_cuda
 
-LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0}
+LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0,
+                            "rowwise_absmax": 0, "qsgd_quantize": 0,
+                            "qsgd_dequantize": 0, "topk_threshold": 0}
 
 
 def reset_launches() -> None:
@@ -63,5 +73,53 @@ def pairwise_sqdist(g: torch.Tensor) -> torch.Tensor:
     return ref.sqdist_from_gram(gram_matrix(g))
 
 
+def rowwise_absmax(x: torch.Tensor) -> torch.Tensor:
+    """(m, D) f32 -> (m, 1) per-row max |x| (NaN rows give NaN)."""
+    if not _on_cuda(x, "rowwise_absmax"):
+        return ref.rowwise_absmax_ref(x)
+    out = rowwise_absmax_cuda(x)
+    LAUNCHES["rowwise_absmax"] += 1
+    return out
+
+
+def qsgd_quantize(x: torch.Tensor, noise: torch.Tensor, *, bits: int):
+    """``(levels int32 (m, D), absmax (m, 1))`` of the QSGD codec; on CUDA
+    two launches, absmax then quantize, as the reference composes them."""
+    if not _on_cuda(x, "qsgd_quantize"):
+        return ref.qsgd_quantize_ref(x, noise, bits)
+    amax = rowwise_absmax(x)
+    q = qsgd_quantize_cuda(x, noise, amax, bits)
+    LAUNCHES["qsgd_quantize"] += 1
+    return q, amax
+
+
+def qsgd_dequantize(q: torch.Tensor, absmax: torch.Tensor, *,
+                    bits: int) -> torch.Tensor:
+    """int32 levels (m, D) × per-row scale -> f32 values."""
+    if not _on_cuda(q, "qsgd_dequantize"):
+        return ref.qsgd_dequantize_ref(q, absmax, bits)
+    out = qsgd_dequantize_cuda(q, absmax, bits)
+    LAUNCHES["qsgd_dequantize"] += 1
+    return out
+
+
+def qsgd_roundtrip(x: torch.Tensor, noise: torch.Tensor, *,
+                   bits: int) -> torch.Tensor:
+    """dequantize(quantize(x)), what the server sees: three launches on
+    CUDA (absmax, quantize, dequantize)."""
+    q, amax = qsgd_quantize(x, noise, bits=bits)
+    return qsgd_dequantize(q, amax, bits=bits)
+
+
+def topk_threshold(absx: torch.Tensor, *, k: int) -> torch.Tensor:
+    """Per-row top-k magnitude cutoff (m, 1) of (m, D) magnitudes."""
+    if not _on_cuda(absx, "topk_threshold"):
+        return ref.topk_threshold_ref(absx, k)
+    out = topk_threshold_cuda(absx, k)
+    LAUNCHES["topk_threshold"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "gram_matrix", "mixing_aggregate", "pairwise_sqdist",
-           "ref", "reset_launches"]
+           "qsgd_dequantize", "qsgd_quantize", "qsgd_roundtrip", "ref",
+           "reset_launches", "rowwise_absmax", "topk_threshold"]

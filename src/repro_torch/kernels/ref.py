@@ -6,6 +6,8 @@ against them on the card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -32,3 +34,69 @@ def pairwise_sqdist_ref(g: torch.Tensor) -> torch.Tensor:
     sq = torch.sum(gf * gf, dim=1)
     return torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (gf @ gf.T),
                        min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# channel codecs: QSGD and the top-k threshold (the reference's Pallas
+# kernels in repro/kernels/quantize.py and topk_threshold.py; these repeat
+# the kernels' f32 arithmetic op for op, so they agree bit for bit)
+
+TOPK_ITERS = 30         # bisection steps of the top-k threshold kernel
+
+
+def qsgd_levels(bits: int):
+    """``(s, 1/s)`` of a b-bit QSGD grid: s = 2^(b−1) − 1 as a float, and
+    its reciprocal rounded to f32 once on the host (the reference's
+    weakly-typed ``1.0 / levels``), as a 0-d float32 tensor."""
+    if not 2 <= int(bits) <= 8:
+        raise ValueError(f"qsgd bits must be in [2, 8], got {bits}")
+    s = float(2 ** (int(bits) - 1) - 1)
+    return s, torch.tensor(1.0 / s, dtype=torch.float32)
+
+
+def rowwise_absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """(m, D) -> (m, 1) per-row max |x|; a NaN anywhere in a row gives NaN
+    (as ``jnp.max``)."""
+    return x.abs().amax(dim=1, keepdim=True)
+
+
+def qsgd_quantize_ref(x: torch.Tensor, noise: torch.Tensor, bits: int,
+                      absmax: Optional[torch.Tensor] = None):
+    """``(levels, absmax)``: int32 levels ``clip(floor(x·inv + u), −s, s)``
+    with scale = absmax·(1/s) and inv = 1/scale (0 for an all-zero row).
+    ``absmax`` given is used as is (the quantize kernel's own input)."""
+    s, inv_s = qsgd_levels(bits)
+    amax = rowwise_absmax_ref(x) if absmax is None else absmax
+    scale = amax * inv_s.to(x.device)
+    inv = torch.where(scale > 0, scale.reciprocal(), torch.zeros_like(scale))
+    q = torch.clamp(torch.floor(x * inv + noise), -s, s)
+    return q.to(torch.int32), amax
+
+
+def qsgd_dequantize_ref(q: torch.Tensor, absmax: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    """float(q) · (absmax·(1/s)): (m, D) int32 -> (m, D) f32."""
+    _, inv_s = qsgd_levels(bits)
+    return q.to(torch.float32) * (absmax * inv_s.to(absmax.device))
+
+
+def qsgd_roundtrip_ref(x: torch.Tensor, noise: torch.Tensor,
+                       bits: int) -> torch.Tensor:
+    """dequantize(quantize(x)): the values the server sees."""
+    q, amax = qsgd_quantize_ref(x, noise, bits)
+    return qsgd_dequantize_ref(q, amax, bits)
+
+
+def topk_threshold_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row top-k cutoff by the kernel's 30 f32 bisection steps over
+    [0, max]: (m, D) magnitudes -> (m, 1) with count(absx >= t) >= k.  It
+    lands at most one ulp below the exact k-th value; k > D leaves 0."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    hi = absx.amax(dim=1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    for _ in range(TOPK_ITERS):
+        mid = 0.5 * (lo + hi)
+        ge = (absx >= mid).sum(dim=1, keepdim=True) >= k
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
+    return lo

@@ -1,0 +1,379 @@
+"""Port uplink channel against the reference, piece by piece, on the CPU.
+
+The channel kernels' plain versions (`repro_torch.kernels.ref`, what the
+port's ops run on CPU tensors) against the reference's Pallas kernels in
+interpret mode, BITWISE, as the reference pins its own kernels against
+its oracles (tests/test_channel.py); then the payload accounting, the
+flat view's column order, the codec and link-profile grammars, the
+rate-adaptive bindings, the link clock and one error-feedback uplink
+crossing fed the reference's own noise, all exactly equal.  The CUDA
+kernels are held against the plain versions on the card in
+`tests/test_torch_gpu.py` and by `chip_smoke.py`.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.fl import channel as jch
+from repro.fl.channel import link as jlink
+from repro.fl.comm import SYSTEMS as J_SYSTEMS
+from repro.fl.strategies import CommCost as JCommCost
+from repro.fl.strategies import UniformFraction as JUniformFraction
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import lenet as jlenet
+from repro_torch.convert import tree_from_numpy
+from repro_torch.fl import SYSTEMS, UniformFraction
+from repro_torch.fl import channel as ch
+from repro_torch.fl.channel import link
+from repro_torch.fl.draws import TorchDraws
+from repro_torch.fl.strategies import CommCost, FullParticipation
+from repro_torch.kernels import _build, ops
+from repro_torch.models import lenet
+
+NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
+TNARROW = lenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
+M = 4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _same(got, want):
+    """Bitwise equality of a tensor and a JAX/numpy array (NaN == NaN)."""
+    g, w = got.numpy(), np.asarray(want)
+    assert g.dtype == w.dtype and g.shape == w.shape
+    np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    """A narrow LeNet client stack (m = 4): pre-round ``prev``, post-update
+    ``stacked`` and a non-zero residual ``ef``, as numpy."""
+    params = jax.tree_util.tree_map(np.asarray, jlenet.init_params(
+        jax.random.PRNGKey(3), NARROW))
+    rng = np.random.default_rng(7)
+    prev = {k: np.repeat(v[None], M, 0) for k, v in params.items()}
+    stacked = {k: (v + 0.05 * rng.standard_normal(v.shape)).astype(
+        np.float32) for k, v in prev.items()}
+    ef = {k: (0.01 * rng.standard_normal(v.shape)).astype(np.float32)
+          for k, v in prev.items()}
+    return params, prev, stacked, ef
+
+
+# ---------------------------------------------------------------------------
+# kernels: plain versions against the Pallas kernels (interpret), bitwise
+
+
+@pytest.mark.parametrize("m,d", [(5, 1000), (3, 1), (7, 4099), (4, 2048)])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_plain_matches_pallas_bitwise(m, d, bits):
+    rng = np.random.default_rng(m * 1000 + d + bits)
+    x = (rng.standard_normal((m, d)) * 3).astype(np.float32)
+    u = rng.uniform(size=(m, d)).astype(np.float32)
+    jq, jamax = jops.qsgd_quantize(jnp.asarray(x), jnp.asarray(u), bits=bits)
+    q, amax = ops.qsgd_quantize(_t(x), _t(u), bits=bits)
+    _same(ops.rowwise_absmax(_t(x)), jamax)
+    _same(amax, jamax)
+    _same(q, jq)
+    _same(ops.qsgd_dequantize(q, amax, bits=bits),
+          jops.qsgd_dequantize(jq, jamax, bits=bits))
+    _same(ops.qsgd_roundtrip(_t(x), _t(u), bits=bits),
+          jops.qsgd_roundtrip(jnp.asarray(x), jnp.asarray(u), bits=bits))
+
+
+def test_topk_threshold_plain_matches_pallas_bitwise():
+    absx = np.abs(np.random.default_rng(0).standard_normal((6, 777))).astype(
+        np.float32)
+    for k in (1, 10, 200, 777, 778):
+        got = ops.topk_threshold(_t(absx), k=k)
+        _same(got, jops.topk_threshold(jnp.asarray(absx), k=k))
+        if k < 777:
+            # one ulp at most below the exact k-th value, exactly k survive
+            exact = np.asarray(jref.topk_threshold_ref(jnp.asarray(absx), k))
+            assert np.all(got.numpy() <= exact)
+            np.testing.assert_allclose(got.numpy(), exact, rtol=3e-7)
+            assert np.all((absx >= got.numpy()).sum(1) == k)
+        elif k == 777:          # k = D: at or below the row's minimum
+            assert np.all(got.numpy() <= absx.min(1, keepdims=True))
+        else:                   # k > D: lo never moves from 0
+            assert np.all(got.numpy() == 0)
+
+
+def test_zero_row_gives_zero_scale_levels_and_threshold():
+    x = np.random.default_rng(1).standard_normal((3, 300)).astype(np.float32)
+    x[1] = 0.0
+    u = np.random.default_rng(2).uniform(size=x.shape).astype(np.float32)
+    q, amax = ops.qsgd_quantize(_t(x), _t(u), bits=4)
+    assert float(amax[1, 0]) == 0.0 and bool(torch.all(q[1] == 0))
+    _same(q, jops.qsgd_quantize(jnp.asarray(x), jnp.asarray(u), bits=4)[0])
+    assert bool(torch.all(ops.qsgd_roundtrip(_t(x), _t(u), bits=4)[1] == 0))
+    th = ops.topk_threshold(_t(np.abs(x)), k=5)
+    assert float(th[1, 0]) == 0.0
+    _same(th, jops.topk_threshold(jnp.abs(jnp.asarray(x)), k=5))
+
+
+def test_nan_row_propagates_to_its_scale_and_values():
+    x = np.ones((2, 40), np.float32)
+    x[0, 7] = np.nan
+    u = np.full(x.shape, 0.5, np.float32)
+    amax = ops.rowwise_absmax(_t(x))
+    assert np.isnan(float(amax[0, 0])) and float(amax[1, 0]) == 1.0
+    out = ops.qsgd_roundtrip(_t(x), _t(u), bits=8).numpy()
+    assert np.isnan(out[0]).all() and np.isfinite(out[1]).all()
+    assert np.isnan(np.asarray(jops.qsgd_roundtrip(
+        jnp.asarray(x), jnp.asarray(u), bits=8))[0]).all()
+
+
+def test_cpu_channel_ops_count_no_launches_and_refuse_bad_args():
+    before = dict(ops.LAUNCHES)
+    x = torch.randn(3, 50)
+    ops.qsgd_roundtrip(x, torch.rand(3, 50), bits=4)
+    ops.topk_threshold(x.abs(), k=3)
+    assert ops.LAUNCHES == before
+    for bits in (1, 9):
+        with pytest.raises(ValueError, match="bits"):
+            ops.qsgd_quantize(x, torch.rand(3, 50), bits=bits)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.topk_threshold(x.abs(), k=0)
+
+
+def test_nvcc_flags_keep_ieee_arithmetic():
+    # the QSGD kernels rely on IEEE division and on denormals
+    for flag in ("--use_fast_math", "-use_fast_math", "-prec-div=false",
+                 "-ftz=true"):
+        assert flag not in _build.NVCC_FLAGS
+    assert {"quantize", "topk_threshold"} <= {
+        p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+# ---------------------------------------------------------------------------
+# payload accounting and the flat view
+
+
+def test_stacked_ravel_order_and_roundtrip_bitwise(stacks):
+    _, _, stacked, _ = stacks
+    # the port's LeNet dict order (conv1_w, conv1_b, ...), not sorted
+    order = lenet.init_params(torch.Generator().manual_seed(0), TNARROW,
+                              device="cpu")
+    st = {k: torch.from_numpy(stacked[k]) for k in order}
+    flat = ch.stacked_ravel(st)
+    _same(flat, jch.stacked_ravel({k: jnp.asarray(v)
+                                   for k, v in stacked.items()}))
+    assert list(st) != sorted(st)      # insertion order differs: sorted wins
+    back = ch.stacked_unravel(flat, st)
+    assert list(back) == list(st)
+    for k, v in back.items():
+        assert v.shape == st[k].shape and torch.equal(v, st[k])
+    with pytest.raises(ValueError, match="columns"):
+        ch.stacked_unravel(flat[:, 1:], st)
+
+
+def test_tree_bits_and_every_codec_payload(stacks):
+    params = stacks[0]
+    tp = tree_from_numpy(params, "cpu")
+    assert ch.tree_bits(tp) == jch.tree_bits(params)
+    assert ch.tree_size(tp) == jch.tree_size(params)
+    assert ch.tree_bits({"b": torch.zeros(7, dtype=torch.bfloat16),
+                         "i": torch.zeros(2, dtype=torch.int8)}) == 7 * 16 + 16
+    assert ch.dtype_bits(np.float32) == ch.dtype_bits(torch.float32) == 32
+    for spec in ("identity", "qsgd:2", "qsgd:8", "topk:0.1", "topk:0.001",
+                 "topk:1"):
+        assert ch.get_codec(spec).payload_bits(tp) == \
+            jch.get_codec(spec).payload_bits(params), spec
+    lp = link.get_link_profile("lognormal:0.5", SYSTEMS["wireless_slow"],
+                               ch.tree_bits(tp), 6)
+    jlp = jlink.get_link_profile("lognormal:0.5", J_SYSTEMS["wireless_slow"],
+                                 jch.tree_bits(params), 6)
+    for spec in ("adaptive", "adaptive:4", "adaptive_topk",
+                 "adaptive_topk:0.1:0.5"):
+        got = ch.get_codec(spec).bind_link(lp, tp)
+        want = jch.get_codec(spec).bind_link(jlp, params)
+        assert got.spec == want.spec == spec
+        assert got.payload_bits(tp) == want.payload_bits(params)
+        np.testing.assert_array_equal(got.per_client_bits(tp, 6),
+                                      want.per_client_bits(params, 6))
+        vec = got.bits if hasattr(got, "bits") else got.ks
+        np.testing.assert_array_equal(
+            vec, want.bits if hasattr(want, "bits") else want.ks)
+        assert len(set(vec.tolist())) > 1       # lognormal spreads them
+        with pytest.raises(RuntimeError, match="bind_link"):
+            ch.get_codec(spec).payload_bits(tp)
+
+
+def test_codec_grammar_and_errors():
+    for spec in ("identity", "qsgd:4", "topk:0.25", "adaptive",
+                 "adaptive:3", "adaptive:3:6", "adaptive_topk",
+                 "adaptive_topk:0.1", "adaptive_topk:0.1:0.5"):
+        assert ch.get_codec(spec).spec == jch.get_codec(spec).spec == spec
+    assert ch.get_codec(ch.get_codec("qsgd:4")) == ch.get_codec("qsgd:4")
+    assert ch.get_codec("identity").is_identity
+    assert ch.get_codec("qsgd:8").needs_noise
+    assert not ch.get_codec("topk:0.1").needs_noise
+    assert sorted(ch.CODECS) == sorted(jch.CODECS)
+    for bad in ("nope", "qsgd:1", "qsgd:9", "qsgd:x", "topk:0", "topk:1.5",
+                "adaptive:9", "adaptive:5:3", "adaptive_topk:0",
+                "qsgd:4:4"):
+        with pytest.raises(ValueError):
+            jch.get_codec(bad)
+        with pytest.raises(ValueError):
+            ch.get_codec(bad)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ch.get_codec("qsgd:4").encode(torch.zeros(1, 3), None)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ch.get_codec("topk:0.5").decode({}, d=3)
+
+
+def test_link_grammar_and_channel_resolution():
+    sysm = SYSTEMS["wireless_slow"]
+    for spec in ("uniform", "tiered", "tiered:4", "lognormal",
+                 "lognormal:0.5"):
+        got = link.get_link_profile(spec, sysm, 1000, 6)
+        want = jlink.get_link_profile(spec, J_SYSTEMS["wireless_slow"],
+                                      1000, 6)
+        assert got.name == want.name
+        np.testing.assert_array_equal(got.dl_rate, want.dl_rate)
+        np.testing.assert_array_equal(got.ul_ratio, want.ul_ratio)
+    for bad in ("warp", "tiered:x", "tiered:0.5", "lognormal:-1",
+                "uniform:2"):
+        with pytest.raises(ValueError):
+            link.get_link_profile(bad, sysm, 1000, 6)
+    with pytest.raises(ValueError):
+        link.LinkProfile(dl_rate=np.ones(3), ul_ratio=-np.ones(3))
+    with pytest.raises(ValueError, match="unknown link profile"):
+        ch.Channel(link="warp")
+    assert ch.resolve_channel(None) is None
+    c = ch.resolve_channel("qsgd:4")
+    assert c.codec.spec == "qsgd:4" and c.error_feedback and c.link is None
+    assert ch.resolve_channel(c) is c
+    assert c.resolve_link(sysm, 1000, 6).name == "uniform"
+
+
+@pytest.mark.parametrize("spec", ["uniform", "tiered:4", "lognormal:0.5"])
+def test_round_downlink_time_exact(spec):
+    sysm, jsys = SYSTEMS["wireless_slow"], J_SYSTEMS["wireless_slow"]
+    lp = link.get_link_profile(spec, sysm, 1522272, 6)
+    jlp = jlink.get_link_profile(spec, jsys, 1522272, 6)
+    asn = np.array([0, 1, 0, 1, 2, 2])
+    for cost in ((1, 0), (3, 0), (2, 2), (0, 0)):
+        for part in (None, [0, 1, 4], [3], []):
+            for a in (None, asn):
+                got = link.round_downlink_time(lp, CommCost(*cost), 380600,
+                                               part, a)
+                want = jlink.round_downlink_time(jlp, JCommCost(*cost),
+                                                 380600, part, a)
+                assert got == want, (cost, part, a)
+        assert lp.max_uplink_time(380600, [1, 2]) == \
+            jlp.max_uplink_time(380600, [1, 2])
+    if spec == "uniform":       # the identity anchor: exactly 1 T_dl, ρ up
+        assert lp.downlink_time(1522272) == 1.0
+        assert lp.max_uplink_time(1522272) == sysm.rho
+    with pytest.raises(ValueError, match="assignment"):
+        link.round_downlink_time(lp, CommCost(1, 0), 10, None, np.zeros(3))
+
+
+# ---------------------------------------------------------------------------
+# one uplink crossing with error feedback
+
+
+@pytest.mark.parametrize("spec", ["qsgd:4", "qsgd:8", "topk:0.25",
+                                  "adaptive", "adaptive_topk"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_uplink_roundtrip_matches_reference_bitwise(stacks, spec, masked):
+    params, prev, stacked, ef = stacks
+    key = jax.random.PRNGKey(11)
+    mask = np.array([True, False, True, True]) if masked else None
+    jp = {k: jnp.asarray(v) for k, v in prev.items()}
+    js = {k: jnp.asarray(v) for k, v in stacked.items()}
+    je = {k: jnp.asarray(v) for k, v in ef.items()}
+    jcodec, codec = jch.get_codec(spec), ch.get_codec(spec)
+    if spec.startswith("adaptive"):
+        jlp = jlink.get_link_profile("lognormal:0.5", J_SYSTEMS["wired"],
+                                     jch.tree_bits(params), M)
+        lp = link.get_link_profile("lognormal:0.5", SYSTEMS["wired"],
+                                   jch.tree_bits(params), M)
+        jcodec = jcodec.bind_link(jlp, params)
+        codec = codec.bind_link(lp, tree_from_numpy(params, "cpu"))
+    want_s, want_e = jch.apply_uplink(
+        jcodec, js, jp, je, key, None if mask is None else jnp.asarray(mask))
+    # the reference draws uniform(key, (m, D)) inside its codec
+    d = jch.tree_size(params)
+    noise = _t(np.asarray(jax.random.uniform(key, (M, d), jnp.float32)))
+    got_s, got_e = ch.apply_uplink(
+        codec, tree_from_numpy(stacked, "cpu"), tree_from_numpy(prev, "cpu"),
+        tree_from_numpy(ef, "cpu"), noise if codec.needs_noise else None,
+        None if mask is None else torch.from_numpy(mask))
+    for k in params:
+        _same(got_s[k], want_s[k])
+        _same(got_e[k], want_e[k])
+    if masked:                          # the row that sent nothing
+        np.testing.assert_array_equal(got_s["fc1_w"][1].numpy(),
+                                      stacked["fc1_w"][1])
+        np.testing.assert_array_equal(got_e["fc1_w"][1].numpy(),
+                                      ef["fc1_w"][1])
+
+
+def test_topk_residual_conservation_and_identity_noop(stacks):
+    _, prev, stacked, ef = stacks
+    s, p, e = (tree_from_numpy(t, "cpu") for t in (stacked, prev, ef))
+    v = {k: (s[k] - p[k]) + e[k] for k in s}
+    for frac in (0.05, 0.25, 1.0):
+        codec = ch.get_codec(f"topk:{frac}")
+        new_s, new_e = ch.uplink_roundtrip(codec, s, p, e, None, None)
+        dec = {k: new_s[k] - p[k] for k in s}
+        flat_dec = ch.stacked_ravel(ch.stacked_unravel(
+            codec.roundtrip(ch.stacked_ravel(v), None), v))
+        # kept coordinates cross verbatim, dropped ones land whole in e'
+        assert torch.equal(ch.stacked_ravel(new_e) + flat_dec,
+                           ch.stacked_ravel(v))
+        kept = (flat_dec != 0).sum(1)
+        assert bool(torch.all(kept >= codec.k(flat_dec.shape[1])))
+        assert all(torch.isfinite(t).all() for t in dec.values())
+    same_s, same_e = ch.apply_uplink(ch.get_codec("identity"), s, p, e, None)
+    assert same_s is s and same_e is e
+    zeros = ch.zeros_like_stack(s)
+    assert all(z.dtype == torch.float32 and not z.any()
+               for z in zeros.values())
+
+
+# ---------------------------------------------------------------------------
+# samplers
+
+
+def test_uniform_fraction_mask_replays_the_reference():
+    key = jax.random.PRNGKey(5)
+
+    class OneDraw:
+        def permutation(self, rnd, m):
+            return torch.from_numpy(np.asarray(jax.random.permutation(key, m),
+                                               np.int64))
+
+    for kw in (dict(fraction=0.5), dict(count=3), dict(fraction=0.05,
+                                                       min_clients=2)):
+        got = UniformFraction(**kw).sample(0, 10, OneDraw())
+        want = JUniformFraction(**kw).sample(0, 10, key)
+        assert got.dtype == torch.bool and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert UniformFraction(1.0).sample(0, 10, None) is None   # no draw spent
+    assert FullParticipation().sample(0, 10, None) is None
+    assert UniformFraction.needs_key and not FullParticipation.needs_key
+    mask = UniformFraction(0.5).sample(0, 20, TorchDraws(3, "cpu"))
+    assert int(mask.sum()) == 10
+    for bad in (dict(), dict(fraction=0.5, count=2), dict(fraction=0.0),
+                dict(count=0)):
+        with pytest.raises(ValueError):
+            UniformFraction(**bad)
+
+
+def test_torch_draws_codec_noise_and_permutation():
+    d1, d2 = TorchDraws(4, "cpu"), TorchDraws(4, "cpu")
+    a, b = d1.codec_noise(0, (3, 17)), d2.codec_noise(0, (3, 17))
+    assert a.dtype == torch.float32 and a.shape == (3, 17)
+    assert torch.equal(a, b) and bool((a >= 0).all() & (a < 1).all())
+    assert not torch.equal(d1.codec_noise(1, (3, 17)), a)
+    p = d1.permutation(0, 12)
+    assert sorted(p.tolist()) == list(range(12))
+    assert torch.equal(p, d2.permutation(0, 12))

@@ -37,16 +37,22 @@ NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
 
 class ReplayDraws:
     """The reference engine's draws, replayed from its key chain:
-    PRNGKey(seed) -> split -> (key, kinit); per round key, kround =
-    split(key), ckeys = split(kround, m); per client split(ckey, S); per
-    step randint(k, (B,), 0, 2**30) % max(n_i, 1) % n_slots.  The k-means
-    start is randint(PRNGKey(seed + 1), (), 0, m)."""
+    PRNGKey(seed) -> split -> (key, kinit); per round key, ksample =
+    split(key) when a key-spending sampler is on (``sampler_keys``), then
+    key, kround = split(key), ckeys = split(kround, m); per client
+    split(ckey, S); per step randint(k, (B,), 0, 2**30) % max(n_i, 1) %
+    n_slots.  The k-means start is randint(PRNGKey(seed + 1), (), 0, m),
+    a sampler's order permutation(ksample, m), the codec noise
+    uniform(fold_in(kround, 2), (m, D))."""
 
-    def __init__(self, seed, rounds):
+    def __init__(self, seed, rounds, sampler_keys=False):
         key = jax.random.PRNGKey(seed)
         key, _ = jax.random.split(key)
-        self.krounds = []
+        self.krounds, self.ksamples = [], []
         for _ in range(rounds):
+            if sampler_keys:
+                key, ksample = jax.random.split(key)
+                self.ksamples.append(ksample)
             key, kround = jax.random.split(key)
             self.krounds.append(kround)
         self.seed = seed
@@ -67,6 +73,15 @@ class ReplayDraws:
     def kmeans_first(self, m):
         return int(jax.random.randint(jax.random.PRNGKey(self.seed + 1), (),
                                       0, m))
+
+    def permutation(self, rnd, m):
+        return torch.from_numpy(np.asarray(
+            jax.random.permutation(self.ksamples[rnd], m), np.int64))
+
+    def codec_noise(self, rnd, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            jax.random.fold_in(self.krounds[rnd], 2), tuple(shape),
+            jnp.float32)))
 
 
 @pytest.fixture(scope="module")
@@ -158,18 +173,22 @@ def test_entry_points_refuse_what_this_slice_lacks():
             run_federated("fedavg", fed)
         with pytest.raises(RuntimeError, match="cuda"):
             scenario_label_shift(0, n=100, m=2)
-    for kw in (dict(superstep=True), dict(channel="qsgd:4"),
-               dict(faults="crash:0.1"), dict(sampler=object()),
+    for kw in (dict(superstep=True), dict(faults="crash:0.1"),
                dict(async_cfg=object()), dict(min_quorum=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_federated("fedavg", fed, device="cpu", **kw)
+    fl = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=1)
+    for spec, streams in (("local", 0), ("oracle", 1)):
+        h = run_federated(spec, fed, fl=fl, device="cpu")
+        assert h.comm == [(streams, 0)] and np.isfinite(h.mean_acc).all()
     with pytest.raises(ValueError, match="unknown strategy"):
         run_federated("cfl", fed, device="cpu")
 
 
 def test_port_imports_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.']\n"
-            "import repro_torch.fl, repro_torch.convert, chip_smoke\n"
+            "import repro_torch.fl, repro_torch.fl.channel, "
+            "repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
             "k.startswith('repro.')]\n"

@@ -70,3 +70,97 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.mixing_aggregate(torch.ones(2, 5, device="cuda"), theta)
     with pytest.raises(ValueError):
         ops.mixing_aggregate(torch.ones(2, 9, device="cuda"), theta.T)
+
+
+# ---------------------------------------------------------------------------
+# channel kernels: bitwise equal to their plain versions (kernels/ref.py
+# repeats their f32 arithmetic op for op)
+
+
+def _same(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(20, 47571), (7, 4099), (2, 70000)])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_kernels_match_plain_bitwise(m, d, bits):
+    _require_cuda()
+    from repro_torch.kernels.quantize import qsgd_quantize_cuda
+    gen = torch.Generator(device="cuda").manual_seed(m * d + bits)
+    x = torch.randn((m, d), generator=gen, device="cuda") * 3
+    x[m // 2] = 0.0                              # an all-zero row
+    u = torch.rand((m, d), generator=gen, device="cuda")
+    n0 = dict(ops.LAUNCHES)
+    amax = ops.rowwise_absmax(x)
+    _same(amax, ref.rowwise_absmax_ref(x))
+    want_q, want_amax = ref.qsgd_quantize_ref(x, u, bits)
+    _same(qsgd_quantize_cuda(x, u, amax, bits), want_q)
+    q, amax2 = ops.qsgd_quantize(x, u, bits=bits)
+    _same(q, want_q)
+    _same(amax2, want_amax)
+    assert bool(torch.all(q[m // 2] == 0)) and float(amax2[m // 2]) == 0.0
+    _same(ops.qsgd_dequantize(q, amax2, bits=bits),
+          ref.qsgd_dequantize_ref(want_q, want_amax, bits))
+    _same(ops.qsgd_roundtrip(x, u, bits=bits),
+          ref.qsgd_roundtrip_ref(x, u, bits))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rowwise_absmax"] == n0["rowwise_absmax"] + 3
+    assert ops.LAUNCHES["qsgd_quantize"] == n0["qsgd_quantize"] + 2
+    assert ops.LAUNCHES["qsgd_dequantize"] == n0["qsgd_dequantize"] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(20, 47571), (5, 1000), (2, 70000)])
+def test_topk_threshold_kernel_matches_plain_bitwise(m, d):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + d)
+    absx = torch.randn((m, d), generator=gen, device="cuda").abs()
+    absx[0] = 0.0
+    for k in (1, 10, -(-d // 10), d, d + 1):
+        got = ops.topk_threshold(absx, k=k)
+        _same(got, ref.topk_threshold_ref(absx, k))
+        if k <= d:
+            kth = torch.kthvalue(absx.cpu(), d - k + 1, dim=1,
+                                 keepdim=True).values.cuda()
+            assert bool(torch.all(got <= kth))
+            assert bool(torch.all((absx >= got).sum(1) >= k))
+        else:
+            assert bool(torch.all(got == 0))
+
+
+@pytest.mark.gpu
+def test_channel_kernels_propagate_nan_and_refuse_bad_args():
+    _require_cuda()
+    from repro_torch.kernels.quantize import qsgd_quantize_cuda
+    x = torch.ones((3, 5000), device="cuda")
+    x[1, 4321] = float("nan")
+    u = torch.full_like(x, 0.5)
+    amax = ops.rowwise_absmax(x)
+    _same(amax, ref.rowwise_absmax_ref(x))
+    assert torch.isnan(amax[1, 0]) and float(amax[0, 0]) == 1.0
+    out = ops.qsgd_roundtrip(x, u, bits=8)
+    assert bool(torch.isnan(out[1]).all())
+    assert bool(torch.isfinite(out[0]).all())
+    _same(out, ref.qsgd_roundtrip_ref(x, u, 8))
+    for bits in (1, 9):
+        with pytest.raises(ValueError, match="bits"):
+            ops.qsgd_quantize(x, u, bits=bits)
+    with pytest.raises(ValueError):
+        ops.rowwise_absmax(x.double())
+    with pytest.raises(ValueError):
+        ops.rowwise_absmax(x.T)                       # not contiguous
+    with pytest.raises(ValueError):
+        qsgd_quantize_cuda(x, u[:, :10], amax, 4)     # noise shape
+    with pytest.raises(ValueError):
+        qsgd_quantize_cuda(x, u, amax.T, 4)           # absmax shape
+    with pytest.raises(ValueError):
+        ops.qsgd_dequantize(torch.ones((3, 5), device="cuda"), amax, bits=4)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.topk_threshold(x.abs(), k=0)
+    with pytest.raises(ValueError):
+        ops.topk_threshold(x.abs().half(), k=3)
+    with pytest.raises(ValueError):
+        ops.topk_threshold(x.abs().T, k=3)

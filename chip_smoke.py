@@ -25,12 +25,23 @@ Phases (any failure raises and the script exits non-zero):
                 with UniformFraction(0.5) and qsgd:8 over a tiered link,
                 ucfl with topk:0.1, fedavg with the identity channel (its
                 clock must equal phase 5's fedavg clock exactly), with
-                launch counters and exact History.comm_bits.
+                launch counters and exact History.comm_bits;
+  7. lm       — dense-decoder serving at gemma2-27b's full width (depth
+                cut to one local and one global layer) through
+                `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
+                prompt (past the 4,096 window, so the local ring wraps
+                every step), 32 greedy tokens, timed, with one
+                flash-attention launch per layer per step; (b) the same
+                in f32, where one fresh prefill of prompt + generated
+                tokens must reproduce the last decode step's logits.
+Phase 3 also holds the flash-attention kernel at the [lm] shapes, phase 4
+the LM path on the card against the CPU at two smoke configs.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -40,9 +51,12 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
 from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
                             TorchDraws, UniformFraction, run_federated)
@@ -52,14 +66,27 @@ from repro_torch.kernels.quantize import (  # noqa: E402
     qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
     row_resident, topk_threshold_cuda)
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 D_LENET = 47571                # LeNet-5 on 28x28x1 with 47 classes
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 MAIN = dict(n=10000, m=20, rounds=20, local_steps=10, batch_size=64,
             eval_every=5, leaves=10)
+# the serving path's configuration: gemma2-27b at full width
+# (src/repro_torch/configs/gemma2_27b.py), random weights from a seed
+LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
+          cache_len=4640, seed=0,
+          reduced={"n_layers": "46 -> 2 (one local, one global layer)"})
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py
+# f32 decode against a fresh prefill: the two paths sum in other orders
+# (GEMV against GEMM, cache against in-flight keys) over reductions 18-72x
+# longer than the smoke configs' that tests/test_models.py holds at 2e-4
+LM_SELF_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -69,8 +96,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -341,6 +368,116 @@ def check_channel_kernels(gen) -> list:
     return rows
 
 
+def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, q aligned to the end of k."""
+    q_pos = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = torch.clamp(q_pos, max=sk - 1) if causal else \
+        torch.full_like(q_pos, sk - 1)
+    lo = torch.clamp(q_pos - window + 1, min=0) if window else \
+        torch.zeros_like(q_pos)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_inputs(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None):
+    """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
+    first Sk slots of a (B, C, Kh, hd) cache, transposed (strided views,
+    as on the main path)."""
+    c = sk if cache_len is None else cache_len
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * 0.5
+    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * 0.5
+    v = torch.randn((b, c, kh, hd), generator=gen, device="cuda")
+    return (q.to(dtype).transpose(1, 2), k[:, :sk].to(dtype).transpose(1, 2),
+            v[:, :sk].to(dtype).transpose(1, 2))
+
+
+def flash_bound(q, k, kw):
+    """(bound ms, what bounds it, FLOP) of one call: each input read and
+    the output written once; 4·hd FLOP per kept pair at the inputs'
+    peak (bf16 tensor cores, or f32 outside them)."""
+    b, h, sq, hd = q.shape
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4.0 * hd * b * h * attn_pairs(sq, k.shape[2], kw["causal"],
+                                          kw.get("window"))
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return (*bound_ms(n_bytes, flops, peak), flops)
+
+
+def check_flash(gen) -> dict:
+    """flash_attention against its plain version at the [lm] shapes
+    (global and local prefill, decode over a cache slice and over a
+    wrapped ring) and on small ragged shapes at hd 64/80/256, GQA group
+    1/2/8; timed at the [lm] shapes in bf16, the main path's dtype."""
+    a = get_config(LM["arch"]).attn
+    b, s, h, kh, hd = LM["batch"], LM["prompt"], a.n_heads, a.n_kv_heads, \
+        a.head_dim
+    cap, win = a.attn_logit_softcap, a.window
+    cases = [
+        ("global prefill", (b, h, kh, s, s, hd), None,
+         dict(causal=True, softcap=cap)),
+        ("local prefill", (b, h, kh, s, s, hd), None,
+         dict(causal=True, window=win, softcap=cap)),
+        ("global decode", (b, h, kh, 1, s + 1, hd), LM["cache_len"],
+         dict(causal=True, softcap=cap)),
+        ("local decode (wrapped ring)", (b, h, kh, 1, win, hd), None,
+         dict(causal=True, window=win, softcap=cap)),
+    ]
+    row = None
+    for name, shape, clen, kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, *shape, dt, cache_len=clen)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = check_close(f"flash_attention {name} {dt}", got, want,
+                              FLASH_TOL[dt], FLASH_TOL[dt])
+            del got, want
+            line = (f"  flash_attention {name:27s} B={shape[0]} H={shape[1]} "
+                    f"Kh={shape[2]} Sq={shape[3]:4d} Sk={shape[4]:4d} "
+                    f"hd={shape[5]} {str(dt)[6:]:8s} max|err| {err:.2e}")
+            if dt == torch.bfloat16:
+                bnd, by, flops = flash_bound(q, k, kw)
+                ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+                plain = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                                 **kw),
+                                iters=5)
+                line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                         f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
+                         f"{flops / ms / 1e9:.1f} TFLOP/s)")
+                if name == "global prefill":
+                    # the yardstick the port never calls: SDPA at the same
+                    # shape, causal, without the softcap it cannot take
+                    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+                    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=True, enable_gqa=True))
+                    line += f"  SDPA (causal, no softcap) {sdpa:.4f} ms"
+                    row = dict(
+                        name="flash_attention", route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                        replaces="src/repro/kernels/flash_attention.py:118",
+                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=sdpa)
+            print(line, flush=True)
+            del q, k, v
+    for hd in (64, 80, 256):
+        for group in (1, 2, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                for sq, sk in ((37, 101), (1, 70), (130, 130)):
+                    q, k, v = flash_inputs(gen, 2, 2 * group, 2, sq, sk, hd,
+                                           dt)
+                    for kw in (dict(causal=False),
+                               dict(causal=True, window=48, softcap=30.0)):
+                        check_close(f"flash_attention hd={hd} G={group} "
+                                    f"Sq={sq} Sk={sk} {kw} {dt}",
+                                    ops.flash_attention(q, k, v, **kw),
+                                    ref.flash_attention_ref(q, k, v, **kw),
+                                    FLASH_TOL[dt], FLASH_TOL[dt])
+    print("  flash_attention ragged: hd 64/80/256 x GQA group 1/2/8 x f32/"
+          "bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), non-causal and "
+          "causal + window 48 + softcap 30: all within tolerance",
+          flush=True)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the round engine
 
@@ -370,12 +507,16 @@ def small_agreement() -> None:
                                              b.mean_acc + b.worst_acc))
     if acc_err > 2 * flip + 1e-6:
         raise AssertionError(f"accuracies differ by {acc_err}")
-    perr = 0.0
+    perr, bad = 0.0, []
     for k, v in a.final_params.items():
         got = b.final_params[k].cpu()
         perr = max(perr, float((got - v).abs().max()))
         if not torch.allclose(got, v, rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"final param {k} differs cuda vs cpu")
+            excess = ((got - v).abs() / (1e-4 + 1e-3 * v.abs())).max()
+            bad.append(f"{k} (max |Δ| {float((got - v).abs().max()):.3e}, "
+                       f"{float(excess):.2f}x the tolerance)")
+    if bad:
+        raise AssertionError(f"final params differ cuda vs cpu: {bad}")
     print(f"  ucfl_k2 n=600 m=6: cuda agrees with cpu (max |Δparam| "
           f"{perr:.2e}, max |Δacc| {acc_err:.4f})", flush=True)
 
@@ -449,6 +590,114 @@ def channel_agreement() -> None:
     print(f"  ucfl_k2 + UniformFraction(0.5) + qsgd:8/tiered:4 n=600 m=6: "
           f"cuda agrees with cpu (comm_bits {tuple(b.comm_bits[0])}, clock "
           f"{b.time[-1]:.4f}, max |Δacc| {acc_err:.4f})", flush=True)
+
+
+def lm_agreement() -> None:
+    """The LM serving path on the card against the CPU, same params and
+    prompt: gemma2-27b's smoke config (GQA group 1, window 64: a 96-token
+    prompt takes the S > C prefill, and the local ring wraps on every
+    decode step) and gemma-2b's (group 4, head_dim 64); prefill plus 8
+    decode steps, per-step logits within 1e-4 (f32, TF32 off) and equal
+    tokens."""
+    for arch in ("gemma2-27b", "gemma-2b"):
+        cfg = get_smoke_config(arch)
+        params = T.init_params(torch.Generator().manual_seed(3), cfg,
+                               device="cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (2, 96),
+                               generator=torch.Generator().manual_seed(4))
+        before = ops.LAUNCHES["flash_attention"]
+        a = generate(params, cfg, prompt, 9, 128, return_logits=True)
+        b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
+                     prompt.cuda(), 9, 128, return_logits=True)
+        launched = ops.LAUNCHES["flash_attention"] - before
+        if launched != 9 * cfg.n_layers:
+            raise AssertionError(f"{arch}: {launched} flash launches, want "
+                                 f"{9 * cfg.n_layers}")
+        err = 0.0
+        for i, (x, y) in enumerate(zip(a.logits, b.logits)):
+            d = (y.cpu() - x).abs()
+            err = max(err, float(d.max()))
+            if not bool(torch.all(d <= 1e-4 + 1e-4 * x.abs())):
+                raise AssertionError(f"{arch}: step {i} logits differ cuda "
+                                     f"vs cpu by {float(d.max()):.3e}")
+        if not torch.equal(a.tokens, b.tokens.cpu()):
+            raise AssertionError(f"{arch}: tokens differ cuda vs cpu")
+        print(f"  {cfg.name} (H={cfg.attn.n_heads} Kh={cfg.attn.n_kv_heads} "
+              f"hd={cfg.attn.head_dim}) prompt 96, 8 decode steps: cuda "
+              f"agrees with cpu (max |Δlogit| {err:.2e}, tokens equal, "
+              f"{launched} flash launches)", flush=True)
+
+
+def lm_path(card: str) -> int:
+    """[lm] (a) bf16 timed, (b) f32 self-consistency; returns the flash
+    launches of (a), the main path's run."""
+    full = get_config(LM["arch"])
+    cfg = dataclasses.replace(full, n_layers=2)
+    assert [cfg.attn_window(i) for i in range(2)] == [4096, None]
+    b, plen, n, clen = LM["batch"], LM["prompt"], LM["tokens"], LM["cache_len"]
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(LM["seed"] + 1))
+    print(f"[lm] {cfg.name} d_model {cfg.d_model}, H {cfg.attn.n_heads}, Kh "
+          f"{cfg.attn.n_kv_heads}, hd {cfg.attn.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; reduced {LM['reduced']}; B {b}, prompt "
+          f"{plen}, {n} tokens, cache {clen} ({card})", flush=True)
+
+    def init(c):
+        return T.init_params(torch.Generator(device="cuda")
+                             .manual_seed(LM["seed"]), c, device="cuda")
+
+    params = init(cfg)
+    n_params = sum(t.numel() for t in
+                   [params["embed"], params["final_norm"]["scale"]] +
+                   [x for lp in params["layers"] for blk in lp.values()
+                    for x in blk.values()])
+    generate(params, cfg, prompt[:, :64], 2, 128)          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()           # counts from here on are [lm] (a)'s
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(params, cfg, prompt, n, clen, return_logits=True)
+    launches = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers + (n - 1) * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"[lm] {launches} flash launches, want {want}")
+    if res.tokens.shape != (b, n) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"[lm] bad tokens {res.tokens}")
+    if not all(bool(torch.isfinite(x).all()) for x in res.logits):
+        raise AssertionError("[lm] non-finite logits")
+    steps = n - 1
+    print(f"  (a) bf16: {n_params / 1e9:.3f} B params; prefill "
+          f"{res.prefill_s * 1e3:.2f} ms ({b}x{plen} tokens); decode "
+          f"{res.decode_s * 1e3 / steps:.3f} ms/token-step, "
+          f"{steps * b / res.decode_s:.1f} tok/s ({steps} steps x{b}); "
+          f"flash launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
+          f"sample {res.tokens[0, :12].tolist()}", flush=True)
+    del params, res
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_dtypes("float32", "float32")
+    params = init(cfg32)
+    res = generate(params, cfg32, prompt, n, clen, return_logits=True)
+    tokens = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    logits, _ = T.prefill(params, cfg32, {"tokens": tokens},
+                          T.make_caches(cfg32, b, clen, torch.float32,
+                                        device="cuda"))
+    want = res.logits[-1]
+    d = (logits[:, -1] - want).abs()
+    if not bool(torch.all(d <= LM_SELF_TOL + LM_SELF_TOL * want.abs())):
+        raise AssertionError(f"[lm] (b) fresh prefill differs from the last "
+                             f"decode step by {float(d.max()):.3e}")
+    print(f"  (b) f32: fresh prefill of {tokens.shape[1]} tokens reproduces "
+          f"the last decode step's logits (max |Δ| {float(d.max()):.3e}, "
+          f"tolerance {LM_SELF_TOL}; |logits| up to "
+          f"{float(want.abs().max()):.2f}); prefill "
+          f"{res.prefill_s * 1e3:.2f} ms, decode "
+          f"{res.decode_s * 1e3 / steps:.3f} ms/token-step", flush=True)
+    del params, res, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main_path(fed, fl) -> dict:
@@ -529,6 +778,7 @@ def channel_path(fed, fl, base_clock: list) -> None:
         wall = time.perf_counter() - t0
         launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
         want_launch["mixing_aggregate"] = rounds * MAIN["leaves"]
+        want_launch["flash_attention"] = 0
         if launched != want_launch:
             raise AssertionError(f"{spec}: launches {launched}, want "
                                  f"{want_launch}")
@@ -598,7 +848,8 @@ def main() -> int:
     print("[kernels] kernel vs plain version on the card "
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_mixing(gen), check_gram(gen)] + check_channel_kernels(gen)
+    rows = [check_mixing(gen), check_gram(gen)] + \
+        check_channel_kernels(gen) + [check_flash(gen)]
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)
 
@@ -607,6 +858,7 @@ def main() -> int:
     small_agreement()
     uplink_agreement()
     channel_agreement()
+    lm_agreement()
 
     t0 = time.perf_counter()
     fed = scenario_label_shift(0, n=MAIN["n"], m=MAIN["m"], device="cuda")
@@ -627,11 +879,14 @@ def main() -> int:
     ops.reset_launches()          # and from here on the channel path's
     channel_path(fed, fl, hists["fedavg"].time)
     print(f"  [channel] launches {dict(ops.LAUNCHES)}", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
+    launches["flash_attention"] += lm_path(card)
     for r in rows:
-        r["launches"] = launches[r["name"]] + ops.LAUNCHES[r["name"]]
+        r["launches"] = launches[r["name"]]
         if r["launches"] < 1:
-            raise AssertionError(f"{r['name']} never launched on the main "
-                                 "or channel path")
+            raise AssertionError(f"{r['name']} never launched on the main, "
+                                 "channel or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

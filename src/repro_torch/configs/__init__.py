@@ -1,0 +1,8 @@
+"""Model configurations of the LM path (counterpart of `repro.configs`)."""
+from repro_torch.configs.base import (AttentionConfig, ModelConfig,
+                                      reduced)
+from repro_torch.configs.registry import (ARCH_IDS, get_config,
+                                          get_smoke_config)
+
+__all__ = ["ARCH_IDS", "AttentionConfig", "ModelConfig", "get_config",
+           "get_smoke_config", "reduced"]

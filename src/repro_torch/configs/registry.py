@@ -1,0 +1,42 @@
+"""Architecture registry: ``--arch <id>`` resolution for the LM path.
+
+Counterpart of `repro/configs/registry.py` for the dense configs this
+slice runs.  The reference's other architectures are known here and
+raise `NotImplementedError` naming the ROADMAP item that ports them; an
+unknown id raises `KeyError`, as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduced
+
+_MODULES = {
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+}
+# the reference's other architectures, by family
+NOT_PORTED = {
+    "olmoe-1b-7b": "moe", "deepseek-v3-671b": "moe (MLA)",
+    "mamba2-780m": "ssm", "zamba2-2.7b": "hybrid",
+    "nemotron-4-340b": "dense at 340B (relu2, sharded serving)",
+    "whisper-tiny": "audio", "paligemma-3b": "vlm",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} ({NOT_PORTED[arch]}) is not ported yet: "
+            "ROADMAP.md Queue 1 item 16b (LM path: the rest)")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_MODULES) + sorted(NOT_PORTED)}")
+    return importlib.import_module(_MODULES[arch]).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return reduced(get_config(arch))

@@ -1,38 +1,103 @@
 """Carry weights and data across from the reference package as numpy.
 
-The reference hands its ``params0``, stacked params, optimizer state and
-scenario arrays over as numpy (``np.asarray`` of its arrays); these
-helpers turn them into the port's tensors and back.  Nothing here
-imports JAX: the caller does the ``np.asarray``.
+The reference hands its ``params0``, stacked params, optimizer state,
+scenario arrays and LM params over as numpy (``np.asarray`` of its
+arrays; a bf16 leaf arrives as ``ml_dtypes.bfloat16``); these helpers turn
+them into the port's tensors and back.  Nothing here imports JAX: the
+caller does the ``np.asarray``.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.federated import FederatedData
 from repro_torch.device import DeviceLike, resolve_device
 
 
-def tree_from_numpy(tree: Any, device: DeviceLike = "cuda") -> Any:
-    """Nested dict (or None) of numpy arrays -> same structure of tensors."""
-    dev = resolve_device(device)
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` on every leaf of nested dicts, lists and tuples (None kept)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=dev)
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _to_tensor(a: Any, dev: torch.device) -> torch.Tensor:
+    """One numpy array (or scalar) as a tensor on ``dev``; a bf16 array
+    (``ml_dtypes.bfloat16``, which torch does not take) goes over by its
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def tree_from_numpy(tree: Any, device: DeviceLike = "cuda") -> Any:
+    """Nested dicts, lists and tuples (or None) of numpy arrays -> the same
+    structure of tensors."""
+    dev = resolve_device(device)
+    return _tree_map(lambda a: _to_tensor(a, dev), tree)
 
 
 def tree_to_numpy(tree: Any) -> Any:
-    """Nested dict (or None) of tensors -> same structure of numpy arrays."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    """Nested dicts, lists and tuples (or None) of tensors -> the same
+    structure of numpy arrays."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def layer_grouping(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_prefix, period, n_groups) of the reference's scanned layout
+    (a copy of `repro/models/scan.py:layer_grouping`)."""
+    n_pre = 0
+    if cfg.moe is not None and cfg.moe.n_dense_layers:
+        n_pre = cfg.moe.n_dense_layers
+    if cfg.family == "hybrid":
+        period = cfg.hybrid.attn_every
+    elif cfg.attn is not None:
+        period = len(cfg.attn.layer_pattern)
+    else:
+        period = 1
+    rest = cfg.n_layers - n_pre
+    while rest % period:      # fall back to a period that divides
+        period -= 1
+    return n_pre, period, rest // period
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The reference's LM params (numpy) as the port's: either layout of
+    the reference, ``T.init_params``'s ``layers`` list or
+    ``init_model_params``'s scanned ``prefix_layers`` + ``scan_layers``
+    (a tuple of ``period`` trees, each leaf stacked over the groups),
+    becomes one ``layers`` list in layer order."""
+    if "layers" in tree:
+        layers = list(tree["layers"])
+    elif "scan_layers" in tree:
+        _, period, groups = layer_grouping(cfg)
+        slots = tree["scan_layers"]
+        if len(slots) != period:
+            raise ValueError(f"{len(slots)} scan slots, config has period "
+                             f"{period}")
+        layers = list(tree.get("prefix_layers", []))
+        for g in range(groups):
+            for j in range(period):
+                layers.append(_tree_map(lambda a, g=g: np.asarray(a)[g],
+                                        slots[j]))
+    else:
+        raise ValueError("params hold neither 'layers' nor 'scan_layers'")
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers, config has {cfg.n_layers}")
+    out = {k: v for k, v in tree.items()
+           if k not in ("layers", "prefix_layers", "scan_layers")}
+    out["layers"] = layers
+    return tree_from_numpy(out, device)
 
 
 def fed_from_numpy(x, y, n, x_val, y_val, group,

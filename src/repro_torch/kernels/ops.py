@@ -15,15 +15,17 @@ that its path went through the kernels:
 
 The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
 ``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
-(one per top-k uplink).
+(one per top-k uplink).  The LM path adds ``flash_attention``: one per
+attention layer per prefill or decode step.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mixing_aggregate import mixing_aggregate_cuda
 from repro_torch.kernels.pairwise_sqdist import gram_matrix_cuda
 from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
@@ -33,7 +35,8 @@ from repro_torch.kernels.topk_threshold import topk_threshold_cuda
 
 LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0,
                             "rowwise_absmax": 0, "qsgd_quantize": 0,
-                            "qsgd_dequantize": 0, "topk_threshold": 0}
+                            "qsgd_dequantize": 0, "topk_threshold": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -120,6 +123,23 @@ def topk_threshold(absx: torch.Tensor, *, k: int) -> torch.Tensor:
     return out
 
 
-__all__ = ["LAUNCHES", "gram_matrix", "mixing_aggregate", "pairwise_sqdist",
-           "qsgd_dequantize", "qsgd_quantize", "qsgd_roundtrip", "ref",
-           "reset_launches", "rowwise_absmax", "topk_threshold"]
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention of q (B, H, Sq, hd) over k, v (B, Kh, Sk, hd), q aligned
+    to the end of k, GQA by h // (H / Kh); causal, sliding window
+    (k_pos > q_pos − window) and tanh logit softcap.  Strided views are
+    taken as they are on CUDA; the output has q's dtype (and layout)."""
+    if not _on_cuda(q, "flash_attention"):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+__all__ = ["LAUNCHES", "flash_attention", "gram_matrix", "mixing_aggregate",
+           "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",
+           "qsgd_roundtrip", "ref", "reset_launches", "rowwise_absmax",
+           "topk_threshold"]

@@ -6,6 +6,7 @@ against them on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -100,3 +101,36 @@ def topk_threshold_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
         ge = (absx >= mid).sum(dim=1, keepdim=True) >= k
         lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
     return lo
+
+
+# ---------------------------------------------------------------------------
+# attention (the reference's Pallas kernel in repro/kernels/flash_attention.py)
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain SDPA: q (B, H, Sq, hd), k and v (B, Kh, Sk, hd), GQA group
+    G = H / Kh, q aligned to the end of k; f32 logits and softmax, output
+    in q's dtype.  The (B, Kh, G, Sq, Sk) logits are materialised, once."""
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kh, h // kh, sq, hd).float()
+    logits = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float())
+    logits.div_(math.sqrt(hd))
+    if softcap is not None:
+        logits.div_(softcap).tanh_().mul_(softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    logits.masked_fill_(~valid, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
+    return out.reshape(b, h, sq, hd).to(q.dtype)

@@ -3,8 +3,9 @@
 Counterpart of `repro/models/lenet.py`, over the same dict and layouts so
 the reference's ``params0`` loads unchanged: conv weights OIHW, FC
 weights ``(din, dout)``, images NHWC at the surface.  Inside, the convs
-run NCHW (``F.conv2d``'s layout); the pooled activation is permuted back
-to NHWC before the flatten so ``fc1_w`` rows line up with the reference.
+run NCHW as im2col + one matmul (`_conv`); the pooled activation is
+permuted back to NHWC before the flatten so ``fc1_w`` rows line up with
+the reference.
 """
 from __future__ import annotations
 
@@ -58,13 +59,58 @@ def init_params(generator: torch.Generator, cfg: LeNetConfig,
     }
 
 
+def _patches(h: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """``F.unfold(h, (kh, kw))``, (N, C·kh·kw, H'·W'), gathered by one
+    strided copy (CUDA's ``F.unfold`` launches once per image)."""
+    n, c = h.shape[:2]
+    patches = h.unfold(2, kh, 1).unfold(3, kw, 1)   # (N, C, H', W', kh, kw)
+    return patches.permute(0, 1, 4, 5, 2, 3).reshape(n, c * kh * kw, -1)
+
+
+class _Im2col(torch.autograd.Function):
+    """`_patches` whose backward is ``F.fold``, as ``F.unfold``'s is, so
+    values and input gradients are ``F.unfold``'s bit for bit."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(h, kh, kw):
+        return _patches(h, kh, kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, kh, kw = inputs
+        ctx.size, ctx.kernel = tuple(h.shape[-2:]), (kh, kw)
+
+    @staticmethod
+    def backward(ctx, grad_cols):
+        return F.fold(grad_cols, ctx.size, ctx.kernel), None, None
+
+
+def _conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Valid stride-1 convolution, NCHW x OIHW, as im2col + one matmul.
+
+    Under `vmap` over clients, ``F.conv2d`` becomes a grouped cuDNN
+    convolution whose engines cuDNN picks per process, and one of its
+    weight-gradient engines is far less exact in f32 than the others.
+    UCFL's Δ (a Gram difference of near-equal client gradients) magnifies
+    such a difference into W, so runs on the card did not repeat, nor
+    agree with the CPU.  im2col + one f32 matmul is the same arithmetic
+    on every run."""
+    n, _, hh, ww = h.shape
+    o, _, kh, kw = w.shape
+    cols = (_Im2col.apply(h, kh, kw) if h.requires_grad    # conv2 in grad
+            else _patches(h, kh, kw))                       # images, eval
+    y = torch.matmul(w.reshape(o, -1), cols)                # (N, O, L)
+    return y.reshape(n, o, hh - kh + 1, ww - kw + 1) + b[:, None, None]
+
+
 def apply(params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, H, W, C) float32 -> logits (B, n_classes)."""
     h = x.permute(0, 3, 1, 2)
-    h = F.max_pool2d(torch.tanh(F.conv2d(h, params["conv1_w"],
-                                         params["conv1_b"])), 2, 2)
-    h = F.max_pool2d(torch.tanh(F.conv2d(h, params["conv2_w"],
-                                         params["conv2_b"])), 2, 2)
+    h = F.max_pool2d(torch.tanh(_conv(h, params["conv1_w"],
+                                      params["conv1_b"])), 2, 2)
+    h = F.max_pool2d(torch.tanh(_conv(h, params["conv2_w"],
+                                      params["conv2_b"])), 2, 2)
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC flatten
     h = torch.tanh(h @ params["fc1_w"] + params["fc1_b"])
     h = torch.tanh(h @ params["fc2_w"] + params["fc2_b"])

@@ -1,0 +1,92 @@
+"""Port flash attention against the reference's, on the CPU.
+
+On the CPU the port's `ops.flash_attention` runs its plain version
+(`kernels.ref.flash_attention_ref`); the reference's runs its Pallas kernel
+in interpret mode (slow on the CPU, so a few small cases).  The same numpy
+inputs go through both.  Tolerances are `tests/test_kernels.py`'s: f32
+2e-5, bf16 3e-2.  The CUDA kernel is held against the plain version on the
+card in `tests/test_torch_gpu.py` and by `chip_smoke.py`.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _inputs(seed, b, h, kh, sq, sk, hd):
+    rng = np.random.default_rng(seed)
+    q = (0.5 * rng.standard_normal((b, h, sq, hd))).astype(np.float32)
+    k = (0.5 * rng.standard_normal((b, kh, sk, hd))).astype(np.float32)
+    v = rng.standard_normal((b, kh, sk, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _both(q, k, v, dtype, **kw):
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                for a in (q, k, v)), **kw)
+    assert got.dtype == tdt and got.shape == q.shape
+    return got.float().numpy(), (q, k, v)
+
+
+# (G, causal, window, softcap, Sq, Sk, hd, dtype): GQA groups 1/2/4,
+# causal and not, window 64, softcap 30, Sq < Sk, Sq = 1, hd 64 and 80
+CASES = [
+    (1, True, None, None, 64, 64, 64, "float32"),
+    (2, True, 64, 30.0, 128, 128, 64, "float32"),
+    (4, False, None, None, 48, 112, 64, "float32"),
+    (2, True, 64, None, 1, 100, 64, "float32"),
+    (2, True, None, 30.0, 40, 72, 80, "float32"),
+    (4, True, 64, 30.0, 70, 130, 80, "float32"),
+    (2, True, 64, 30.0, 96, 96, 64, "bfloat16"),
+    (1, False, None, 30.0, 1, 77, 80, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("group,causal,window,softcap,sq,sk,hd,dtype", CASES)
+def test_flash_attention_matches_pallas(group, causal, window, softcap, sq,
+                                        sk, hd, dtype):
+    kh = 2 if group < 4 else 1
+    q, k, v = _inputs(sq * 7 + sk + hd, 1, kh * group, kh, sq, sk, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got, _ = _both(q, k, v, dtype, **kw)
+    jdt = jnp.dtype(dtype)
+    want = jops.flash_attention(*(jnp.asarray(a).astype(jdt)
+                                  for a in (q, k, v)), qblk=64, kblk=64, **kw)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 64, 30.0), (False, None, 30.0),
+    (False, 16, None)])
+def test_flash_attention_ref_matches_reference_ref(group, causal, window,
+                                                   softcap):
+    q, k, v = _inputs(group, 2, 2 * group, 2, 50, 90, 32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  **kw)
+    want = jref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                    **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_op_takes_strided_views_on_cpu():
+    """The model hands over (B, S, H, hd) tensors transposed; the op's
+    result does not depend on the layout."""
+    q, k, v = _inputs(3, 2, 4, 2, 20, 20, 64)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (qt, kt, vt)]
+    a = ops.flash_attention(qt, kt, vt, window=8, softcap=30.0)
+    b = ops.flash_attention(*strided, window=8, softcap=30.0)
+    assert torch.equal(a, b)
+    assert ops.LAUNCHES["flash_attention"] == 0     # no kernel on the CPU

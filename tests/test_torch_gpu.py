@@ -7,7 +7,8 @@ not installed (without the suite's conftest, which imports it):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are tests/test_kernels.py's: f32 1e-5, bf16 2e-2, Δ rtol 1e-4 /
-atol 1e-2.
+atol 1e-2; flash attention f32 2e-5, bf16 3e-2.  The channel kernels are
+held bitwise.
 """
 import pytest
 import torch
@@ -164,3 +165,92 @@ def test_channel_kernels_propagate_nan_and_refuse_bad_args():
         ops.topk_threshold(x.abs().half(), k=3)
     with pytest.raises(ValueError):
         ops.topk_threshold(x.abs().T, k=3)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the kernel against its plain version at the serving
+# path's shapes (gemma2-27b: B 2, H 32, Kh 16, hd 128, prompt 4,608, window
+# 4,096, softcap 50), in the model's strided layouts; tolerances are
+# tests/test_kernels.py's (f32 2e-5, bf16 3e-2)
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None):
+    """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
+    first Sk slots of a (B, C, Kh, hd) cache, transposed."""
+    c = sk if cache_len is None else cache_len
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * 0.5
+    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * 0.5
+    v = torch.randn((b, c, kh, hd), generator=gen, device="cuda")
+    return (q.to(dtype).transpose(1, 2), k[:, :sk].to(dtype).transpose(1, 2),
+            v[:, :sk].to(dtype).transpose(1, 2))
+
+
+def _flash_check(q, k, v, **kw):
+    n0 = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", ["global", "local"])
+def test_flash_attention_kernel_lm_prefill(layer, dtype):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = _qkv(gen, 2, 32, 16, 4608, 4608, 128, dtype)
+    _flash_check(q, k, v, causal=True, softcap=50.0,
+                 window=4096 if layer == "local" else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_lm_decode(dtype):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = _qkv(gen, 2, 32, 16, 1, 4609, 128, dtype, cache_len=4640)
+    _flash_check(q, k, v, causal=True, softcap=50.0)
+    # a wrapped local ring: all 4,096 slots in slot order, window 4,096
+    q, k, v = _qkv(gen, 2, 32, 16, 1, 4096, 128, dtype)
+    _flash_check(q, k, v, causal=True, window=4096, softcap=50.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 80, 256])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_ragged(hd, group, dtype):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd * group)
+    for sq, sk in ((37, 101), (1, 70), (130, 130)):
+        q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, dtype)
+        _flash_check(q, k, v, causal=False)
+        _flash_check(q, k, v, causal=True, window=48, softcap=30.0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_does_not_take():
+    _require_cuda()
+    q = torch.randn((1, 4, 8, 64), device="cuda")
+    k = torch.randn((1, 2, 8, 64), device="cuda")
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError):              # H % Kh
+        ops.flash_attention(q, k[:, :1].repeat(1, 3, 1, 1),
+                            k[:, :1].repeat(1, 3, 1, 1))
+    with pytest.raises(ValueError):              # head_dim 36
+        ops.flash_attention(q[..., :36].contiguous(),
+                            k[..., :36].contiguous(),
+                            k[..., :36].contiguous())
+    with pytest.raises(ValueError):              # hd not unit stride
+        ops.flash_attention(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k, window=0)

@@ -31,11 +31,15 @@ Phases (any failure raises and the script exits non-zero):
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
                 prompt (past the 4,096 window, so the local ring wraps
                 every step), 32 greedy tokens, timed, with one
-                flash-attention launch per layer per step; (b) the same
-                in f32, where one fresh prefill of prompt + generated
-                tokens must reproduce the last decode step's logits.
-Phase 3 also holds the flash-attention kernel at the [lm] shapes, phase 4
-the LM path on the card against the CPU at two smoke configs.
+                flash-attention launch per layer per step (the two
+                prefill calls on the tensor-core kernel, the 62 decode
+                calls on the CUDA-core one); (b) the same in f32, where
+                one fresh prefill of prompt + generated tokens must
+                reproduce the last decode step's logits.
+Phase 3 also holds both flash-attention kernels at the [lm] shapes and
+on ragged shapes, at two logit scales, one past the softcaps (where the
+kernel run without its softcap must fail the check), phase 4 the LM path
+on the card against the CPU at two smoke configs.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -62,6 +66,8 @@ from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
                             TorchDraws, UniformFraction, run_federated)
 from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_tc_cuda, flash_route)
 from repro_torch.kernels.quantize import (  # noqa: E402
     qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
@@ -83,6 +89,9 @@ LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
           cache_len=4640, seed=0,
           reduced={"n_layers": "46 -> 2 (one local, one global layer)"})
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py
+# flash inputs' scaled logits q·k/√hd: N(0, 0.25²), far inside the
+# softcaps (30, 50), and N(0, 50²), where cap·tanh(x/cap) saturates
+LOGIT_STD, CAP_LOGIT_STD = 0.25, 50.0
 # f32 decode against a fresh prefill: the two paths sum in other orders
 # (GEMV against GEMM, cache against in-flight keys) over reductions 18-72x
 # longer than the smoke configs' that tests/test_models.py holds at 2e-4
@@ -378,13 +387,16 @@ def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(torch.clamp(hi - lo + 1, min=0).sum())
 
 
-def flash_inputs(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None):
+def flash_inputs(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None,
+                 logit_std=LOGIT_STD):
     """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
     first Sk slots of a (B, C, Kh, hd) cache, transposed (strided views,
-    as on the main path)."""
+    as on the main path).  q and k have variance ``logit_std``, so the
+    scaled logits q·k/√hd have standard deviation ``logit_std``."""
     c = sk if cache_len is None else cache_len
-    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * 0.5
-    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * 0.5
+    a = math.sqrt(logit_std)
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * a
+    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * a
     v = torch.randn((b, c, kh, hd), generator=gen, device="cuda")
     return (q.to(dtype).transpose(1, 2), k[:, :sk].to(dtype).transpose(1, 2),
             v[:, :sk].to(dtype).transpose(1, 2))
@@ -402,11 +414,76 @@ def flash_bound(q, k, kw):
     return (*bound_ms(n_bytes, flops, peak), flops)
 
 
-def check_flash(gen) -> dict:
+def sdpa_ms(q, k, v, causal: bool) -> float:
+    """The yardstick the port never calls: one SDPA call on contiguous
+    copies of the same inputs, without the softcap (SDPA has none).  Its
+    causal mask is top-left aligned, so a decode step (Sq 1 over its
+    valid keys) is timed with is_causal=False: the same keys."""
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=causal, enable_gqa=True))
+
+
+def row_rel_err(got, want) -> float:
+    """max over output rows of ‖got − want‖ / ‖want‖: the error against
+    the output's size."""
+    g, w = got.float(), want.float()
+    return float((torch.linalg.vector_norm(g - w, dim=-1) /
+                  torch.linalg.vector_norm(w, dim=-1).clamp_min(1e-30)).max())
+
+
+def flash_close(name, got, want) -> tuple:
+    """check_close at FLASH_TOL, and each output row's error within the
+    same tolerance relative to the row's norm (a near-uniform softmax
+    gives entries smaller than the atol, which alone would pass them).
+    Returns (max |err|, max row-relative error)."""
+    tol = FLASH_TOL[want.dtype]
+    err = check_close(name, got, want, tol, tol)
+    rel = row_rel_err(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version, row-relative error {rel:.3e}")
+    return err, rel
+
+
+def route_kernel(q):
+    """The wrapper of the kernel `flash_route` sends q to (no count)."""
+    return (flash_attention_tc_cuda
+            if flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc"
+            else flash_attention_cuda)
+
+
+def flash_planted_fault(name, q, k, v, kw, want) -> None:
+    """The check must be able to fail: on logits past the cap, the route's
+    kernel run without its softcap against the plain version with it
+    passes neither flash_close's elementwise nor its row-relative test."""
+    bad = route_kernel(q)(q, k, v, **dict(kw, softcap=None))
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[want.dtype]
+    d = (bad.float() - want.float()).abs()
+    if bool(torch.all(d <= tol + tol * want.float().abs())) or \
+            row_rel_err(bad, want) <= tol:
+        raise AssertionError(f"{name}: the kernel without its softcap "
+                             "passes the check; the inputs cannot tell")
+
+
+def check_flash(gen) -> list:
     """flash_attention against its plain version at the [lm] shapes
     (global and local prefill, decode over a cache slice and over a
-    wrapped ring) and on small ragged shapes at hd 64/80/256, GQA group
-    1/2/8; timed at the [lm] shapes in bf16, the main path's dtype."""
+    wrapped ring) in f32 and bf16, so both routes of `flash_route` run:
+    bf16 prefill on the tensor-core kernel, the rest on the CUDA-core
+    kernel; in bf16 also on inputs whose logits reach the softcap, where
+    the route's kernel run without its softcap must fail the check.  Then
+    the tensor-core kernel on ragged bf16 shapes (hd 64/128, GQA group
+    1/2/8, Sq < Sk, windows 1/63/4,096, softcap on and off, non-causal)
+    and both kernels on ragged shapes at hd 64/80/256 in both dtypes, each
+    at both logit scales.  Timed at the [lm] shapes in bf16, the main
+    path's dtype: the kernel each route takes, its plain version and SDPA;
+    at the prefill shapes also the CUDA-core kernel, the route's "before";
+    and both kernels at short queries over the [lm] cache, either side of
+    the route's threshold.  Returns the JSON rows of both kernels: the
+    tensor-core one at the global prefill, the CUDA-core one at the global
+    decode step (the shapes the main path gives each)."""
     a = get_config(LM["arch"]).attn
     b, s, h, kh, hd = LM["batch"], LM["prompt"], a.n_heads, a.n_kv_heads, \
         a.head_dim
@@ -421,61 +498,159 @@ def check_flash(gen) -> dict:
         ("local decode (wrapped ring)", (b, h, kh, 1, win, hd), None,
          dict(causal=True, window=win, softcap=cap)),
     ]
-    row = None
+    rows = {}
     for name, shape, clen, kw in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(gen, *shape, dt, cache_len=clen)
+        for dt, std in ((torch.float32, LOGIT_STD),
+                        (torch.bfloat16, LOGIT_STD),
+                        (torch.bfloat16, CAP_LOGIT_STD)):
+            q, k, v = flash_inputs(gen, *shape, dt, cache_len=clen,
+                                   logit_std=std)
+            route = flash_route(dt, shape[3], shape[5])
+            counter = "flash_attention_tc" if route == "tc" else \
+                "flash_attention"
+            before = dict(ops.LAUNCHES)
             got = ops.flash_attention(q, k, v, **kw)
+            launched = {c: ops.LAUNCHES[c] - before[c] for c in before
+                        if ops.LAUNCHES[c] != before[c]}
+            if launched != {counter: 1}:
+                raise AssertionError(f"flash_attention {name} {dt}: "
+                                     f"launches {launched}, want "
+                                     f"{{{counter!r}: 1}}")
             want = ref.flash_attention_ref(q, k, v, **kw)
-            err = check_close(f"flash_attention {name} {dt}", got, want,
-                              FLASH_TOL[dt], FLASH_TOL[dt])
-            del got, want
+            err, rel = flash_close(f"flash_attention {name} {dt} logit sd "
+                                   f"{std:g}", got, want)
+            del got
             line = (f"  flash_attention {name:27s} B={shape[0]} H={shape[1]} "
                     f"Kh={shape[2]} Sq={shape[3]:4d} Sk={shape[4]:4d} "
-                    f"hd={shape[5]} {str(dt)[6:]:8s} max|err| {err:.2e}")
-            if dt == torch.bfloat16:
+                    f"hd={shape[5]} {str(dt)[6:]:8s} logit sd {std:4g} "
+                    f"route {route:9s} max|err| {err:.2e} row-rel {rel:.2e}")
+            if route == "tc":
+                err13, _ = flash_close(f"flash_attention_cuda {name} logit "
+                                       f"sd {std:g}",
+                                       flash_attention_cuda(q, k, v, **kw),
+                                       want)
+                line += f"  CUDA-core kernel max|err| {err13:.2e}"
+            if std == CAP_LOGIT_STD:
+                flash_planted_fault(f"flash_attention {name}", q, k, v, kw,
+                                    want)
+                line += "  without its softcap: fails the check"
+            elif dt == torch.bfloat16:
                 bnd, by, flops = flash_bound(q, k, kw)
                 ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
                 plain = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                                  **kw),
                                 iters=5)
+                prefill = shape[3] > 1
+                lib = sdpa_ms(q, k, v, causal=prefill)
+                what = ("causal" if prefill else "over the valid keys") + \
+                    ", no softcap" + (", no window" if "window" in kw else "")
                 line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                          f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
-                         f"{flops / ms / 1e9:.1f} TFLOP/s)")
-                if name == "global prefill":
-                    # the yardstick the port never calls: SDPA at the same
-                    # shape, causal, without the softcap it cannot take
-                    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-                    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-                        qc, kc, vc, is_causal=True, enable_gqa=True))
-                    line += f"  SDPA (causal, no softcap) {sdpa:.4f} ms"
-                    row = dict(
-                        name="flash_attention", route="cuda",
-                        source="src/repro_torch/kernels/csrc/"
-                               "flash_attention.cu",
+                         f"{flops / ms / 1e9:.1f} TFLOP/s)  SDPA ({what}) "
+                         f"{lib:.4f} ms")
+                if route == "tc":
+                    ms13 = time_ms(lambda: flash_attention_cuda(q, k, v,
+                                                                **kw))
+                    line += f"  CUDA-core kernel {ms13:.4f} ms"
+                if name in ("global prefill", "global decode"):
+                    rname = ("flash_attention_tc" if route == "tc" else
+                             "flash_attention_decode")
+                    rows[rname] = dict(
+                        name=rname, counter=counter, route="cuda",
+                        source=f"src/repro_torch/kernels/csrc/{counter}.cu",
                         replaces="src/repro/kernels/flash_attention.py:118",
                         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by, library_ms=sdpa)
+                        bound_by=by, library_ms=lib)
+            del want
             print(line, flush=True)
             del q, k, v
+    # the route's Sq threshold: both kernels over the [lm] global layer's
+    # cache at the shortest queries the tensor-core kernel takes and longer
+    for sq in (17, 32, 64, 128):
+        q, k, v = flash_inputs(gen, b, h, kh, sq, s, hd, torch.bfloat16,
+                               cache_len=LM["cache_len"])
+        kw = dict(causal=True, softcap=cap)
+        print(f"  flash_attention route threshold: B={b} H={h} Kh={kh} "
+              f"Sq={sq:3d} Sk={s} hd={hd} bf16: tensor-core kernel "
+              f"{time_ms(lambda: flash_attention_tc_cuda(q, k, v, **kw)):.4f}"
+              f" ms  CUDA-core kernel "
+              f"{time_ms(lambda: flash_attention_cuda(q, k, v, **kw)):.4f} "
+              "ms", flush=True)
+        del q, k, v
+    n_tc = ops.LAUNCHES["flash_attention_tc"]
+    n_checks = n_faults = 0
+    for hd in (64, 128):
+        for group in (1, 2, 8):
+            for sq, sk in ((37, 101), (77, 77), (130, 130), (200, 333)):
+                for std, kws in (
+                        (LOGIT_STD, (dict(causal=False),
+                                     dict(causal=True),
+                                     dict(causal=True, window=1),
+                                     dict(causal=True, window=63,
+                                          softcap=30.0),
+                                     dict(causal=True, window=4096,
+                                          softcap=50.0))),
+                        (CAP_LOGIT_STD, (dict(causal=False, softcap=50.0),
+                                         dict(causal=True, softcap=50.0),
+                                         dict(causal=True, window=63,
+                                              softcap=30.0),
+                                         dict(causal=True, window=4096,
+                                              softcap=50.0)))):
+                    q, k, v = flash_inputs(gen, 2, 2 * group, 2, sq, sk, hd,
+                                           torch.bfloat16,
+                                           cache_len=sk + 9, logit_std=std)
+                    for kw in kws:
+                        tag = (f"flash_attention (tc) hd={hd} G={group} "
+                               f"Sq={sq} Sk={sk} logit sd {std:g} {kw}")
+                        want = ref.flash_attention_ref(q, k, v, **kw)
+                        flash_close(tag, ops.flash_attention(q, k, v, **kw),
+                                    want)
+                        n_checks += 1
+                        if std == CAP_LOGIT_STD:
+                            flash_planted_fault(tag, q, k, v, kw, want)
+                            n_faults += 1
+    if ops.LAUNCHES["flash_attention_tc"] - n_tc != n_checks:
+        raise AssertionError("ragged bf16 prefill did not all take the "
+                             "tensor-core route")
+    print(f"  flash_attention (tensor cores) ragged: bf16, hd 64/128 x GQA "
+          f"group 1/2/8 x (Sq, Sk) (37, 101), (77, 77), (130, 130), "
+          f"(200, 333), cache slices transposed; logit sd {LOGIT_STD:g}: "
+          f"non-causal, causal, window 1, window 63 + softcap 30, window "
+          f"4096 + softcap 50; logit sd {CAP_LOGIT_STD:g}: the same with "
+          f"softcaps, non-causal with softcap 50: {n_checks} checks within "
+          f"tolerance, {n_faults} without the softcap fail it", flush=True)
+    n_faults = 0
     for hd in (64, 80, 256):
         for group in (1, 2, 8):
             for dt in (torch.float32, torch.bfloat16):
                 for sq, sk in ((37, 101), (1, 70), (130, 130)):
-                    q, k, v = flash_inputs(gen, 2, 2 * group, 2, sq, sk, hd,
-                                           dt)
-                    for kw in (dict(causal=False),
-                               dict(causal=True, window=48, softcap=30.0)):
-                        check_close(f"flash_attention hd={hd} G={group} "
-                                    f"Sq={sq} Sk={sk} {kw} {dt}",
-                                    ops.flash_attention(q, k, v, **kw),
-                                    ref.flash_attention_ref(q, k, v, **kw),
-                                    FLASH_TOL[dt], FLASH_TOL[dt])
+                    for std, kws in (
+                            (LOGIT_STD, (dict(causal=False),
+                                         dict(causal=True, window=48,
+                                              softcap=30.0))),
+                            (CAP_LOGIT_STD, (dict(causal=False,
+                                                  softcap=50.0),
+                                             dict(causal=True, window=48,
+                                                  softcap=30.0)))):
+                        q, k, v = flash_inputs(gen, 2, 2 * group, 2, sq, sk,
+                                               hd, dt, logit_std=std)
+                        for kw in kws:
+                            tag = (f"flash_attention hd={hd} G={group} "
+                                   f"Sq={sq} Sk={sk} logit sd {std:g} {kw} "
+                                   f"{dt}")
+                            want = ref.flash_attention_ref(q, k, v, **kw)
+                            flash_close(tag, ops.flash_attention(q, k, v,
+                                                                 **kw), want)
+                            if std == CAP_LOGIT_STD:
+                                flash_planted_fault(tag, q, k, v, kw, want)
+                                n_faults += 1
     print("  flash_attention ragged: hd 64/80/256 x GQA group 1/2/8 x f32/"
           "bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), non-causal and "
-          "causal + window 48 + softcap 30: all within tolerance",
-          flush=True)
-    return row
+          f"causal + window 48 + softcap 30 at logit sd {LOGIT_STD:g}, "
+          f"non-causal + softcap 50 and causal + window 48 + softcap 30 at "
+          f"logit sd {CAP_LOGIT_STD:g}: all within tolerance, {n_faults} "
+          "without the softcap fail it", flush=True)
+    return [rows["flash_attention_decode"], rows["flash_attention_tc"]]
 
 
 # ---------------------------------------------------------------------------
@@ -605,11 +780,12 @@ def lm_agreement() -> None:
                                device="cpu")
         prompt = torch.randint(0, cfg.vocab_size, (2, 96),
                                generator=torch.Generator().manual_seed(4))
-        before = ops.LAUNCHES["flash_attention"]
+        flash = ("flash_attention", "flash_attention_tc")
+        before = sum(ops.LAUNCHES[c] for c in flash)
         a = generate(params, cfg, prompt, 9, 128, return_logits=True)
         b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
                      prompt.cuda(), 9, 128, return_logits=True)
-        launched = ops.LAUNCHES["flash_attention"] - before
+        launched = sum(ops.LAUNCHES[c] for c in flash) - before
         if launched != 9 * cfg.n_layers:
             raise AssertionError(f"{arch}: {launched} flash launches, want "
                                  f"{9 * cfg.n_layers}")
@@ -628,9 +804,11 @@ def lm_agreement() -> None:
               f"{launched} flash launches)", flush=True)
 
 
-def lm_path(card: str) -> int:
+def lm_path(card: str) -> dict:
     """[lm] (a) bf16 timed, (b) f32 self-consistency; returns the flash
-    launches of (a), the main path's run."""
+    launches of (a), the main path's run, by kernel: {"flash_attention":
+    the CUDA-core kernel's, "flash_attention_tc": the tensor-core
+    kernel's}."""
     full = get_config(LM["arch"])
     cfg = dataclasses.replace(full, n_layers=2)
     assert [cfg.attn_window(i) for i in range(2)] == [4096, None]
@@ -657,11 +835,15 @@ def lm_path(card: str) -> int:
     ops.reset_launches()           # counts from here on are [lm] (a)'s
     torch.cuda.reset_peak_memory_stats()
     res = generate(params, cfg, prompt, n, clen, return_logits=True)
-    launches = ops.LAUNCHES["flash_attention"]
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                             "flash_attention_tc")}
     peak = torch.cuda.max_memory_allocated()
-    want = cfg.n_layers + (n - 1) * cfg.n_layers
-    if launches != want:
-        raise AssertionError(f"[lm] {launches} flash launches, want {want}")
+    # one launch per layer per step: the bf16 prefill on the tensor cores,
+    # the decode steps on the CUDA cores
+    want = {"flash_attention": (n - 1) * cfg.n_layers,
+            "flash_attention_tc": cfg.n_layers}
+    if launches != want or sum(launches.values()) != n * cfg.n_layers:
+        raise AssertionError(f"[lm] flash launches {launches}, want {want}")
     if res.tokens.shape != (b, n) or not bool(
             ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"[lm] bad tokens {res.tokens}")
@@ -672,7 +854,10 @@ def lm_path(card: str) -> int:
           f"{res.prefill_s * 1e3:.2f} ms ({b}x{plen} tokens); decode "
           f"{res.decode_s * 1e3 / steps:.3f} ms/token-step, "
           f"{steps * b / res.decode_s:.1f} tok/s ({steps} steps x{b}); "
-          f"flash launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
+          f"flash launches {sum(launches.values())} "
+          f"({launches['flash_attention_tc']} on the tensor-core kernel, "
+          f"{launches['flash_attention']} on the CUDA-core one); peak "
+          f"memory {peak / 2**30:.2f} GiB; "
           f"sample {res.tokens[0, :12].tolist()}", flush=True)
     del params, res
     torch.cuda.empty_cache()
@@ -779,6 +964,7 @@ def channel_path(fed, fl, base_clock: list) -> None:
         launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
         want_launch["mixing_aggregate"] = rounds * MAIN["leaves"]
         want_launch["flash_attention"] = 0
+        want_launch["flash_attention_tc"] = 0
         if launched != want_launch:
             raise AssertionError(f"{spec}: launches {launched}, want "
                                  f"{want_launch}")
@@ -849,7 +1035,7 @@ def main() -> int:
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_mixing(gen), check_gram(gen)] + \
-        check_channel_kernels(gen) + [check_flash(gen)]
+        check_channel_kernels(gen) + check_flash(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)
 
@@ -881,9 +1067,10 @@ def main() -> int:
     print(f"  [channel] launches {dict(ops.LAUNCHES)}", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
-    launches["flash_attention"] += lm_path(card)
+    for name, n in lm_path(card).items():
+        launches[name] += n
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r.get("counter", r["name"])]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel or lm path")

@@ -1,0 +1,462 @@
+// Flash attention on Hopper's tensor cores (sm_90a): bf16 prefill.
+//
+// Replaces, for bf16 inputs with Sq > 16 and head_dim 64 or 128, the Pallas
+// TPU kernel src/repro/kernels/flash_attention.py, function
+// `flash_attention` (:90, pallas_call :118, body `_kernel` :30); the
+// CUDA-core kernel in flash_attention.cu keeps every other call (decode
+// steps, f32, head_dim 80 or 256).  It computes what `_kernel` computes:
+// out = softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query
+// head), q aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
+// k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
+// online softmax with the reference's m_safe / alpha guards and its
+// denominator clamped at 1e-30, query head h reading KV head h / (H / Kh),
+// the output in q's dtype and layout.
+//
+// Numerics.  Q·Kᵀ and P·V take bf16 operands and sum in f32 on the tensor
+// cores.  The one departure from `_kernel`, which keeps P in f32: P is
+// rounded to bf16 before P·V (its row sums stay f32), a relative error of
+// at most 2^-9 a weight.  The softcap's tanh is `tanh.approx.f32` (the
+// SFU; relative error about 2^-11) and exp is `ex2.approx` on the scores
+// pre-multiplied by log2(e).  Both stay inside the bf16 tolerance (3e-2).
+//
+// Bound on this card: operations.  A causal prefill does 4·hd FLOP per
+// (query, key) pair the mask keeps; at the serving path's global-layer
+// prefill (B 2, H 32, Kh 16, S 4,608, hd 128, bf16) that is 3.48e11 FLOP,
+// 0.35 ms at the 989 TFLOP/s bf16 tensor-core peak, against 0.23 GB of
+// inputs and output (0.07 ms at 3.35 TB/s).  Besides the products, every
+// score costs one ex2 and, with the softcap, one tanh on the SFU (16 a
+// clock an SM): as many SM cycles as its share of the products.
+//
+// Design (right and simple first: no TMA, producer warp or persistent
+// grid).  One block of one warpgroup (128 threads) per (64-row Q tile,
+// query head, batch row), two blocks an SM (83 KB of shared memory each at
+// hd 128).  Q is staged once in shared memory; K and V tiles of 64 keys go
+// through a 2-stage ring filled by 16-byte `cp.async.cg` copies (one
+// commit group a tile), so tile t+1's copies run under tile t's products
+// and softmax.  The two blocks of an SM run unsynchronised, so one's
+// softmax overlaps the other's products; a block of two warpgroups that
+// share each K/V tile (half the copies per row) kept both in step at every
+// tile's barrier and was slower.  Every tile sits in the 128-byte swizzle
+// that the `wgmma` descriptors name: a 64-element bf16 row chunk is one
+// 128-byte line, 8 lines make a 1,024-byte atom in which 16-byte unit u of
+// line r is stored at unit u ^ (r % 8); an hd-128 row spans two such
+// chunks, stored one after the other (chunk-major).
+//   S = Q·Kᵀ: `wgmma.mma_async.m64n64k16` with A (Q) and B (K) both read
+//     from shared memory K-major (hd contiguous), hd/16 k-steps, each
+//     advancing the start address 32 bytes inside the swizzle atom.
+//   Softmax in registers on the f32 accumulator fragment: thread t holds
+//     rows 16·(t/32) + (t%32)/4 and that + 8, columns 8j + 2(t%4) +
+//     {0, 1}; row max and sum are two xor shuffles inside the quad.  The
+//     mask is evaluated only on tiles that cross the causal diagonal, the
+//     window's edge or Sk; tiles outside the block's causal/window band
+//     are skipped, which is exact (a fully masked tile leaves m, l and O
+//     unchanged).  O is rescaled only when a row max of the warp moved.
+//   O += P·V: the S fragment, packed pairwise to bf16x2, is already the
+//     A-from-registers fragment of `wgmma ... m64nHDk16` (RS form); V
+//     (key, hd) is B read MN-major with the transpose bit, its 64-element
+//     hd chunks LBO = 64 keys × 128 bytes apart, 8-key groups SBO = 1,024
+//     bytes apart.
+// Keys past Sk and Q rows past Sq are zero-filled by the copy's src-size 0
+// form (0 × NaN would be NaN); such keys are masked and such rows are not
+// stored.  Under a causal mask the heaviest (last) Q tiles launch first.
+// Strided (b, h, s) views are taken as they are, as in flash_attention.cu.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 64;        // keys per K/V tile
+constexpr int kStages = 2;     // K/V ring depth
+constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
+  int B, H, Kh, Sq, Sk, hd, group;
+  int causal, window;  // window 0: none
+  float scale, softcap;  // softcap 0: none
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// makes the copies' shared-memory writes visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products' issue and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(d, i) F4(d, i), F4(d, i + 4), F4(d, i + 8), F4(d, i + 12)
+#define R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31}"
+#define R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64, f32) (+)= A (64 x 16) · B (64 x 16)ᵀ, both K-major in shared
+// memory; scale_d 0 overwrites d
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16x2 registers) · B (16 x N) with B
+// MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ROWS rows of HD bf16 from `g` (row stride `stride` elements), rows from
+// `n_valid` on zero-filled, into the swizzled chunk-major tile at `dst`.
+// Thread tid copies 16-byte unit tid % (HD / 8) of rows tid / (HD / 8) +
+// i · kStep; kStep is a multiple of 8, so its swizzle is the same in every
+// row it copies.
+template <int ROWS, int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* g,
+                                          long long stride, int n_valid,
+                                          int tid) {
+  constexpr int kUnits = HD / 8, kStep = kThreads / kUnits;
+  static_assert(kStep % 8 == 0 && ROWS % kStep == 0, "tile split");
+  const int row = tid / kUnits, u = tid % kUnits;
+  const uint32_t d0 = dst + (u >> 3) * (ROWS * 128) + row * 128 +
+                      (((u & 7) ^ (row & 7)) << 4);
+  const __nv_bfloat16* g0 = g + row * stride + u * 8;
+#pragma unroll
+  for (int i = 0; i < ROWS / kStep; ++i) {
+    const bool ok = row + i * kStep < n_valid;
+    cp_async16(d0 + i * kStep * 128, ok ? g0 + i * kStep * stride : g,
+               ok ? 16 : 0);
+  }
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  // 1 KB of slack to align the tiles to the 1,024-byte swizzle atom
+  return 1024 + (size_t)2 * HD * (kBQ + kStages * 2 * kBK);
+}
+
+// CAPPED: a logit softcap is given (the scores go through tanh)
+template <int HD, bool CAPPED>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_tc_kernel(const Params p) {
+  constexpr uint32_t kQBytes = kBQ * HD * 2;
+  constexpr uint32_t kTBytes = kBK * HD * 2;  // one K or V tile
+  constexpr int kNO = HD / 2;                 // O accumulator floats/thread
+  extern __shared__ uint8_t smem[];
+  const uint32_t s_q = (smem_addr(smem) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c4 = tid & 3;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / p.group;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
+                            b * p.qs[0] + h * p.qs[1];
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) +
+                            b * p.ks[0] + kh * p.ks[1];
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) +
+                            b * p.vs[0] + kh * p.vs[1];
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] +
+                      h * p.os[1];
+  const int off = p.Sk - p.Sq;
+
+  // the band of keys the block's rows can see, in whole tiles
+  const int q_first = q0 + off, q_last = min(q0 + kBQ, p.Sq) - 1 + off;
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
+  k_begin -= k_begin % kBK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  auto load_kv = [&](int tile) {
+    const int kt = k_begin + tile * kBK, st = tile % kStages;
+    const uint32_t s_k = s_q + kQBytes + st * 2 * kTBytes;
+    load_tile<kBK, HD>(s_k, kb + kt * p.ks[2], p.ks[2], p.Sk - kt, tid);
+    load_tile<kBK, HD>(s_k + kTBytes, vb + kt * p.vs[2], p.vs[2], p.Sk - kt,
+                       tid);
+  };
+  load_tile<kBQ, HD>(s_q, qb + q0 * p.qs[2], p.qs[2], p.Sq - q0, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  // this thread's two rows (absolute q positions)
+  const int row_a = q0 + warp * 16 + g;
+  const int qpos[2] = {row_a + off, row_a + 8 + off};
+  // a score s becomes x = mul·s, and its logit in log2 units is c·f(x),
+  // f = tanh with the softcap (c = cap·log2 e, mul = scale / cap), else
+  // the identity (c = 1, mul = scale·log2 e); c > 0, so the row max of
+  // f(x) gives the row max of the logits
+  const float mul = CAPPED ? p.scale / p.softcap : p.scale * kLog2e;
+  const float c = CAPPED ? p.softcap * kLog2e : 1.f;
+  // Q's descriptor, advanced per k-step
+  const uint64_t dq = make_desc(s_q, 16, 1024);
+
+  float o[kNO];
+#pragma unroll
+  for (int e = 0; e < kNO; ++e) o[e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and Q) have landed
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread; tile t - 1's stage is free
+    if (t + kStages - 1 < n_tiles) load_kv(t + kStages - 1);
+    cp_async_commit();
+
+    const int kt = k_begin + t * kBK;
+    const uint32_t s_k = s_q + kQBytes + (t % kStages) * 2 * kTBytes;
+
+    // S = Q·Kᵀ over hd / 16 k-steps; a k-step is 32 bytes inside the
+    // swizzle atom, and every 4th one moves to the next 64-element chunk
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    const uint64_t dk = make_desc(s_k, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      mma_ss_n64(s, dq + (((ks >> 2) * (kBQ * 128) + (ks & 3) * 32) >> 4),
+                 dk + (((ks >> 2) * (kBK * 128) + (ks & 3) * 32) >> 4),
+                 ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // f(x), masked to -1e30 where the tile crosses an edge of the band
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = CAPPED ? tanh_approx(s[e] * mul) : s[e] * mul;
+    const bool need_mask = kt + kBK > p.Sk ||
+                           (p.causal && kt + kBK - 1 > q_first) ||
+                           (p.window > 0 && kt <= q_last - p.window);
+    if (need_mask) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int k_pos = kt + (e >> 2) * 8 + 2 * c4 + (e & 1);
+        const int q_pos = qpos[(e >> 1) & 1];
+        bool valid = k_pos < p.Sk;
+        if (p.causal) valid = valid && k_pos <= q_pos;
+        if (p.window > 0) valid = valid && k_pos > q_pos - p.window;
+        if (!valid) s[e] = kNegInf;
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float m_safe[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a fully masked row gives c·(-1e30) <= -1e30: the guard holds
+      const float m_new = fmaxf(m_r[i], c * mx[i]);
+      m_safe[i] = m_new <= kNegInf ? 0.f : m_new;
+      alpha[i] = m_r[i] <= kNegInf ? 0.f : exp2_approx(m_r[i] - m_safe[i]);
+      m_r[i] = m_new;
+    }
+    // masked scores give exp2(<= -1e30) = 0 exactly
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int i = (e >> 1) & 1;
+      const float p0 = exp2_approx(fmaf(c, s[e], -m_safe[i]));
+      const float p1 = exp2_approx(fmaf(c, s[e + 1], -m_safe[i]));
+      rs[i] += p0 + p1;
+      pa[e >> 3][(e >> 1) & 3] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = alpha[i] * l_r[i] + rs[i];
+    // alpha is exactly 1 where a row's max did not move; most tiles past
+    // the first few leave every row of the warp so
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int e = 0; e < kNO; ++e) o[e] *= alpha[(e >> 1) & 1];
+    }
+
+    // O += P·V over 4 k-steps of 16 keys (16 rows of 128 bytes each)
+    const uint64_t dv = make_desc(s_k + kTBytes, kBK * 128, 1024);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      mma_rs(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  cp_async_wait<0>();  // with no tile in the band, Q's copy is still open
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+  const float inv[2] = {1.f / fmaxf(l_r[0], 1e-30f),
+                        1.f / fmaxf(l_r[1], 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= p.Sq) continue;
+    __nv_bfloat16* orow = ob + row * p.os[2] + 2 * c4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+          o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = v2;
+    }
+  }
+}
+
+template <int HD, bool CAPPED>
+int launch(const Params& p, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<HD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<HD, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)p.H,
+                  (unsigned)p.B);
+  flash_tc_kernel<HD, CAPPED><<<grid, kThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_capped(const Params& p, cudaStream_t s) {
+  return p.softcap > 0.f ? launch<HD, true>(p, s) : launch<HD, false>(p, s);
+}
+
+}  // namespace
+
+// The signature of repro_flash_attention (flash_attention.cu): q (B, H,
+// Sq, hd), k and v (B, Kh, Sk, hd), o like q, as element strides of
+// (b, h, s) in `strides` (q, k, v, o; 12 values) with unit stride on hd
+// and 16-byte aligned rows; window 0 and softcap 0 mean none.  Takes
+// dtype 1 (bf16) and hd 64 or 128 only.  Returns the cudaError_t of the
+// attribute call or the launch.
+extern "C" int repro_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, void* o,
+                                        const long long* strides, int B,
+                                        int H, int Kh, int Sq, int Sk, int hd,
+                                        int causal, int window, float scale,
+                                        float softcap, int dtype,
+                                        void* stream) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  for (int e = 0; e < 3; ++e) {
+    p.qs[e] = strides[e];
+    p.ks[e] = strides[3 + e];
+    p.vs[e] = strides[6 + e];
+    p.os[e] = strides[9 + e];
+  }
+  p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd;
+  p.group = H / Kh;
+  p.causal = causal; p.window = window;
+  p.scale = scale; p.softcap = softcap;
+  if (dtype != 1 || (hd != 64 && hd != 128) || Kh < 1 || H % Kh != 0 ||
+      Sq < 1 || Sk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? launch_capped<64>(p, s) : launch_capped<128>(p, s);
+}

@@ -1,13 +1,16 @@
-"""CUDA wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""CUDA wrappers of the flash-attention kernels and the rule between them.
 
-Counterpart of `repro/kernels/flash_attention.py` (the Pallas kernel).
-`flash_attention_cuda` takes q (B, H, Sq, hd) and k, v (B, Kh, Sk, hd) as
-strided views (unit stride on hd), so the model hands over its
-(B, S, H, hd) activations and slices of its (B, C, Kh, hd) caches
-transposed, without a copy.  It checks what the kernel takes, allocates
-the output with q's layout and launches on PyTorch's current stream.  The
-TPU wrapper's padding of Sq and Sk to its blocks has no counterpart: the
-kernel masks its own ragged edges.  Callers go through
+Counterpart of `repro/kernels/flash_attention.py` (the Pallas kernel), by
+two kernels: ``csrc/flash_attention_tc.cu`` (bf16 on the tensor cores,
+`flash_attention_tc_cuda`) and ``csrc/flash_attention.cu`` (f32 CUDA
+cores, any head_dim up to 256, `flash_attention_cuda`).  `flash_route`
+states which one a call takes.  Both take q (B, H, Sq, hd) and k, v
+(B, Kh, Sk, hd) as strided views (unit stride on hd), so the model hands
+over its (B, S, H, hd) activations and slices of its (B, C, Kh, hd)
+caches transposed, without a copy.  Each checks what its kernel takes,
+allocates the output with q's layout and launches on PyTorch's current
+stream.  The TPU wrapper's padding of Sq and Sk to its blocks has no
+counterpart: the kernels mask their own ragged edges.  Callers go through
 `kernels.ops.flash_attention`.
 """
 from __future__ import annotations
@@ -23,22 +26,38 @@ from repro_torch.kernels import _build
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535          # heads on the grid's y, batch rows on its z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_bound = False
+TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernel
+TC_MIN_SQ = 17               # shorter queries (decode steps) stay off it
+# both C entries: q, k, v, out, strides, B, H, Kh, Sq, Sk, hd, causal,
+# window, scale, softcap, dtype, stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+    [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_bound = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _bound
-    lib = _build.load("flash_attention")
-    if not _bound:
-        lib.repro_flash_attention.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.repro_flash_attention.restype = ctypes.c_int
-        _bound = True
-    return lib
+def flash_route(dtype: torch.dtype, sq: int, hd: int) -> str:
+    """Which kernel a CUDA call takes: ``"tc"`` (the tensor-core kernel)
+    iff the inputs are bf16, Sq > 16 and head_dim is 64 or 128, else
+    ``"cuda_core"`` (decode steps, f32, head_dim 80 or 256).  The Sq
+    threshold keeps decode steps on the kernel built for them; from Sq 17
+    up the tensor-core kernel is the faster of the two (both are timed at
+    Sq 17, 32, 64 and 128 over the serving cache by ``chip_smoke.py``;
+    PERF.md has the times), and below it neither has been timed against
+    the other."""
+    if dtype == torch.bfloat16 and sq >= TC_MIN_SQ and hd in TC_HEAD_DIMS:
+        return "tc"
+    return "cuda_core"
+
+
+def _entry(name: str):
+    """The C entry ``repro_<name>`` of ``csrc/<name>.cu``, built and
+    bound on first use."""
+    fn = getattr(_build.load(name), f"repro_{name}")
+    if name not in _bound:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _bound.add(name)
+    return fn
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -54,19 +73,17 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                              f"multiples of {per16} elements")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, H, Sq, hd), k and v (B, Kh, Sk, hd) on one CUDA device, one
-    dtype (f32 or bf16), H % Kh == 0, hd % 8 == 0 and hd <= 256 -> out
-    (B, H, Sq, hd) in q's dtype and layout."""
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int], softcap: Optional[float],
+            dtypes: tuple, head_dims: Optional[tuple]) -> torch.Tensor:
+    """Check what kernel ``name`` takes (``dtypes``; ``head_dims``, or
+    None for any multiple of 8 up to 256), then launch it."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
-                        "need one of float32 or bfloat16")
+        raise ValueError(f"{name} needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: dtypes q {q.dtype}, k {k.dtype}, v "
+                        f"{v.dtype}: need one of {dtypes}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need (B, H, Sq, hd) and "
@@ -76,9 +93,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kb != b or khd != hd or kh < 1 or h % kh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "match (batch, head_dim, H % Kh)")
-    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} not supported (a multiple of 8 up "
-                         f"to {MAX_HEAD_DIM})")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM or (
+            head_dims is not None and hd not in head_dims):
+        raise ValueError(f"{name}: head_dim {hd} not supported (" + (
+            f"one of {head_dims})" if head_dims else
+            f"a multiple of 8 up to {MAX_HEAD_DIM})"))
     if min(b, h, sq, sk) < 1 or max(b, h) > MAX_GRID_YZ:
         raise ValueError(f"empty or oversized shape B={b}, H={h}, Sq={sq}, "
                          f"Sk={sk}")
@@ -86,20 +105,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not float(softcap) > 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
-    lib = _lib()
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(arg, t)
+    fn = _entry(name)
     out = torch.empty_like(q)
     _check_layout("out", out)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                         *v.stride()[:3], *out.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, h, kh, sq, sk, hd, int(bool(causal)),
-            0 if window is None else int(window), 1.0 / math.sqrt(hd),
-            0.0 if softcap is None else float(softcap), _DTYPES[q.dtype],
-            stream)
-    _build.check(err, "flash_attention")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 strides, b, h, kh, sq, sk, hd, int(bool(causal)),
+                 0 if window is None else int(window), 1.0 / math.sqrt(hd),
+                 0.0 if softcap is None else float(softcap),
+                 _DTYPES[q.dtype], stream)
+    _build.check(err, name)
     return out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """The CUDA-core kernel: q (B, H, Sq, hd), k and v (B, Kh, Sk, hd) on
+    one CUDA device, one dtype (f32 or bf16), H % Kh == 0, hd % 8 == 0 and
+    hd <= 256 -> out (B, H, Sq, hd) in q's dtype and layout."""
+    return _launch("flash_attention", q, k, v, causal, window, softcap,
+                   tuple(_DTYPES), None)
+
+
+def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None) -> torch.Tensor:
+    """The tensor-core kernel: as `flash_attention_cuda`, for bf16 and
+    head_dim 64 or 128 only (raises on anything else)."""
+    return _launch("flash_attention_tc", q, k, v, causal, window, softcap,
+                   (torch.bfloat16,), TC_HEAD_DIMS)

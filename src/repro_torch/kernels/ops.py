@@ -15,8 +15,10 @@ that its path went through the kernels:
 
 The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
 ``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
-(one per top-k uplink).  The LM path adds ``flash_attention``: one per
-attention layer per prefill or decode step.
+(one per top-k uplink).  The LM path adds one launch per attention layer
+per prefill or decode step, counted under the kernel `flash_route` picks:
+``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
+``flash_attention`` (the CUDA-core kernel, everything else).
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_tc_cuda,
+                                                 flash_route)
 from repro_torch.kernels.mixing_aggregate import mixing_aggregate_cuda
 from repro_torch.kernels.pairwise_sqdist import gram_matrix_cuda
 from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
@@ -36,7 +40,7 @@ from repro_torch.kernels.topk_threshold import topk_threshold_cuda
 LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0,
                             "rowwise_absmax": 0, "qsgd_quantize": 0,
                             "qsgd_dequantize": 0, "topk_threshold": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_tc": 0}
 
 
 def reset_launches() -> None:
@@ -129,17 +133,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q (B, H, Sq, hd) over k, v (B, Kh, Sk, hd), q aligned
     to the end of k, GQA by h // (H / Kh); causal, sliding window
     (k_pos > q_pos − window) and tanh logit softcap.  Strided views are
-    taken as they are on CUDA; the output has q's dtype (and layout)."""
+    taken as they are on CUDA; the output has q's dtype (and layout).  On
+    CUDA, `flash_route` picks the kernel: bf16 prefill (Sq > 16, head_dim
+    64 or 128) on the tensor cores, everything else on the CUDA cores."""
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
-    LAUNCHES["flash_attention"] += 1
+    if flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc":
+        out = flash_attention_tc_cuda(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+        LAUNCHES["flash_attention_tc"] += 1
+    else:
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+        LAUNCHES["flash_attention"] += 1
     return out
 
 
-__all__ = ["LAUNCHES", "flash_attention", "gram_matrix", "mixing_aggregate",
-           "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",
-           "qsgd_roundtrip", "ref", "reset_launches", "rowwise_absmax",
-           "topk_threshold"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_route", "gram_matrix",
+           "mixing_aggregate", "pairwise_sqdist", "qsgd_dequantize",
+           "qsgd_quantize", "qsgd_roundtrip", "ref", "reset_launches",
+           "rowwise_absmax", "topk_threshold"]

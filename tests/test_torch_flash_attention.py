@@ -4,8 +4,10 @@ On the CPU the port's `ops.flash_attention` runs its plain version
 (`kernels.ref.flash_attention_ref`); the reference's runs its Pallas kernel
 in interpret mode (slow on the CPU, so a few small cases).  The same numpy
 inputs go through both.  Tolerances are `tests/test_kernels.py`'s: f32
-2e-5, bf16 3e-2.  The CUDA kernel is held against the plain version on the
-card in `tests/test_torch_gpu.py` and by `chip_smoke.py`.
+2e-5, bf16 3e-2.  `flash_route`, the rule between the two CUDA kernels, is
+tested on both sides of each condition; the kernels are held against the
+plain version on the card in `tests/test_torch_gpu.py` and by
+`chip_smoke.py`.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_route
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -36,7 +39,9 @@ def _both(q, k, v, dtype, **kw):
 
 
 # (G, causal, window, softcap, Sq, Sk, hd, dtype): GQA groups 1/2/4,
-# causal and not, window 64, softcap 30, Sq < Sk, Sq = 1, hd 64 and 80
+# causal and not, window 64, softcap 30, Sq < Sk, Sq = 1, hd 64 and 80; the
+# last three are bf16 shapes the tensor-core route takes on CUDA (hd 64 and
+# 128, Sq 17, window 1 and 63, softcap 50)
 CASES = [
     (1, True, None, None, 64, 64, 64, "float32"),
     (2, True, 64, 30.0, 128, 128, 64, "float32"),
@@ -46,6 +51,9 @@ CASES = [
     (4, True, 64, 30.0, 70, 130, 80, "float32"),
     (2, True, 64, 30.0, 96, 96, 64, "bfloat16"),
     (1, False, None, 30.0, 1, 77, 80, "bfloat16"),
+    (2, True, 63, 50.0, 37, 101, 128, "bfloat16"),
+    (1, False, None, None, 17, 40, 64, "bfloat16"),
+    (4, True, 1, None, 70, 70, 64, "bfloat16"),
 ]
 
 
@@ -81,12 +89,28 @@ def test_flash_attention_ref_matches_reference_ref(group, causal, window,
 
 def test_flash_attention_op_takes_strided_views_on_cpu():
     """The model hands over (B, S, H, hd) tensors transposed; the op's
-    result does not depend on the layout."""
+    result does not depend on the layout.  In bf16 the shape is one the
+    tensor-core route takes on CUDA; on the CPU neither kernel launches."""
     q, k, v = _inputs(3, 2, 4, 2, 20, 20, 64)
-    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
-    strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
-               for t in (qt, kt, vt)]
-    a = ops.flash_attention(qt, kt, vt, window=8, softcap=30.0)
-    b = ops.flash_attention(*strided, window=8, softcap=30.0)
-    assert torch.equal(a, b)
+    for dt in (torch.float32, torch.bfloat16):
+        qt, kt, vt = (torch.from_numpy(a).to(dt) for a in (q, k, v))
+        strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (qt, kt, vt)]
+        a = ops.flash_attention(qt, kt, vt, window=8, softcap=30.0)
+        b = ops.flash_attention(*strided, window=8, softcap=30.0)
+        assert torch.equal(a, b)
+    assert flash_route(torch.bfloat16, 20, 64) == "tc"
     assert ops.LAUNCHES["flash_attention"] == 0     # no kernel on the CPU
+    assert ops.LAUNCHES["flash_attention_tc"] == 0
+
+
+# the rule between the two CUDA kernels: the tensor-core kernel iff bf16,
+# Sq > 16 and head_dim 64 or 128; each condition on both sides
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq", [1, 16, 17, 4608])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_flash_route(dtype, sq, hd):
+    want = ("tc" if dtype == torch.bfloat16 and sq > 16 and hd in (64, 128)
+            else "cuda_core")
+    assert flash_route(dtype, sq, hd) == want
+

@@ -7,13 +7,19 @@ not installed (without the suite's conftest, which imports it):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are tests/test_kernels.py's: f32 1e-5, bf16 2e-2, Δ rtol 1e-4 /
-atol 1e-2; flash attention f32 2e-5, bf16 3e-2.  The channel kernels are
-held bitwise.
+atol 1e-2; flash attention f32 2e-5, bf16 3e-2 (both of its kernels: the
+tensor-core one takes bf16 prefill, the CUDA-core one the rest), each
+element and each output row relative to its norm, on logits inside and
+past the softcaps (there, the kernel without its softcap must fail).  The
+channel kernels are held bitwise.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_tc_cuda,
+                                                 flash_route)
 
 
 def _require_cuda():
@@ -174,28 +180,66 @@ def test_channel_kernels_propagate_nan_and_refuse_bad_args():
 # tests/test_kernels.py's (f32 2e-5, bf16 3e-2)
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# the scaled logits q·k/√hd: N(0, 0.25²), far inside the softcaps (30,
+# 50), or N(0, 50²), where cap·tanh(x/cap) saturates and a kernel that
+# dropped or misscaled the softcap gives another softmax
+LOGIT_STD, CAP_LOGIT_STD = 0.25, 50.0
 
 
-def _qkv(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None):
+def _qkv(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None,
+         logit_std=LOGIT_STD):
     """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
-    first Sk slots of a (B, C, Kh, hd) cache, transposed."""
+    first Sk slots of a (B, C, Kh, hd) cache, transposed.  q and k have
+    variance ``logit_std``: the scaled logits have that deviation."""
     c = sk if cache_len is None else cache_len
-    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * 0.5
-    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * 0.5
+    a = logit_std ** 0.5
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * a
+    k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * a
     v = torch.randn((b, c, kh, hd), generator=gen, device="cuda")
     return (q.to(dtype).transpose(1, 2), k[:, :sk].to(dtype).transpose(1, 2),
             v[:, :sk].to(dtype).transpose(1, 2))
 
 
+def _row_rel_err(got, want) -> float:
+    """max over output rows of |got - want| / |want| (2-norms)."""
+    g, w = got.float(), want.float()
+    return float((torch.linalg.vector_norm(g - w, dim=-1) /
+                  torch.linalg.vector_norm(w, dim=-1).clamp_min(1e-30)).max())
+
+
+def _flash_close(got, want):
+    """Elementwise at FLASH_TOL, and each output row within the same
+    tolerance relative to its norm (rows of a near-uniform softmax have
+    entries below the atol, which alone would pass them)."""
+    tol = FLASH_TOL[want.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _row_rel_err(got, want) <= tol
+
+
 def _flash_check(q, k, v, **kw):
-    n0 = ops.LAUNCHES["flash_attention"]
+    """One launch, counted under the kernel `flash_route` names; returns
+    the plain version's result."""
+    n0 = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    tc = flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc"
+    assert ops.LAUNCHES["flash_attention"] == n0["flash_attention"] + (not tc)
+    assert ops.LAUNCHES["flash_attention_tc"] == n0["flash_attention_tc"] + tc
     assert got.shape == q.shape and got.dtype == q.dtype
     want = ref.flash_attention_ref(q, k, v, **kw)
-    tol = FLASH_TOL[q.dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _flash_close(got, want)
+    return want
+
+
+def _fails_without_softcap(kernel, q, k, v, want, **kw):
+    """A planted fault: on logits past the cap, the kernel run without its
+    softcap must fail both of `_flash_close`'s tests against the plain
+    version with it, or the inputs could not tell a dropped softcap."""
+    bad = kernel(q, k, v, **dict(kw, softcap=None)).float()
+    w = want.float()
+    tol = FLASH_TOL[want.dtype]
+    assert not bool(torch.all((bad - w).abs() <= tol + tol * w.abs()))
+    assert _row_rel_err(bad, w) > tol
 
 
 @pytest.mark.gpu
@@ -219,6 +263,21 @@ def test_flash_attention_kernel_lm_decode(dtype):
     # a wrapped local ring: all 4,096 slots in slot order, window 4,096
     q, k, v = _qkv(gen, 2, 32, 16, 1, 4096, 128, dtype)
     _flash_check(q, k, v, causal=True, window=4096, softcap=50.0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_lm_decode_capped():
+    """The decode shapes on logits past softcap 50 (the CUDA-core kernel's
+    capped instance), with the planted fault."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for sk, clen, kw in ((4609, 4640, dict(causal=True, softcap=50.0)),
+                         (4096, None, dict(causal=True, window=4096,
+                                           softcap=50.0))):
+        q, k, v = _qkv(gen, 2, 32, 16, 1, sk, 128, torch.bfloat16,
+                       cache_len=clen, logit_std=CAP_LOGIT_STD)
+        want = _flash_check(q, k, v, **kw)
+        _fails_without_softcap(flash_attention_cuda, q, k, v, want, **kw)
 
 
 @pytest.mark.gpu
@@ -254,3 +313,123 @@ def test_flash_attention_refuses_what_it_does_not_take():
         ops.flash_attention(q.transpose(2, 3), k, k)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k, window=0)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel (csrc/flash_attention_tc.cu): bf16, head_dim 64 or
+# 128, which `flash_route` picks for Sq > 16; at bf16's 3e-2
+
+
+def _tc_check(q, k, v, **kw):
+    """Through the op, on the tensor-core route, then the kernel's own
+    wrapper, both against the plain version."""
+    assert flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc"
+    want = _flash_check(q, k, v, **kw)
+    direct = flash_attention_tc_cuda(q, k, v, **kw)
+    assert direct.stride() == q.stride()
+    _flash_close(direct, want)
+    return want
+
+
+TC_MASKS = [dict(causal=False), dict(causal=True),
+            dict(causal=True, window=1), dict(causal=True, window=63),
+            dict(causal=True, window=63, softcap=30.0),
+            dict(causal=True, window=4096, softcap=50.0),
+            dict(causal=False, softcap=50.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
+                                   (200, 333), (17, 300)])
+def test_flash_attention_tc_ragged(hd, group, sq, sk):
+    """Sq and Sk off the 64/128 tiles, Sq < Sk (q aligned to the end of k),
+    q transposed from (B, S, H, hd), k and v slices of a longer cache."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + 7 * group + sq)
+    q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, torch.bfloat16,
+                   cache_len=sk + 13)
+    for kw in TC_MASKS:
+        _tc_check(q, k, v, **kw)
+
+
+# logits past the cap: every softcap case of TC_MASKS
+TC_CAPPED_MASKS = [kw for kw in TC_MASKS if "softcap" in kw] + \
+    [dict(causal=True, softcap=50.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
+                                   (200, 333), (17, 300)])
+def test_flash_attention_tc_ragged_capped(hd, group, sq, sk):
+    """The ragged shapes on logits past the softcap, where the kernel's
+    capped instance (tanh, scale / cap, cap · log2 e) is told from the
+    uncapped one: each also fails without its softcap."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + 7 * group + sq + 1)
+    q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, torch.bfloat16,
+                   cache_len=sk + 13, logit_std=CAP_LOGIT_STD)
+    for kw in TC_CAPPED_MASKS:
+        want = _tc_check(q, k, v, **kw)
+        _fails_without_softcap(flash_attention_tc_cuda, q, k, v, want, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_tc_contiguous_layout(hd):
+    """(B, H, S, hd) contiguous tensors, as well as the model's views."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    q, k, v = (t.contiguous() for t in
+               _qkv(gen, 1, 4, 2, 250, 250, hd, torch.bfloat16))
+    _tc_check(q, k, v, causal=True, softcap=50.0)
+    _tc_check(q, k, v, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["global", "local"])
+def test_flash_attention_tc_lm_prefill(layer):
+    """Both [lm] prefill shapes (gemma2-27b: B 2, H 32, Kh 16, S 4,608,
+    hd 128, softcap 50; the local layer's window 4,096)."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = _qkv(gen, 2, 32, 16, 4608, 4608, 128, torch.bfloat16)
+    _tc_check(q, k, v, causal=True, softcap=50.0,
+              window=4096 if layer == "local" else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["global", "local"])
+def test_flash_attention_tc_lm_prefill_capped(layer):
+    """Both [lm] prefill shapes on logits past softcap 50, with the planted
+    fault."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v = _qkv(gen, 2, 32, 16, 4608, 4608, 128, torch.bfloat16,
+                   logit_std=CAP_LOGIT_STD)
+    kw = dict(causal=True, softcap=50.0,
+              window=4096 if layer == "local" else None)
+    want = _tc_check(q, k, v, **kw)
+    _fails_without_softcap(flash_attention_tc_cuda, q, k, v, want, **kw)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tc_refuses_what_it_does_not_take():
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 128, torch.bfloat16)
+    with pytest.raises(TypeError):                 # f32
+        flash_attention_tc_cuda(q.float(), k.float(), v.float())
+    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 80, torch.bfloat16)
+    with pytest.raises(ValueError):                # head_dim 80
+        flash_attention_tc_cuda(q, k, v)
+    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 256, torch.bfloat16)
+    with pytest.raises(ValueError):                # head_dim 256
+        flash_attention_tc_cuda(q, k, v)
+    # the op sends these to the CUDA-core kernel instead
+    n0 = ops.LAUNCHES["flash_attention_tc"]
+    ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention_tc"] == n0

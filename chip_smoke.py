@@ -33,13 +33,17 @@ Phases (any failure raises and the script exits non-zero):
                 every step), 32 greedy tokens, timed, with one
                 flash-attention launch per layer per step (the two
                 prefill calls on the tensor-core kernel, the 62 decode
-                calls on the CUDA-core one); (b) the same in f32, where
-                one fresh prefill of prompt + generated tokens must
-                reproduce the last decode step's logits.
-Phase 3 also holds both flash-attention kernels at the [lm] shapes and
-on ragged shapes, at two logit scales, one past the softcaps (where the
-kernel run without its softcap must fail the check), phase 4 the LM path
-on the card against the CPU at two smoke configs.
+                calls on the split-key decode kernel), then a
+                torch.profiler trace of decode steps (device time by
+                flash / GEMM / other, idle share); (b) the same in f32
+                (prefill on the CUDA-core kernel, decode on the decode
+                kernel), where one fresh prefill of prompt + generated
+                tokens must reproduce the last decode step's logits.
+Phase 3 also holds the three flash-attention kernels at the [lm] shapes
+and on ragged shapes, at two logit scales, one past the softcaps (where
+the kernel run without its softcap must fail the check), the decode
+kernel also bitwise against itself across calls; phase 4 the LM path on
+the card against the CPU at two smoke configs.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -67,7 +71,8 @@ from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
 from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_tc_cuda, flash_route)
+    decode_splits, flash_attention_cuda, flash_attention_tc_cuda,
+    flash_decode_cuda, flash_route)
 from repro_torch.kernels.quantize import (  # noqa: E402
     qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
@@ -448,9 +453,8 @@ def flash_close(name, got, want) -> tuple:
 
 def route_kernel(q):
     """The wrapper of the kernel `flash_route` sends q to (no count)."""
-    return (flash_attention_tc_cuda
-            if flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc"
-            else flash_attention_cuda)
+    return ops.FLASH_KERNELS[flash_route(q.dtype, q.shape[2],
+                                         q.shape[3])][0]
 
 
 def flash_planted_fault(name, q, k, v, kw, want) -> None:
@@ -470,20 +474,24 @@ def flash_planted_fault(name, q, k, v, kw, want) -> None:
 def check_flash(gen) -> list:
     """flash_attention against its plain version at the [lm] shapes
     (global and local prefill, decode over a cache slice and over a
-    wrapped ring) in f32 and bf16, so both routes of `flash_route` run:
-    bf16 prefill on the tensor-core kernel, the rest on the CUDA-core
-    kernel; in bf16 also on inputs whose logits reach the softcap, where
-    the route's kernel run without its softcap must fail the check.  Then
-    the tensor-core kernel on ragged bf16 shapes (hd 64/128, GQA group
-    1/2/8, Sq < Sk, windows 1/63/4,096, softcap on and off, non-causal)
-    and both kernels on ragged shapes at hd 64/80/256 in both dtypes, each
-    at both logit scales.  Timed at the [lm] shapes in bf16, the main
-    path's dtype: the kernel each route takes, its plain version and SDPA;
-    at the prefill shapes also the CUDA-core kernel, the route's "before";
-    and both kernels at short queries over the [lm] cache, either side of
-    the route's threshold.  Returns the JSON rows of both kernels: the
-    tensor-core one at the global prefill, the CUDA-core one at the global
-    decode step (the shapes the main path gives each)."""
+    wrapped ring) in f32 and bf16, so every route of `flash_route` runs:
+    decode steps on the split-key decode kernel, bf16 prefill on the
+    tensor-core kernel, f32 prefill on the CUDA-core kernel; in bf16 also
+    on inputs whose logits reach the softcap, where the route's kernel run
+    without its softcap must fail the check; the decode kernel twice on
+    the same inputs, bitwise equal.  Then the tensor-core kernel on ragged
+    bf16 shapes (hd 64/128, GQA group 1/2/8, Sq < Sk, windows 1/63/4,096,
+    softcap on and off, non-causal), the op on ragged shapes at hd
+    64/80/256 in both dtypes, and the decode kernel on ragged decode
+    shapes (hd 64/80/128/256, G 1/2/8, Sq 1/3/16, Sk 1/70/4,609, 1, 2 and
+    Sk splits), each at both logit scales.  Timed at the [lm] shapes in
+    bf16, the main path's dtype: the kernel each route takes, its plain
+    version and SDPA, and the CUDA-core kernel at the same shape (the
+    decode route's "before"); the decode kernel at other split counts;
+    and the two prefill kernels at short queries over the [lm] cache,
+    either side of the route's threshold.  Returns the JSON rows of the
+    three kernels: the decode kernel at the global decode step, the
+    tensor-core and the CUDA-core kernels at the global prefill."""
     a = get_config(LM["arch"]).attn
     b, s, h, kh, hd = LM["batch"], LM["prompt"], a.n_heads, a.n_kv_heads, \
         a.head_dim
@@ -506,8 +514,7 @@ def check_flash(gen) -> list:
             q, k, v = flash_inputs(gen, *shape, dt, cache_len=clen,
                                    logit_std=std)
             route = flash_route(dt, shape[3], shape[5])
-            counter = "flash_attention_tc" if route == "tc" else \
-                "flash_attention"
+            counter = ops.FLASH_COUNTERS[route]
             before = dict(ops.LAUNCHES)
             got = ops.flash_attention(q, k, v, **kw)
             launched = {c: ops.LAUNCHES[c] - before[c] for c in before
@@ -519,12 +526,19 @@ def check_flash(gen) -> list:
             want = ref.flash_attention_ref(q, k, v, **kw)
             err, rel = flash_close(f"flash_attention {name} {dt} logit sd "
                                    f"{std:g}", got, want)
-            del got
             line = (f"  flash_attention {name:27s} B={shape[0]} H={shape[1]} "
                     f"Kh={shape[2]} Sq={shape[3]:4d} Sk={shape[4]:4d} "
                     f"hd={shape[5]} {str(dt)[6:]:8s} logit sd {std:4g} "
                     f"route {route:9s} max|err| {err:.2e} row-rel {rel:.2e}")
-            if route == "tc":
+            if route == "decode":
+                again = flash_decode_cuda(q, k, v, **kw)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_decode {name} {dt}: two "
+                                         "calls differ")
+                line += "  bitwise equal across calls"
+                del again
+            del got
+            if route != "cuda_core":
                 err13, _ = flash_close(f"flash_attention_cuda {name} logit "
                                        f"sd {std:g}",
                                        flash_attention_cuda(q, k, v, **kw),
@@ -544,23 +558,42 @@ def check_flash(gen) -> list:
                 lib = sdpa_ms(q, k, v, causal=prefill)
                 what = ("causal" if prefill else "over the valid keys") + \
                     ", no softcap" + (", no window" if "window" in kw else "")
+                ms13 = time_ms(lambda: flash_attention_cuda(q, k, v, **kw))
                 line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                          f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
                          f"{flops / ms / 1e9:.1f} TFLOP/s)  SDPA ({what}) "
-                         f"{lib:.4f} ms")
-                if route == "tc":
-                    ms13 = time_ms(lambda: flash_attention_cuda(q, k, v,
-                                                                **kw))
-                    line += f"  CUDA-core kernel {ms13:.4f} ms"
-                if name in ("global prefill", "global decode"):
-                    rname = ("flash_attention_tc" if route == "tc" else
-                             "flash_attention_decode")
-                    rows[rname] = dict(
-                        name=rname, counter=counter, route="cuda",
-                        source=f"src/repro_torch/kernels/csrc/{counter}.cu",
-                        replaces="src/repro/kernels/flash_attention.py:118",
-                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by, library_ms=lib)
+                         f"{lib:.4f} ms  CUDA-core kernel {ms13:.4f} ms")
+                if route == "decode":
+                    ns = decode_splits(shape[0], shape[2], shape[4],
+                                       torch.cuda.get_device_properties(0)
+                                       .multi_processor_count)
+                    line += f"  ({ns} splits; at " + ", ".join(
+                        f"{n}: {time_ms(lambda: flash_decode_cuda(q, k, v, n_split=n, **kw)):.4f} ms"
+                        for n in (1, 4, 9, 16, 24, 48)) + ")"
+                    # the model's cache is (B, C, Kh, hd): a head's keys
+                    # lie Kh·hd apart; SDPA above reads contiguous copies
+                    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+                    line += ("  on contiguous copies "
+                             f"{time_ms(lambda: flash_decode_cuda(qc, kc, vc, **kw)):.4f} ms")
+                    del qc, kc, vc
+                row = dict(route="cuda", replaces="src/repro/kernels/"
+                           "flash_attention.py:118", plain_ms=plain,
+                           bound_ms=bnd, bound_by=by, library_ms=lib)
+                if name == "global decode":
+                    rows["flash_attention_decode"] = dict(
+                        row, name="flash_attention_decode", counter=counter,
+                        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                        max_abs_err=err, ms=ms)
+                if name == "global prefill":
+                    rows["flash_attention_tc"] = dict(
+                        row, name="flash_attention_tc", counter=counter,
+                        source="src/repro_torch/kernels/csrc/"
+                        "flash_attention_tc.cu", max_abs_err=err, ms=ms)
+                    rows["flash_attention"] = dict(
+                        row, name="flash_attention",
+                        counter="flash_attention",
+                        source="src/repro_torch/kernels/csrc/"
+                        "flash_attention.cu", max_abs_err=err13, ms=ms13)
             del want
             print(line, flush=True)
             del q, k, v
@@ -581,7 +614,8 @@ def check_flash(gen) -> list:
     n_checks = n_faults = 0
     for hd in (64, 128):
         for group in (1, 2, 8):
-            for sq, sk in ((37, 101), (77, 77), (130, 130), (200, 333)):
+            for sq, sk in ((37, 101), (77, 77), (130, 130), (200, 333),
+                           (80, 64), (96, 40)):
                 for std, kws in (
                         (LOGIT_STD, (dict(causal=False),
                                      dict(causal=True),
@@ -614,7 +648,8 @@ def check_flash(gen) -> list:
                              "tensor-core route")
     print(f"  flash_attention (tensor cores) ragged: bf16, hd 64/128 x GQA "
           f"group 1/2/8 x (Sq, Sk) (37, 101), (77, 77), (130, 130), "
-          f"(200, 333), cache slices transposed; logit sd {LOGIT_STD:g}: "
+          f"(200, 333), (80, 64), (96, 40) (Sq > Sk: rows with no key), "
+          f"cache slices transposed; logit sd {LOGIT_STD:g}: "
           f"non-causal, causal, window 1, window 63 + softcap 30, window "
           f"4096 + softcap 50; logit sd {CAP_LOGIT_STD:g}: the same with "
           f"softcaps, non-causal with softcap 50: {n_checks} checks within "
@@ -623,11 +658,13 @@ def check_flash(gen) -> list:
     for hd in (64, 80, 256):
         for group in (1, 2, 8):
             for dt in (torch.float32, torch.bfloat16):
-                for sq, sk in ((37, 101), (1, 70), (130, 130)):
+                for sq, sk in ((37, 101), (1, 70), (130, 130), (80, 64),
+                               (96, 40)):
                     for std, kws in (
                             (LOGIT_STD, (dict(causal=False),
                                          dict(causal=True, window=48,
-                                              softcap=30.0))),
+                                              softcap=30.0),
+                                         dict(causal=True))),
                             (CAP_LOGIT_STD, (dict(causal=False,
                                                   softcap=50.0),
                                              dict(causal=True, window=48,
@@ -641,16 +678,78 @@ def check_flash(gen) -> list:
                             want = ref.flash_attention_ref(q, k, v, **kw)
                             flash_close(tag, ops.flash_attention(q, k, v,
                                                                  **kw), want)
+                            flash_close(tag + " (CUDA-core kernel)",
+                                        flash_attention_cuda(q, k, v, **kw),
+                                        want)
                             if std == CAP_LOGIT_STD:
                                 flash_planted_fault(tag, q, k, v, kw, want)
                                 n_faults += 1
     print("  flash_attention ragged: hd 64/80/256 x GQA group 1/2/8 x f32/"
-          "bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), non-causal and "
-          f"causal + window 48 + softcap 30 at logit sd {LOGIT_STD:g}, "
-          f"non-causal + softcap 50 and causal + window 48 + softcap 30 at "
-          f"logit sd {CAP_LOGIT_STD:g}: all within tolerance, {n_faults} "
-          "without the softcap fail it", flush=True)
-    return [rows["flash_attention_decode"], rows["flash_attention_tc"]]
+          "bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), (80, 64), "
+          "(96, 40), through the op (each on its route) and on the "
+          "CUDA-core kernel; non-causal, causal + window 48 + softcap 30 "
+          f"and causal at logit sd {LOGIT_STD:g}, non-causal + softcap 50 "
+          f"and causal + window 48 + softcap 30 at logit sd "
+          f"{CAP_LOGIT_STD:g}: all within tolerance, {n_faults} without "
+          "the softcap fail it", flush=True)
+    n_dec = ops.LAUNCHES["flash_attention_decode"]
+    n_checks = n_ops = n_faults = 0
+    for hd in (64, 80, 128, 256):
+        for group in (1, 2, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                for sq in (1, 3, 16):
+                    for sk in (1, 70, 4609):
+                        for std, kws in (
+                                (LOGIT_STD, (dict(causal=False),
+                                             dict(causal=True, window=48,
+                                                  softcap=30.0))),
+                                (CAP_LOGIT_STD, (dict(causal=False,
+                                                      softcap=30.0),
+                                                 dict(causal=True,
+                                                      window=48,
+                                                      softcap=30.0)))):
+                            if std == CAP_LOGIT_STD and sk == 1:
+                                continue    # one key: no softcap to tell
+                            q, k, v = flash_inputs(gen, 2, 2 * group, 2, sq,
+                                                   sk, hd, dt,
+                                                   cache_len=sk + 5,
+                                                   logit_std=std)
+                            for kw in kws:
+                                tag = (f"flash_decode hd={hd} G={group} "
+                                       f"Sq={sq} Sk={sk} logit sd {std:g} "
+                                       f"{kw} {dt}")
+                                want = ref.flash_attention_ref(q, k, v, **kw)
+                                flash_close(tag, ops.flash_attention(
+                                    q, k, v, **kw), want)
+                                n_ops += 1
+                                if std == CAP_LOGIT_STD:
+                                    flash_planted_fault(tag, q, k, v, kw,
+                                                        want)
+                                    n_faults += 1
+                                    continue
+                                for ns in (1, 2, sk):
+                                    flash_close(f"{tag} n_split={ns}",
+                                                flash_decode_cuda(
+                                                    q, k, v, n_split=ns,
+                                                    **kw), want)
+                                    n_checks += 1
+                                if kw["causal"] and sq > sk and \
+                                        bool(want[:, :, :sq - sk].any()):
+                                    raise AssertionError(f"{tag}: rows with "
+                                                         "no key are not 0")
+    if ops.LAUNCHES["flash_attention_decode"] - n_dec != n_ops:
+        raise AssertionError("ragged decode did not all take the decode "
+                             "route")
+    print(f"  flash_attention (decode kernel) ragged: hd 64/80/128/256 x GQA "
+          f"group 1/2/8 x f32/bf16 x Sq 1/3/16 x Sk 1/70/4609 (Sk < Sq "
+          f"included), cache slices transposed; logit sd {LOGIT_STD:g}: "
+          f"non-causal and causal + window 48 + softcap 30, through the op "
+          f"and at 1, 2 and Sk splits; logit sd {CAP_LOGIT_STD:g} (Sk > 1): "
+          f"non-causal + softcap 30 and causal + window 48 + softcap 30: "
+          f"{n_ops + n_checks} checks within tolerance, {n_faults} without "
+          "the softcap fail it", flush=True)
+    return [rows["flash_attention_decode"], rows["flash_attention_tc"],
+            rows["flash_attention"]]
 
 
 # ---------------------------------------------------------------------------
@@ -780,7 +879,7 @@ def lm_agreement() -> None:
                                device="cpu")
         prompt = torch.randint(0, cfg.vocab_size, (2, 96),
                                generator=torch.Generator().manual_seed(4))
-        flash = ("flash_attention", "flash_attention_tc")
+        flash = tuple(ops.FLASH_COUNTERS.values())
         before = sum(ops.LAUNCHES[c] for c in flash)
         a = generate(params, cfg, prompt, 9, 128, return_logits=True)
         b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
@@ -804,11 +903,77 @@ def lm_agreement() -> None:
               f"{launched} flash launches)", flush=True)
 
 
+def profile_decode(params, cfg, prompt, clen: int, card: str,
+                   step_ms: float, steps: int = 8) -> None:
+    """One torch.profiler trace of ``steps`` decode steps after a prefill:
+    the device-busy time a step, split into flash attention, GEMM (cuBLAS)
+    and other kernels, and the device's idle share of ``step_ms``, the
+    step's wall in the timed run without the profiler (the wall under the
+    profiler, which slows the host, is printed beside it)."""
+    b, plen = prompt.shape
+    caches = T.make_caches(cfg, b, clen, cfg.cdtype, device="cuda")
+    logits, caches = T.prefill(params, cfg, {"tokens": prompt}, caches)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    for i in range(2):                                   # warm-up steps
+        logits, caches = T.decode_step(params, cfg, tok, caches, plen + i)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, caches = T.decode_step(params, cfg, tok, caches,
+                                           plen + 2 + i)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"  (a) profiler: no device events in the trace; device "
+              f"split and idle share not measured ({card})", flush=True)
+        return
+    split = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
+    by_name = {}
+    spans = []
+    for e in kernels:
+        n = e.name.lower()
+        us = e.time_range.end - e.time_range.start
+        cat = ("flash" if "decode_partials" in n or "decode_merge" in n or
+               "flash" in n else
+               "GEMM" if any(w in n for w in ("gemm", "gemv", "xmma", "nvjet",
+                                               "cutlass", "cublas",
+                                               "splitk")) else "other")
+        split[cat] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    busy_ms = busy / 1e3 / steps
+    print(f"  (a) profiler, {steps} decode steps ({card}): device busy "
+          f"{busy_ms:.3f} ms a step: flash {split['flash'] / 1e3 / steps:.3f}"
+          f" ms, GEMM {split['GEMM'] / 1e3 / steps:.3f} ms, other "
+          f"{split['other'] / 1e3 / steps:.3f} ms; {len(kernels) / steps:.0f}"
+          f" kernels a step; device idle {1 - busy_ms / step_ms:.1%} of the "
+          f"timed step ({step_ms:.3f} ms); under the profiler the step's "
+          f"wall is {wall * 1e3 / steps:.3f} ms", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        print(f"      {us / 1e3 / steps:8.4f} ms a step  {name[:110]}",
+              flush=True)
+
+
 def lm_path(card: str) -> dict:
-    """[lm] (a) bf16 timed, (b) f32 self-consistency; returns the flash
-    launches of (a), the main path's run, by kernel: {"flash_attention":
-    the CUDA-core kernel's, "flash_attention_tc": the tensor-core
-    kernel's}."""
+    """[lm] (a) bf16 timed, then a profiler trace of decode steps, and (b)
+    f32 self-consistency; returns the flash launches of (a) plus those of
+    (b), each counted from 0, by kernel counter."""
     full = get_config(LM["arch"])
     cfg = dataclasses.replace(full, n_layers=2)
     assert [cfg.attn_window(i) for i in range(2)] == [4096, None]
@@ -825,6 +990,7 @@ def lm_path(card: str) -> dict:
         return T.init_params(torch.Generator(device="cuda")
                              .manual_seed(LM["seed"]), c, device="cuda")
 
+    counters = tuple(ops.FLASH_COUNTERS.values())
     params = init(cfg)
     n_params = sum(t.numel() for t in
                    [params["embed"], params["final_norm"]["scale"]] +
@@ -835,13 +1001,12 @@ def lm_path(card: str) -> dict:
     ops.reset_launches()           # counts from here on are [lm] (a)'s
     torch.cuda.reset_peak_memory_stats()
     res = generate(params, cfg, prompt, n, clen, return_logits=True)
-    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
-                                             "flash_attention_tc")}
+    launches = {k: ops.LAUNCHES[k] for k in counters}
     peak = torch.cuda.max_memory_allocated()
     # one launch per layer per step: the bf16 prefill on the tensor cores,
-    # the decode steps on the CUDA cores
-    want = {"flash_attention": (n - 1) * cfg.n_layers,
-            "flash_attention_tc": cfg.n_layers}
+    # the decode steps on the split-key decode kernel
+    want = {"flash_attention_decode": (n - 1) * cfg.n_layers,
+            "flash_attention_tc": cfg.n_layers, "flash_attention": 0}
     if launches != want or sum(launches.values()) != n * cfg.n_layers:
         raise AssertionError(f"[lm] flash launches {launches}, want {want}")
     if res.tokens.shape != (b, n) or not bool(
@@ -854,35 +1019,45 @@ def lm_path(card: str) -> dict:
           f"{res.prefill_s * 1e3:.2f} ms ({b}x{plen} tokens); decode "
           f"{res.decode_s * 1e3 / steps:.3f} ms/token-step, "
           f"{steps * b / res.decode_s:.1f} tok/s ({steps} steps x{b}); "
-          f"flash launches {sum(launches.values())} "
-          f"({launches['flash_attention_tc']} on the tensor-core kernel, "
-          f"{launches['flash_attention']} on the CUDA-core one); peak "
-          f"memory {peak / 2**30:.2f} GiB; "
+          f"flash launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
           f"sample {res.tokens[0, :12].tolist()}", flush=True)
-    del params, res
+    step_ms = res.decode_s * 1e3 / steps
+    del res
+    profile_decode(params, cfg, prompt, clen, card, step_ms)
+    del params
     torch.cuda.empty_cache()
 
     cfg32 = cfg.with_dtypes("float32", "float32")
     params = init(cfg32)
+    ops.reset_launches()           # and from here on [lm] (b)'s
     res = generate(params, cfg32, prompt, n, clen, return_logits=True)
     tokens = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
     logits, _ = T.prefill(params, cfg32, {"tokens": tokens},
                           T.make_caches(cfg32, b, clen, torch.float32,
                                         device="cuda"))
+    launches_b = {k: ops.LAUNCHES[k] for k in counters}
+    # f32: both prefills on the CUDA-core kernel, the decode steps on the
+    # decode kernel
+    want = {"flash_attention_decode": (n - 1) * cfg.n_layers,
+            "flash_attention_tc": 0, "flash_attention": 2 * cfg.n_layers}
+    if launches_b != want:
+        raise AssertionError(f"[lm] (b) flash launches {launches_b}, want "
+                             f"{want}")
     want = res.logits[-1]
     d = (logits[:, -1] - want).abs()
     if not bool(torch.all(d <= LM_SELF_TOL + LM_SELF_TOL * want.abs())):
         raise AssertionError(f"[lm] (b) fresh prefill differs from the last "
                              f"decode step by {float(d.max()):.3e}")
-    print(f"  (b) f32: fresh prefill of {tokens.shape[1]} tokens reproduces "
-          f"the last decode step's logits (max |Δ| {float(d.max()):.3e}, "
-          f"tolerance {LM_SELF_TOL}; |logits| up to "
-          f"{float(want.abs().max()):.2f}); prefill "
+    print(f"  (b) f32: fresh prefill of {tokens.shape[1]} tokens (CUDA-core "
+          f"kernel) reproduces the last decode step's logits (decode "
+          f"kernel; max |Δ| {float(d.max()):.3e}, tolerance {LM_SELF_TOL}; "
+          f"|logits| up to {float(want.abs().max()):.2f}); prefill "
           f"{res.prefill_s * 1e3:.2f} ms, decode "
-          f"{res.decode_s * 1e3 / steps:.3f} ms/token-step", flush=True)
+          f"{res.decode_s * 1e3 / steps:.3f} ms/token-step; flash launches "
+          f"{launches_b}", flush=True)
     del params, res, logits
     torch.cuda.empty_cache()
-    return launches
+    return {k: launches[k] + launches_b[k] for k in counters}
 
 
 def main_path(fed, fl) -> dict:
@@ -963,8 +1138,8 @@ def channel_path(fed, fl, base_clock: list) -> None:
         wall = time.perf_counter() - t0
         launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
         want_launch["mixing_aggregate"] = rounds * MAIN["leaves"]
-        want_launch["flash_attention"] = 0
-        want_launch["flash_attention_tc"] = 0
+        for c in ops.FLASH_COUNTERS.values():
+            want_launch[c] = 0
         if launched != want_launch:
             raise AssertionError(f"{spec}: launches {launched}, want "
                                  f"{want_launch}")

@@ -1,23 +1,25 @@
 """CUDA wrappers of the flash-attention kernels and the rule between them.
 
 Counterpart of `repro/kernels/flash_attention.py` (the Pallas kernel), by
-two kernels: ``csrc/flash_attention_tc.cu`` (bf16 on the tensor cores,
-`flash_attention_tc_cuda`) and ``csrc/flash_attention.cu`` (f32 CUDA
-cores, any head_dim up to 256, `flash_attention_cuda`).  `flash_route`
-states which one a call takes.  Both take q (B, H, Sq, hd) and k, v
-(B, Kh, Sk, hd) as strided views (unit stride on hd), so the model hands
-over its (B, S, H, hd) activations and slices of its (B, C, Kh, hd)
-caches transposed, without a copy.  Each checks what its kernel takes,
-allocates the output with q's layout and launches on PyTorch's current
-stream.  The TPU wrapper's padding of Sq and Sk to its blocks has no
-counterpart: the kernels mask their own ragged edges.  Callers go through
-`kernels.ops.flash_attention`.
+three kernels: ``csrc/flash_decode.cu`` (Sq <= 16: split keys, then
+merge; `flash_decode_cuda`), ``csrc/flash_attention_tc.cu`` (bf16 prefill
+on the tensor cores, `flash_attention_tc_cuda`) and
+``csrc/flash_attention.cu`` (f32 CUDA cores, any head_dim up to 256,
+`flash_attention_cuda`).  `flash_route` states which one a call takes.
+Each takes q (B, H, Sq, hd) and k, v (B, Kh, Sk, hd) as strided views
+(unit stride on hd), so the model hands over its (B, S, H, hd)
+activations and slices of its (B, C, Kh, hd) caches transposed, without a
+copy.  Each checks what its kernel takes, allocates the output with q's
+layout (and the decode kernel's workspace) and launches on PyTorch's
+current stream.  The TPU wrapper's padding of Sq and Sk to its blocks has
+no counterpart: the kernels mask their own ragged edges.  Callers go
+through `kernels.ops.flash_attention`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -27,26 +29,51 @@ MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535          # heads on the grid's y, batch rows on its z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernel
-TC_MIN_SQ = 17               # shorter queries (decode steps) stay off it
-# both C entries: q, k, v, out, strides, B, H, Kh, Sq, Sk, hd, causal,
-# window, scale, softcap, dtype, stream
+DECODE_MAX_SQ = 16           # queries of the decode kernel (decode steps)
+DECODE_MIN_KEYS = 128        # keys a decode split keeps at least
+DECODE_BLOCKS_PER_SM = 3     # decode blocks a split count aims for
+# the C entries: q, k, v, out, strides, B, H, Kh, Sq, Sk, hd, causal,
+# window, scale, softcap, dtype, stream; the decode kernel's adds its
+# workspace and n_split
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
     [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_EXTRA_ARGTYPES = {"flash_decode": [ctypes.c_void_p, ctypes.c_int]}
 _bound = set()
+_n_sm: Dict[int, int] = {}
 
 
 def flash_route(dtype: torch.dtype, sq: int, hd: int) -> str:
-    """Which kernel a CUDA call takes: ``"tc"`` (the tensor-core kernel)
-    iff the inputs are bf16, Sq > 16 and head_dim is 64 or 128, else
-    ``"cuda_core"`` (decode steps, f32, head_dim 80 or 256).  The Sq
-    threshold keeps decode steps on the kernel built for them; from Sq 17
-    up the tensor-core kernel is the faster of the two (both are timed at
-    Sq 17, 32, 64 and 128 over the serving cache by ``chip_smoke.py``;
-    PERF.md has the times), and below it neither has been timed against
-    the other."""
-    if dtype == torch.bfloat16 and sq >= TC_MIN_SQ and hd in TC_HEAD_DIMS:
+    """Which kernel a CUDA call takes: ``"decode"`` (the split-key decode
+    kernel) iff Sq <= 16, in either dtype and at any head_dim; else
+    ``"tc"`` (the tensor-core kernel) iff the inputs are bf16 and head_dim
+    is 64 or 128; else ``"cuda_core"`` (f32 prefill, bf16 prefill at
+    head_dim 80 or 256).  From Sq 17 up the tensor-core kernel is the
+    faster of the two prefill kernels (both are timed at Sq 17, 32, 64 and
+    128 over the serving cache by ``chip_smoke.py``; PERF.md has the
+    times)."""
+    if sq <= DECODE_MAX_SQ:
+        return "decode"
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
         return "tc"
     return "cuda_core"
+
+
+def decode_splits(b: int, kh: int, sk: int, n_sm: int) -> int:
+    """Key splits of the decode kernel: as many as keep the (batch row, KV
+    head) pairs' blocks within three a SM (one wave), each split keeping
+    at least 128 keys; ``clamp(floor(3·n_sm / (B·Kh)), 1, ceil(Sk /
+    128))``.  Three blocks a SM and the floor were tuned on the card
+    (PERF.md): a second wave of blocks costs more than it spreads."""
+    want = DECODE_BLOCKS_PER_SM * n_sm // (b * kh)
+    return max(1, min(want, -(-sk // DECODE_MIN_KEYS)))
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]
 
 
 def _entry(name: str):
@@ -54,7 +81,7 @@ def _entry(name: str):
     bound on first use."""
     fn = getattr(_build.load(name), f"repro_{name}")
     if name not in _bound:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES + _EXTRA_ARGTYPES.get(name, [])
         fn.restype = ctypes.c_int
         _bound.add(name)
     return fn
@@ -75,9 +102,13 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: Optional[int], softcap: Optional[float],
-            dtypes: tuple, head_dims: Optional[tuple]) -> torch.Tensor:
+            dtypes: tuple, head_dims: Optional[tuple],
+            max_sq: Optional[int] = None,
+            n_split: Optional[int] = None) -> torch.Tensor:
     """Check what kernel ``name`` takes (``dtypes``; ``head_dims``, or
-    None for any multiple of 8 up to 256), then launch it."""
+    None for any multiple of 8 up to 256; ``max_sq``, or None for any
+    Sq), then launch it.  ``n_split`` is the decode kernel's: its
+    workspace is allocated here."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -101,12 +132,24 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, h, sq, sk) < 1 or max(b, h) > MAX_GRID_YZ:
         raise ValueError(f"empty or oversized shape B={b}, H={h}, Sq={sq}, "
                          f"Sk={sk}")
+    if max_sq is not None and sq > max_sq:
+        raise ValueError(f"{name}: takes at most {max_sq} queries, got "
+                         f"Sq={sq}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not float(softcap) > 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(arg, t)
+    extra = ()
+    if name == "flash_decode":
+        if n_split is None:
+            n_split = decode_splits(b, kh, sk, _sm_count(q.device))
+        if int(n_split) < 1:
+            raise ValueError(f"n_split must be >= 1, got {n_split}")
+        ws = torch.empty((b, h, sq, int(n_split), hd + 2),
+                         dtype=torch.float32, device=q.device)
+        extra = (ws.data_ptr(), int(n_split))
     fn = _entry(name)
     out = torch.empty_like(q)
     _check_layout("out", out)
@@ -118,7 +161,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  strides, b, h, kh, sq, sk, hd, int(bool(causal)),
                  0 if window is None else int(window), 1.0 / math.sqrt(hd),
                  0.0 if softcap is None else float(softcap),
-                 _DTYPES[q.dtype], stream)
+                 _DTYPES[q.dtype], stream, *extra)
     _build.check(err, name)
     return out
 
@@ -142,3 +185,17 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
     head_dim 64 or 128 only (raises on anything else)."""
     return _launch("flash_attention_tc", q, k, v, causal, window, softcap,
                    (torch.bfloat16,), TC_HEAD_DIMS)
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      n_split: Optional[int] = None) -> torch.Tensor:
+    """The split-key decode kernel: as `flash_attention_cuda`, for
+    Sq <= 16 only (raises on more).  The keys are cut into ``n_split``
+    contiguous ranges (default `decode_splits` on this card's SM count)
+    whose partials are merged in split order, so the result is bitwise
+    the same from call to call."""
+    return _launch("flash_decode", q, k, v, causal, window, softcap,
+                   tuple(_DTYPES), None, max_sq=DECODE_MAX_SQ,
+                   n_split=n_split)

@@ -16,9 +16,12 @@ that its path went through the kernels:
 The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
 ``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
 (one per top-k uplink).  The LM path adds one launch per attention layer
-per prefill or decode step, counted under the kernel `flash_route` picks:
-``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
-``flash_attention`` (the CUDA-core kernel, everything else).
+per prefill or decode step, counted under the kernel `flash_route` picks
+(``FLASH_COUNTERS``): ``flash_attention_decode`` (the split-key decode
+kernel, Sq <= 16; one count a call, though it makes two launches, the
+partials and the merge), ``flash_attention_tc`` (the tensor-core kernel,
+bf16 prefill) or ``flash_attention`` (the CUDA-core kernel, the other
+prefills).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_tc_cuda,
+                                                 flash_decode_cuda,
                                                  flash_route)
 from repro_torch.kernels.mixing_aggregate import mixing_aggregate_cuda
 from repro_torch.kernels.pairwise_sqdist import gram_matrix_cuda
@@ -40,7 +44,13 @@ from repro_torch.kernels.topk_threshold import topk_threshold_cuda
 LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0,
                             "rowwise_absmax": 0, "qsgd_quantize": 0,
                             "qsgd_dequantize": 0, "topk_threshold": 0,
-                            "flash_attention": 0, "flash_attention_tc": 0}
+                            "flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_decode": 0}
+# `flash_route`'s answer -> (the kernel's wrapper, its count in LAUNCHES)
+FLASH_KERNELS = {"decode": (flash_decode_cuda, "flash_attention_decode"),
+                 "tc": (flash_attention_tc_cuda, "flash_attention_tc"),
+                 "cuda_core": (flash_attention_cuda, "flash_attention")}
+FLASH_COUNTERS = {route: c for route, (_, c) in FLASH_KERNELS.items()}
 
 
 def reset_launches() -> None:
@@ -134,23 +144,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to the end of k, GQA by h // (H / Kh); causal, sliding window
     (k_pos > q_pos − window) and tanh logit softcap.  Strided views are
     taken as they are on CUDA; the output has q's dtype (and layout).  On
-    CUDA, `flash_route` picks the kernel: bf16 prefill (Sq > 16, head_dim
-    64 or 128) on the tensor cores, everything else on the CUDA cores."""
+    CUDA, `flash_route` picks the kernel: decode steps (Sq <= 16) on the
+    split-key decode kernel, bf16 prefill (head_dim 64 or 128) on the
+    tensor cores, the other prefills on the CUDA cores."""
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    if flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc":
-        out = flash_attention_tc_cuda(q, k, v, causal=causal, window=window,
-                                      softcap=softcap)
-        LAUNCHES["flash_attention_tc"] += 1
-    else:
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
-        LAUNCHES["flash_attention"] += 1
+    kernel, counter = FLASH_KERNELS[flash_route(q.dtype, q.shape[2],
+                                                q.shape[3])]
+    out = kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+    LAUNCHES[counter] += 1
     return out
 
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_route", "gram_matrix",
-           "mixing_aggregate", "pairwise_sqdist", "qsgd_dequantize",
-           "qsgd_quantize", "qsgd_roundtrip", "ref", "reset_launches",
-           "rowwise_absmax", "topk_threshold"]
+__all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "flash_attention",
+           "flash_route", "gram_matrix", "mixing_aggregate",
+           "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",
+           "qsgd_roundtrip", "ref", "reset_launches", "rowwise_absmax",
+           "topk_threshold"]

@@ -109,12 +109,10 @@ def topk_threshold_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
-    """Plain SDPA: q (B, H, Sq, hd), k and v (B, Kh, Sk, hd), GQA group
-    G = H / Kh, q aligned to the end of k; f32 logits and softmax, output
-    in q's dtype.  The (B, Kh, G, Sq, Sk) logits are materialised, once."""
+def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int], softcap: Optional[float]):
+    """The (B, Kh, G, Sq, Sk) f32 logits, scaled and capped, and the
+    (Sq, Sk) mask of valid keys (q aligned to the end of k)."""
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kh, h // kh, sq, hd).float()
@@ -129,8 +127,61 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid &= k_pos <= q_pos
     if window is not None:
         valid &= k_pos > q_pos - window
+    return logits, valid
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain SDPA: q (B, H, Sq, hd), k and v (B, Kh, Sk, hd), GQA group
+    G = H / Kh, q aligned to the end of k; f32 logits and softmax, output
+    in q's dtype.  A query row with no valid key (causal with Sq > Sk:
+    the first Sq − Sk rows) comes out 0, as the Pallas kernel's guards
+    give it.  The (B, Kh, G, Sq, Sk) logits are materialised, once."""
+    b, h, sq, hd = q.shape
+    logits, valid = _logits(q, k, causal, window, softcap)
     logits.masked_fill_(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
+    out.masked_fill_(~valid.any(-1)[:, None], 0.0)
+    return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     n_split: int, causal: bool = True,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """`flash_attention_ref`'s function computed as the decode kernel
+    computes it: the keys cut into ``n_split`` contiguous ranges of
+    ``ceil(Sk / n_split)`` (the last ones may be short or empty); per
+    range the row max m (NEG_INF when nothing is valid), l = Σ p and
+    acc = Σ p·v with p = exp(s − m_safe) on valid keys; then the merge
+    w_s = exp(m_s − m*_safe) (0 for a masked range), out = Σ w_s·acc_s /
+    max(Σ w_s·l_s, 1e-30).  A row with no valid key comes out 0."""
+    if int(n_split) < 1:
+        raise ValueError(f"n_split must be >= 1, got {n_split}")
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    chunk = -(-sk // n_split)
+    pad = n_split * chunk - sk
+    logits, valid = _logits(q, k, causal, window, softcap)
+    logits = torch.nn.functional.pad(logits, (0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad))      # pads False
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    s = logits.reshape(b, kh, h // kh, sq, n_split, chunk)
+    ok = valid.reshape(sq, n_split, chunk)
+    s = s.masked_fill(~ok, NEG_INF)
+    m = s.amax(-1)                                   # (b, kh, g, sq, n)
+    m_safe = torch.where(m <= NEG_INF, torch.zeros_like(m), m)
+    p = torch.where(ok, torch.exp(s - m_safe[..., None]),
+                    torch.zeros_like(s))
+    l_s = p.sum(-1)
+    acc = torch.einsum("bkgqnc,bkncd->bkgqnd", p,
+                       vf.reshape(b, kh, n_split, chunk, hd))
+    m_star = m.amax(-1, keepdim=True)
+    m_star = torch.where(m_star <= NEG_INF, torch.zeros_like(m_star), m_star)
+    w = torch.where(m <= NEG_INF, torch.zeros_like(m), torch.exp(m - m_star))
+    l = (w * l_s).sum(-1)
+    out = (w[..., None] * acc).sum(-2) / l.clamp_min(1e-30)[..., None]
     return out.reshape(b, h, sq, hd).to(q.dtype)

@@ -4,11 +4,17 @@ On the CPU the port's `ops.flash_attention` runs its plain version
 (`kernels.ref.flash_attention_ref`); the reference's runs its Pallas kernel
 in interpret mode (slow on the CPU, so a few small cases).  The same numpy
 inputs go through both.  Tolerances are `tests/test_kernels.py`'s: f32
-2e-5, bf16 3e-2.  `flash_route`, the rule between the two CUDA kernels, is
-tested on both sides of each condition; the kernels are held against the
-plain version on the card in `tests/test_torch_gpu.py` and by
-`chip_smoke.py`.
+2e-5, bf16 3e-2.  Causal cases with Sq > Sk hold the rows that have no
+valid key at 0, as the Pallas kernel gives them.  `flash_decode_ref`, the
+decode kernel's split-and-merge arithmetic in plain torch, is held
+against the Pallas kernel too, with whole splits and rows masked.
+`flash_route`, the rule between the three CUDA kernels, and
+`decode_splits` are tested on both sides of each condition; the kernels
+are held against the plain version on the card in
+`tests/test_torch_gpu.py` and by `chip_smoke.py`.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_route
+from repro_torch.kernels.flash_attention import decode_splits, flash_route
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -40,8 +46,10 @@ def _both(q, k, v, dtype, **kw):
 
 # (G, causal, window, softcap, Sq, Sk, hd, dtype): GQA groups 1/2/4,
 # causal and not, window 64, softcap 30, Sq < Sk, Sq = 1, hd 64 and 80; the
-# last three are bf16 shapes the tensor-core route takes on CUDA (hd 64 and
-# 128, Sq 17, window 1 and 63, softcap 50)
+# next three are bf16 shapes the tensor-core route takes on CUDA (hd 64 and
+# 128, Sq 17, window 1 and 63, softcap 50); the last three are causal with
+# Sq > Sk, whose first Sq − Sk rows see no key (the last a decode-route
+# shape)
 CASES = [
     (1, True, None, None, 64, 64, 64, "float32"),
     (2, True, 64, 30.0, 128, 128, 64, "float32"),
@@ -54,6 +62,9 @@ CASES = [
     (2, True, 63, 50.0, 37, 101, 128, "bfloat16"),
     (1, False, None, None, 17, 40, 64, "bfloat16"),
     (4, True, 1, None, 70, 70, 64, "bfloat16"),
+    (2, True, None, None, 96, 40, 64, "float32"),
+    (1, True, 16, None, 80, 64, 64, "bfloat16"),
+    (2, True, None, None, 8, 3, 64, "float32"),
 ]
 
 
@@ -69,8 +80,12 @@ def test_flash_attention_matches_pallas(group, causal, window, softcap, sq,
                                   for a in (q, k, v)), qblk=64, kblk=64, **kw)
     np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    if causal and sq > sk:                 # no valid key: exactly 0
+        assert not np.any(got[:, :, :sq - sk])
 
 
+# Sq < Sk: there the reference's own plain version and its kernel agree
+# (on rows with no valid key they differ, and the kernel is the contract)
 @pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, None, None), (True, 64, 30.0), (False, None, 30.0),
@@ -90,7 +105,7 @@ def test_flash_attention_ref_matches_reference_ref(group, causal, window,
 def test_flash_attention_op_takes_strided_views_on_cpu():
     """The model hands over (B, S, H, hd) tensors transposed; the op's
     result does not depend on the layout.  In bf16 the shape is one the
-    tensor-core route takes on CUDA; on the CPU neither kernel launches."""
+    tensor-core route takes on CUDA; on the CPU no kernel launches."""
     q, k, v = _inputs(3, 2, 4, 2, 20, 20, 64)
     for dt in (torch.float32, torch.bfloat16):
         qt, kt, vt = (torch.from_numpy(a).to(dt) for a in (q, k, v))
@@ -102,15 +117,82 @@ def test_flash_attention_op_takes_strided_views_on_cpu():
     assert flash_route(torch.bfloat16, 20, 64) == "tc"
     assert ops.LAUNCHES["flash_attention"] == 0     # no kernel on the CPU
     assert ops.LAUNCHES["flash_attention_tc"] == 0
+    assert ops.LAUNCHES["flash_attention_decode"] == 0
 
 
-# the rule between the two CUDA kernels: the tensor-core kernel iff bf16,
-# Sq > 16 and head_dim 64 or 128; each condition on both sides
+# the decode kernel's split-and-merge arithmetic (`flash_decode_ref`)
+# against the Pallas kernel and the plain version: Sk 40 (window 5, shorter
+# than a split of 7 or Sk, masks whole splits) and Sk 2 (causal: with
+# Sq 3 and 16 the first rows see no key; with 7 or Sk splits the last are
+# empty)
+DECODE_MASKS = [(False, None, None, "float32"),
+                (True, 5, 30.0, "float32"),
+                (True, None, None, "bfloat16")]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(sq, group, sk, causal, window, softcap, dtype):
+    """Inputs and the Pallas kernel's result (interpret mode), shared by
+    the n_split cases."""
+    q, k, v = _inputs(sq * 31 + group + sk, 1, 2 * group, 2, sq, sk, 32)
+    jdt = jnp.dtype(dtype)
+    want = jops.flash_attention(*(jnp.asarray(a).astype(jdt)
+                                  for a in (q, k, v)), qblk=64, kblk=64,
+                                causal=causal, window=window, softcap=softcap)
+    return (q, k, v), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 7, "sk"])
+@pytest.mark.parametrize("sq", [1, 3, 16])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_flash_decode_ref_matches_pallas(n_split, sq, group):
+    for sk in (40, 2):
+        for causal, window, softcap, dtype in DECODE_MASKS:
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            (q, k, v), want = _decode_case(sq, group, sk, causal, window,
+                                           softcap, dtype)
+            tdt = getattr(torch, dtype)
+            qt, kt, vt = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+            got = ref.flash_decode_ref(
+                qt, kt, vt, n_split=sk if n_split == "sk" else n_split, **kw)
+            assert got.dtype == tdt and got.shape == qt.shape
+            got = got.float().numpy()
+            tol = TOL[dtype]
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+            plain = ref.flash_attention_ref(qt, kt, vt, **kw).float().numpy()
+            np.testing.assert_allclose(got, plain, rtol=tol, atol=tol)
+            if causal and sq > sk:
+                assert not np.any(got[:, :, :sq - sk])
+
+
+# decode_splits: floor(3·n_sm / (B·Kh)), at most ceil(Sk / 128), at least
+# 1; each clamp and the floor from both sides
+@pytest.mark.parametrize("b,kh,sk,n_sm,want", [
+    (2, 16, 4609, 132, 12),      # the [lm] global decode: 384 blocks
+    (2, 16, 4096, 132, 12),      # the [lm] local (wrapped ring) decode
+    (2, 66, 4609, 132, 3),       # 396 blocks: three a SM
+    (2, 67, 4609, 132, 2),       # 3·132 / 134 is 2.96: floor
+    (1, 1, 4609, 132, 37),       # capped by Sk / 128
+    (1, 1, 4736, 132, 37),       # 37 · 128 keys: still 37
+    (1, 1, 4737, 132, 38),
+    (1, 8, 100, 132, 1),         # short cache: one split
+    (1, 8, 129, 132, 2),
+    (64, 16, 4609, 132, 1),      # more (b, kh) pairs than 3 a SM: one
+    (1, 1, 1, 1, 1),
+])
+def test_decode_splits(b, kh, sk, n_sm, want):
+    assert decode_splits(b, kh, sk, n_sm) == want
+
+
+# the rule between the three CUDA kernels: the decode kernel iff Sq <= 16;
+# else the tensor-core kernel iff bf16 and head_dim 64 or 128; else the
+# CUDA-core kernel; each condition on both sides
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sq", [1, 16, 17, 4608])
 @pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_route(dtype, sq, hd):
-    want = ("tc" if dtype == torch.bfloat16 and sq > 16 and hd in (64, 128)
+    want = ("decode" if sq <= 16 else
+            "tc" if dtype == torch.bfloat16 and hd in (64, 128)
             else "cuda_core")
     assert flash_route(dtype, sq, hd) == want
 

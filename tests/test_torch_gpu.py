@@ -7,11 +7,14 @@ not installed (without the suite's conftest, which imports it):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are tests/test_kernels.py's: f32 1e-5, bf16 2e-2, Δ rtol 1e-4 /
-atol 1e-2; flash attention f32 2e-5, bf16 3e-2 (both of its kernels: the
-tensor-core one takes bf16 prefill, the CUDA-core one the rest), each
-element and each output row relative to its norm, on logits inside and
-past the softcaps (there, the kernel without its softcap must fail).  The
-channel kernels are held bitwise.
+atol 1e-2; flash attention f32 2e-5, bf16 3e-2 (all three of its
+kernels: the split-key decode one takes Sq <= 16, the tensor-core one
+bf16 prefill, the CUDA-core one the other prefills), each element and
+each output row relative to its norm, on logits inside and past the
+softcaps (there, the kernel without its softcap must fail), with causal
+Sq > Sk cases whose first rows see no key (0).  The decode kernel is also
+held bitwise against itself across calls, and the channel kernels bitwise
+against their plain versions.
 """
 import pytest
 import torch
@@ -19,6 +22,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_tc_cuda,
+                                                 flash_decode_cuda,
                                                  flash_route)
 
 
@@ -222,9 +226,10 @@ def _flash_check(q, k, v, **kw):
     n0 = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    tc = flash_route(q.dtype, q.shape[2], q.shape[3]) == "tc"
-    assert ops.LAUNCHES["flash_attention"] == n0["flash_attention"] + (not tc)
-    assert ops.LAUNCHES["flash_attention_tc"] == n0["flash_attention_tc"] + tc
+    counter = ops.FLASH_COUNTERS[flash_route(q.dtype, q.shape[2],
+                                             q.shape[3])]
+    assert {c: n - n0[c] for c, n in ops.LAUNCHES.items()
+            if n != n0[c]} == {counter: 1}
     assert got.shape == q.shape and got.dtype == q.dtype
     want = ref.flash_attention_ref(q, k, v, **kw)
     _flash_close(got, want)
@@ -253,22 +258,34 @@ def test_flash_attention_kernel_lm_prefill(layer, dtype):
                  window=4096 if layer == "local" else None)
 
 
+def _decode_check(q, k, v, n_split=None, **kw):
+    """Through the op, on the decode route, then the kernel's own wrapper
+    at ``n_split``, both against the plain version; returns it."""
+    assert flash_route(q.dtype, q.shape[2], q.shape[3]) == "decode"
+    want = _flash_check(q, k, v, **kw)
+    direct = flash_decode_cuda(q, k, v, n_split=n_split, **kw)
+    assert direct.stride() == q.stride()
+    _flash_close(direct, want)
+    return want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_lm_decode(dtype):
+    """Both [lm] decode shapes on the split-key decode kernel."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(8)
     q, k, v = _qkv(gen, 2, 32, 16, 1, 4609, 128, dtype, cache_len=4640)
-    _flash_check(q, k, v, causal=True, softcap=50.0)
+    _decode_check(q, k, v, causal=True, softcap=50.0)
     # a wrapped local ring: all 4,096 slots in slot order, window 4,096
     q, k, v = _qkv(gen, 2, 32, 16, 1, 4096, 128, dtype)
-    _flash_check(q, k, v, causal=True, window=4096, softcap=50.0)
+    _decode_check(q, k, v, causal=True, window=4096, softcap=50.0)
 
 
 @pytest.mark.gpu
 def test_flash_attention_kernel_lm_decode_capped():
-    """The decode shapes on logits past softcap 50 (the CUDA-core kernel's
-    capped instance), with the planted fault."""
+    """The decode shapes on logits past softcap 50 (the decode kernel's
+    capped path), with the planted fault."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(9)
     for sk, clen, kw in ((4609, 4640, dict(causal=True, softcap=50.0)),
@@ -276,8 +293,48 @@ def test_flash_attention_kernel_lm_decode_capped():
                                            softcap=50.0))):
         q, k, v = _qkv(gen, 2, 32, 16, 1, sk, 128, torch.bfloat16,
                        cache_len=clen, logit_std=CAP_LOGIT_STD)
-        want = _flash_check(q, k, v, **kw)
-        _fails_without_softcap(flash_attention_cuda, q, k, v, want, **kw)
+        want = _decode_check(q, k, v, **kw)
+        _fails_without_softcap(flash_decode_cuda, q, k, v, want, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_ragged(hd, group, dtype):
+    """Sq 1/3/16 over Sk 1/70/4,609 (Sk < Sq included: causal rows with no
+    key are 0), non-causal and causal + window 48 + softcap 30, with the
+    default split count and 1, 2 and Sk splits (then every split holds one
+    key, and the window masks most of them whole)."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + 3 * group)
+    for sq in (1, 3, 16):
+        for sk in (1, 70, 4609):
+            q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, dtype,
+                           cache_len=sk + 5)
+            for kw in (dict(causal=False),
+                       dict(causal=True, window=48, softcap=30.0)):
+                for n_split in (None, 1, 2, sk):
+                    want = _decode_check(q, k, v, n_split=n_split, **kw)
+                if kw["causal"] and sq > sk:
+                    assert not bool(want[:, :, :sq - sk].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_is_bitwise_reproducible(dtype):
+    """No atomics: two calls on the same inputs give the same bits, at the
+    [lm] global decode shape and at a split count that leaves one key a
+    split."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = _qkv(gen, 2, 32, 16, 1, 4609, 128, dtype, cache_len=4640)
+    kw = dict(causal=True, softcap=50.0)
+    assert torch.equal(flash_decode_cuda(q, k, v, **kw),
+                       flash_decode_cuda(q, k, v, **kw))
+    q, k, v = _qkv(gen, 1, 16, 2, 16, 300, 64, dtype)
+    assert torch.equal(flash_decode_cuda(q, k, v, n_split=300, **kw),
+                       flash_decode_cuda(q, k, v, n_split=300, **kw))
 
 
 @pytest.mark.gpu
@@ -285,12 +342,18 @@ def test_flash_attention_kernel_lm_decode_capped():
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_ragged(hd, group, dtype):
+    """Through the op (each shape on its route), and the CUDA-core kernel
+    itself at every shape; causal (80, 64) and (96, 40) have rows with no
+    key."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(hd * group)
-    for sq, sk in ((37, 101), (1, 70), (130, 130)):
+    for sq, sk in ((37, 101), (1, 70), (130, 130), (80, 64), (96, 40)):
         q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, dtype)
-        _flash_check(q, k, v, causal=False)
-        _flash_check(q, k, v, causal=True, window=48, softcap=30.0)
+        for kw in (dict(causal=False),
+                   dict(causal=True, window=48, softcap=30.0),
+                   dict(causal=True)):
+            want = _flash_check(q, k, v, **kw)
+            _flash_close(flash_attention_cuda(q, k, v, **kw), want)
 
 
 @pytest.mark.gpu
@@ -313,6 +376,19 @@ def test_flash_attention_refuses_what_it_does_not_take():
         ops.flash_attention(q.transpose(2, 3), k, k)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k, window=0)
+    # the decode kernel: the same checks, at most 16 queries, n_split >= 1
+    qd = q[:, :, :1]
+    with pytest.raises(TypeError):
+        flash_decode_cuda(qd.half(), k.half(), k.half())
+    with pytest.raises(ValueError):              # head_dim 36
+        flash_decode_cuda(qd[..., :36].contiguous(), k[..., :36].contiguous(),
+                          k[..., :36].contiguous())
+    with pytest.raises(ValueError):              # Sq 17
+        flash_decode_cuda(torch.randn((1, 4, 17, 64), device="cuda"), k, k)
+    with pytest.raises(ValueError):
+        flash_decode_cuda(qd, k, k, n_split=0)
+    with pytest.raises(ValueError):
+        flash_decode_cuda(qd, k, k, softcap=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -342,10 +418,12 @@ TC_MASKS = [dict(causal=False), dict(causal=True),
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
-                                   (200, 333), (17, 300)])
+                                   (200, 333), (17, 300), (80, 64),
+                                   (96, 40)])
 def test_flash_attention_tc_ragged(hd, group, sq, sk):
-    """Sq and Sk off the 64/128 tiles, Sq < Sk (q aligned to the end of k),
-    q transposed from (B, S, H, hd), k and v slices of a longer cache."""
+    """Sq and Sk off the 64/128 tiles, Sq < Sk (q aligned to the end of k)
+    and Sq > Sk (causal: the first Sq − Sk rows see no key and are 0), q
+    transposed from (B, S, H, hd), k and v slices of a longer cache."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(hd + 7 * group + sq)
     q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, torch.bfloat16,
@@ -363,7 +441,8 @@ TC_CAPPED_MASKS = [kw for kw in TC_MASKS if "softcap" in kw] + \
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
-                                   (200, 333), (17, 300)])
+                                   (200, 333), (17, 300), (80, 64),
+                                   (96, 40)])
 def test_flash_attention_tc_ragged_capped(hd, group, sq, sk):
     """The ragged shapes on logits past the softcap, where the kernel's
     capped instance (tanh, scale / cap, cap · log2 e) is told from the

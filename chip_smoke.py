@@ -10,9 +10,13 @@ Phases (any failure raises and the script exits non-zero):
                 nvcc (all at once) and prints build time and ptxas output;
   3. kernels  — holds each CUDA kernel against its plain PyTorch version on
                 the card (mix and Gram at tests/test_kernels.py's
-                tolerances, the four channel kernels bitwise) and times
-                kernel, plain version and one PyTorch library call with
-                CUDA events, beside the byte/FLOP bound;
+                tolerances, the four channel kernels bitwise, the flash
+                kernels at bf16's 3e-2 / f32's 2e-5) and times kernel,
+                plain version and one PyTorch library call with CUDA
+                events, beside the byte/FLOP bound; the tensor-core flash
+                kernel at every head_dim it takes (64, 80, 128 and 256
+                on ragged shapes, 128 at [lm] (a)'s prefill, 256 and 80
+                at [lm] (c)'s);
   4. agree    — a small label-shift run on the card against the same run
                 on the CPU (same init, same draws); one uplink crossing
                 bitwise across the devices; a small run with a sampler and
@@ -38,7 +42,15 @@ Phases (any failure raises and the script exits non-zero):
                 flash / GEMM / other, idle share); (b) the same in f32
                 (prefill on the CUDA-core kernel, decode on the decode
                 kernel), where one fresh prefill of prompt + generated
-                tokens must reproduce the last decode step's logits.
+                tokens must reproduce the last decode step's logits;
+                (c) bf16 serving of gemma-2b (hd 256, MQA; B 2, prompt
+                8,160, cache 8,192) and stablelm-3b (hd 80, MHA; B 2,
+                prompt 4,064, cache 4,096) at their full widths, depth
+                cut to 2, 32 greedy tokens each: timed, with exactly 2
+                prefill launches on the tensor-core kernel, 62 on the
+                decode kernel and none on the CUDA-core kernel, and a
+                torch.profiler trace of one prefill (device time by
+                flash / GEMM / other).
 Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
@@ -93,6 +105,19 @@ MAIN = dict(n=10000, m=20, rounds=20, local_steps=10, batch_size=64,
 LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
           cache_len=4640, seed=0,
           reduced={"n_layers": "46 -> 2 (one local, one global layer)"})
+# [lm] (c): the other two served configurations (src/repro_torch/configs/)
+# at their full published widths, bf16, random weights from a seed; the
+# prompt fills the cache but for the generated tokens.  The widths are
+# gemma-2b's from the Gemma report (arXiv:2403.08295, Table 1) and
+# stablelm-3b's from stabilityai/stablelm-3b-4e1t's model card and config
+# (d_model 2,560, 32 heads of 80, d_ff 6,912, vocab 50,304, rotary on a
+# quarter of each head, LayerNorm, 4,096 context)
+LM_C = (
+    dict(arch="gemma-2b", batch=2, prompt=8160, tokens=32, cache_len=8192,
+         seed=0, reduced={"n_layers": "18 -> 2"}),
+    dict(arch="stablelm-3b", batch=2, prompt=4064, tokens=32,
+         cache_len=4096, seed=0, reduced={"n_layers": "32 -> 2"}),
+)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py
 # flash inputs' scaled logits q·k/√hd: N(0, 0.25²), far inside the
 # softcaps (30, 50), and N(0, 50²), where cap·tanh(x/cap) saturates
@@ -478,39 +503,68 @@ def check_flash(gen) -> list:
     decode steps on the split-key decode kernel, bf16 prefill on the
     tensor-core kernel, f32 prefill on the CUDA-core kernel; in bf16 also
     on inputs whose logits reach the softcap, where the route's kernel run
-    without its softcap must fail the check; the decode kernel twice on
-    the same inputs, bitwise equal.  Then the tensor-core kernel on ragged
-    bf16 shapes (hd 64/128, GQA group 1/2/8, Sq < Sk, windows 1/63/4,096,
+    without its softcap must fail the check; each call also through the
+    route's own wrapper (the decode kernel bitwise equal to the op's
+    call).  The same at [lm] (c)'s prefill shapes (gemma-2b: B 2, H 8,
+    Kh 1, S 8,160, hd 256; stablelm-3b: B 2, H 32, Kh 32, S 4,064, hd 80;
+    causal, slices of the serving cache) in bf16, without a softcap
+    (neither config has one) at both logit scales and with softcap 50 at
+    the capped one.  Then the tensor-core kernel on ragged
+    bf16 shapes (hd 64/80/128/256, GQA group 1/2/8, Sq < Sk, windows
+    1/63/4,096,
     softcap on and off, non-causal), the op on ragged shapes at hd
     64/80/256 in both dtypes, and the decode kernel on ragged decode
     shapes (hd 64/80/128/256, G 1/2/8, Sq 1/3/16, Sk 1/70/4,609, 1, 2 and
     Sk splits), each at both logit scales.  Timed at the [lm] shapes in
-    bf16, the main path's dtype: the kernel each route takes, its plain
-    version and SDPA, and the CUDA-core kernel at the same shape (the
-    decode route's "before"); the decode kernel at other split counts;
-    and the two prefill kernels at short queries over the [lm] cache,
-    either side of the route's threshold.  Returns the JSON rows of the
-    three kernels: the decode kernel at the global decode step, the
-    tensor-core and the CUDA-core kernels at the global prefill."""
+    bf16, the main path's dtype, and at the global prefill in f32 too:
+    the kernel each route takes, its plain version and SDPA, and the
+    CUDA-core kernel at the same shape (the other routes' "before"); the
+    decode kernel at other split counts; and the two prefill kernels at
+    short queries over the [lm] cache, either side of the route's
+    threshold.  Returns the JSON rows of the kernels, each on its own
+    route: the decode kernel at the bf16 global decode step, the
+    tensor-core kernel at the bf16 global prefill and at [lm] (c)'s two
+    prefills (their launches come from [lm] (c)), the CUDA-core kernel at
+    the f32 global prefill ([lm] (b)'s)."""
     a = get_config(LM["arch"]).attn
     b, s, h, kh, hd = LM["batch"], LM["prompt"], a.n_heads, a.n_kv_heads, \
         a.head_dim
     cap, win = a.attn_logit_softcap, a.window
+    scales = ((torch.float32, LOGIT_STD), (torch.bfloat16, LOGIT_STD),
+              (torch.bfloat16, CAP_LOGIT_STD))
+
+    def lm_runs(kw):
+        return [(dt, std, kw) for dt, std in scales]
+
+    # (name, (B, H, Kh, Sq, Sk, hd), cache length, runs of (dtype, logit
+    # sd, kw), {route: JSON row}, the [lm] (c) config the row counts in)
     cases = [
         ("global prefill", (b, h, kh, s, s, hd), None,
-         dict(causal=True, softcap=cap)),
+         lm_runs(dict(causal=True, softcap=cap)),
+         {"tc": "flash_attention_tc", "cuda_core": "flash_attention"}, None),
         ("local prefill", (b, h, kh, s, s, hd), None,
-         dict(causal=True, window=win, softcap=cap)),
+         lm_runs(dict(causal=True, window=win, softcap=cap)), {}, None),
         ("global decode", (b, h, kh, 1, s + 1, hd), LM["cache_len"],
-         dict(causal=True, softcap=cap)),
+         lm_runs(dict(causal=True, softcap=cap)),
+         {"decode": "flash_attention_decode"}, None),
         ("local decode (wrapped ring)", (b, h, kh, 1, win, hd), None,
-         dict(causal=True, window=win, softcap=cap)),
+         lm_runs(dict(causal=True, window=win, softcap=cap)), {}, None),
     ]
+    for c in LM_C:
+        ac = get_config(c["arch"]).attn
+        cases.append((
+            f"{c['arch']} prefill", (c["batch"], ac.n_heads, ac.n_kv_heads,
+                                     c["prompt"], c["prompt"], ac.head_dim),
+            c["cache_len"],
+            [(torch.bfloat16, LOGIT_STD, dict(causal=True)),
+             (torch.bfloat16, CAP_LOGIT_STD, dict(causal=True)),
+             (torch.bfloat16, CAP_LOGIT_STD, dict(causal=True, softcap=50.0))],
+            {"tc": f"flash_attention_tc_hd{ac.head_dim}"}, c["arch"]))
+    sources = {"decode": "flash_decode.cu", "tc": "flash_attention_tc.cu",
+               "cuda_core": "flash_attention.cu"}
     rows = {}
-    for name, shape, clen, kw in cases:
-        for dt, std in ((torch.float32, LOGIT_STD),
-                        (torch.bfloat16, LOGIT_STD),
-                        (torch.bfloat16, CAP_LOGIT_STD)):
+    for name, shape, clen, runs, row_names, phase in cases:
+        for dt, std, kw in runs:
             q, k, v = flash_inputs(gen, *shape, dt, cache_len=clen,
                                    logit_std=std)
             route = flash_route(dt, shape[3], shape[5])
@@ -524,31 +578,36 @@ def check_flash(gen) -> list:
                                      f"launches {launched}, want "
                                      f"{{{counter!r}: 1}}")
             want = ref.flash_attention_ref(q, k, v, **kw)
-            err, rel = flash_close(f"flash_attention {name} {dt} logit sd "
-                                   f"{std:g}", got, want)
+            tag = f"flash_attention {name} {dt} logit sd {std:g} {kw}"
+            err, rel = flash_close(tag, got, want)
             line = (f"  flash_attention {name:27s} B={shape[0]} H={shape[1]} "
                     f"Kh={shape[2]} Sq={shape[3]:4d} Sk={shape[4]:4d} "
                     f"hd={shape[5]} {str(dt)[6:]:8s} logit sd {std:4g} "
-                    f"route {route:9s} max|err| {err:.2e} row-rel {rel:.2e}")
+                    f"softcap {kw.get('softcap')} route {route:9s} "
+                    f"max|err| {err:.2e} row-rel {rel:.2e}")
+            own = route_kernel(q)(q, k, v, **kw)
             if route == "decode":
-                again = flash_decode_cuda(q, k, v, **kw)
-                if not torch.equal(got, again):
+                if not torch.equal(got, own):
                     raise AssertionError(f"flash_decode {name} {dt}: two "
                                          "calls differ")
                 line += "  bitwise equal across calls"
-                del again
-            del got
+            else:
+                err_o, rel_o = flash_close(tag + " (own wrapper)", own, want)
+                line += (f"  own wrapper max|err| {err_o:.2e} row-rel "
+                         f"{rel_o:.2e}")
+            del got, own
             if route != "cuda_core":
-                err13, _ = flash_close(f"flash_attention_cuda {name} logit "
-                                       f"sd {std:g}",
+                err13, _ = flash_close(tag + " (CUDA-core kernel)",
                                        flash_attention_cuda(q, k, v, **kw),
                                        want)
                 line += f"  CUDA-core kernel max|err| {err13:.2e}"
             if std == CAP_LOGIT_STD:
-                flash_planted_fault(f"flash_attention {name}", q, k, v, kw,
-                                    want)
-                line += "  without its softcap: fails the check"
-            elif dt == torch.bfloat16:
+                if kw.get("softcap"):
+                    flash_planted_fault(tag, q, k, v, kw, want)
+                    line += "  without its softcap: fails the check"
+            elif dt == torch.bfloat16 or name == "global prefill":
+                # every bf16 shape, and f32 at the global prefill: the
+                # CUDA-core kernel's own route ([lm] (b))
                 bnd, by, flops = flash_bound(q, k, kw)
                 ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
                 plain = time_ms(lambda: ref.flash_attention_ref(q, k, v,
@@ -558,11 +617,13 @@ def check_flash(gen) -> list:
                 lib = sdpa_ms(q, k, v, causal=prefill)
                 what = ("causal" if prefill else "over the valid keys") + \
                     ", no softcap" + (", no window" if "window" in kw else "")
-                ms13 = time_ms(lambda: flash_attention_cuda(q, k, v, **kw))
+                ms13 = ms if route == "cuda_core" else time_ms(
+                    lambda: flash_attention_cuda(q, k, v, **kw))
                 line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                          f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
-                         f"{flops / ms / 1e9:.1f} TFLOP/s)  SDPA ({what}) "
-                         f"{lib:.4f} ms  CUDA-core kernel {ms13:.4f} ms")
+                         f"{flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.1%} of "
+                         f"it)  SDPA ({what}) {lib:.4f} ms  CUDA-core kernel "
+                         f"{ms13:.4f} ms")
                 if route == "decode":
                     ns = decode_splits(shape[0], shape[2], shape[4],
                                        torch.cuda.get_device_properties(0)
@@ -576,27 +637,20 @@ def check_flash(gen) -> list:
                     line += ("  on contiguous copies "
                              f"{time_ms(lambda: flash_decode_cuda(qc, kc, vc, **kw)):.4f} ms")
                     del qc, kc, vc
-                row = dict(route="cuda", replaces="src/repro/kernels/"
-                           "flash_attention.py:118", plain_ms=plain,
-                           bound_ms=bnd, bound_by=by, library_ms=lib)
-                if name == "global decode":
-                    rows["flash_attention_decode"] = dict(
-                        row, name="flash_attention_decode", counter=counter,
-                        source="src/repro_torch/kernels/csrc/flash_decode.cu",
-                        max_abs_err=err, ms=ms)
-                if name == "global prefill":
-                    rows["flash_attention_tc"] = dict(
-                        row, name="flash_attention_tc", counter=counter,
-                        source="src/repro_torch/kernels/csrc/"
-                        "flash_attention_tc.cu", max_abs_err=err, ms=ms)
-                    rows["flash_attention"] = dict(
-                        row, name="flash_attention",
-                        counter="flash_attention",
-                        source="src/repro_torch/kernels/csrc/"
-                        "flash_attention.cu", max_abs_err=err13, ms=ms13)
+                if route in row_names:
+                    rows[row_names[route]] = dict(
+                        name=row_names[route], route="cuda",
+                        source="src/repro_torch/kernels/csrc/" +
+                        sources[route],
+                        replaces="src/repro/kernels/flash_attention.py:118",
+                        counter=counter, max_abs_err=err, ms=ms,
+                        plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=lib,
+                        **({"phase": phase} if phase else {}))
             del want
             print(line, flush=True)
             del q, k, v
+        torch.cuda.empty_cache()
     # the route's Sq threshold: both kernels over the [lm] global layer's
     # cache at the shortest queries the tensor-core kernel takes and longer
     for sq in (17, 32, 64, 128):
@@ -612,7 +666,7 @@ def check_flash(gen) -> list:
         del q, k, v
     n_tc = ops.LAUNCHES["flash_attention_tc"]
     n_checks = n_faults = 0
-    for hd in (64, 128):
+    for hd in (64, 80, 128, 256):
         for group in (1, 2, 8):
             for sq, sk in ((37, 101), (77, 77), (130, 130), (200, 333),
                            (80, 64), (96, 40)):
@@ -646,8 +700,8 @@ def check_flash(gen) -> list:
     if ops.LAUNCHES["flash_attention_tc"] - n_tc != n_checks:
         raise AssertionError("ragged bf16 prefill did not all take the "
                              "tensor-core route")
-    print(f"  flash_attention (tensor cores) ragged: bf16, hd 64/128 x GQA "
-          f"group 1/2/8 x (Sq, Sk) (37, 101), (77, 77), (130, 130), "
+    print(f"  flash_attention (tensor cores) ragged: bf16, hd 64/80/128/256 "
+          f"x GQA group 1/2/8 x (Sq, Sk) (37, 101), (77, 77), (130, 130), "
           f"(200, 333), (80, 64), (96, 40) (Sq > Sk: rows with no key), "
           f"cache slices transposed; logit sd {LOGIT_STD:g}: "
           f"non-causal, causal, window 1, window 63 + softcap 30, window "
@@ -748,8 +802,11 @@ def check_flash(gen) -> list:
           f"non-causal + softcap 30 and causal + window 48 + softcap 30: "
           f"{n_ops + n_checks} checks within tolerance, {n_faults} without "
           "the softcap fail it", flush=True)
-    return [rows["flash_attention_decode"], rows["flash_attention_tc"],
-            rows["flash_attention"]]
+    order = ("flash_attention_decode", "flash_attention_tc",
+             "flash_attention") + tuple(
+        f"flash_attention_tc_hd{get_config(c['arch']).attn.head_dim}"
+        for c in LM_C)
+    return [rows[r] for r in order]
 
 
 # ---------------------------------------------------------------------------
@@ -903,6 +960,48 @@ def lm_agreement() -> None:
               f"{launched} flash launches)", flush=True)
 
 
+def device_split(prof):
+    """From a torch.profiler trace: (device-busy µs, the union of kernel
+    spans; µs by flash / GEMM (cuBLAS) / other; µs by kernel name; the
+    number of kernels), or None when the trace holds no device events."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    split = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
+    by_name = {}
+    spans = []
+    for e in kernels:
+        n = e.name.lower()
+        us = e.time_range.end - e.time_range.start
+        cat = ("flash" if "decode_partials" in n or "decode_merge" in n or
+               "flash" in n else
+               "GEMM" if any(w in n for w in ("gemm", "gemv", "xmma", "nvjet",
+                                               "cutlass", "cublas",
+                                               "splitk")) else "other")
+        split[cat] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    return busy, split, by_name, len(kernels)
+
+
+def _leaves(tree):
+    """The tensors of a nested dict / list of parameters."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
 def profile_decode(params, cfg, prompt, clen: int, card: str,
                    step_ms: float, steps: int = 8) -> None:
     """One torch.profiler trace of ``steps`` decode steps after a prefill:
@@ -928,40 +1027,17 @@ def profile_decode(params, cfg, prompt, clen: int, card: str,
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    split = device_split(prof)
+    if split is None:
         print(f"  (a) profiler: no device events in the trace; device "
               f"split and idle share not measured ({card})", flush=True)
         return
-    split = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
-    by_name = {}
-    spans = []
-    for e in kernels:
-        n = e.name.lower()
-        us = e.time_range.end - e.time_range.start
-        cat = ("flash" if "decode_partials" in n or "decode_merge" in n or
-               "flash" in n else
-               "GEMM" if any(w in n for w in ("gemm", "gemv", "xmma", "nvjet",
-                                               "cutlass", "cublas",
-                                               "splitk")) else "other")
-        split[cat] += us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for st, en in spans[1:]:
-        if st > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = st, en
-        else:
-            cur_e = max(cur_e, en)
-    busy += cur_e - cur_s
+    busy, split, by_name, n_kernels = split
     busy_ms = busy / 1e3 / steps
     print(f"  (a) profiler, {steps} decode steps ({card}): device busy "
           f"{busy_ms:.3f} ms a step: flash {split['flash'] / 1e3 / steps:.3f}"
           f" ms, GEMM {split['GEMM'] / 1e3 / steps:.3f} ms, other "
-          f"{split['other'] / 1e3 / steps:.3f} ms; {len(kernels) / steps:.0f}"
+          f"{split['other'] / 1e3 / steps:.3f} ms; {n_kernels / steps:.0f}"
           f" kernels a step; device idle {1 - busy_ms / step_ms:.1%} of the "
           f"timed step ({step_ms:.3f} ms); under the profiler the step's "
           f"wall is {wall * 1e3 / steps:.3f} ms", flush=True)
@@ -992,10 +1068,7 @@ def lm_path(card: str) -> dict:
 
     counters = tuple(ops.FLASH_COUNTERS.values())
     params = init(cfg)
-    n_params = sum(t.numel() for t in
-                   [params["embed"], params["final_norm"]["scale"]] +
-                   [x for lp in params["layers"] for blk in lp.values()
-                    for x in blk.values()])
+    n_params = sum(t.numel() for t in _leaves(params))
     generate(params, cfg, prompt[:, :64], 2, 128)          # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()           # counts from here on are [lm] (a)'s
@@ -1058,6 +1131,92 @@ def lm_path(card: str) -> dict:
     del params, res, logits
     torch.cuda.empty_cache()
     return {k: launches[k] + launches_b[k] for k in counters}
+
+
+def lm_c_path(card: str) -> dict:
+    """[lm] (c): bf16 `generate` of each LM_C configuration at its full
+    width, depth 2, after a warm-up at the full prompt: prefill ms, decode
+    ms a step and tok/s, peak memory; exactly 2 tensor-core, 62 decode
+    and 0 CUDA-core flash launches; finite logits and in-range tokens;
+    then a profiler trace of one prefill (device time by flash / GEMM /
+    other).  Returns {arch: flash launches by counter}, each configuration
+    counted from 0."""
+    counters = tuple(ops.FLASH_COUNTERS.values())
+    out = {}
+    for c in LM_C:
+        cfg = dataclasses.replace(get_config(c["arch"]), n_layers=2)
+        a = cfg.attn
+        b, plen, n, clen = c["batch"], c["prompt"], c["tokens"], \
+            c["cache_len"]
+        gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+        params = T.init_params(gen, cfg, device="cuda")
+        prompt = torch.randint(0, cfg.vocab_size, (b, plen), device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(c["seed"] + 1))
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"[lm] (c) {cfg.name} d_model {cfg.d_model}, H {a.n_heads}, Kh "
+              f"{a.n_kv_heads}, hd {a.head_dim}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.activation}, {cfg.norm}; reduced "
+              f"{c['reduced']}; {n_params / 1e9:.3f} B params; B {b}, prompt "
+              f"{plen}, {n} tokens, cache {clen} ({card})", flush=True)
+        # warm-up at the full prompt: the timed prefill finds the caching
+        # allocator's blocks and cuBLAS's choices for its shapes in place,
+        # as a serving process does after its first request
+        generate(params, cfg, prompt, 2, clen)
+        torch.cuda.synchronize()
+        ops.reset_launches()       # counts from here on are this config's
+        torch.cuda.reset_peak_memory_stats()
+        res = generate(params, cfg, prompt, n, clen, return_logits=True)
+        launches = {k: ops.LAUNCHES[k] for k in counters}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention_decode": (n - 1) * cfg.n_layers,
+                "flash_attention_tc": cfg.n_layers, "flash_attention": 0}
+        if launches != want:
+            raise AssertionError(f"[lm] (c) {cfg.name}: flash launches "
+                                 f"{launches}, want {want}")
+        if res.tokens.shape != (b, n) or not bool(
+                ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"[lm] (c) {cfg.name}: bad tokens "
+                                 f"{res.tokens}")
+        if not all(bool(torch.isfinite(x).all()) for x in res.logits):
+            raise AssertionError(f"[lm] (c) {cfg.name}: non-finite logits")
+        steps = n - 1
+        prefill_ms = res.prefill_s * 1e3
+        print(f"  (c) {cfg.name} bf16: prefill {prefill_ms:.2f} ms ({b}x"
+              f"{plen} tokens); decode {res.decode_s * 1e3 / steps:.3f} "
+              f"ms/token-step, {steps * b / res.decode_s:.1f} tok/s ({steps} "
+              f"steps x{b}); flash launches {launches}; peak memory "
+              f"{peak / 2**30:.2f} GiB; sample {res.tokens[0, :12].tolist()}",
+              flush=True)
+        del res
+        out[c["arch"]] = launches
+        # one prefill under the profiler: where its device time goes
+        caches = T.make_caches(cfg, b, clen, cfg.cdtype, device="cuda")
+        counts = dict(ops.LAUNCHES)      # the traced run does not count
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            T.prefill(params, cfg, {"tokens": prompt}, caches)
+            torch.cuda.synchronize()
+        ops.LAUNCHES.update(counts)
+        del caches
+        split = device_split(prof)
+        if split is None:
+            print(f"  (c) {cfg.name} profiler: no device events; prefill "
+                  "split not measured", flush=True)
+        else:
+            busy, split, by_name, n_kernels = split
+            print(f"  (c) {cfg.name} profiler, one prefill: device busy "
+                  f"{busy / 1e3:.3f} ms: flash {split['flash'] / 1e3:.3f} "
+                  f"ms, GEMM {split['GEMM'] / 1e3:.3f} ms, other "
+                  f"{split['other'] / 1e3:.3f} ms; {n_kernels} kernels",
+                  flush=True)
+            for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+                print(f"      {us / 1e3:8.4f} ms  {name[:110]}", flush=True)
+        del params, prompt
+        torch.cuda.empty_cache()
+    return out
 
 
 def main_path(fed, fl) -> dict:
@@ -1244,8 +1403,12 @@ def main() -> int:
         launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
+    # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
+    # one configuration each: their rows count that configuration's run
+    by_arch = lm_c_path(card)
     for r in rows:
-        r["launches"] = launches[r.get("counter", r["name"])]
+        counts = by_arch[r["phase"]] if "phase" in r else launches
+        r["launches"] = counts[r.get("counter", r["name"])]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel or lm path")

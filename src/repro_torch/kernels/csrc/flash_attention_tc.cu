@@ -1,10 +1,12 @@
 // Flash attention on Hopper's tensor cores (sm_90a): bf16 prefill.
 //
-// Replaces, for bf16 inputs with Sq > 16 and head_dim 64 or 128, the Pallas
-// TPU kernel src/repro/kernels/flash_attention.py, function
-// `flash_attention` (:90, pallas_call :118, body `_kernel` :30); the
-// CUDA-core kernel in flash_attention.cu keeps every other call (decode
-// steps, f32, head_dim 80 or 256).  It computes what `_kernel` computes:
+// Replaces, for bf16 inputs with Sq > 16 and head_dim 64, 80, 128 or 256,
+// the Pallas TPU kernel src/repro/kernels/flash_attention.py, function
+// `flash_attention` (:90, pallas_call :118, body `_kernel` :30): every bf16
+// prefill of the served configs (hd 128 gemma2-27b, hd 256 gemma-2b, hd 80
+// stablelm-3b).  Decode steps (Sq <= 16) take flash_decode.cu; f32 prefill
+// and bf16 at other head_dims take the CUDA-core kernel in
+// flash_attention.cu.  It computes what `_kernel` computes:
 // out = softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query
 // head), q aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
 // k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
@@ -29,21 +31,25 @@
 //
 // Design (right and simple first: no TMA, producer warp or persistent
 // grid).  One block of one warpgroup (128 threads) per (64-row Q tile,
-// query head, batch row), two blocks an SM (83 KB of shared memory each at
-// hd 128).  Q is staged once in shared memory; K and V tiles of 64 keys go
-// through a 2-stage ring filled by 16-byte `cp.async.cg` copies (one
-// commit group a tile), so tile t+1's copies run under tile t's products
-// and softmax.  The two blocks of an SM run unsynchronised, so one's
-// softmax overlaps the other's products; a block of two warpgroups that
-// share each K/V tile (half the copies per row) kept both in step at every
-// tile's barrier and was slower.  Every tile sits in the 128-byte swizzle
+// query head, batch row), two blocks an SM.  Q is staged once in shared
+// memory; K and V tiles of kBK keys (64; 32 at hd 256) go through a
+// 2-stage ring filled by 16-byte `cp.async.cg` copies (one commit group a
+// tile), so tile t+1's copies run under tile t's products and softmax.
+// The two blocks of an SM run unsynchronised, so one's softmax overlaps
+// the other's products; a block of two warpgroups that share each K/V
+// tile (half the copies per row) kept both in step at every tile's
+// barrier and was slower (hd 128).  Every tile sits in the 128-byte swizzle
 // that the `wgmma` descriptors name: a 64-element bf16 row chunk is one
 // 128-byte line, 8 lines make a 1,024-byte atom in which 16-byte unit u of
-// line r is stored at unit u ^ (r % 8); an hd-128 row spans two such
-// chunks, stored one after the other (chunk-major).
-//   S = Q·Kᵀ: `wgmma.mma_async.m64n64k16` with A (Q) and B (K) both read
-//     from shared memory K-major (hd contiguous), hd/16 k-steps, each
-//     advancing the start address 32 bytes inside the swizzle atom.
+// line r is stored at unit u ^ (r % 8); a row spans ceil(hd / 64) such
+// chunks, stored one after the other (chunk-major).  At hd 80 the second
+// chunk holds only units 0 and 1 of each line (elements 64-79); units 2-7
+// are never written nor read, so every tile is sized by the padded width.
+//   S = Q·Kᵀ: `wgmma.mma_async.m64n{kBK}k16` with A (Q) and B (K) both
+//     read from shared memory K-major (hd contiguous), hd/16 k-steps, each
+//     advancing the start address 32 bytes inside the swizzle atom and
+//     every 4th moving to the next chunk (hd 80: step 4 at offset 0 of
+//     chunk 1, which reads just its units 0 and 1).
 //   Softmax in registers on the f32 accumulator fragment: thread t holds
 //     rows 16·(t/32) + (t%32)/4 and that + 8, columns 8j + 2(t%4) +
 //     {0, 1}; row max and sum are two xor shuffles inside the quad.  The
@@ -54,8 +60,15 @@
 //   O += P·V: the S fragment, packed pairwise to bf16x2, is already the
 //     A-from-registers fragment of `wgmma ... m64nHDk16` (RS form); V
 //     (key, hd) is B read MN-major with the transpose bit, its 64-element
-//     hd chunks LBO = 64 keys × 128 bytes apart, 8-key groups SBO = 1,024
-//     bytes apart.
+//     hd chunks LBO = kBK keys × 128 bytes apart, 8-key groups SBO = 1,024
+//     bytes apart.  At hd 80 it is `m64n64k16` on chunk 0 and `m64n16k16`
+//     on chunk 1 (whose fragment continues the first's), so no product
+//     reads past a tile's live units.
+// Registers and shared memory (`-Xptxas -v` prints the registers): O is
+// hd / 2 f32 a thread, S kBK / 2.  At hd 256, O alone is 128 registers, so
+// the K/V tiles shrink to 32 keys (S 16 registers): Q 32 KB + a 64 KB ring
+// = 97 KB, still two blocks an SM as at hd 64 (41 KB), 80 and 128 (81 KB
+// each, the hd 80 rows padded to 128 elements).
 // Keys past Sk and Q rows past Sq are zero-filled by the copy's src-size 0
 // form (0 × NaN would be NaN); such keys are masked and such rows are not
 // stored.  Under a causal mask the heaviest (last) Q tiles launch first.
@@ -69,10 +82,18 @@ namespace {
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the tile geometry of the instance for head_dim HD
+template <int HD>
+struct Geom {
+  static constexpr int kBK = HD == 256 ? 32 : 64;      // keys per K/V tile
+  static constexpr int kPad = (HD + 63) / 64 * 64;     // row, in whole chunks
+  static constexpr uint32_t kQBytes = kBQ * kPad * 2;  // the Q tile
+  static constexpr uint32_t kTBytes = kBK * kPad * 2;  // one K or V tile
+};
 
 struct Params {
   const void* q;
@@ -143,44 +164,87 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 #define R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
   "%28, %29, %30, %31}"
+#define R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15}"
 #define R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
   "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define R128 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, " \
+  "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
 
-// d (64 x 64, f32) (+)= A (64 x 16) · B (64 x 16)ᵀ, both K-major in shared
-// memory; scale_d 0 overwrites d
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "l"(da), "l"(db), "r"(scale_d));
+// d (64 x N, f32; N = 64 or 32 keys) (+)= A (64 x 16) · B (N x 16)ᵀ, both
+// K-major in shared memory; scale_d 0 overwrites d
+template <int N, int M>
+__device__ __forceinline__ void mma_ss(float (&d)[M], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  static_assert(M == N / 2, "accumulator");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : F16(d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    static_assert(N == 64, "wgmma width");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : F16(d, 0), F16(d, 16)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
-// d (64 x N, f32) += A (64 x 16, bf16x2 registers) · B (16 x N) with B
-// MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+// d[OFF, OFF + N / 2) (64 x N, f32) += A (64 x 16, bf16x2 registers) ·
+// B (16 x N) with B MN-major in shared memory (transpose bit set)
+template <int N, int OFF = 0, int M>
+__device__ __forceinline__ void mma_rs(float (&d)[M], const uint32_t (&a)[4],
                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                       uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  static_assert(OFF + N / 2 <= M, "accumulator");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " R8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : F4(d, OFF), F4(d, OFF + 4)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : F16(d, OFF), F16(d, OFF + 16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : F16(d, OFF), F16(d, OFF + 16), F16(d, OFF + 32), F16(d, OFF + 48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 256, "wgmma width");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : F16(d, OFF), F16(d, OFF + 16), F16(d, OFF + 32), F16(d, OFF + 48),
+          F16(d, OFF + 64), F16(d, OFF + 80), F16(d, OFF + 96),
+          F16(d, OFF + 112)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
 __device__ __forceinline__ float tanh_approx(float x) {
@@ -202,24 +266,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ROWS rows of HD bf16 from `g` (row stride `stride` elements), rows from
 // `n_valid` on zero-filled, into the swizzled chunk-major tile at `dst`.
-// Thread tid copies 16-byte unit tid % (HD / 8) of rows tid / (HD / 8) +
-// i · kStep; kStep is a multiple of 8, so its swizzle is the same in every
-// row it copies.
+// A row has kPad / 8 16-byte unit slots (whole 128-byte lines); thread tid
+// copies slot tid % (kPad / 8) of rows tid / (kPad / 8) + i · kStep, and
+// slots past the row's HD / 8 units (hd 80: 10-15) are padding, never
+// copied.  At hd 64, 80 and 128 kStep is a multiple of 8, so a thread's
+// swizzle is the same in every row it copies.
 template <int ROWS, int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* g,
                                           long long stride, int n_valid,
                                           int tid) {
-  constexpr int kUnits = HD / 8, kStep = kThreads / kUnits;
-  static_assert(kStep % 8 == 0 && ROWS % kStep == 0, "tile split");
-  const int row = tid / kUnits, u = tid % kUnits;
-  const uint32_t d0 = dst + (u >> 3) * (ROWS * 128) + row * 128 +
-                      (((u & 7) ^ (row & 7)) << 4);
+  constexpr int kSlots = Geom<HD>::kPad / 8;
+  constexpr int kStep = kThreads / kSlots;
+  static_assert(kThreads % kSlots == 0 && ROWS % kStep == 0, "tile split");
+  const int row = tid / kSlots, u = tid % kSlots;
+  if (u >= HD / 8) return;
+  const uint32_t d0 = dst + (u >> 3) * (ROWS * 128) + row * 128;
   const __nv_bfloat16* g0 = g + row * stride + u * 8;
 #pragma unroll
   for (int i = 0; i < ROWS / kStep; ++i) {
-    const bool ok = row + i * kStep < n_valid;
-    cp_async16(d0 + i * kStep * 128, ok ? g0 + i * kStep * stride : g,
+    const int r = row + i * kStep;
+    const int sw = ((u & 7) ^ ((kStep % 8 == 0 ? row : r) & 7)) << 4;
+    const bool ok = r < n_valid;
+    cp_async16(d0 + i * kStep * 128 + sw, ok ? g0 + i * kStep * stride : g,
                ok ? 16 : 0);
   }
 }
@@ -227,16 +296,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 template <int HD>
 constexpr size_t smem_bytes() {
   // 1 KB of slack to align the tiles to the 1,024-byte swizzle atom
-  return 1024 + (size_t)2 * HD * (kBQ + kStages * 2 * kBK);
+  return 1024 + (size_t)Geom<HD>::kQBytes + kStages * 2 * Geom<HD>::kTBytes;
 }
 
 // CAPPED: a logit softcap is given (the scores go through tanh)
 template <int HD, bool CAPPED>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_tc_kernel(const Params p) {
-  constexpr uint32_t kQBytes = kBQ * HD * 2;
-  constexpr uint32_t kTBytes = kBK * HD * 2;  // one K or V tile
-  constexpr int kNO = HD / 2;                 // O accumulator floats/thread
+  constexpr int kBK = Geom<HD>::kBK;
+  constexpr uint32_t kQBytes = Geom<HD>::kQBytes, kTBytes = Geom<HD>::kTBytes;
+  constexpr int kNO = HD / 2;   // O accumulator floats a thread
+  constexpr int kNS = kBK / 2;  // S accumulator floats a thread
   extern __shared__ uint8_t smem[];
   const uint32_t s_q = (smem_addr(smem) + 1023u) & ~1023u;
 
@@ -309,30 +379,31 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // S = Q·Kᵀ over hd / 16 k-steps; a k-step is 32 bytes inside the
     // swizzle atom, and every 4th one moves to the next 64-element chunk
-    float s[32];
+    float s[kNS];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    for (int e = 0; e < kNS; ++e) s[e] = 0.f;
     const uint64_t dk = make_desc(s_k, 16, 1024);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks)
-      mma_ss_n64(s, dq + (((ks >> 2) * (kBQ * 128) + (ks & 3) * 32) >> 4),
-                 dk + (((ks >> 2) * (kBK * 128) + (ks & 3) * 32) >> 4),
-                 ks > 0);
+      mma_ss<kBK>(s,
+                  dq + (((ks >> 2) * (kBQ * 128) + (ks & 3) * 32) >> 4),
+                  dk + (((ks >> 2) * (kBK * 128) + (ks & 3) * 32) >> 4),
+                  ks > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
 
     // f(x), masked to -1e30 where the tile crosses an edge of the band
 #pragma unroll
-    for (int e = 0; e < 32; ++e)
+    for (int e = 0; e < kNS; ++e)
       s[e] = CAPPED ? tanh_approx(s[e] * mul) : s[e] * mul;
     const bool need_mask = kt + kBK > p.Sk ||
                            (p.causal && kt + kBK - 1 > q_first) ||
                            (p.window > 0 && kt <= q_last - p.window);
     if (need_mask) {
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
+      for (int e = 0; e < kNS; ++e) {
         const int k_pos = kt + (e >> 2) * 8 + 2 * c4 + (e & 1);
         const int q_pos = qpos[(e >> 1) & 1];
         bool valid = k_pos < p.Sk;
@@ -343,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int e = 0; e < 32; ++e)
+    for (int e = 0; e < kNS; ++e)
       mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
     float m_safe[2], alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -357,9 +428,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       m_r[i] = m_new;
     }
     // masked scores give exp2(<= -1e30) = 0 exactly
-    uint32_t pa[4][4];
+    uint32_t pa[kBK / 16][4];
 #pragma unroll
-    for (int e = 0; e < 32; e += 2) {
+    for (int e = 0; e < kNS; e += 2) {
       const int i = (e >> 1) & 1;
       const float p0 = exp2_approx(fmaf(c, s[e], -m_safe[i]));
       const float p1 = exp2_approx(fmaf(c, s[e + 1], -m_safe[i]));
@@ -375,13 +446,21 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < kNO; ++e) o[e] *= alpha[(e >> 1) & 1];
     }
 
-    // O += P·V over 4 k-steps of 16 keys (16 rows of 128 bytes each)
+    // O += P·V over kBK / 16 k-steps of 16 keys (16 rows of 128 bytes
+    // each); at hd 80 columns 64-79 are a second product on chunk 1
     const uint64_t dv = make_desc(s_k + kTBytes, kBK * 128, 1024);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      mma_rs(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dvk = dv + ((kk * 16 * 128) >> 4);
+      if constexpr (HD == 80) {
+        mma_rs<64>(o, pa[kk], dvk);
+        mma_rs<16, 32>(o, pa[kk], dvk + ((kBK * 128) >> 4));
+      } else {
+        mma_rs<HD>(o, pa[kk], dvk);
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -433,8 +512,8 @@ int launch_capped(const Params& p, cudaStream_t s) {
 // Sq, hd), k and v (B, Kh, Sk, hd), o like q, as element strides of
 // (b, h, s) in `strides` (q, k, v, o; 12 values) with unit stride on hd
 // and 16-byte aligned rows; window 0 and softcap 0 mean none.  Takes
-// dtype 1 (bf16) and hd 64 or 128 only.  Returns the cudaError_t of the
-// attribute call or the launch.
+// dtype 1 (bf16) and hd 64, 80, 128 or 256 only.  Returns the cudaError_t
+// of the attribute call or the launch.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* strides, int B,
@@ -454,9 +533,14 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
   p.group = H / Kh;
   p.causal = causal; p.window = window;
   p.scale = scale; p.softcap = softcap;
-  if (dtype != 1 || (hd != 64 && hd != 128) || Kh < 1 || H % Kh != 0 ||
-      Sq < 1 || Sk < 1)
+  if (dtype != 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 64 ? launch_capped<64>(p, s) : launch_capped<128>(p, s);
+  switch (hd) {
+    case 64: return launch_capped<64>(p, s);
+    case 80: return launch_capped<80>(p, s);
+    case 128: return launch_capped<128>(p, s);
+    case 256: return launch_capped<256>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

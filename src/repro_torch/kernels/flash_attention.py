@@ -3,9 +3,10 @@
 Counterpart of `repro/kernels/flash_attention.py` (the Pallas kernel), by
 three kernels: ``csrc/flash_decode.cu`` (Sq <= 16: split keys, then
 merge; `flash_decode_cuda`), ``csrc/flash_attention_tc.cu`` (bf16 prefill
-on the tensor cores, `flash_attention_tc_cuda`) and
-``csrc/flash_attention.cu`` (f32 CUDA cores, any head_dim up to 256,
-`flash_attention_cuda`).  `flash_route` states which one a call takes.
+on the tensor cores at head_dim 64, 80, 128 and 256,
+`flash_attention_tc_cuda`) and ``csrc/flash_attention.cu`` (f32 CUDA
+cores, any head_dim up to 256, `flash_attention_cuda`).  `flash_route`
+states which one a call takes.
 Each takes q (B, H, Sq, hd) and k, v (B, Kh, Sk, hd) as strided views
 (unit stride on hd), so the model hands over its (B, S, H, hd)
 activations and slices of its (B, C, Kh, hd) caches transposed, without a
@@ -28,7 +29,7 @@ from repro_torch.kernels import _build
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535          # heads on the grid's y, batch rows on its z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernel
+TC_HEAD_DIMS = (64, 80, 128, 256)   # head dims of the tensor-core kernel
 DECODE_MAX_SQ = 16           # queries of the decode kernel (decode steps)
 DECODE_MIN_KEYS = 128        # keys a decode split keeps at least
 DECODE_BLOCKS_PER_SM = 3     # decode blocks a split count aims for
@@ -46,11 +47,11 @@ def flash_route(dtype: torch.dtype, sq: int, hd: int) -> str:
     """Which kernel a CUDA call takes: ``"decode"`` (the split-key decode
     kernel) iff Sq <= 16, in either dtype and at any head_dim; else
     ``"tc"`` (the tensor-core kernel) iff the inputs are bf16 and head_dim
-    is 64 or 128; else ``"cuda_core"`` (f32 prefill, bf16 prefill at
-    head_dim 80 or 256).  From Sq 17 up the tensor-core kernel is the
-    faster of the two prefill kernels (both are timed at Sq 17, 32, 64 and
-    128 over the serving cache by ``chip_smoke.py``; PERF.md has the
-    times)."""
+    is 64, 80, 128 or 256 (every bf16 prefill of the served configs); else
+    ``"cuda_core"`` (f32 prefill, bf16 prefill at any other head_dim).
+    From Sq 17 up the tensor-core kernel is the faster of the two prefill
+    kernels (both are timed at Sq 17, 32, 64 and 128 over the serving
+    cache by ``chip_smoke.py``; PERF.md has the times)."""
     if sq <= DECODE_MAX_SQ:
         return "decode"
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
@@ -182,7 +183,7 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None) -> torch.Tensor:
     """The tensor-core kernel: as `flash_attention_cuda`, for bf16 and
-    head_dim 64 or 128 only (raises on anything else)."""
+    head_dim 64, 80, 128 or 256 only (raises on anything else)."""
     return _launch("flash_attention_tc", q, k, v, causal, window, softcap,
                    (torch.bfloat16,), TC_HEAD_DIMS)
 

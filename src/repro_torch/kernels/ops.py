@@ -145,8 +145,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (k_pos > q_pos − window) and tanh logit softcap.  Strided views are
     taken as they are on CUDA; the output has q's dtype (and layout).  On
     CUDA, `flash_route` picks the kernel: decode steps (Sq <= 16) on the
-    split-key decode kernel, bf16 prefill (head_dim 64 or 128) on the
-    tensor cores, the other prefills on the CUDA cores."""
+    split-key decode kernel, bf16 prefill (head_dim 64, 80, 128 or 256)
+    on the tensor cores, the other prefills on the CUDA cores."""
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)

@@ -47,9 +47,10 @@ def _both(q, k, v, dtype, **kw):
 # (G, causal, window, softcap, Sq, Sk, hd, dtype): GQA groups 1/2/4,
 # causal and not, window 64, softcap 30, Sq < Sk, Sq = 1, hd 64 and 80; the
 # next three are bf16 shapes the tensor-core route takes on CUDA (hd 64 and
-# 128, Sq 17, window 1 and 63, softcap 50); the last three are causal with
+# 128, Sq 17, window 1 and 63, softcap 50); the next three are causal with
 # Sq > Sk, whose first Sq − Sk rows see no key (the last a decode-route
-# shape)
+# shape); the last two are bf16 at hd 256 with MQA (group 8, one KV head)
+# as gemma-2b's prefill, causal with Sq < Sk, and window 64 with softcap 30
 CASES = [
     (1, True, None, None, 64, 64, 64, "float32"),
     (2, True, 64, 30.0, 128, 128, 64, "float32"),
@@ -65,6 +66,8 @@ CASES = [
     (2, True, None, None, 96, 40, 64, "float32"),
     (1, True, 16, None, 80, 64, 64, "bfloat16"),
     (2, True, None, None, 8, 3, 64, "float32"),
+    (8, True, None, None, 40, 72, 256, "bfloat16"),
+    (8, True, 64, 30.0, 96, 96, 256, "bfloat16"),
 ]
 
 
@@ -185,14 +188,14 @@ def test_decode_splits(b, kh, sk, n_sm, want):
 
 
 # the rule between the three CUDA kernels: the decode kernel iff Sq <= 16;
-# else the tensor-core kernel iff bf16 and head_dim 64 or 128; else the
-# CUDA-core kernel; each condition on both sides
+# else the tensor-core kernel iff bf16 and head_dim 64, 80, 128 or 256;
+# else the CUDA-core kernel; each condition on both sides
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sq", [1, 16, 17, 4608])
 @pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_route(dtype, sq, hd):
     want = ("decode" if sq <= 16 else
-            "tc" if dtype == torch.bfloat16 and hd in (64, 128)
+            "tc" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
             else "cuda_core")
     assert flash_route(dtype, sq, hd) == want
 

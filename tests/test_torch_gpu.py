@@ -392,8 +392,8 @@ def test_flash_attention_refuses_what_it_does_not_take():
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core kernel (csrc/flash_attention_tc.cu): bf16, head_dim 64 or
-# 128, which `flash_route` picks for Sq > 16; at bf16's 3e-2
+# the tensor-core kernel (csrc/flash_attention_tc.cu): bf16, head_dim 64,
+# 80, 128 or 256, which `flash_route` picks for Sq > 16; at bf16's 3e-2
 
 
 def _tc_check(q, k, v, **kw):
@@ -415,7 +415,7 @@ TC_MASKS = [dict(causal=False), dict(causal=True),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
                                    (200, 333), (17, 300), (80, 64),
@@ -438,7 +438,7 @@ TC_CAPPED_MASKS = [kw for kw in TC_MASKS if "softcap" in kw] + \
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
                                    (200, 333), (17, 300), (80, 64),
@@ -457,7 +457,7 @@ def test_flash_attention_tc_ragged_capped(hd, group, sq, sk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_attention_tc_contiguous_layout(hd):
     """(B, H, S, hd) contiguous tensors, as well as the model's views."""
     _require_cuda()
@@ -466,6 +466,27 @@ def test_flash_attention_tc_contiguous_layout(hd):
                _qkv(gen, 1, 4, 2, 250, 250, hd, torch.bfloat16))
     _tc_check(q, k, v, causal=True, softcap=50.0)
     _tc_check(q, k, v, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(37, 101), (130, 130), (200, 333),
+                                   (96, 40)])
+def test_flash_attention_tc_mqa(sq, sk):
+    """gemma-2b's heads (H 8, one KV head, hd 256): every query head of a
+    block's batch row reads the same K/V; both logit scales, the capped
+    one with the planted fault."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    for std in (LOGIT_STD, CAP_LOGIT_STD):
+        q, k, v = _qkv(gen, 2, 8, 1, sq, sk, 256, torch.bfloat16,
+                       cache_len=sk + 13, logit_std=std)
+        _tc_check(q, k, v, causal=True)
+        _tc_check(q, k, v, causal=True, window=63, softcap=30.0)
+        if std == CAP_LOGIT_STD:
+            kw = dict(causal=True, softcap=50.0)
+            want = _tc_check(q, k, v, **kw)
+            _fails_without_softcap(flash_attention_tc_cuda, q, k, v, want,
+                                   **kw)
 
 
 @pytest.mark.gpu
@@ -502,11 +523,11 @@ def test_flash_attention_tc_refuses_what_it_does_not_take():
     q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 128, torch.bfloat16)
     with pytest.raises(TypeError):                 # f32
         flash_attention_tc_cuda(q.float(), k.float(), v.float())
-    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 80, torch.bfloat16)
-    with pytest.raises(ValueError):                # head_dim 80
+    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 96, torch.bfloat16)
+    with pytest.raises(ValueError):                # head_dim 96
         flash_attention_tc_cuda(q, k, v)
-    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 256, torch.bfloat16)
-    with pytest.raises(ValueError):                # head_dim 256
+    q, k, v = _qkv(gen, 1, 4, 2, 40, 40, 32, torch.bfloat16)
+    with pytest.raises(ValueError):                # head_dim 32
         flash_attention_tc_cuda(q, k, v)
     # the op sends these to the CUDA-core kernel instead
     n0 = ops.LAUNCHES["flash_attention_tc"]

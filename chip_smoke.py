@@ -10,7 +10,13 @@ Phases (any failure raises and the script exits non-zero):
                 nvcc (all at once) and prints build time and ptxas output;
   3. kernels  — holds each CUDA kernel against its plain PyTorch version on
                 the card (mix and Gram at tests/test_kernels.py's
-                tolerances, the four channel kernels bitwise, the flash
+                tolerances, outputs landing on a NaN fill; the mix of a
+                ragged leaf set bitwise equal to one-leaf calls, the
+                folded stream mix to the gather form; the Gram bitwise
+                over 10 calls, Δ bitwise `ref.sqdist_from_gram` of its G;
+                a round's mix at k = m = 20 and 100 beside per-leaf and
+                flat `torch.matmul`, with its host µs; the four channel
+                kernels bitwise, the flash
                 kernels at bf16's 3e-2 / f32's 2e-5) and times kernel,
                 plain version and one PyTorch library call with CUDA
                 events, beside the byte/FLOP bound; the tensor-core flash
@@ -23,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
                 a qsgd channel on both devices;
   5. main     — run_federated for ucfl, ucfl_k4 and fedavg on the paper's
                 §IV-A.1 scenario (n=10000, m=20, LeNet-5, D=47,571), with
-                launch counters showing every mix and the UCFL Δ went
-                through the kernels;
+                launch counters showing every mix (one launch a round,
+                all ten leaves) and the UCFL Δ (one launch a run, G and
+                Δ) went through the kernels;
   6. channel  — the same scenario through the uplink channel: ucfl_k4
                 with UniformFraction(0.5) and qsgd:8 over a tiered link,
                 ucfl with topk:0.1, fedavg with the identity channel (its
@@ -76,12 +83,14 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import StreamPlan, mix_pytree, stream_aggregate  # noqa: E402,E501
 from repro_torch.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
 from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
                             TorchDraws, UniformFraction, run_federated)
 from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.pairwise_sqdist import card_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     decode_splits, flash_attention_cuda, flash_attention_tc_cuda,
     flash_decode_cuda, flash_route)
@@ -195,94 +204,201 @@ def rand_rows(gen, k, m):
     return w / w.sum(1, keepdim=True)
 
 
-def check_mixing(gen) -> dict:
-    shapes = [(1, 20, D_LENET), (4, 20, D_LENET), (20, 20, D_LENET),
-              (100, 100, D_LENET), (4, 20, 1), (4, 20, 127), (20, 20, 129),
-              (7, 13, 4099)]
-    for k, m, d in shapes:
-        for dt in (torch.float32, torch.bfloat16):
-            w = rand_rows(gen, k, m)
-            theta = torch.randn((m, d), generator=gen, device="cuda").to(dt)
-            got = ops.mixing_aggregate(w, theta)
-            want = ref.mixing_aggregate_ref(w, theta)
-            err = check_close(f"mixing_aggregate k={k} m={m} D={d} {dt}",
-                              got, want, TOL[dt], TOL[dt])
-            line = f"  mixing_aggregate k={k:3d} m={m:3d} D={d:6d} " \
-                   f"{str(dt)[6:]:8s} max|err| {err:.2e}"
-            if d == D_LENET:
-                n_bytes = (m * d + k * d) * theta.element_size() + 4 * k * m
-                b, by = bound_ms(n_bytes, 2.0 * k * m * d)
-                line += (f"  kernel {time_ms(lambda: ops.mixing_aggregate(w, theta)):.4f} ms"
-                         f"  plain {time_ms(lambda: ref.mixing_aggregate_ref(w, theta)):.4f} ms"
-                         f"  matmul {time_ms(lambda: torch.matmul(w.to(dt), theta)):.4f} ms"
-                         f"  bound {b:.4f} ms ({by})")
-            print(line, flush=True)
-    theta = torch.randn((20, D_LENET), generator=gen, device="cuda")
-    if not torch.equal(ops.mixing_aggregate(torch.eye(20, device="cuda"),
-                                            theta), theta):
-        raise AssertionError("mixing_aggregate: identity W does not "
-                             "return Θ")
+def nan_landing(n: int, dtype) -> int:
+    """Fill a fresh n-element block with NaN and free it, so the next op's
+    first allocation (its output) lands on NaN: an element the kernel
+    skips stays NaN.  Returns the block's address."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = torch.full((n,), float("nan"), dtype=dtype, device="cuda")
+    ptr = t.data_ptr()
+    del t
+    return ptr
 
-    # the main path's shapes: one ucfl round mixes the 10 LeNet leaves
-    sizes = lenet_leaf_sizes()
-    m = k = MAIN["m"]
+
+def host_us(fn, iters: int = 200) -> float:
+    """Median host µs of one ``fn()`` (perf_counter, no synchronize)."""
+    for _ in range(5):
+        fn()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e6
+
+
+def mix_round(gen, k: int, m: int, sizes: list, label: str) -> dict:
+    """One round's mix of LeNet's leaves at (k, m), f32, in one launch,
+    timed beside per-leaf ``torch.matmul`` (the library call), one matmul
+    over a pre-stacked flat (m, ΣD) (a floor) and the bound."""
     w = rand_rows(gen, k, m)
     thetas = [torch.randn((m, d), generator=gen, device="cuda")
               for d in sizes]
-    err = max(check_close("mixing_aggregate (LeNet leaves)",
-                          ops.mixing_aggregate(w, t),
+    flat = torch.cat(thetas, dim=1)
+    total = sum(-(-k * d // 4) * 4 for d in sizes)
+    ptr = nan_landing(total, torch.float32)
+    got = ops.mixing_aggregate_leaves(w, thetas)
+    if got[0].data_ptr() != ptr:
+        raise AssertionError("mixing_aggregate: output did not land on the "
+                             "NaN fill")
+    err = max(check_close(f"mixing_aggregate {label}", y,
                           ref.mixing_aggregate_ref(w, t), 1e-5, 1e-5)
-              for t in thetas)
-    n_bytes = sum((m * d + k * d) * 4 + 4 * k * m for d in sizes)
-    b, by = bound_ms(n_bytes, 2.0 * k * m * D_LENET)
+              for y, t in zip(got, thetas))
+    eye = ops.mixing_aggregate_leaves(torch.eye(m, device="cuda"), thetas)
+    if not all(torch.equal(y, t) for y, t in zip(eye, thetas)):
+        raise AssertionError(f"mixing_aggregate {label}: identity W does not "
+                             "return Θ bitwise")
+    d_all = sum(sizes)
+    n_bytes = (m * d_all + k * d_all) * 4 + 4 * k * m
+    b, by = bound_ms(n_bytes, 2.0 * k * m * d_all)
     row = dict(
-        name="mixing_aggregate", route="cuda",
-        source="src/repro_torch/kernels/csrc/mixing_aggregate.cu",
-        replaces="src/repro/kernels/mixing_aggregate.py:43",
         max_abs_err=err,
-        ms=time_ms(lambda: [ops.mixing_aggregate(w, t) for t in thetas]),
+        ms=time_ms(lambda: ops.mixing_aggregate_leaves(w, thetas)),
         plain_ms=time_ms(lambda: [ref.mixing_aggregate_ref(w, t)
                                   for t in thetas]),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: [torch.matmul(w, t) for t in thetas]))
-    print(f"  mixing_aggregate main-path round (k=m=20, 10 leaves, "
-          f"ΣD={D_LENET}, f32): kernel {row['ms']:.4f} ms  plain "
-          f"{row['plain_ms']:.4f} ms  matmul {row['library_ms']:.4f} ms  "
-          f"bound {b:.4f} ms ({by})  max|err| {err:.2e}", flush=True)
+    flat_ms = time_ms(lambda: torch.matmul(w, flat))
+    tree_us = host_us(lambda: ops.mixing_aggregate_leaves(w, thetas))
+    leaf_us = host_us(lambda: [ops.mixing_aggregate(w, t) for t in thetas])
+    print(f"  mixing_aggregate round {label}: one launch {row['ms']:.4f} ms  "
+          f"per-leaf matmul {row['library_ms']:.4f} ms  flat matmul (floor) "
+          f"{flat_ms:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+          f"{b:.4f} ms ({by})  max|err| {err:.2e}  host {tree_us:.1f} µs a "
+          f"call ({len(sizes)} one-leaf calls: {leaf_us:.1f} µs)",
+          flush=True)
+    return row
+
+
+def ragged_leaves(gen, m, dtype, n_leaves) -> list:
+    """n_leaves (m, d) leaves over ragged widths, every other one based one
+    element past an aligned address (4- or 2-byte aligned rows)."""
+    widths = (1, 6, 47, 127, 128, 129, 150, 4099)
+    out = []
+    for i in range(n_leaves):
+        d = widths[i % len(widths)]
+        base = torch.randn(m * d + 1, generator=gen, device="cuda").to(dtype)
+        out.append(base[i % 2:i % 2 + m * d].view(m, d))
+    return out
+
+
+def check_mixing(gen) -> dict:
+    shapes = [(1, 20, D_LENET), (4, 20, D_LENET), (20, 20, D_LENET),
+              (100, 100, D_LENET), (4, 20, 1), (4, 20, 127), (20, 20, 129),
+              (7, 13, 4099), (130, 20, 4099)]
+    for k, m, d in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            w = rand_rows(gen, k, m)
+            theta = torch.randn((m, d), generator=gen, device="cuda").to(dt)
+            ptr = nan_landing(k * d, dt)
+            got = ops.mixing_aggregate(w, theta)
+            if got.data_ptr() != ptr:
+                raise AssertionError("mixing_aggregate: output did not land "
+                                     "on the NaN fill")
+            err = check_close(f"mixing_aggregate k={k} m={m} D={d} {dt}",
+                              got, ref.mixing_aggregate_ref(w, theta),
+                              TOL[dt], TOL[dt])
+            print(f"  mixing_aggregate k={k:3d} m={m:3d} D={d:6d} "
+                  f"{str(dt)[6:]:8s} max|err| {err:.2e}", flush=True)
+
+    # ragged leaf sets, more than N_MAX leaves: one call against one-leaf
+    # calls bit for bit, and against the plain version
+    for dt in (torch.float32, torch.bfloat16):
+        for k, m, n in ((20, 20, 10), (100, 100, 8), (5, 9, 41)):
+            w = rand_rows(gen, k, m)
+            thetas = ragged_leaves(gen, m, dt, n)
+            before = ops.LAUNCHES["mixing_aggregate"]
+            got = ops.mixing_aggregate_leaves(w, thetas)
+            launched = ops.LAUNCHES["mixing_aggregate"] - before
+            for y, t in zip(got, thetas):
+                check_close(f"mixing_aggregate ragged k={k} m={m} {dt}", y,
+                            ref.mixing_aggregate_ref(w, t), TOL[dt], TOL[dt])
+                same(f"mixing_aggregate ragged k={k} m={m} {dt} vs one-leaf "
+                     "call", y, ops.mixing_aggregate(w, t))
+            print(f"  mixing_aggregate ragged {n} leaves (widths 1..4,099, "
+                  f"misaligned bases) k={k} m={m} {str(dt)[6:]}: {launched} "
+                  "launch(es), bitwise equal to one-leaf calls", flush=True)
+
+    # the folded stream mix: centroids[assignment] in one launch equals
+    # mixing to the centroids and gathering, bit for bit
+    m = MAIN["m"]
+    cents = rand_rows(gen, 4, m)
+    assign = torch.randint(0, 4, (m,), generator=gen, device="cuda")
+    stacked = {f"l{i}": t for i, t in enumerate(
+        ragged_leaves(gen, m, torch.float32, 10))}
+    folded = stream_aggregate(stacked, StreamPlan(cents, assign,
+                                                  torch.tensor(0.0)))
+    for name, v in mix_pytree(stacked, cents).items():
+        same(f"stream_aggregate {name}", folded[name], v[assign])
+    print("  stream_aggregate (k=4, m=20, one launch) bitwise equal to the "
+          "mix-then-gather form", flush=True)
+
+    # the main path's shapes: one ucfl round mixes the 10 LeNet leaves
+    sizes = lenet_leaf_sizes()
+    row = mix_round(gen, MAIN["m"], MAIN["m"], sizes, "k=m=20 (LeNet, f32)")
+    mix_round(gen, 100, 100, sizes, "k=m=100 (LeNet, f32)")
+    row.update(name="mixing_aggregate", route="cuda",
+               source="src/repro_torch/kernels/csrc/mixing_aggregate.cu",
+               replaces="src/repro/kernels/mixing_aggregate.py:43")
     return row
 
 
 def check_gram(gen) -> dict:
     row = None
-    for m, d in ((20, D_LENET), (100, D_LENET), (17, 31), (1, 5)):
+    for m, d in ((20, D_LENET), (100, D_LENET), (17, 31), (1, 5),
+                 (33, 4099), (129, 4099)):
         g = torch.randn((m, d), generator=gen, device="cuda")
-        err = check_close(f"gram_matrix m={m} D={d}", ops.gram_matrix(g),
-                          ref.gram_ref(g), 1e-4, 1e-2)
-        # Δ's plain version assembles from the plain Gram, as the kernel
-        # path does: pairwise_sqdist_ref's separately summed norms leave a
-        # cancellation residue of ~1e-2 on its diagonal at this D
-        delta = ops.pairwise_sqdist(g)
+        ptr = nan_landing(2 * m * m, torch.float32)
+        before = ops.LAUNCHES["gram_matrix"]
+        gram = ops.gram_matrix(g)
+        if gram.data_ptr() != ptr:
+            raise AssertionError("gram_matrix: output did not land on the "
+                                 "NaN fill")
+        err = check_close(f"gram_matrix m={m} D={d}", gram, ref.gram_ref(g),
+                          1e-4, 1e-2)
+        if not torch.equal(gram, gram.T):
+            raise AssertionError(f"gram_matrix m={m}: G not symmetric")
+        for _ in range(10):
+            same(f"gram_matrix m={m} D={d} repeated", ops.gram_matrix(g),
+                 gram)
+            delta = ops.pairwise_sqdist(g)
+            # Δ from the same launch, bitwise the reference's assembly
+            same(f"pairwise_sqdist m={m} D={d}", delta,
+                 ref.sqdist_from_gram(gram))
+        if ops.LAUNCHES["gram_matrix"] - before != 21:
+            raise AssertionError("gram_matrix: not one launch a call")
+        # and Δ against the plain Gram's (pairwise_sqdist_ref's separately
+        # summed norms leave a cancellation residue of ~1e-2 on its diagonal
+        # at this D)
         check_close(f"pairwise_sqdist m={m} D={d}", delta,
                     ref.sqdist_from_gram(ref.gram_ref(g)), 1e-4, 1e-2)
         if not torch.equal(delta, delta.T) or \
                 bool(torch.any(torch.diagonal(delta) != 0)):
             raise AssertionError(f"pairwise_sqdist m={m}: Δ not symmetric "
                                  "with a zero diagonal")
-        line = f"  gram_matrix m={m:3d} D={d:6d} max|err| {err:.2e}"
+        line = (f"  gram_matrix m={m:3d} D={d:6d} max|err| {err:.2e}, "
+                "bitwise over 10 calls, symmetric, Δ bitwise "
+                "sqdist_from_gram(G) with a zero diagonal")
         if d == D_LENET:
-            b, by = bound_ms(4.0 * (m * d + m * m), 2.0 * m * m * d)
+            b, by = bound_ms(4.0 * (m * d + 2 * m * m), m * (m + 1.0) * d)
             cur = dict(
                 name="gram_matrix", route="cuda",
                 source="src/repro_torch/kernels/csrc/gram.cu",
                 replaces="src/repro/kernels/pairwise_sqdist.py:42",
                 max_abs_err=err,
-                ms=time_ms(lambda: ops.gram_matrix(g)),
-                plain_ms=time_ms(lambda: ref.gram_ref(g)),
+                ms=time_ms(lambda: ops.pairwise_sqdist(g)),
+                plain_ms=time_ms(lambda: ref.sqdist_from_gram(
+                    ref.gram_ref(g))),
                 bound_ms=b, bound_by=by,
                 library_ms=time_ms(lambda: torch.matmul(g, g.T)))
-            line += (f"  kernel {cur['ms']:.4f} ms  plain "
+            plan, fit = card_plan(m, d, g.device)
+            line += (f"\n    one launch G + Δ {cur['ms']:.4f} ms  plain "
                      f"{cur['plain_ms']:.4f} ms  matmul "
-                     f"{cur['library_ms']:.4f} ms  bound {b:.4f} ms ({by})")
+                     f"{cur['library_ms']:.4f} ms  bound {b:.4f} ms ({by}); "
+                     f"grid {plan.blocks} blocks x {plan.threads} threads "
+                     f"({fit} clusters of 8 fit at once)")
             if m == MAIN["m"]:
                 row = cur
         print(line, flush=True)
@@ -1251,9 +1367,9 @@ def main_path(fed, fl) -> dict:
                 want_time.append(t)
         if h.time != want_time:
             raise AssertionError(f"{spec}: clock {h.time} != {want_time}")
-        if launched["mixing_aggregate"] != rounds * MAIN["leaves"]:
+        if launched["mixing_aggregate"] != rounds:
             raise AssertionError(f"{spec}: {launched} mixing launches, want "
-                                 f"{rounds * MAIN['leaves']}")
+                                 f"{rounds}, one a round")
         if launched["gram_matrix"] != (1 if spec.startswith("ucfl") else 0):
             raise AssertionError(f"{spec}: {launched} gram launches")
         print(f"  {spec:8s} streams {streams:2d}  mean_acc "
@@ -1296,7 +1412,7 @@ def channel_path(fed, fl, base_clock: list) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        want_launch["mixing_aggregate"] = rounds * MAIN["leaves"]
+        want_launch["mixing_aggregate"] = rounds     # the tree, one launch
         for c in ops.FLASH_COUNTERS.values():
             want_launch[c] = 0
         if launched != want_launch:

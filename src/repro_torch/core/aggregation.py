@@ -2,9 +2,10 @@
 
 Counterpart of `repro/core/aggregation.py` (`mix_pytree`,
 `user_centric_aggregate`, `stream_aggregate`).  Every leaf carries a
-leading client dim m; the mix is one `kernels.ops.mixing_aggregate` call
-per leaf on ``leaf.reshape(m, -1)`` — on CUDA, one launch of the
-hand-written Y = W Θ kernel per leaf (10 a round for LeNet-5):
+leading client dim m; the mix is one `kernels.ops.mixing_aggregate_leaves`
+call per leaf dtype over ``leaf.reshape(m, -1)`` — on CUDA, one launch of
+the hand-written Y = W Θ kernel for the whole tree (one a round for
+LeNet-5's ten leaves):
 
     θ_i = Σ_j W[i,j] θ_j                     (unicast / full personalization)
     θ̂_c = Σ_j Ŵ[c,j] θ_j ; θ_i = θ̂_{a(i)}   (k streams, group broadcast)
@@ -19,19 +20,24 @@ from repro_torch.core.streams import StreamPlan
 from repro_torch.kernels import ops
 
 
-def _mix_leaf(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """(k, m) x (m, ...) -> (k, ...) in the leaf's dtype, fp32 accumulation.
-    W is rounded to the leaf's dtype first, as the reference does, so bf16
-    leaves mix with bf16-rounded weights."""
-    m = leaf.shape[0]
-    out = ops.mixing_aggregate(w.to(leaf.dtype), leaf.reshape(m, -1))
-    return out.reshape((w.shape[0],) + tuple(leaf.shape[1:]))
-
-
 def mix_pytree(stacked: Dict[str, torch.Tensor],
                w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Apply an aggregation-rule matrix w (k, m) to all leaves (m, ...)."""
-    return {name: _mix_leaf(w, leaf) for name, leaf in stacked.items()}
+    """Apply an aggregation-rule matrix w (k, m) to all leaves (m, ...):
+    (k, ...) in each leaf's dtype, fp32 accumulation.  W is rounded to a
+    leaf's dtype first, as the reference does, so bf16 leaves mix with
+    bf16-rounded weights.  Leaves go to the op in sorted-key order, one
+    call per dtype."""
+    groups: Dict[torch.dtype, list] = {}
+    for name in sorted(stacked):
+        groups.setdefault(stacked[name].dtype, []).append(name)
+    mixed = {}
+    for dtype, names in groups.items():
+        leaves = [stacked[n] for n in names]
+        outs = ops.mixing_aggregate_leaves(
+            w.to(dtype), [v.reshape(v.shape[0], -1) for v in leaves])
+        for n, v, y in zip(names, leaves, outs):
+            mixed[n] = y.reshape((w.shape[0],) + tuple(v.shape[1:]))
+    return {name: mixed[name] for name in stacked}
 
 
 def user_centric_aggregate(stacked, w: torch.Tensor):
@@ -40,7 +46,8 @@ def user_centric_aggregate(stacked, w: torch.Tensor):
 
 
 def stream_aggregate(stacked, plan: StreamPlan):
-    """k-stream aggregation: mix to the k centroids, then gather each
-    client's row by ``plan.assignment`` (group broadcast)."""
-    mixed = mix_pytree(stacked, plan.centroids)
-    return {name: leaf[plan.assignment] for name, leaf in mixed.items()}
+    """k-stream aggregation: client i gets stream a(i)'s mix, here as one
+    mix with the (m, m) rule ``centroids[assignment]`` — the same function
+    as mixing to the k centroids and gathering rows (group broadcast), in
+    one launch and with no per-leaf gather."""
+    return mix_pytree(stacked, plan.centroids[plan.assignment])

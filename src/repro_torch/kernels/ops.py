@@ -11,7 +11,11 @@ that its path went through the kernels:
 
     ops.LAUNCHES["mixing_aggregate"] = 0
     run_federated("ucfl", fed)
-    assert ops.LAUNCHES["mixing_aggregate"] == rounds * n_leaves
+    assert ops.LAUNCHES["mixing_aggregate"] == rounds   # a tree, one launch
+
+The mix takes a whole parameter tree in one launch (up to
+``mixing_aggregate.N_MAX`` leaves a launch); the Gram op computes G and
+Δ in one launch, counted under ``gram_matrix``.
 
 The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
 ``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
@@ -25,7 +29,7 @@ prefills).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,8 +38,9 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_tc_cuda,
                                                  flash_decode_cuda,
                                                  flash_route)
-from repro_torch.kernels.mixing_aggregate import mixing_aggregate_cuda
-from repro_torch.kernels.pairwise_sqdist import gram_matrix_cuda
+from repro_torch.kernels.mixing_aggregate import (
+    N_MAX, mixing_aggregate_leaves_cuda)
+from repro_torch.kernels.pairwise_sqdist import gram_sqdist_cuda
 from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
                                           qsgd_quantize_cuda,
                                           rowwise_absmax_cuda)
@@ -66,13 +71,29 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise ValueError(f"{op}: unsupported device {t.device}")
 
 
+def mixing_aggregate_leaves(w: torch.Tensor,
+                            thetas: Sequence[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """[W Θ_l for each leaf]: w (k, m), thetas (m, D_l) of one dtype ->
+    (k, D_l) each in that dtype, fp32 accumulation.  On CUDA one launch
+    per N_MAX leaves, each element summed in the same order as a one-leaf
+    call, so the two agree bit for bit."""
+    if not _on_cuda(thetas[0], "mixing_aggregate"):
+        return [ref.mixing_aggregate_ref(w, t) for t in thetas]
+    outs = mixing_aggregate_leaves_cuda(w, thetas)
+    LAUNCHES["mixing_aggregate"] += -(-len(thetas) // N_MAX)
+    return outs
+
+
 def mixing_aggregate(w: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """Y = W Θ: w (k, m), theta (m, D) -> (k, D) in theta's dtype, fp32
-    accumulation."""
-    if not _on_cuda(theta, "mixing_aggregate"):
-        return ref.mixing_aggregate_ref(w, theta)
-    out = mixing_aggregate_cuda(w, theta)
-    LAUNCHES["mixing_aggregate"] += 1
+    accumulation (the one-leaf case of `mixing_aggregate_leaves`)."""
+    return mixing_aggregate_leaves(w, [theta])[0]
+
+
+def _gram_sqdist(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    out = gram_sqdist_cuda(g.float().contiguous())
+    LAUNCHES["gram_matrix"] += 1
     return out
 
 
@@ -80,14 +101,16 @@ def gram_matrix(g: torch.Tensor) -> torch.Tensor:
     """G = g gᵀ: (m, D) -> (m, m) float32."""
     if not _on_cuda(g, "gram_matrix"):
         return ref.gram_ref(g)
-    out = gram_matrix_cuda(g.float().contiguous())
-    LAUNCHES["gram_matrix"] += 1
-    return out
+    return _gram_sqdist(g)[0]
 
 
 def pairwise_sqdist(g: torch.Tensor) -> torch.Tensor:
-    """Δ_ij = ||g_i − g_j||² via the Gram op: (m, D) -> (m, m) float32."""
-    return ref.sqdist_from_gram(gram_matrix(g))
+    """Δ_ij = ||g_i − g_j||² via the Gram matrix: (m, D) -> (m, m) float32,
+    bitwise `ref.sqdist_from_gram` of that Gram.  On CUDA the Gram and Δ
+    come from one launch."""
+    if not _on_cuda(g, "gram_matrix"):
+        return ref.sqdist_from_gram(ref.gram_ref(g))
+    return _gram_sqdist(g)[1]
 
 
 def rowwise_absmax(x: torch.Tensor) -> torch.Tensor:
@@ -159,6 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "flash_attention",
            "flash_route", "gram_matrix", "mixing_aggregate",
+           "mixing_aggregate_leaves",
            "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",
            "qsgd_roundtrip", "ref", "reset_launches", "rowwise_absmax",
            "topk_threshold"]

@@ -126,3 +126,33 @@ def test_mixes_match(setup, dtype):
             np.testing.assert_allclose(a[name].float().numpy(),
                                        np.asarray(b[name], np.float32),
                                        rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_folded_stream_aggregate_matches_reference(setup, k):
+    """`stream_aggregate` mixes once with centroids[assignment] (m, m); it
+    matches the reference's mix-then-gather at f32's 1e-5, and on the CPU
+    the gather form of the port's own mix within the same tolerance."""
+    _, params0, _, _, ref = setup
+    m = ref["w"].shape[0]
+    rng = np.random.default_rng(11 + k)
+    stacked = {n: rng.standard_normal((m,) + v.shape).astype(np.float32)
+               for n, v in params0.items()}
+    plan = jax.jit(jkmeans, static_argnums=1)(jnp.asarray(ref["w"]), k,
+                                              key=jax.random.PRNGKey(k))
+    tplan = StreamPlan(torch.tensor(np.asarray(plan.centroids)),
+                       torch.tensor(np.asarray(plan.assignment, np.int64)),
+                       torch.tensor(0.0))
+    tst = {n: torch.from_numpy(v) for n, v in stacked.items()}
+    got = stream_aggregate(tst, tplan)
+    want = jax.jit(jagg.stream_aggregate)(
+        {n: jnp.asarray(v) for n, v in stacked.items()}, JStreamPlan(*plan))
+    gathered = {n: v[tplan.assignment]
+                for n, v in mix_pytree(tst, tplan.centroids).items()}
+    for name in want:
+        assert tuple(got[name].shape) == want[name].shape
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got[name].numpy(),
+                                   gathered[name].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

@@ -14,7 +14,9 @@ each output row relative to its norm, on logits inside and past the
 softcaps (there, the kernel without its softcap must fail), with causal
 Sq > Sk cases whose first rows see no key (0).  The decode kernel is also
 held bitwise against itself across calls, and the channel kernels bitwise
-against their plain versions.
+against their plain versions.  The mix of a ragged leaf set in one
+launch is held bitwise against one-leaf calls and the Gram bitwise
+against itself, with Δ bitwise `ref.sqdist_from_gram` of its G.
 """
 import pytest
 import torch
@@ -81,6 +83,156 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.mixing_aggregate(torch.ones(2, 5, device="cuda"), theta)
     with pytest.raises(ValueError):
         ops.mixing_aggregate(torch.ones(2, 9, device="cuda"), theta.T)
+
+
+# ---------------------------------------------------------------------------
+# the mix of a whole tree in one launch, the Gram and Δ in one launch
+
+RAGGED = (1, 6, 47, 127, 128, 129, 150, 4099)
+
+
+def _nan_landing(n, dtype):
+    """Fill a fresh n-element block with NaN and free it, so the op's first
+    allocation (its output) lands on NaN: a skipped element stays NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = torch.full((n,), float("nan"), dtype=dtype, device="cuda")
+    ptr = t.data_ptr()
+    del t
+    return ptr
+
+
+def _ragged_leaves(gen, m, dtype, n_leaves):
+    """n_leaves (m, d) leaves cycling through RAGGED, every other one at a
+    base one element past an aligned address (rows 4- or 2-byte aligned)."""
+    out = []
+    for i in range(n_leaves):
+        d = RAGGED[i % len(RAGGED)]
+        flat = torch.randn(m * d + 1, generator=gen, device="cuda").to(dtype)
+        out.append(flat[i % 2:i % 2 + m * d].view(m, d))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m,n_leaves", [(20, 20, 8), (100, 100, 8),
+                                          (3, 5, 41), (130, 7, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_leaves_ragged(k, m, n_leaves, dtype):
+    """A ragged leaf set (widths 1..4,099, misaligned bases, more than
+    N_MAX leaves) in one call: within tolerance of the plain version,
+    bitwise equal to one-leaf calls, no element left unwritten."""
+    _require_cuda()
+    from repro_torch.kernels.mixing_aggregate import N_MAX
+    gen = torch.Generator(device="cuda").manual_seed(k * 7 + m)
+    w = torch.rand((k, m), generator=gen, device="cuda")
+    w = w / w.sum(1, keepdim=True)
+    thetas = _ragged_leaves(gen, m, dtype, n_leaves)
+    a = 16 // thetas[0].element_size()
+    total = sum(-(-k * t.shape[1] // a) * a for t in thetas)
+    ptr = _nan_landing(total, dtype)
+    n0 = ops.LAUNCHES["mixing_aggregate"]
+    got = ops.mixing_aggregate_leaves(w, thetas)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == ptr
+    assert ops.LAUNCHES["mixing_aggregate"] == n0 + -(-n_leaves // N_MAX)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, t in zip(got, thetas):
+        assert g.shape == (k, t.shape[1]) and g.dtype == dtype
+        assert not torch.isnan(g).any()
+        torch.testing.assert_close(g.float(),
+                                   ref.mixing_aggregate_ref(w, t).float(),
+                                   rtol=tol, atol=tol)
+        assert torch.equal(g, ops.mixing_aggregate(w, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [20, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_leaves_identity_is_bitwise(m, dtype):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    thetas = _ragged_leaves(gen, m, dtype, 8)
+    got = ops.mixing_aggregate_leaves(torch.eye(m, device="cuda"), thetas)
+    for g, t in zip(got, thetas):
+        assert torch.equal(g, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_folded_stream_aggregate_is_bitwise_gather_form(k):
+    """centroids[assignment] mixed once equals mixing to the k centroids
+    and gathering each client's row, bit for bit (one launch, not two)."""
+    _require_cuda()
+    from repro_torch.core import StreamPlan, mix_pytree, stream_aggregate
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    m = 20
+    cents = torch.rand((k, m), generator=gen, device="cuda")
+    cents = cents / cents.sum(1, keepdim=True)
+    assign = torch.randint(0, k, (m,), generator=gen, device="cuda")
+    stacked = {f"leaf{i}": t for i, t in enumerate(
+        _ragged_leaves(gen, m, torch.float32, 8))}
+    n0 = ops.LAUNCHES["mixing_aggregate"]
+    got = stream_aggregate(stacked, StreamPlan(cents, assign,
+                                               torch.tensor(0.0)))
+    assert ops.LAUNCHES["mixing_aggregate"] == n0 + 1
+    mixed = mix_pytree(stacked, cents)
+    for name, v in mixed.items():
+        assert torch.equal(got[name], v[assign])
+
+
+GRAM_MS = (1, 17, 20, 32, 33, 100, 129)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", GRAM_MS)
+@pytest.mark.parametrize("d", [31, 4096, 47571])
+def test_gram_one_launch_deterministic(m, d):
+    """G within tolerance of the plain Gram, exactly symmetric and bitwise
+    equal across calls; Δ bitwise `sqdist_from_gram` of that G, with a
+    zero diagonal; one launch a call, every element written."""
+    _require_cuda()
+    from repro_torch.kernels.pairwise_sqdist import gram_sqdist_cuda
+    g = torch.randn((m, d), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(d))
+    ptr = _nan_landing(2 * m * m, torch.float32)
+    gram, delta = gram_sqdist_cuda(g)
+    torch.cuda.synchronize()
+    assert gram.data_ptr() == ptr
+    assert not torch.isnan(gram).any() and not torch.isnan(delta).any()
+    torch.testing.assert_close(gram, ref.gram_ref(g), rtol=1e-4, atol=1e-2)
+    assert torch.equal(gram, gram.T)
+    assert torch.equal(delta, ref.sqdist_from_gram(gram))
+    assert torch.all(torch.diagonal(delta) == 0)
+    n0 = ops.LAUNCHES["gram_matrix"]
+    for _ in range(3):
+        assert torch.equal(ops.gram_matrix(g), gram)
+        assert torch.equal(ops.pairwise_sqdist(g), delta)
+    assert ops.LAUNCHES["gram_matrix"] == n0 + 6
+
+
+@pytest.mark.gpu
+def test_gram_counters_are_keyed_by_stream():
+    """Two streams each get their own ticket counters; launches in flight
+    on both at once give each stream's exact answer, and every counter is
+    back at 0."""
+    _require_cuda()
+    from repro_torch.kernels import pairwise_sqdist as P
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gs = [torch.randn((20, 47571), generator=gen, device="cuda")
+          for _ in range(2)]
+    want = [ops.gram_matrix(g) for g in gs]
+    streams = [torch.cuda.Stream() for _ in gs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (s, g) in enumerate(zip(streams, gs)):
+            with torch.cuda.stream(s):
+                got[i].append(ops.gram_matrix(g))
+    torch.cuda.synchronize()
+    for i, s in enumerate(streams):
+        assert all(torch.equal(x, want[i]) for x in got[i])
+        assert (gs[i].device.index, s.cuda_stream) in P._COUNTERS
+    assert all(int(c.abs().sum()) == 0 for c in P._COUNTERS.values())
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.pairwise_sqdist import TD, chunking
+from repro_torch.kernels.mixing_aggregate import (N_MAX, SMEM_LIMIT, TILE,
+                                                  copy_width, launch_groups,
+                                                  smem_bytes)
+from repro_torch.kernels.pairwise_sqdist import CLUSTER, gram_plan
 
 RNG = np.random.default_rng(0)
 
@@ -84,9 +87,98 @@ def test_cpu_ops_do_not_count_launches():
     assert ops.LAUNCHES == before
 
 
+def _micro_tiles(nb, diag):
+    """(bi, bj) of each micro-tile, in the order csrc/gram.cu numbers them."""
+    if diag:
+        return [(bi, bj) for bi in range(nb) for bj in range(bi, nb)]
+    return [(bi, bj) for bi in range(nb) for bj in range(nb)]
+
+
 @pytest.mark.parametrize("m,d", [(1, 1), (20, 47571), (100, 47571),
-                                 (3, 10 ** 8)])
+                                 (3, 10 ** 8), (17, 31), (128, 5),
+                                 (129, 1000), (300, 64)])
 def test_gram_chunking_covers_d(m, d):
-    chunk, nchunks = chunking(m, d)
-    assert chunk % TD == 0 and 1 <= nchunks <= 65535
-    assert (nchunks - 1) * chunk < d <= nchunks * chunk
+    """The one-launch Gram's grid: whole clusters whose blocks' column
+    ranges cover D once, a block big enough for every tile's micro-tiles
+    and lanes, within shared memory, and tiles whose upper micro-tiles
+    cover every pair i <= j of the m rows exactly once."""
+    p = gram_plan(m, d)
+    assert p.chunk % 4 == 0 and p.blocks % CLUSTER == 0
+    nblk = -(-d // p.chunk)
+    assert (nblk - 1) * p.chunk < d <= nblk * p.chunk <= p.blocks * p.chunk
+    assert p.blocks - nblk < CLUSTER and p.blocks * p.ny <= 65535 * 8
+    assert p.te % 4 == 0 and p.te * p.nt >= m and p.te * (p.nt - 1) < m
+    assert p.threads % 32 == 0 and p.threads <= 1024
+    assert p.smem <= 232448 and p.lanes in (1, 2, 4, 8, 16)
+    nb, r_ = p.te // 4, 4
+    seen = {}
+    for ti in range(p.nt):
+        for tj in range(ti, p.nt):
+            tiles = _micro_tiles(nb, ti == tj)
+            assert len(tiles) * p.lanes <= p.threads
+            assert len(tiles) * r_ * r_ <= p.emax and p.emax % 16 == 0
+            for bi, bj in tiles:
+                for r in range(r_):
+                    for c in range(r_):
+                        i, j = ti * p.te + r_ * bi + r, tj * p.te + r_ * bj + c
+                        if i < m and j < m and (ti != tj or i <= j):
+                            seen[(i, j)] = seen.get((i, j), 0) + 1
+    assert len(seen) == m * (m + 1) // 2 and set(seen.values()) == {1}
+    # one wave: no more clusters than the card runs at once (30 at m = 100)
+    q = gram_plan(m, d, max_clusters=30)
+    assert q.blocks // CLUSTER <= max(1, 30 // q.ny) and q.blocks % CLUSTER == 0
+    assert -(-d // q.chunk) <= q.blocks and q[:5] == p[:5]
+
+
+@pytest.mark.parametrize("widths", [
+    [150, 6, 2400, 16, 30720, 120, 10080, 84, 3948, 47],    # LeNet-5
+    [1, 6, 127, 128, 129, 4099],
+    [1 + (7 * i) % 300 for i in range(N_MAX + 9)],         # two launches
+])
+def test_mix_launch_groups_cover_every_column(widths):
+    """Every column of every leaf falls in exactly one block's tile, and no
+    launch takes more than N_MAX leaves."""
+    groups = launch_groups(widths)
+    assert len(groups) == -(-len(widths) // N_MAX)
+    assert [i for idx, _ in groups for i in idx] == list(range(len(widths)))
+    covered = {i: np.zeros(d, int) for i, d in enumerate(widths)}
+    for idx, prefix in groups:
+        assert 1 <= len(idx) <= N_MAX and len(prefix) == len(idx) + 1
+        for t in range(prefix[-1]):           # block x = t, as the kernel
+            leaf = max(a for a in range(len(idx)) if prefix[a] <= t)
+            d = widths[idx[leaf]]
+            col0 = (t - prefix[leaf]) * TILE
+            ncols = min(TILE, d - col0)
+            assert ncols >= 1
+            covered[idx[leaf]][col0:col0 + ncols] += 1
+    assert all((c == 1).all() for c in covered.values())
+
+
+@pytest.mark.parametrize("ptr,d,elt,want", [
+    (0, 150, 4, 8), (0, 6, 4, 8), (0, 47, 4, 4), (0, 2400, 4, 16),
+    (4, 2400, 4, 4), (8, 2400, 4, 8), (0, 127, 2, 2), (2, 128, 2, 2),
+    (0, 6, 2, 4), (8, 4, 2, 8), (0, 8, 2, 16), (256, 129, 4, 4)])
+def test_mix_copy_width(ptr, d, elt, want):
+    """The widest cp.async a leaf's base and row stride allow: LeNet's
+    conv1 (150 columns, 600-byte rows) takes 8 bytes, a bf16 leaf of odd
+    width plain loads (2)."""
+    assert copy_width(ptr, d, elt) == want
+
+
+def test_mix_smem_bytes():
+    assert smem_bytes(20, 20, 4) == 20 * 36 * 4 + 20 * TILE * 4
+    assert smem_bytes(100, 100, 4) == 100 * 116 * 4 + 32 * TILE * 4
+    assert 3 * smem_bytes(100, 100, 4) <= 232448    # three blocks an SM
+    assert smem_bytes(1, 400, 2) < SMEM_LIMIT < smem_bytes(128, 450, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixing_aggregate_leaves_cpu_equals_one_leaf_calls(dtype):
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(_rows(5, 7, rng))
+    thetas = [torch.from_numpy(rng.standard_normal((7, d)).astype(
+        np.float32)).to(dtype) for d in (1, 6, 127, 129)]
+    got = ops.mixing_aggregate_leaves(w, thetas)
+    for g, t in zip(got, thetas):
+        want = ops.mixing_aggregate(w, t)
+        assert g.dtype == dtype and torch.equal(g, want)

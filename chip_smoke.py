@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
                 over 10 calls, Δ bitwise `ref.sqdist_from_gram` of its G;
                 a round's mix at k = m = 20 and 100 beside per-leaf and
                 flat `torch.matmul`, with its host µs; the four channel
-                kernels bitwise, the flash
+                kernels bitwise, the top-k kernel on each of its three
+                paths (row in registers, shared memory, global) and
+                across calls; the flash
                 kernels at bf16's 3e-2 / f32's 2e-5) and times kernel,
                 plain version and one PyTorch library call with CUDA
                 events, beside the byte/FLOP bound; the tensor-core flash
@@ -97,7 +99,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402
     qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
-    row_resident, topk_threshold_cuda)
+    row_path, topk_threshold_cuda)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -420,9 +422,13 @@ def same(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 def check_channel_kernels(gen) -> list:
     """The four channel kernels bitwise against their plain versions on
     ragged shapes, bits 2/4/8, top-k k in {1, 10, ceil(D/10), D, D+1}, an
-    all-zero row and a row with one NaN; then timed at the main path's
-    (20, 47,571) with qsgd:8 and topk:0.1."""
-    shapes = [(MAIN["m"], D_LENET), (3, 1), (5, 1000), (7, 4099), (2, 70000)]
+    all-zero row and a row with one NaN, the top-k kernel on each of its
+    three paths (row in registers, shared memory, re-read from global)
+    and at 257 rows (clusters queue); then timed at the main path's
+    (20, 47,571) with qsgd:8 and topk:0.1, the top-k kernel also bitwise
+    equal across calls."""
+    shapes = [(MAIN["m"], D_LENET), (3, 1), (5, 1000), (7, 4099), (2, 70000),
+              (257, 1000), (2, 600000)]
     for m, d in shapes:
         x = torch.randn((m, d), generator=gen, device="cuda") * 3
         u = torch.rand((m, d), generator=gen, device="cuda")
@@ -461,12 +467,12 @@ def check_channel_kernels(gen) -> list:
                                          "above the k-th value or < k kept")
             elif bool(torch.any(t != 0)):
                 raise AssertionError(f"topk_threshold k={k} > D not 0")
-        print(f"  channel kernels ({m:2d}, {d:6d}): absmax, quantize, "
-              f"dequantize (bits 2/4/8), topk_threshold bitwise equal"
-              f"{'' if d < 58000 else ' (top-k row re-read from global)'}",
-              flush=True)
-    if not row_resident(D_LENET) or row_resident(70000):
-        raise AssertionError("topk_threshold: unexpected shared-memory path")
+        print(f"  channel kernels ({m:3d}, {d:6d}): absmax, quantize, "
+              f"dequantize (bits 2/4/8), topk_threshold bitwise equal (top-k "
+              f"row in {row_path(d)})", flush=True)
+    paths = [row_path(d) for d in (D_LENET, 70000, 600000)]
+    if paths != ["registers", "shared", "global"]:
+        raise AssertionError(f"topk_threshold: unexpected paths {paths}")
 
     m, d, bits = MAIN["m"], D_LENET, 8
     x = torch.randn((m, d), generator=gen, device="cuda") * 1e-2
@@ -502,7 +508,9 @@ def check_channel_kernels(gen) -> list:
          lambda: torch.kthvalue(absx, d - k + 1, dim=1),
          4 * md + b4, (ref.TOPK_ITERS + 1) * md,
          lambda: same("topk", topk_threshold_cuda(absx, k),
-                      ref.topk_threshold_ref(absx, k))),
+                      ref.topk_threshold_ref(absx, k))
+         + same("topk across calls", topk_threshold_cuda(absx, k),
+                topk_threshold_cuda(absx, k))),
     ]
     rows = []
     for name, src, tpu, kern, plain, lib, n_bytes, n_ops, check in specs:
@@ -629,13 +637,16 @@ def check_flash(gen) -> list:
     bf16 shapes (hd 64/80/128/256, GQA group 1/2/8, Sq < Sk, windows
     1/63/4,096,
     softcap on and off, non-causal), the op on ragged shapes at hd
-    64/80/256 in both dtypes, and the decode kernel on ragged decode
+    40/64/80/136/256 in both dtypes, and the decode kernel on ragged decode
     shapes (hd 64/80/128/256, G 1/2/8, Sq 1/3/16, Sk 1/70/4,609, 1, 2 and
     Sk splits), each at both logit scales.  Timed at the [lm] shapes in
     bf16, the main path's dtype, and at the global prefill in f32 too:
     the kernel each route takes, its plain version and SDPA, and the
-    CUDA-core kernel at the same shape (the other routes' "before"); the
-    decode kernel at other split counts; and the two prefill kernels at
+    CUDA-core kernel at the same shape (the other routes' "before"); in
+    f32 also at the local prefill (window 4,096), each with the CUDA-core
+    kernel timed again without its softcap (the softcap's share), and the
+    CUDA-core kernel bitwise equal across calls; the decode kernel at
+    other split counts; and the two prefill kernels at
     short queries over the [lm] cache, either side of the route's
     threshold.  Returns the JSON rows of the kernels, each on its own
     route: the decode kernel at the bf16 global decode step, the
@@ -702,9 +713,9 @@ def check_flash(gen) -> list:
                     f"softcap {kw.get('softcap')} route {route:9s} "
                     f"max|err| {err:.2e} row-rel {rel:.2e}")
             own = route_kernel(q)(q, k, v, **kw)
-            if route == "decode":
+            if route in ("decode", "cuda_core"):
                 if not torch.equal(got, own):
-                    raise AssertionError(f"flash_decode {name} {dt}: two "
+                    raise AssertionError(f"flash {route} {name} {dt}: two "
                                          "calls differ")
                 line += "  bitwise equal across calls"
             else:
@@ -721,9 +732,10 @@ def check_flash(gen) -> list:
                 if kw.get("softcap"):
                     flash_planted_fault(tag, q, k, v, kw, want)
                     line += "  without its softcap: fails the check"
-            elif dt == torch.bfloat16 or name == "global prefill":
-                # every bf16 shape, and f32 at the global prefill: the
-                # CUDA-core kernel's own route ([lm] (b))
+            elif dt == torch.bfloat16 or name in ("global prefill",
+                                                  "local prefill"):
+                # every bf16 shape, and f32 at the prefills: the CUDA-core
+                # kernel's own route ([lm] (b))
                 bnd, by, flops = flash_bound(q, k, kw)
                 ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
                 plain = time_ms(lambda: ref.flash_attention_ref(q, k, v,
@@ -735,6 +747,11 @@ def check_flash(gen) -> list:
                     ", no softcap" + (", no window" if "window" in kw else "")
                 ms13 = ms if route == "cuda_core" else time_ms(
                     lambda: flash_attention_cuda(q, k, v, **kw))
+                if route == "cuda_core":
+                    nocap = time_ms(lambda: flash_attention_cuda(
+                        q, k, v, **dict(kw, softcap=None)))
+                    line += (f"  without its softcap {nocap:.4f} ms (the "
+                             f"softcap's share {1 - nocap / ms:.1%})")
                 line += (f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                          f"bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
                          f"{flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.1%} of "
@@ -825,7 +842,7 @@ def check_flash(gen) -> list:
           f"softcaps, non-causal with softcap 50: {n_checks} checks within "
           f"tolerance, {n_faults} without the softcap fail it", flush=True)
     n_faults = 0
-    for hd in (64, 80, 256):
+    for hd in (40, 64, 80, 136, 256):
         for group in (1, 2, 8):
             for dt in (torch.float32, torch.bfloat16):
                 for sq, sk in ((37, 101), (1, 70), (130, 130), (80, 64),
@@ -854,8 +871,8 @@ def check_flash(gen) -> list:
                             if std == CAP_LOGIT_STD:
                                 flash_planted_fault(tag, q, k, v, kw, want)
                                 n_faults += 1
-    print("  flash_attention ragged: hd 64/80/256 x GQA group 1/2/8 x f32/"
-          "bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), (80, 64), "
+    print("  flash_attention ragged: hd 40/64/80/136/256 x GQA group 1/2/8 "
+          "x f32/bf16 x (Sq, Sk) (37, 101), (1, 70), (130, 130), (80, 64), "
           "(96, 40), through the op (each on its route) and on the "
           "CUDA-core kernel; non-causal, causal + window 48 + softcap 30 "
           f"and causal at logit sd {LOGIT_STD:g}, non-causal + softcap 50 "

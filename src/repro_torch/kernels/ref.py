@@ -103,6 +103,46 @@ def topk_threshold_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
     return lo
 
 
+def topk_threshold_tree_ref(absx: torch.Tensor, k: int,
+                            levels: int) -> torch.Tensor:
+    """`topk_threshold_ref`'s function computed as the CUDA kernel
+    computes it: the 30 steps taken ``levels`` at a time.  A pass forms
+    the tree of the next L = min(levels, steps left) steps' candidates in
+    heap order (node n's midpoint 0.5·(lo_n + hi_n); its child 2n, for
+    count < k, takes hi = mid, its child 2n + 1 takes lo = mid), counts
+    every candidate in one pass over the row, then walks down the tree
+    with the sequential rule.  Each midpoint is the same f32 expression
+    of the same lo and hi, so the result is bitwise the sequential one."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if int(levels) < 1:
+        raise ValueError(f"levels must be >= 1, got {levels}")
+    hi = absx.amax(dim=1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    done = 0
+    while done < TOPK_ITERS:
+        n_lv = min(int(levels), TOPK_ITERS - done)
+        n_nodes = 2 ** n_lv - 1
+        nlo, nhi = {1: lo}, {1: hi}
+        mids = []
+        for nd in range(1, n_nodes + 1):
+            mid = 0.5 * (nlo[nd] + nhi[nd])
+            mids.append(mid)
+            if 2 * nd <= n_nodes:
+                nlo[2 * nd], nhi[2 * nd] = nlo[nd], mid
+                nlo[2 * nd + 1], nhi[2 * nd + 1] = mid, nhi[nd]
+        mid = torch.cat(mids, dim=1)                          # (m, nodes)
+        count = (absx[:, None, :] >= mid[:, :, None]).sum(-1)
+        node = torch.ones_like(hi, dtype=torch.int64)         # heap index
+        for _ in range(n_lv):
+            m_n = mid.gather(1, node - 1)
+            ge = count.gather(1, node - 1) >= k
+            lo, hi = torch.where(ge, m_n, lo), torch.where(ge, hi, m_n)
+            node = 2 * node + ge.long()
+        done += n_lv
+    return lo
+
+
 # ---------------------------------------------------------------------------
 # attention (the reference's Pallas kernel in repro/kernels/flash_attention.py)
 

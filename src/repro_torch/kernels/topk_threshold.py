@@ -2,8 +2,9 @@
 
 Counterpart of `repro/kernels/topk_threshold.py`.  `topk_threshold_cuda`
 takes k as a runtime int (the TPU kernel bakes it into its body), checks
-what the kernel takes, allocates the (m, 1) output and launches one block
-per row on PyTorch's current stream.  Callers go through `kernels.ops`.
+what the kernel takes, allocates the (m, 1) output and launches one
+cluster of `CLUSTER` blocks per row on PyTorch's current stream.  Callers
+go through `kernels.ops`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_ROWS = 2 ** 31 - 1       # one block per row on the grid's x
+CLUSTER = 8                  # blocks a row (csrc/topk_threshold.cu kCluster)
+LEVELS = 3                   # bisection steps a pass (kLevels)
+MAX_ROWS = (2 ** 31 - 1) // CLUSTER   # the clusters on the grid's x
+MAX_D = 2 ** 31 - 1          # counts are 32-bit
+PATHS = ("registers", "shared", "global")
 _bound = False
 
 
@@ -25,16 +30,18 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.repro_topk_threshold.restype = ctypes.c_int
-        lib.repro_topk_threshold_resident.argtypes = [ctypes.c_longlong]
-        lib.repro_topk_threshold_resident.restype = ctypes.c_int
+        lib.repro_topk_threshold_path.argtypes = [ctypes.c_longlong]
+        lib.repro_topk_threshold_path.restype = ctypes.c_int
         _bound = True
     return lib
 
 
-def row_resident(d: int) -> bool:
-    """Whether a row of ``d`` f32 stays in shared memory on the current
-    card (else every bisection step re-reads it from global memory)."""
-    return bool(_lib().repro_topk_threshold_resident(int(d)))
+def row_path(d: int) -> str:
+    """Where the kernel holds a row of ``d`` f32 on the current card:
+    ``"registers"`` (up to 32 values a thread, D <= 65,536), ``"shared"``
+    (a block's eighth of the row in shared memory) or ``"global"`` (the
+    row re-read from global memory on every pass)."""
+    return PATHS[_lib().repro_topk_threshold_path(int(d))]
 
 
 def topk_threshold_cuda(absx: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,7 +58,7 @@ def topk_threshold_cuda(absx: torch.Tensor, k: int) -> torch.Tensor:
                          f"{absx.dtype} {tuple(absx.shape)}"
                          f"{'' if absx.is_contiguous() else ' (strided)'}")
     m, d = absx.shape
-    if not 1 <= m <= MAX_ROWS or d < 1:
+    if not 1 <= m <= MAX_ROWS or not 1 <= d <= MAX_D:
         raise ValueError(f"empty or oversized shape m={m}, D={d}")
     lib = _lib()
     out = torch.empty((m, 1), dtype=torch.float32, device=absx.device)

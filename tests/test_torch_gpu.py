@@ -12,9 +12,12 @@ kernels: the split-key decode one takes Sq <= 16, the tensor-core one
 bf16 prefill, the CUDA-core one the other prefills), each element and
 each output row relative to its norm, on logits inside and past the
 softcaps (there, the kernel without its softcap must fail), with causal
-Sq > Sk cases whose first rows see no key (0).  The decode kernel is also
-held bitwise against itself across calls, and the channel kernels bitwise
-against their plain versions.  The mix of a ragged leaf set in one
+Sq > Sk cases whose first rows see no key (0).  The decode and CUDA-core
+kernels are also held bitwise against themselves across calls, the f32
+CUDA-core kernel against float64 attention within twice the plain
+version's own error, and the channel kernels bitwise against their plain
+versions (the top-k kernel on each of its three paths, and against its
+multi-level walk `ref.topk_threshold_tree_ref`).  The mix of a ragged leaf set in one
 launch is held bitwise against one-leaf calls and the Gram bitwise
 against itself, with Δ bitwise `ref.sqdist_from_gram` of its G.
 """
@@ -276,22 +279,60 @@ def test_qsgd_kernels_match_plain_bitwise(m, d, bits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d", [(20, 47571), (5, 1000), (2, 70000)])
-def test_topk_threshold_kernel_matches_plain_bitwise(m, d):
+@pytest.mark.parametrize("m,d,path", [
+    (20, 47571, "registers"), (5, 1000, "registers"), (1, 47571, "registers"),
+    (100, 4099, "registers"), (257, 1000, "registers"), (4, 9, "registers"),
+    (2, 6157, "registers"), (2, 70000, "shared"), (3, 300001, "shared"),
+    (2, 600000, "global")])
+def test_topk_threshold_kernel_matches_plain_bitwise(m, d, path):
+    """m from 1 to 257 (more rows than the card has SMs for a cluster
+    each), D on each of the kernel's three paths and not a multiple of
+    its cluster of 8; a zero row, a NaN row, a row of ties, a denormal
+    row, a row holding inf and a row whose midpoints overflow to inf among
+    random ones; k = 1, 10, D/10, D and D + 1."""
     _require_cuda()
+    from repro_torch.kernels.topk_threshold import row_path
+    assert row_path(d) == path
     gen = torch.Generator(device="cuda").manual_seed(m + d)
     absx = torch.randn((m, d), generator=gen, device="cuda").abs()
     absx[0] = 0.0
-    for k in (1, 10, -(-d // 10), d, d + 1):
+    if m > 2:
+        absx[1, d // 2] = float("nan")
+        absx[2] = torch.randint(0, 4, (d,), generator=gen,
+                                device="cuda").float() * 0.5
+    if m > 3:
+        absx[3] *= 1e-39                     # denormal magnitudes
+    if m > 5:
+        absx[4, ::7] = float("inf")
+        absx[5] = absx[5].clamp(max=6.0) * 5e37   # midpoints overflow
+    for k in sorted({1, 10, -(-d // 10), d, d + 1}):
         got = ops.topk_threshold(absx, k=k)
         _same(got, ref.topk_threshold_ref(absx, k))
+        ok = ~torch.isnan(absx).any(1)
         if k <= d:
             kth = torch.kthvalue(absx.cpu(), d - k + 1, dim=1,
                                  keepdim=True).values.cuda()
-            assert bool(torch.all(got <= kth))
-            assert bool(torch.all((absx >= got).sum(1) >= k))
+            assert bool(torch.all(got[ok] <= kth[ok]))
+            assert bool(torch.all((absx[ok] >= got[ok]).sum(1) >= k))
         else:
             assert bool(torch.all(got == 0))
+        if m > 2:
+            assert float(got[1, 0]) == 0.0   # a NaN row keeps lo at 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(20, 47571), (3, 70000), (2, 600000)])
+def test_topk_threshold_kernel_is_bitwise_reproducible(m, d):
+    """Integer counts and no atomics: two calls give the same bits, and
+    the kernel equals the plain version's multi-level walk."""
+    _require_cuda()
+    from repro_torch.kernels.topk_threshold import LEVELS, topk_threshold_cuda
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    absx = torch.randn((m, d), generator=gen, device="cuda").abs()
+    k = -(-d // 10)
+    first = topk_threshold_cuda(absx, k)
+    assert torch.equal(first, topk_threshold_cuda(absx, k))
+    _same(first, ref.topk_threshold_tree_ref(absx, k, LEVELS))
 
 
 @pytest.mark.gpu
@@ -490,22 +531,105 @@ def test_flash_decode_kernel_is_bitwise_reproducible(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 80, 256])
+@pytest.mark.parametrize("hd", [8, 40, 64, 80, 96, 136, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_ragged(hd, group, dtype):
     """Through the op (each shape on its route), and the CUDA-core kernel
-    itself at every shape; causal (80, 64) and (96, 40) have rows with no
-    key."""
+    itself at every shape; head_dims that fill none of its 64/128/256
+    instances, Sq 1, 17 and 129 (one row past a 64- or 128-row tile),
+    windows that skip whole key tiles; causal (80, 64) and (96, 40) have
+    rows with no key."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(hd * group)
-    for sq, sk in ((37, 101), (1, 70), (130, 130), (80, 64), (96, 40)):
+    for sq, sk in ((37, 101), (1, 70), (130, 130), (80, 64), (96, 40),
+                   (17, 300), (129, 1000)):
         q, k, v = _qkv(gen, 2, 2 * group, 2, sq, sk, hd, dtype)
         for kw in (dict(causal=False),
                    dict(causal=True, window=48, softcap=30.0),
-                   dict(causal=True)):
+                   dict(causal=True),
+                   dict(causal=False, window=100)):
             want = _flash_check(q, k, v, **kw)
             _flash_close(flash_attention_cuda(q, k, v, **kw), want)
+            if kw["causal"] and sq > sk:
+                assert not bool(want[:, :, :sq - sk].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [40, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_ragged_capped(hd, dtype):
+    """Logits past the softcap at head_dims off the kernel's instances:
+    within tolerance with it, and failing the check without it."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + 3)
+    for sq, sk in ((37, 101), (129, 1000)):
+        q, k, v = _qkv(gen, 2, 4, 2, sq, sk, hd, dtype,
+                       logit_std=CAP_LOGIT_STD)
+        for kw in (dict(causal=False, softcap=50.0),
+                   dict(causal=True, window=48, softcap=30.0)):
+            want = _flash_check(q, k, v, **kw)
+            _flash_close(flash_attention_cuda(q, k, v, **kw), want)
+            _fails_without_softcap(flash_attention_cuda, q, k, v, want, **kw)
+
+
+def _attention_f64(q, k, v, causal, window=None, softcap=None):
+    """Attention computed in float64 throughout (the plain version rounds
+    to f32): the yardstick of an f32 kernel's own error."""
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, kh, h // kh, sq, hd)
+    lg = torch.einsum("bkgqh,bksh->bkgqs", qg, k.double()) / hd ** 0.5
+    if softcap:
+        lg = softcap * torch.tanh(lg / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window:
+        valid &= k_pos > q_pos - window
+    p = torch.softmax(lg.masked_fill(~valid, -1e300), -1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", p, v.double())
+    return out.masked_fill(~valid.any(-1)[:, None], 0.0).reshape(b, h, sq, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [40, 128, 136])
+def test_flash_attention_kernel_f32_as_accurate_as_plain(hd):
+    """Against attention in float64, on capped logits over 1,000 keys (16
+    key tiles), the kernel's f32 error stays within twice the plain
+    version's own: the online softmax's rescaling must not compound a
+    rounding from tile to tile."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + 3)
+    q, k, v = _qkv(gen, 2, 4, 2, 129, 1000, hd, torch.float32,
+                   logit_std=CAP_LOGIT_STD)
+    for kw in (dict(causal=False, softcap=50.0),
+               dict(causal=True, window=48, softcap=30.0)):
+        exact = _attention_f64(q, k, v, **kw)
+        err = float((flash_attention_cuda(q, k, v, **kw).double()
+                     - exact).abs().max())
+        plain = float((ref.flash_attention_ref(q, k, v, **kw).double()
+                       - exact).abs().max())
+        assert err <= 2 * plain + 1e-6, (err, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_is_bitwise_reproducible(dtype):
+    """No atomics: two calls of the CUDA-core kernel give the same bits,
+    at the [lm] global prefill shape (f32 is its route there) and at a
+    ragged one."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    kw = dict(causal=True, softcap=50.0)
+    q, k, v = _qkv(gen, 2, 32, 16, 4608, 4608, 128, dtype)
+    assert torch.equal(flash_attention_cuda(q, k, v, **kw),
+                       flash_attention_cuda(q, k, v, **kw))
+    q, k, v = _qkv(gen, 1, 16, 2, 129, 300, 136, dtype)
+    assert torch.equal(flash_attention_cuda(q, k, v, window=48, **kw),
+                       flash_attention_cuda(q, k, v, window=48, **kw))
 
 
 @pytest.mark.gpu

@@ -15,10 +15,13 @@ Phases (any failure raises and the script exits non-zero):
                 folded stream mix to the gather form; the Gram bitwise
                 over 10 calls, Δ bitwise `ref.sqdist_from_gram` of its G;
                 a round's mix at k = m = 20 and 100 beside per-leaf and
-                flat `torch.matmul`, with its host µs; the four channel
-                kernels bitwise, the top-k kernel on each of its three
-                paths (row in registers, shared memory, global) and
-                across calls; the flash
+                flat `torch.matmul`, with its host µs; the channel
+                kernels bitwise on every row (zero, NaN and inf rows
+                included): the QSGD row pass's absmax, encode and
+                roundtrip on both of its paths (row in registers,
+                re-read) and the QSGD stream's quantize and dequantize,
+                the top-k kernel on each of its three paths (registers,
+                shared memory, global) and across calls; the flash
                 kernels at bf16's 3e-2 / f32's 2e-5) and times kernel,
                 plain version and one PyTorch library call with CUDA
                 events, beside the byte/FLOP bound; the tensor-core flash
@@ -35,10 +38,11 @@ Phases (any failure raises and the script exits non-zero):
                 all ten leaves) and the UCFL Δ (one launch a run, G and
                 Δ) went through the kernels;
   6. channel  — the same scenario through the uplink channel: ucfl_k4
-                with UniformFraction(0.5) and qsgd:8 over a tiered link,
-                ucfl with topk:0.1, fedavg with the identity channel (its
-                clock must equal phase 5's fedavg clock exactly), with
-                launch counters and exact History.comm_bits;
+                with UniformFraction(0.5) and qsgd:8 over a tiered link
+                (one QSGD row-pass launch a crossing), ucfl with
+                topk:0.1, fedavg with the identity channel (its clock
+                must equal phase 5's fedavg clock exactly), with launch
+                counters and exact History.comm_bits;
   7. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -96,8 +100,7 @@ from repro_torch.kernels.pairwise_sqdist import card_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     decode_splits, flash_attention_cuda, flash_attention_tc_cuda,
     flash_decode_cuda, flash_route)
-from repro_torch.kernels.quantize import (  # noqa: E402
-    qsgd_dequantize_cuda, qsgd_quantize_cuda, rowwise_absmax_cuda)
+from repro_torch.kernels import quantize as qsgd  # noqa: E402
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
     row_path, topk_threshold_cuda)
 from repro_torch.launch.serve import generate  # noqa: E402
@@ -419,41 +422,61 @@ def same(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return 0.0
 
 
+# the QSGD rows of [kernels]: the row pass's instances count the row
+# pass's launches on the main paths, the stream's the stream's.  The
+# stream's callers (the codecs' at-rest encode/decode, ROADMAP Queue 1
+# item 11) are not ported, so no main path launches it.
+ROW_PASS_COUNTERS = ("rowwise_absmax", "qsgd_quantize", "qsgd_roundtrip")
+STREAM_COUNTERS = ("qsgd_dequantize",)
+
+
 def check_channel_kernels(gen) -> list:
-    """The four channel kernels bitwise against their plain versions on
-    ragged shapes, bits 2/4/8, top-k k in {1, 10, ceil(D/10), D, D+1}, an
-    all-zero row and a row with one NaN, the top-k kernel on each of its
-    three paths (row in registers, shared memory, re-read from global)
-    and at 257 rows (clusters queue); then timed at the main path's
-    (20, 47,571) with qsgd:8 and topk:0.1, the top-k kernel also bitwise
-    equal across calls."""
+    """The QSGD kernels (the row pass's absmax, encode and roundtrip; the
+    stream's quantize with absmax given and dequantize) and the top-k
+    kernel bitwise against their plain versions on ragged shapes, bits
+    2/4/8, top-k k in {1, 10, ceil(D/10), D, D+1}, an all-zero row, a row
+    with one NaN and a row with an inf (levels compared on every row),
+    each kernel on each of its paths (the QSGD row in registers or
+    re-read; the top-k row in registers, shared memory or global) and at
+    257 rows (clusters queue); then timed at the main path's (20, 47,571)
+    with qsgd:8 and topk:0.1, the roundtrip and the top-k kernel also
+    bitwise equal across calls."""
     shapes = [(MAIN["m"], D_LENET), (3, 1), (5, 1000), (7, 4099), (2, 70000),
-              (257, 1000), (2, 600000)]
+              (257, 1000), (2, 600000), (4, 600000)]
     for m, d in shapes:
         x = torch.randn((m, d), generator=gen, device="cuda") * 3
         u = torch.rand((m, d), generator=gen, device="cuda")
         if m > 2:
             x[1] = 0.0                           # absmax 0: levels, values 0
             x[2, d // 2] = float("nan")          # absmax NaN: row all NaN
-        amax = rowwise_absmax_cuda(x)
+        if m > 3:
+            x[3, d - 1] = float("inf")           # absmax inf: row all NaN
+        amax = qsgd.rowwise_absmax_cuda(x)
         same(f"rowwise_absmax ({m}, {d})", amax, ref.rowwise_absmax_ref(x))
         for bits in (2, 4, 8):
-            q = qsgd_quantize_cuda(x, u, amax, bits)
             want_q, _ = ref.qsgd_quantize_ref(x, u, bits, absmax=amax)
-            rows = [i for i in range(m) if not (m > 2 and i == 2)]
-            same(f"qsgd_quantize ({m}, {d}) bits={bits}", q[rows],
-                 want_q[rows])
-            deq = qsgd_dequantize_cuda(q, amax, bits)
+            q = qsgd.qsgd_quantize_cuda(x, u, amax, bits)
+            same(f"qsgd_quantize ({m}, {d}) bits={bits}", q, want_q)
+            q_enc, amax_enc = qsgd.qsgd_encode_cuda(x, u, bits)
+            same(f"qsgd_encode ({m}, {d}) bits={bits}", q_enc, want_q)
+            same(f"qsgd_encode absmax ({m}, {d})", amax_enc, amax)
+            deq = qsgd.qsgd_dequantize_cuda(q, amax, bits)
             same(f"qsgd_dequantize ({m}, {d}) bits={bits}", deq,
                  ref.qsgd_dequantize_ref(q, amax, bits))
+            rt = qsgd.qsgd_roundtrip_cuda(x, u, bits)
+            same(f"qsgd_roundtrip ({m}, {d}) bits={bits}", rt,
+                 ref.qsgd_roundtrip_ref(x, u, bits))
             if m > 2 and not (bool(torch.all(q[1] == 0))
-                              and bool(torch.all(deq[1] == 0))
-                              and bool(torch.isnan(deq[2]).all())):
-                raise AssertionError("qsgd: zero row not zero or NaN row "
-                                     "not NaN")
+                              and bool(torch.all(rt[1] == 0))
+                              and bool(torch.all(q[2] == 0))
+                              and bool(torch.isnan(rt[2:4]).all())):
+                raise AssertionError("qsgd: zero row not zero, or NaN / inf "
+                                     "row not NaN with levels 0")
         absx = x.abs()
         if m > 2:
             absx[2, d // 2] = 0.0
+        if m > 3:
+            absx[3, d - 1] = 0.0
         for k in sorted({1, 10, -(-d // 10), d, d + 1}):
             t = topk_threshold_cuda(absx, k)
             same(f"topk_threshold ({m}, {d}) k={k}", t,
@@ -467,41 +490,66 @@ def check_channel_kernels(gen) -> list:
                                          "above the k-th value or < k kept")
             elif bool(torch.any(t != 0)):
                 raise AssertionError(f"topk_threshold k={k} > D not 0")
-        print(f"  channel kernels ({m:3d}, {d:6d}): absmax, quantize, "
-              f"dequantize (bits 2/4/8), topk_threshold bitwise equal (top-k "
-              f"row in {row_path(d)})", flush=True)
+        print(f"  channel kernels ({m:3d}, {d:6d}): qsgd absmax, encode, "
+              f"roundtrip (row in {qsgd.row_path(d)}), quantize, dequantize "
+              f"(bits 2/4/8), topk_threshold bitwise equal (top-k row in "
+              f"{row_path(d)})", flush=True)
     paths = [row_path(d) for d in (D_LENET, 70000, 600000)]
     if paths != ["registers", "shared", "global"]:
         raise AssertionError(f"topk_threshold: unexpected paths {paths}")
+    paths = [qsgd.row_path(d) for d in (D_LENET, 70000)]
+    if paths != ["registers", "global"]:
+        raise AssertionError(f"qsgd row pass: unexpected paths {paths}")
 
     m, d, bits = MAIN["m"], D_LENET, 8
     x = torch.randn((m, d), generator=gen, device="cuda") * 1e-2
     u = torch.rand((m, d), generator=gen, device="cuda")
-    amax = rowwise_absmax_cuda(x)
-    q = qsgd_quantize_cuda(x, u, amax, bits)
+    amax = qsgd.rowwise_absmax_cuda(x)
+    q = qsgd.qsgd_quantize_cuda(x, u, amax, bits)
     scale = amax * ref.qsgd_levels(bits)[1].cuda()
     k = -(-d // 10)
     absx = x.abs()
     md, b4 = m * d, 4 * m
+    rt_ref = ref.qsgd_roundtrip_ref(x, u, bits)
+    # (name, source, TPU kernel, kernel, plain, library call or None,
+    #  bytes, operations, check, counters of its launches)
     specs = [
         ("rowwise_absmax", "quantize.cu", "quantize.py:59",
-         lambda: rowwise_absmax_cuda(x), lambda: ref.rowwise_absmax_ref(x),
+         lambda: qsgd.rowwise_absmax_cuda(x),
+         lambda: ref.rowwise_absmax_ref(x),
          lambda: torch.linalg.vector_norm(x, math.inf, dim=1),
          4 * md + b4, md,
-         lambda: same("absmax", rowwise_absmax_cuda(x),
-                      ref.rowwise_absmax_ref(x))),
+         lambda: same("absmax", qsgd.rowwise_absmax_cuda(x),
+                      ref.rowwise_absmax_ref(x)), ROW_PASS_COUNTERS),
         ("qsgd_quantize", "quantize.cu", "quantize.py:104",
-         lambda: qsgd_quantize_cuda(x, u, amax, bits),
+         lambda: qsgd.qsgd_quantize_cuda(x, u, amax, bits),
          lambda: ref.qsgd_quantize_ref(x, u, bits, absmax=amax),
          None, 12 * md + b4, 5 * md,
-         lambda: same("quantize", qsgd_quantize_cuda(x, u, amax, bits),
-                      ref.qsgd_quantize_ref(x, u, bits, absmax=amax)[0])),
+         lambda: same("quantize", qsgd.qsgd_quantize_cuda(x, u, amax, bits),
+                      ref.qsgd_quantize_ref(x, u, bits, absmax=amax)[0]),
+         STREAM_COUNTERS),
         ("qsgd_dequantize", "quantize.cu", "quantize.py:136",
-         lambda: qsgd_dequantize_cuda(q, amax, bits),
+         lambda: qsgd.qsgd_dequantize_cuda(q, amax, bits),
          lambda: ref.qsgd_dequantize_ref(q, amax, bits),
          lambda: torch.mul(q, scale), 8 * md + b4, 2 * md,
-         lambda: same("dequantize", qsgd_dequantize_cuda(q, amax, bits),
-                      ref.qsgd_dequantize_ref(q, amax, bits))),
+         lambda: same("dequantize", qsgd.qsgd_dequantize_cuda(q, amax, bits),
+                      ref.qsgd_dequantize_ref(q, amax, bits)),
+         STREAM_COUNTERS),
+        ("qsgd_encode", "quantize.cu", "quantize.py:104",
+         lambda: qsgd.qsgd_encode_cuda(x, u, bits),
+         lambda: ref.qsgd_quantize_ref(x, u, bits),
+         None, 12 * md + b4, 6 * md,
+         lambda: same("encode", qsgd.qsgd_encode_cuda(x, u, bits)[0],
+                      ref.qsgd_quantize_ref(x, u, bits)[0]),
+         ROW_PASS_COUNTERS),
+        ("qsgd_roundtrip", "quantize.cu", "quantize.py:136",
+         lambda: qsgd.qsgd_roundtrip_cuda(x, u, bits),
+         lambda: ref.qsgd_roundtrip_ref(x, u, bits),
+         None, 12 * md, 8 * md,
+         lambda: same("roundtrip", qsgd.qsgd_roundtrip_cuda(x, u, bits),
+                      rt_ref)
+         + same("roundtrip across calls", qsgd.qsgd_roundtrip_cuda(x, u, bits),
+                qsgd.qsgd_roundtrip_cuda(x, u, bits)), ROW_PASS_COUNTERS),
         ("topk_threshold", "topk_threshold.cu", "topk_threshold.py:60",
          lambda: topk_threshold_cuda(absx, k),
          lambda: ref.topk_threshold_ref(absx, k),
@@ -510,10 +558,11 @@ def check_channel_kernels(gen) -> list:
          lambda: same("topk", topk_threshold_cuda(absx, k),
                       ref.topk_threshold_ref(absx, k))
          + same("topk across calls", topk_threshold_cuda(absx, k),
-                topk_threshold_cuda(absx, k))),
+                topk_threshold_cuda(absx, k)), ("topk_threshold",)),
     ]
     rows = []
-    for name, src, tpu, kern, plain, lib, n_bytes, n_ops, check in specs:
+    for (name, src, tpu, kern, plain, lib, n_bytes, n_ops, check,
+         counters) in specs:
         err = check()
         b, by = bound_ms(n_bytes, n_ops)
         row = dict(name=name, route="cuda",
@@ -521,13 +570,24 @@ def check_channel_kernels(gen) -> list:
                    replaces=f"src/repro/kernels/{tpu}", max_abs_err=err,
                    ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=b,
                    bound_by=by,
-                   library_ms=None if lib is None else time_ms(lib))
+                   library_ms=None if lib is None else time_ms(lib),
+                   counters=counters,
+                   off_path=counters == STREAM_COUNTERS)
         lib_s = ("none" if row["library_ms"] is None
                  else f"{row['library_ms']:.4f} ms")
         print(f"  {name} ({m}, {d}) f32: kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  library {lib_s}  bound {b:.4f} ms "
               f"({by})", flush=True)
         rows.append(row)
+    # what these times stand on: the timer's floor (a kernel that does
+    # nothing) and one PyTorch elementwise kernel over the roundtrip's
+    # bytes (read x and u, write (m, D) f32), which computes another
+    # function
+    y = torch.empty_like(x)
+    empty = time_ms(lambda: torch.cuda._sleep(0))
+    add = time_ms(lambda: torch.add(x, u, out=y))
+    print(f"  floors: an empty kernel {empty:.4f} ms; torch.add(x, u) over "
+          f"the roundtrip's bytes {add:.4f} ms", flush=True)
     return rows
 
 
@@ -1409,16 +1469,16 @@ def channel_path(fed, fl, base_clock: list) -> None:
     runs = [
         ("ucfl_k4", dict(sampler=UniformFraction(0.5),
                          channel=Channel(codec="qsgd:8", link="tiered:4")),
-         dict(rowwise_absmax=rounds, qsgd_quantize=rounds,
-              qsgd_dequantize=rounds, topk_threshold=0, gram_matrix=1),
+         dict(rowwise_absmax=0, qsgd_quantize=0, qsgd_dequantize=0,
+              qsgd_roundtrip=rounds, topk_threshold=0, gram_matrix=1),
          lambda s: (s * qsgd_bits, (m // 2) * qsgd_bits)),
         ("ucfl", dict(channel=Channel(codec="topk:0.1")),
          dict(rowwise_absmax=0, qsgd_quantize=0, qsgd_dequantize=0,
-              topk_threshold=rounds, gram_matrix=1),
+              qsgd_roundtrip=0, topk_threshold=rounds, gram_matrix=1),
          lambda s: (s * topk_bits, m * topk_bits)),
         ("fedavg", dict(channel=Channel()),
          dict(rowwise_absmax=0, qsgd_quantize=0, qsgd_dequantize=0,
-              topk_threshold=0, gram_matrix=0),
+              qsgd_roundtrip=0, topk_threshold=0, gram_matrix=0),
          lambda s: (s * 32 * d, m * 32 * d)),
     ]
     for spec, kw, want_launch, want_bits in runs:
@@ -1541,8 +1601,12 @@ def main() -> int:
     by_arch = lm_c_path(card)
     for r in rows:
         counts = by_arch[r["phase"]] if "phase" in r else launches
-        r["launches"] = counts[r.get("counter", r["name"])]
-        if r["launches"] < 1:
+        r["launches"] = sum(counts[c] for c in
+                            r.get("counters", (r.get("counter", r["name"]),)))
+        if r.get("off_path"):
+            print(f"  {r['name']}: {r['launches']} launches (its kernel, the "
+                  "QSGD stream, is on no ported path)", flush=True)
+        elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)

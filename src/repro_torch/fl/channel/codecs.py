@@ -135,8 +135,8 @@ class Identity(Codec):
 class QSGD(Codec):
     """Stochastic uniform quantization onto ``{-s..s}·scale`` per client,
     s = 2^(b−1) − 1, scale = max|x|/s.  Unbiased given the scale:
-    E[roundtrip(x)] = x (stochastic rounding ``floor(y + u)``).  Three
-    kernel launches on the card: absmax, quantize, dequantize."""
+    E[roundtrip(x)] = x (stochastic rounding ``floor(y + u)``).  One
+    kernel launch on the card: the QSGD row pass (absmax, levels, values)."""
 
     name = "qsgd"
     needs_noise = True

@@ -17,15 +17,17 @@ The mix takes a whole parameter tree in one launch (up to
 ``mixing_aggregate.N_MAX`` leaves a launch); the Gram op computes G and
 Δ in one launch, counted under ``gram_matrix``.
 
-The channel codecs add four: ``rowwise_absmax``, ``qsgd_quantize`` and
-``qsgd_dequantize`` (one each per qsgd uplink) and ``topk_threshold``
-(one per top-k uplink).  The LM path adds one launch per attention layer
-per prefill or decode step, counted under the kernel `flash_route` picks
-(``FLASH_COUNTERS``): ``flash_attention_decode`` (the split-key decode
-kernel, Sq <= 16; one count a call, though it makes two launches, the
-partials and the merge), ``flash_attention_tc`` (the tensor-core kernel,
-bf16 prefill) or ``flash_attention`` (the CUDA-core kernel, the other
-prefills).
+The channel codecs add ``qsgd_roundtrip`` (one per qsgd uplink: absmax,
+levels and values in one launch of the QSGD row pass) and
+``topk_threshold`` (one per top-k uplink); ``rowwise_absmax``,
+``qsgd_quantize`` (the row pass's encode) and ``qsgd_dequantize`` (the
+QSGD stream) count their own calls, one launch each.  The LM path adds
+one launch per attention layer per prefill or decode step, counted
+under the kernel `flash_route` picks (``FLASH_COUNTERS``):
+``flash_attention_decode`` (the split-key decode kernel, Sq <= 16; one
+count a call, though it makes two launches, the partials and the
+merge), ``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
+``flash_attention`` (the CUDA-core kernel, the other prefills).
 """
 from __future__ import annotations
 
@@ -42,13 +44,15 @@ from repro_torch.kernels.mixing_aggregate import (
     N_MAX, mixing_aggregate_leaves_cuda)
 from repro_torch.kernels.pairwise_sqdist import gram_sqdist_cuda
 from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
-                                          qsgd_quantize_cuda,
+                                          qsgd_encode_cuda,
+                                          qsgd_roundtrip_cuda,
                                           rowwise_absmax_cuda)
 from repro_torch.kernels.topk_threshold import topk_threshold_cuda
 
 LAUNCHES: Dict[str, int] = {"mixing_aggregate": 0, "gram_matrix": 0,
                             "rowwise_absmax": 0, "qsgd_quantize": 0,
-                            "qsgd_dequantize": 0, "topk_threshold": 0,
+                            "qsgd_dequantize": 0, "qsgd_roundtrip": 0,
+                            "topk_threshold": 0,
                             "flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_decode": 0}
 # `flash_route`'s answer -> (the kernel's wrapper, its count in LAUNCHES)
@@ -124,13 +128,12 @@ def rowwise_absmax(x: torch.Tensor) -> torch.Tensor:
 
 def qsgd_quantize(x: torch.Tensor, noise: torch.Tensor, *, bits: int):
     """``(levels int32 (m, D), absmax (m, 1))`` of the QSGD codec; on CUDA
-    two launches, absmax then quantize, as the reference composes them."""
+    one launch (the row pass: absmax, then levels from the same read)."""
     if not _on_cuda(x, "qsgd_quantize"):
         return ref.qsgd_quantize_ref(x, noise, bits)
-    amax = rowwise_absmax(x)
-    q = qsgd_quantize_cuda(x, noise, amax, bits)
+    out = qsgd_encode_cuda(x, noise, bits)
     LAUNCHES["qsgd_quantize"] += 1
-    return q, amax
+    return out
 
 
 def qsgd_dequantize(q: torch.Tensor, absmax: torch.Tensor, *,
@@ -145,10 +148,13 @@ def qsgd_dequantize(q: torch.Tensor, absmax: torch.Tensor, *,
 
 def qsgd_roundtrip(x: torch.Tensor, noise: torch.Tensor, *,
                    bits: int) -> torch.Tensor:
-    """dequantize(quantize(x)), what the server sees: three launches on
-    CUDA (absmax, quantize, dequantize)."""
-    q, amax = qsgd_quantize(x, noise, bits=bits)
-    return qsgd_dequantize(q, amax, bits=bits)
+    """dequantize(quantize(x)), what the server sees; on CUDA one launch
+    (the row pass writes the values, neither levels nor absmax)."""
+    if not _on_cuda(x, "qsgd_roundtrip"):
+        return ref.qsgd_roundtrip_ref(x, noise, bits)
+    out = qsgd_roundtrip_cuda(x, noise, bits)
+    LAUNCHES["qsgd_roundtrip"] += 1
+    return out
 
 
 def topk_threshold(absx: torch.Tensor, *, k: int) -> torch.Tensor:

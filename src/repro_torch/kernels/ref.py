@@ -65,13 +65,15 @@ def qsgd_quantize_ref(x: torch.Tensor, noise: torch.Tensor, bits: int,
                       absmax: Optional[torch.Tensor] = None):
     """``(levels, absmax)``: int32 levels ``clip(floor(x·inv + u), −s, s)``
     with scale = absmax·(1/s) and inv = 1/scale (0 for an all-zero row).
-    ``absmax`` given is used as is (the quantize kernel's own input)."""
+    ``absmax`` given is used as is (the quantize kernel's own input).  A
+    NaN level (a NaN or ±inf in the row) becomes 0, as XLA's and CUDA's
+    float-to-int conversions give; PyTorch's CPU cast would give INT_MIN."""
     s, inv_s = qsgd_levels(bits)
     amax = rowwise_absmax_ref(x) if absmax is None else absmax
     scale = amax * inv_s.to(x.device)
     inv = torch.where(scale > 0, scale.reciprocal(), torch.zeros_like(scale))
     q = torch.clamp(torch.floor(x * inv + noise), -s, s)
-    return q.to(torch.int32), amax
+    return torch.nan_to_num(q, nan=0.0).to(torch.int32), amax
 
 
 def qsgd_dequantize_ref(q: torch.Tensor, absmax: torch.Tensor,

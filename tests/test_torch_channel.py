@@ -128,6 +128,54 @@ def test_nan_row_propagates_to_its_scale_and_values():
         jnp.asarray(x), jnp.asarray(u), bits=8))[0]).all()
 
 
+NONFINITE_ROWS = {"nan_coordinate": (3, 777), "pos_inf": (4, 1000),
+                  "neg_inf": (2, 33), "all_nan": (5, 129), "zero": (3, 4099),
+                  "finite": (1, 7)}
+
+
+@pytest.mark.parametrize("case", list(NONFINITE_ROWS))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_nonfinite_rows_match_reference(case, bits):
+    """A row holding NaN or ±inf among finite rows: the levels are 0 where
+    the reference's float-to-int conversion gives 0 (not PyTorch's CPU
+    INT_MIN), so the values are NaN across the row, as both of the
+    reference's QSGD paths give; zero and finite rows as before.  Levels
+    compared exactly, values with equal NaN masks (no denormal inputs:
+    XLA's CPU backend flushes them)."""
+    m, d = NONFINITE_ROWS[case]
+    rng = np.random.default_rng(bits * 100 + d)
+    x = (rng.standard_normal((m, d)) * 3).astype(np.float32)
+    u = rng.uniform(size=(m, d)).astype(np.float32)
+    r = m // 2
+    if case == "nan_coordinate":
+        x[r, d // 3] = np.nan
+    elif case == "pos_inf":
+        x[r, 5] = np.inf
+    elif case == "neg_inf":
+        x[r, d - 1] = -np.inf
+    elif case == "all_nan":
+        x[r] = np.nan
+    elif case == "zero":
+        x[r] = 0.0
+    jx, ju = jnp.asarray(x), jnp.asarray(u)
+    jq, jamax = jops.qsgd_quantize(jx, ju, bits=bits)
+    q, amax = ops.qsgd_quantize(_t(x), _t(u), bits=bits)
+    _same(q, jq)
+    _same(amax, jamax)
+    got = ops.qsgd_roundtrip(_t(x), _t(u), bits=bits)
+    _same(got, jops.qsgd_roundtrip(jx, ju, bits=bits))
+    _same(got, jref.qsgd_roundtrip_ref(jx, ju, bits))
+    _same(ops.qsgd_dequantize(q, amax, bits=bits),
+          jops.qsgd_dequantize(jq, jamax, bits=bits))
+    row = got[r].numpy()
+    if case in ("zero", "finite"):
+        assert np.isfinite(got.numpy()).all()
+    else:
+        assert np.isnan(row).all()
+        assert int(q[r].abs().max()) <= 2 ** (bits - 1) - 1
+    assert np.isfinite(np.delete(got.numpy(), r, axis=0)).all()
+
+
 def test_cpu_channel_ops_count_no_launches_and_refuse_bad_args():
     before = dict(ops.LAUNCHES)
     x = torch.randn(3, 50)

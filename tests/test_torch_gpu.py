@@ -16,8 +16,11 @@ Sq > Sk cases whose first rows see no key (0).  The decode and CUDA-core
 kernels are also held bitwise against themselves across calls, the f32
 CUDA-core kernel against float64 attention within twice the plain
 version's own error, and the channel kernels bitwise against their plain
-versions (the top-k kernel on each of its three paths, and against its
-multi-level walk `ref.topk_threshold_tree_ref`).  The mix of a ragged leaf set in one
+versions on every row, zero, NaN, ±inf, denormal and all-NaN rows
+included (the QSGD row pass's three epilogues on both of its paths, the
+QSGD stream on odd D and misaligned arrays, the top-k kernel on each of
+its three paths, and against its multi-level walk
+`ref.topk_threshold_tree_ref`).  The mix of a ragged leaf set in one
 launch is held bitwise against one-leaf calls and the Gram bitwise
 against itself, with Δ bitwise `ref.sqdist_from_gram` of its G.
 """
@@ -249,33 +252,106 @@ def _same(got, want):
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,d", [(20, 47571), (7, 4099), (2, 70000)])
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_qsgd_kernels_match_plain_bitwise(m, d, bits):
-    _require_cuda()
-    from repro_torch.kernels.quantize import qsgd_quantize_cuda
-    gen = torch.Generator(device="cuda").manual_seed(m * d + bits)
+def _bits(t):
+    """The bit patterns of a float tensor (NaN payloads included)."""
+    return t.view(torch.int32)
+
+
+def _qsgd_rows(m, d, gen):
+    """x, u (m, D) on the card: row 0 random; rows 1..6, as m allows, all
+    zero, a NaN coordinate, +inf, -inf, denormal and all NaN; the rest
+    random."""
     x = torch.randn((m, d), generator=gen, device="cuda") * 3
-    x[m // 2] = 0.0                              # an all-zero row
     u = torch.rand((m, d), generator=gen, device="cuda")
+    cases = ["zero", "nan", "+inf", "-inf", "denormal", "all_nan"]
+    for i, case in enumerate(cases[:m - 1], start=1):
+        if case == "zero":
+            x[i] = 0.0
+        elif case == "nan":
+            x[i, d // 2] = float("nan")
+        elif case == "+inf":
+            x[i, d - 1] = float("inf")
+        elif case == "-inf":
+            x[i, 0] = float("-inf")
+        elif case == "denormal":
+            x[i] *= 1e-39
+        else:
+            x[i] = float("nan")
+    return x, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,path", [
+    (1, 1, "registers"), (20, 9, "registers"), (257, 4099, "registers"),
+    (20, 47571, "registers"), (100, 47571, "registers"),
+    (8, 65536, "registers"), (3, 65537, "global"), (7, 70000, "global"),
+    (7, 600000, "global")])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_kernels_match_plain_bitwise(m, d, path, bits):
+    """Every epilogue of the row pass (absmax, encode, roundtrip) on its
+    register and re-read paths, and the stream (quantize with absmax
+    given, dequantize), bitwise against kernels/ref.py on every row: zero,
+    NaN-coordinate, ±inf, denormal and all-NaN rows among random ones, m
+    up to 257 (clusters queue).  One launch per ops call; a second call
+    gives the same bits."""
+    _require_cuda()
+    from repro_torch.kernels.quantize import qsgd_quantize_cuda, row_path
+    assert row_path(d) == path
+    gen = torch.Generator(device="cuda").manual_seed(m * d + bits)
+    x, u = _qsgd_rows(m, d, gen)
+    want_q, want_amax = ref.qsgd_quantize_ref(x, u, bits)
     n0 = dict(ops.LAUNCHES)
     amax = ops.rowwise_absmax(x)
-    _same(amax, ref.rowwise_absmax_ref(x))
-    want_q, want_amax = ref.qsgd_quantize_ref(x, u, bits)
-    _same(qsgd_quantize_cuda(x, u, amax, bits), want_q)
+    _same(amax, want_amax)
     q, amax2 = ops.qsgd_quantize(x, u, bits=bits)
     _same(q, want_q)
     _same(amax2, want_amax)
-    assert bool(torch.all(q[m // 2] == 0)) and float(amax2[m // 2]) == 0.0
-    _same(ops.qsgd_dequantize(q, amax2, bits=bits),
-          ref.qsgd_dequantize_ref(want_q, want_amax, bits))
-    _same(ops.qsgd_roundtrip(x, u, bits=bits),
-          ref.qsgd_roundtrip_ref(x, u, bits))
+    _same(qsgd_quantize_cuda(x, u, amax, bits), want_q)
+    deq = ops.qsgd_dequantize(q, amax2, bits=bits)
+    _same(deq, ref.qsgd_dequantize_ref(want_q, want_amax, bits))
+    out = ops.qsgd_roundtrip(x, u, bits=bits)
+    _same(out, ref.qsgd_roundtrip_ref(x, u, bits))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["rowwise_absmax"] == n0["rowwise_absmax"] + 3
-    assert ops.LAUNCHES["qsgd_quantize"] == n0["qsgd_quantize"] + 2
-    assert ops.LAUNCHES["qsgd_dequantize"] == n0["qsgd_dequantize"] + 2
+    launched = {k: n - n0[k] for k, n in ops.LAUNCHES.items() if n != n0[k]}
+    assert launched == {"rowwise_absmax": 1, "qsgd_quantize": 1,
+                        "qsgd_dequantize": 1, "qsgd_roundtrip": 1}
+    assert torch.equal(_bits(out), _bits(ops.qsgd_roundtrip(x, u, bits=bits)))
+    assert torch.equal(_bits(amax), _bits(ops.rowwise_absmax(x)))
+    if m > 1:
+        assert bool(torch.all(q[1] == 0)) and float(amax[1, 0]) == 0.0
+    if m > 6:
+        assert bool(torch.isnan(out[2:7:4]).all())     # NaN rows: all NaN
+        assert bool(torch.isnan(out[3:5]).all())       # ±inf rows: all NaN
+        assert bool(torch.all(q[2:5] == 0)) and bool(torch.all(q[6] == 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,offset", [
+    (20, 47571, 0), (20, 47571, 1), (5, 1001, 0), (3, 4099, 2),
+    (4, 4, 3), (6, 3, 0), (9, 1, 0), (257, 13, 0)])
+@pytest.mark.parametrize("bits", [2, 8])
+def test_qsgd_stream_odd_and_misaligned(m, d, offset, bits):
+    """The stream on odd D (4-vectors straddle rows), D < 4 and arrays
+    that start ``offset`` elements into a larger buffer (misaligned: the
+    scalar path), bitwise against kernels/ref.py, special rows included."""
+    _require_cuda()
+    from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
+                                              qsgd_quantize_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(m + d + offset)
+    x0, u0 = _qsgd_rows(m, d, gen)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device="cuda")
+        view = buf[offset:offset + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+    x, u = shifted(x0), shifted(u0)
+    amax = shifted(ref.rowwise_absmax_ref(x0))
+    want_q = ref.qsgd_quantize_ref(x0, u0, bits, absmax=amax)[0]
+    q = qsgd_quantize_cuda(x, u, amax, bits)
+    _same(q, want_q)
+    _same(qsgd_dequantize_cuda(shifted(q), amax, bits),
+          ref.qsgd_dequantize_ref(want_q, amax, bits))
 
 
 @pytest.mark.gpu
@@ -349,9 +425,17 @@ def test_channel_kernels_propagate_nan_and_refuse_bad_args():
     assert bool(torch.isnan(out[1]).all())
     assert bool(torch.isfinite(out[0]).all())
     _same(out, ref.qsgd_roundtrip_ref(x, u, 8))
+    q, _ = ops.qsgd_quantize(x, u, bits=8)
+    assert bool(torch.all(q[1] == 0))              # NaN levels convert to 0
     for bits in (1, 9):
         with pytest.raises(ValueError, match="bits"):
             ops.qsgd_quantize(x, u, bits=bits)
+        with pytest.raises(ValueError, match="bits"):
+            ops.qsgd_roundtrip(x, u, bits=bits)
+    with pytest.raises(ValueError):
+        ops.qsgd_roundtrip(x, u[:, :10], bits=4)      # noise shape
+    with pytest.raises(ValueError):
+        ops.qsgd_quantize(x, u.double(), bits=4)      # noise dtype
     with pytest.raises(ValueError):
         ops.rowwise_absmax(x.double())
     with pytest.raises(ValueError):

@@ -14,6 +14,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize as Q
 from repro_torch.kernels.mixing_aggregate import (N_MAX, SMEM_LIMIT, TILE,
                                                   copy_width, launch_groups,
                                                   smem_bytes)
@@ -170,6 +171,23 @@ def test_mix_smem_bytes():
     assert smem_bytes(100, 100, 4) == 100 * 116 * 4 + 32 * TILE * 4
     assert 3 * smem_bytes(100, 100, 4) <= 232448    # three blocks an SM
     assert smem_bytes(1, 400, 2) < SMEM_LIMIT < smem_bytes(128, 450, 4)
+
+
+@pytest.mark.parametrize("d,slots", [
+    (1, 8), (9, 8), (4099, 8), (16384, 8), (16385, 16), (47571, 24),
+    (49153, 32), (65536, 32), (65537, 0), (70000, 0), (600000, 0)])
+def test_qsgd_row_slots_hold_the_slice(d, slots):
+    """The QSGD row pass's register slots a thread: the fewest multiple of
+    8 whose 256 threads hold a block's eighth of the row, up to 32 (D =
+    65,536); a longer row takes the re-read path (0, "global")."""
+    assert Q.row_slots(d) == slots
+    assert Q.row_path(d) == ("registers" if slots else "global")
+    slice_ = -(-d // Q.CLUSTER)
+    if slots:
+        assert slots * Q.THREADS >= slice_
+        assert slots == 8 or (slots - 8) * Q.THREADS < slice_
+    else:
+        assert Q.REG_MAX * Q.THREADS < slice_
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -42,8 +42,18 @@ Phases (any failure raises and the script exits non-zero):
                 (one QSGD row-pass launch a crossing), ucfl with
                 topk:0.1, fedavg with the identity channel (its clock
                 must equal phase 5's fedavg clock exactly), with launch
-                counters and exact History.comm_bits;
-  7. lm       — dense-decoder serving at gemma2-27b's full width (depth
+                counters and exact History.comm_bits.  Phases 5 and 6
+                run every spec twice, fused (the default: one captured
+                CUDA graph an eval-to-eval chunk) and eventful
+                (superstep=False): histories equal line for line, final
+                params and residuals bitwise, the same launch counts;
+  7. superstep — ucfl_k4 at phase 5's config, the graphs captured anew:
+                capture seconds and the graphs' pool memory apart, wall
+                s a round of each engine (median of 3 after a warm run,
+                with and without the setup), and one torch.profiler
+                trace of a 5-round chunk under each engine (wall, device
+                busy, idle share; the local update, mix and eval apart);
+  8. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
                 prompt (past the 4,096 window, so the local ring wraps
@@ -434,8 +444,9 @@ def check_channel_kernels(gen) -> list:
     """The QSGD kernels (the row pass's absmax, encode and roundtrip; the
     stream's quantize with absmax given and dequantize) and the top-k
     kernel bitwise against their plain versions on ragged shapes, bits
-    2/4/8, top-k k in {1, 10, ceil(D/10), D, D+1}, an all-zero row, a row
-    with one NaN and a row with an inf (levels compared on every row),
+    2/4/8, top-k k in {1, 10, ceil(D/10), D-1, D, D+1}, an all-zero row,
+    a row with one NaN, a row with an inf and rows whose scalars or
+    midpoints are subnormal (levels compared on every row),
     each kernel on each of its paths (the QSGD row in registers or
     re-read; the top-k row in registers, shared memory or global) and at
     257 rows (clusters queue); then timed at the main path's (20, 47,571)
@@ -451,6 +462,15 @@ def check_channel_kernels(gen) -> list:
             x[2, d // 2] = float("nan")          # absmax NaN: row all NaN
         if m > 3:
             x[3, d - 1] = float("inf")           # absmax inf: row all NaN
+        if m > 7:
+            # scalars below f32's normal range, flushed to 0: rows 4 and 7
+            # (scale at bits 8, absmax) cross as zeros, row 5 at bits 2;
+            # row 6's top-k midpoints near k = D flush to 0
+            x[4] = torch.sign(x[4]) * 1e-37
+            x[5] = torch.sign(x[5]) * 0.5
+            x[5, d // 3] = 1.7e38
+            x[6] *= 1e-37
+            x[7] = 1e-40
         amax = qsgd.rowwise_absmax_cuda(x)
         same(f"rowwise_absmax ({m}, {d})", amax, ref.rowwise_absmax_ref(x))
         for bits in (2, 4, 8):
@@ -472,12 +492,18 @@ def check_channel_kernels(gen) -> list:
                               and bool(torch.isnan(rt[2:4]).all())):
                 raise AssertionError("qsgd: zero row not zero, or NaN / inf "
                                      "row not NaN with levels 0")
+            flushed = [7] + ([4] if bits == 8 else []) + \
+                ([5] if bits == 2 else [])
+            if m > 7 and not bool(torch.all(rt[flushed] == 0)):
+                raise AssertionError(f"qsgd bits={bits}: a row with a "
+                                     "subnormal scalar did not cross as "
+                                     "zeros")
         absx = x.abs()
         if m > 2:
             absx[2, d // 2] = 0.0
         if m > 3:
             absx[3, d - 1] = 0.0
-        for k in sorted({1, 10, -(-d // 10), d, d + 1}):
+        for k in sorted({1, 10, -(-d // 10), max(1, d - 1), d, d + 1}):
             t = topk_threshold_cuda(absx, k)
             same(f"topk_threshold ({m}, {d}) k={k}", t,
                  ref.topk_threshold_ref(absx, k))
@@ -1412,19 +1438,52 @@ def lm_c_path(card: str) -> dict:
     return out
 
 
+def run_both(spec, fed, fl, **kw):
+    """``run_federated`` fused (the default: captured CUDA graphs) and then
+    eventful (``superstep=False``), ``keep_state=True``: the two histories
+    must be equal line for line (rounds, accuracies, clock, comm,
+    comm_bits) and the final params and residuals bitwise.  Returns
+    ``[(engine, History, launches, wall s), ...]``, fused first."""
+    out = []
+    for engine, superstep in (("fused", None), ("eventful", False)):
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        h = run_federated(spec, fed, fl=fl, seed=0, keep_state=True,
+                          device="cuda", superstep=superstep, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append((engine, h, {k: ops.LAUNCHES[k] - before[k]
+                                for k in before}, wall))
+    a, b = out[0][1], out[1][1]
+    for field in ("rounds", "mean_acc", "worst_acc", "time", "comm",
+                  "comm_bits"):
+        if getattr(a, field) != getattr(b, field):
+            raise AssertionError(f"{spec}: fused and eventful {field} differ:"
+                                 f" {getattr(a, field)} != "
+                                 f"{getattr(b, field)}")
+    for part in ("final_params", "final_residual"):
+        ta, tb = getattr(a, part), getattr(b, part)
+        if (ta is None) != (tb is None):
+            raise AssertionError(f"{spec}: {part} on one engine only")
+        for k in (ta or {}):
+            if not torch.equal(ta[k].view(torch.int32),
+                               tb[k].view(torch.int32)):
+                raise AssertionError(f"{spec}: fused and eventful {part} "
+                                     f"{k} not bitwise equal")
+    print(f"  {spec}: fused = eventful (history line for line, final "
+          "params and residuals bitwise)", flush=True)
+    return out
+
+
 def main_path(fed, fl) -> dict:
-    """The three channel-less runs; returns {spec: History}."""
+    """The three channel-less runs, each fused and eventful; returns
+    {spec: History} of the fused runs."""
     system = SYSTEMS["wireless_slow"]
     m, rounds = MAIN["m"], MAIN["rounds"]
     hists = {}
-    for spec in ("ucfl", "ucfl_k4", "fedavg"):
-        before = dict(ops.LAUNCHES)
-        t0 = time.perf_counter()
-        h = run_federated(spec, fed, fl=fl, system=system, seed=0,
-                          device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    runs = [(spec, *run) for spec in ("ucfl", "ucfl_k4", "fedavg")
+            for run in run_both(spec, fed, fl, system=system)]
+    for spec, engine, h, launched, wall in runs:
         streams = h.comm[0].n_streams
         if not all(math.isfinite(a) for a in h.mean_acc + h.worst_acc):
             raise AssertionError(f"{spec}: non-finite accuracy {h.mean_acc}")
@@ -1449,12 +1508,13 @@ def main_path(fed, fl) -> dict:
                                  f"{rounds}, one a round")
         if launched["gram_matrix"] != (1 if spec.startswith("ucfl") else 0):
             raise AssertionError(f"{spec}: {launched} gram launches")
-        print(f"  {spec:8s} streams {streams:2d}  mean_acc "
+        print(f"  {spec:8s} {engine:8s} streams {streams:2d}  mean_acc "
               f"{[round(a, 4) for a in h.mean_acc]}  worst_acc "
               f"{h.worst_acc[-1]:.4f}  time {h.time[-1]:.4f}  launches "
-              f"{launched}  wall {wall:.2f} s ({wall / rounds * 1e3:.1f} "
-              f"ms/round incl. setup)", flush=True)
-        hists[spec] = h
+              f"{ {k: v for k, v in launched.items() if v} }  wall "
+              f"{wall:.2f} s ({wall / rounds * 1e3:.1f} ms/round incl. "
+              f"setup)", flush=True)
+        hists.setdefault(spec, h)
     return hists
 
 
@@ -1481,20 +1541,16 @@ def channel_path(fed, fl, base_clock: list) -> None:
               qsgd_roundtrip=0, topk_threshold=0, gram_matrix=0),
          lambda s: (s * 32 * d, m * 32 * d)),
     ]
-    for spec, kw, want_launch, want_bits in runs:
-        before = dict(ops.LAUNCHES)
-        t0 = time.perf_counter()
-        h = run_federated(spec, fed, fl=fl, system=system, seed=0,
-                          keep_state=True, device="cuda", **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    runs = [(spec, kw, want_launch, want_bits, *run)
+            for spec, kw, want_launch, want_bits in runs
+            for run in run_both(spec, fed, fl, system=system, **kw)]
+    for spec, kw, want_launch, want_bits, engine, h, launched, wall in runs:
         want_launch["mixing_aggregate"] = rounds     # the tree, one launch
         for c in ops.FLASH_COUNTERS.values():
             want_launch[c] = 0
         if launched != want_launch:
-            raise AssertionError(f"{spec}: launches {launched}, want "
-                                 f"{want_launch}")
+            raise AssertionError(f"{spec} {engine}: launches {launched}, "
+                                 f"want {want_launch}")
         streams = h.comm[0].n_streams
         if [tuple(c) for c in h.comm_bits] != [want_bits(streams)] * rounds:
             raise AssertionError(f"{spec}: comm_bits {h.comm_bits[:2]}..., "
@@ -1512,7 +1568,7 @@ def channel_path(fed, fl, base_clock: list) -> None:
                                      f"{h.time} != channel-less {base_clock}")
         elif not all(bool(torch.isfinite(v).all()) for v in res.values()):
             raise AssertionError(f"{spec}: non-finite residual stack")
-        else:
+        elif engine == "eventful":
             # device time of one round's uplink crossing at this size: the
             # codec's kernels plus the ravel, unravel and EF elementwise ops
             st = h.final_params
@@ -1525,14 +1581,167 @@ def channel_path(fed, fl, base_clock: list) -> None:
                                                      noise, mask))
             ops.LAUNCHES.update(counts)
             up = f"  uplink {up_ms:.4f} ms/round (device)"
-        print(f"  {spec:8s} {h.extra['channel']['codec']:9s} link "
-              f"{h.extra['channel']['link']:8s} streams {streams:2d}  "
+        print(f"  {spec:8s} {engine:8s} {h.extra['channel']['codec']:9s} "
+              f"link {h.extra['channel']['link']:8s} streams {streams:2d}  "
               f"mean_acc {[round(a, 4) for a in h.mean_acc]}  worst_acc "
               f"{h.worst_acc[-1]:.4f}  time {h.time[-1]:.4f}  comm_bits "
               f"{tuple(h.comm_bits[0])}  launches "
               f"{ {k: v for k, v in launched.items() if v} }  wall "
               f"{wall:.2f} s ({wall / rounds * 1e3:.1f} ms/round incl. "
               f"setup){up}", flush=True)
+
+
+class WindowDraws(TorchDraws):
+    """`TorchDraws` that opens a profiler range (``"window"``) when the
+    engine takes round ``first``'s batch slots: both engines take them
+    first thing in that round (the fused one first thing in its chunk),
+    with the card idle after the previous eval's scores came back."""
+
+    def __init__(self, seed, first):
+        super().__init__(seed, "cuda")
+        self.first, self.range, self.t0 = first, None, None
+
+    def batch_indices(self, rnd, *args):
+        if rnd == self.first and self.range is None:
+            self.range = torch.profiler.record_function("window")
+            self.range.__enter__()
+            self.t0 = time.perf_counter()
+        return super().batch_indices(rnd, *args)
+
+
+def chunk_trace(spec, fed, fl, system, superstep) -> tuple:
+    """One torch.profiler trace of a 5-round chunk (rounds 1-5 and the
+    eval ending them, of a 6-round run at eval_every 5) under one engine:
+    (wall ms of the window, device-busy ms, {part: device ms}, kernels,
+    {kernel name: device ms}), or None when the trace holds no device
+    events in it.  The parts by
+    the kernels' order and names: the mix (the mixing kernel), the eval
+    (every kernel after the window's last mix) and the local update (the
+    rest: update, rollback and the engine's draws)."""
+    draws = WindowDraws(7, first=1)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run_federated(spec, fed, fl=dataclasses.replace(fl, rounds=6),
+                      system=system, seed=0, draws=draws, device="cuda",
+                      superstep=superstep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - draws.t0
+        draws.range.__exit__(None, None, None)
+    start = min(e.time_range.start for e in prof.events()
+                if e.name == "window")
+    # the profiler mirrors the "window" range on the device timeline (a
+    # user annotation spanning its kernels): not a kernel
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name != "window"
+                      and e.time_range.start >= start),
+                     key=lambda e: e.time_range.start)
+    if not kernels:
+        return None
+    mixes = [i for i, e in enumerate(kernels) if "mix" in e.name.lower()]
+    last_mix = mixes[-1] if mixes else len(kernels)
+    parts = {"local update": 0.0, "mix": 0.0, "eval": 0.0}
+    spans, by_name = [], {}
+    for i, e in enumerate(kernels):
+        us = e.time_range.end - e.time_range.start
+        part = ("mix" if i in mixes else "eval" if i > last_mix
+                else "local update")
+        parts[part] += us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    return wall * 1e3, busy / 1e3, parts, len(kernels), by_name
+
+
+def graph_pool_mib():
+    """MiB of the card's memory held in CUDA graphs' private pools (the
+    allocator's segments outside pool (0, 0)), or None where the memory
+    snapshot does not say which pool a segment belongs to."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(sg["total_size"] for sg in segments
+               if tuple(sg["segment_pool_id"]) != (0, 0)) / 2 ** 20
+
+
+def superstep_path(fed, fl, card: str) -> None:
+    """[superstep]: ucfl_k4 at [main]'s config on both engines.  The graphs
+    are built anew (the cache emptied), so the first fused run carries the
+    captures, timed apart; then 3 runs of each engine, alternating, and 3
+    setup-only runs (0 rounds), for wall s a round; peak memory of each
+    engine's first run, and what the three graphs' pools hold; one
+    profiler trace of a 5-round chunk each."""
+    from repro_torch.fl import simulator
+    from repro_torch.fl.placement.graphs import CapturedChunk
+    system, rounds, spec = SYSTEMS["wireless_slow"], MAIN["rounds"], "ucfl_k4"
+    kw = dict(fl=fl, system=system, seed=0, device="cuda")
+
+    def timed(**extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated(spec, fed, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    simulator._SUPERSTEP_FNS.clear()
+    peak = {}
+    for engine, superstep in (("fused", None), ("eventful", False)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = timed(superstep=superstep)
+        peak[engine] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        if engine == "fused":
+            chunks = [c for cache in simulator._SUPERSTEP_FNS.values()
+                      for c in cache.values() if isinstance(c, CapturedChunk)]
+            capture = sum(c.capture_s for c in chunks)
+            pools = graph_pool_mib()
+            pools = ("not measured" if pools is None
+                     else f"{pools:.1f} MiB")
+            print(f"  capture: {len(chunks)} graphs (chunks of "
+                  f"{sorted(c.length for c in chunks)} rounds) in "
+                  f"{capture:.3f} s; first fused run {first:.3f} s; the "
+                  f"graphs' private pools hold {pools} ({card})",
+                  flush=True)
+            if len(chunks) != 3:
+                raise AssertionError(f"{len(chunks)} graphs, want 3")
+    walls = {"fused": [], "eventful": [], "setup": []}
+    for _ in range(3):
+        walls["eventful"].append(timed(superstep=False))
+        walls["fused"].append(timed())
+        walls["setup"].append(timed(fl=dataclasses.replace(fl, rounds=0)))
+    setup = statistics.median(walls["setup"])
+    for engine in ("fused", "eventful"):
+        med = statistics.median(walls[engine])
+        print(f"  {engine:8s}: {med / rounds:.5f} s/round incl. setup "
+              f"({(med - setup) / rounds:.5f} s/round less the median "
+              f"setup-only run, {setup:.3f} s); runs "
+              f"{[round(w, 4) for w in walls[engine]]} s; peak memory of "
+              f"the first run {peak[engine]:.1f} MiB ({card})", flush=True)
+    for engine, superstep in (("fused", None), ("eventful", False)):
+        got = chunk_trace(spec, fed, fl, system, superstep)
+        if got is None:
+            print(f"  {engine:8s} trace: no device events in the window; "
+                  f"device split and idle share not measured ({card})",
+                  flush=True)
+            continue
+        wall, busy, parts, n_kernels, by_name = got
+        print(f"  {engine:8s} trace of a 5-round chunk: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms, idle {1 - busy / wall:.1%}; "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f"; {n_kernels} kernels ({card})", flush=True)
+        if engine == "fused":
+            for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+                print(f"      {ms:8.3f} ms  {name[:90]} ({card})",
+                      flush=True)
 
 
 def main() -> int:
@@ -1594,6 +1803,11 @@ def main() -> int:
     print(f"  [channel] launches {dict(ops.LAUNCHES)}", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
+
+    print(f"[superstep] {MAIN['rounds']} rounds of ucfl_k4, n={MAIN['n']} "
+          f"m={MAIN['m']}: fused (CUDA graphs) against eventful ({card})",
+          flush=True)
+    superstep_path(fed, fl, card)
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),

@@ -4,7 +4,7 @@ from repro_torch.fl.comm import SYSTEMS, SystemModel, harmonic
 from repro_torch.fl.draws import TorchDraws
 from repro_torch.fl.placement import HostVmap, Placement
 from repro_torch.fl.simulator import (FLConfig, History, NonFiniteEvalWarning,
-                                      run_federated)
+                                      run_federated, superstep_support)
 from repro_torch.fl.stats import full_client_gradients, sigma2_estimates
 from repro_torch.fl.strategies import (CommCost, FullParticipation,
                                        MixingExtras, RoundContext, Strategy,
@@ -18,4 +18,4 @@ __all__ = ["Channel", "CommCost", "FLConfig", "FullParticipation", "History",
            "StrategyExtras", "SystemModel", "TorchDraws", "UniformFraction",
            "available_strategies", "full_client_gradients", "get_codec",
            "get_strategy", "harmonic", "register", "run_federated",
-           "sigma2_estimates"]
+           "sigma2_estimates", "superstep_support"]

@@ -49,6 +49,7 @@ from repro_torch.fl.channel.payload import (stacked_ravel, stacked_unravel,
                                             tree_bits, tree_size)
 from repro_torch.fl.placement.base import where_clients
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flush_subnormal
 
 _LATER_AT_REST = ("the codecs' at-rest format (encode/decode/store_bound) is "
                   "not ported yet: ROADMAP.md Queue 1 item 11 (serving)")
@@ -238,19 +239,30 @@ class Adaptive(Codec):
         budget = (d * self.min_bits + 32) / rate.min()
         bits = np.floor((budget * rate - 32.0) / d)
         bits = np.clip(bits, self.min_bits, self.max_bits).astype(np.int64)
-        return BoundAdaptive(self.spec, bits)
+        return BoundAdaptive(self.spec, bits, device=_tree_device(tree))
+
+
+def _tree_device(tree: Any) -> torch.device:
+    """The device of a model dict's leaves (where a bound codec keeps its
+    per-client constants)."""
+    return next(iter(tree.values())).device
 
 
 class BoundAdaptive(Codec):
     """`Adaptive` specialized to one resolved link: a per-client qsgd bit
-    vector.  Not registered — only `Adaptive.bind_link` constructs it."""
+    vector, and its level counts as (m, 1) f32 constants on ``device``
+    (made here, so a round copies nothing from the host).  Not registered
+    — only `Adaptive.bind_link` constructs it."""
 
     name = "adaptive"
     needs_noise = True
 
-    def __init__(self, spec: str, bits: np.ndarray):
+    def __init__(self, spec: str, bits: np.ndarray, device="cpu"):
         self._spec = str(spec)
         self.bits = np.asarray(bits, np.int64)
+        self._s = torch.tensor(2.0 ** (self.bits - 1) - 1.0,
+                               dtype=torch.float32, device=device)[:, None]
+        self._inv_s = self._s.reciprocal()
 
     @property
     def spec(self) -> str:
@@ -269,13 +281,13 @@ class BoundAdaptive(Codec):
 
     def roundtrip(self, flat, noise):
         """The plain QSGD arithmetic with the level count a per-row (m, 1)
-        column (the kernels take one scalar level count); rows whose width
-        equals b match ``qsgd:<b>`` bit for bit."""
-        s = torch.tensor(2.0 ** (self.bits - 1) - 1.0, dtype=torch.float32,
-                         device=flat.device)[:, None]
-        amax = flat.abs().amax(dim=1, keepdim=True)
-        scale = amax * s.reciprocal()
-        inv = torch.where(scale > 0, scale.reciprocal(),
+        column (the kernels take one scalar level count), a subnormal
+        absmax, scale or 1/scale flushed to 0 as in `ref.qsgd_quantize_ref`;
+        rows whose width equals b match ``qsgd:<b>`` bit for bit."""
+        s = self._s
+        amax = flush_subnormal(flat.abs().amax(dim=1, keepdim=True))
+        scale = flush_subnormal(amax * self._inv_s)
+        inv = torch.where(scale > 0, flush_subnormal(scale.reciprocal()),
                           torch.zeros_like(scale))
         q = torch.minimum(torch.maximum(torch.floor(flat * inv + noise), -s),
                           s)
@@ -336,18 +348,20 @@ class AdaptiveTopK(Codec):
         budget = (k_min * 64) / rate.min()
         ks = np.floor(budget * rate / 64.0)
         ks = np.clip(ks, k_min, k_max).astype(np.int64)
-        return BoundAdaptiveTopK(self.spec, ks)
+        return BoundAdaptiveTopK(self.spec, ks, device=_tree_device(tree))
 
 
 class BoundAdaptiveTopK(Codec):
     """`AdaptiveTopK` specialized to one resolved link: a per-client
-    kept-coordinate vector.  Not registered."""
+    kept-coordinate vector, with its sort positions (k − 1) as an (m, 1)
+    int64 constant on ``device``.  Not registered."""
 
     name = "adaptive_topk"
 
-    def __init__(self, spec: str, ks: np.ndarray):
+    def __init__(self, spec: str, ks: np.ndarray, device="cpu"):
         self._spec = str(spec)
         self.ks = np.asarray(ks, np.int64)
+        self._cols = torch.tensor(self.ks - 1, device=device)[:, None]
 
     @property
     def spec(self) -> str:
@@ -368,9 +382,7 @@ class BoundAdaptiveTopK(Codec):
         the threshold all kept), plain torch: the kernel takes one k."""
         a = flat.abs()
         srt = torch.sort(a, dim=1, descending=True).values
-        rows = torch.arange(flat.shape[0], device=flat.device)
-        ks = torch.as_tensor(self.ks - 1, device=flat.device)
-        thr = srt[rows, ks][:, None]
+        thr = srt.gather(1, self._cols)
         return torch.where(a >= thr, flat, torch.zeros_like(flat))
 
     def __eq__(self, other) -> bool:

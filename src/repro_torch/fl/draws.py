@@ -21,10 +21,17 @@ object with two methods instead:
 
 `TorchDraws` is the default and draws from `torch.Generator`s.  A parity
 test passes an object that replays the reference's key chain instead.
+
+The fused superstep takes a chunk's draws before the chunk runs
+(`chunk_draws`): round by round, in the eventful engine's call order
+(the batch slots, the sampler's mask, the codec noise), from the same
+object, stacked into (length, ...) tensors that the chunk reads by
+round.  The two engines consume identical streams, and a captured graph
+reads no generator.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -77,3 +84,37 @@ class TorchDraws:
     def codec_noise(self, rnd: int, shape) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self._noise,
                           device=self.device, dtype=torch.float32)
+
+
+class ChunkDraws(NamedTuple):
+    """One chunk's draws, a row per round."""
+    slots: torch.Tensor               # (L, m, S, B) int64, on the device
+    mask: Optional[torch.Tensor]      # (L, m) bool on the device; None
+                                      # without a sampler
+    mask_np: Optional[np.ndarray]     # the same rows on the host
+    noise: Optional[torch.Tensor]     # (L, m, D) f32 on the device; None
+                                      # without a noisy codec
+
+
+def chunk_draws(draws: Any, rounds: range, *, n: torch.Tensor, n_slots: int,
+                batch_size: int, local_steps: int, sampler: Any, m: int,
+                noise_d: Optional[int], device: torch.device) -> ChunkDraws:
+    """The draws of ``rounds``, taken per round as the eventful engine
+    takes them: ``batch_indices``, then the sampler's mask
+    (``sampler.sample_traced``: all-True where the eventful ``sample``
+    gives None), then ``codec_noise`` of (m, ``noise_d``) when ``noise_d``
+    is given."""
+    slots, masks, noise = [], [], []
+    for rnd in rounds:
+        slots.append(draws.batch_indices(rnd, n, n_slots, batch_size,
+                                         local_steps).to(device))
+        if sampler is not None:
+            masks.append(sampler.sample_traced(rnd, m, draws))
+        if noise_d is not None:
+            noise.append(draws.codec_noise(rnd, (m, noise_d)).to(device))
+    mask_cpu = torch.stack(masks) if masks else None
+    return ChunkDraws(
+        slots=torch.stack(slots),
+        mask=None if mask_cpu is None else mask_cpu.to(device),
+        mask_np=None if mask_cpu is None else mask_cpu.numpy(),
+        noise=torch.stack(noise) if noise else None)

@@ -1,12 +1,18 @@
 """Placement protocol: where clients live and how their models move.
 
-Counterpart of `repro/fl/placement/base.py`, with the hooks the eventful
-round engine uses: build the local-update step, stack the common
+Counterpart of `repro/fl/placement/base.py`, with the hooks the round
+engine uses: build the local-update step, stack the common
 initialization into the client-stacked dict, place the data, roll back
 non-participants, pass the uplink through the channel codec, apply a
 mixing matrix or a `StreamPlan`, and evaluate the personalized models.
-Strategies route every mix through `RoundContext.mix` / `mix_plan`,
-which dispatch here.
+Strategies route every mix through `RoundContext.mix` / `mix_plan`
+(eventful) or `TracedMix` (fused), which dispatch here.
+
+The fused superstep's hooks: `build_round` turns ``length`` rounds and
+the chunk-end eval into one callable, a captured CUDA graph on the card
+(`fl.placement.graphs`) and the same round function run eagerly in a
+loop on the CPU; `run_supersteps` caches it by chunk length and input
+shapes and runs one chunk.
 """
 from __future__ import annotations
 
@@ -14,9 +20,12 @@ import abc
 from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 
 import torch
+from torch.func import vmap
 
 from repro_torch.core.streams import StreamPlan
 from repro_torch.data.federated import FederatedData
+from repro_torch.fl.placement.graphs import (CapturedChunk, StaticInputs,
+                                             draw_row, leaves, tree_spec)
 
 
 def stack_params(params: Dict[str, torch.Tensor], m: int
@@ -36,6 +45,14 @@ def where_clients(mask: torch.Tensor, new: Any, old: Any) -> Any:
         return {k: where_clients(mask, a, old[k]) for k, a in new.items()}
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new,
                        old)
+
+
+@torch.no_grad()
+def client_scores(acc_fn: Callable, stacked: Any, x_val: torch.Tensor,
+                  y_val: torch.Tensor) -> torch.Tensor:
+    """(m,) validation scores, client i's model on client i's data."""
+    return vmap(lambda p, x, y: acc_fn(p, {"x": x, "y": y}))(
+        stacked, x_val, y_val)
 
 
 class Placement(abc.ABC):
@@ -87,6 +104,75 @@ class Placement(abc.ABC):
     def evaluate(self, acc_fn: Callable, stacked: Any, fed: FederatedData
                  ) -> Tuple[float, float]:
         """(mean, worst) validation score across clients."""
+
+    # ---- fused superstep --------------------------------------------------
+
+    def mix_traced(self, stacked: Any, w: torch.Tensor) -> Any:
+        """`mix` inside a fused round (default: `mix` itself, which reads
+        nothing back to the host)."""
+        return self.mix(stacked, w)
+
+    def mix_plan_traced(self, stacked: Any, centroids: torch.Tensor,
+                        assignment: torch.Tensor) -> Any:
+        """`mix_plan` inside a fused round, the plan given as its two
+        tensors."""
+        return self.mix_plan(stacked, StreamPlan(centroids, assignment, None))
+
+    def eval_traced(self, acc_fn: Callable, stacked: Any, x_val: Any,
+                    y_val: Any) -> torch.Tensor:
+        """Per-client validation scores (m,) on the device, the fused
+        chunk-end eval: `client_scores`, as the eventful `evaluate`; the
+        (mean, worst) reduction is the caller's (`host.reduce_scores`, on
+        both engines, so they cannot drift)."""
+        return client_scores(acc_fn, stacked, x_val, y_val)
+
+    def build_round(self, round_fn: Callable, *, length: int,
+                    eval_fn: Callable, inputs: Tuple,
+                    cache: Dict) -> Callable:
+        """``length`` consecutive rounds of ``round_fn(carry, data, consts,
+        draw) -> carry'`` and ``eval_fn(carry'[0], eval_data)``, as
+        ``fn(carry, data, consts, draws, eval_data) -> (carry', scores)``.
+        On the card a `CapturedChunk` (its carry, data and consts buffers
+        shared, through ``cache``, with the other chunk lengths of these
+        shapes); on the CPU the same rounds run eagerly."""
+        carry, data, consts, draws, eval_data = inputs
+        if leaves(draws)[0].device.type == "cuda":
+            key = ("statics", tree_spec((carry, data, consts, eval_data)))
+            statics = cache.get(key)
+            if statics is None:
+                statics = cache[key] = StaticInputs(carry, data, consts,
+                                                    eval_data)
+            return CapturedChunk(round_fn, eval_fn, length, statics, inputs)
+
+        def chunk(carry, data, consts, draws, eval_data):
+            for i in range(length):
+                carry = round_fn(carry, data, consts, draw_row(draws, i))
+            return carry, eval_fn(carry[0], eval_data)
+
+        return chunk
+
+    def run_supersteps(self, round_fn: Callable, carry: Any, data: Any,
+                       consts: Any, length: int, *, cache: Dict,
+                       eval_fn: Callable, eval_data: Any,
+                       draws: Any) -> Tuple[Any, torch.Tensor]:
+        """Run ``length`` fused rounds and the chunk-end eval, building
+        (and caching in ``cache``, by length and input shapes) the chunk
+        on first use.  ``draws`` holds the chunk's per-round draws stacked
+        (length, ...).  Returns ``(carry', scores)``; on the card both are
+        the chunk's static buffers, overwritten by its next replay."""
+        inputs = (carry, data, consts, draws, eval_data)
+        key = (length, tree_spec(inputs))
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = self.build_round(
+                round_fn, length=length, eval_fn=eval_fn, inputs=inputs,
+                cache=cache)
+        return fn(*inputs)
+
+    def cache_key(self) -> Tuple:
+        """Hashable identity for the superstep cache: two placements with
+        equal keys build the same rounds."""
+        return (type(self).__name__,)
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}()"

@@ -4,10 +4,13 @@ Counterpart of `repro/fl/placement/host.py`: all clients live in one
 stacked param dict on one device; the local update is ``local_steps``
 momentum-SGD steps, each one `torch.func.vmap(grad(loss_fn))` over the
 clients, and the mix goes through `core.aggregation` (the Y = W Θ kernel
-on CUDA).
+on CUDA).  The update step is cached across calls on what it closes
+over, as the reference caches its jitted step, so the superstep cache
+(keyed on the step) serves repeated `run_federated` calls.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Tuple
 
 import torch
@@ -17,7 +20,8 @@ from repro_torch.core.aggregation import (stream_aggregate,
                                           user_centric_aggregate)
 from repro_torch.core.streams import StreamPlan
 from repro_torch.data.federated import FederatedData
-from repro_torch.fl.placement.base import Placement, stack_params
+from repro_torch.fl.placement.base import (Placement, client_scores,
+                                           stack_params)
 from repro_torch.optim import apply_updates, sgd
 
 
@@ -41,18 +45,36 @@ def make_client_update(loss_fn: Callable, opt, fl) -> Callable:
     return update
 
 
+class _UpdateConfig:
+    """The FLConfig fields `make_client_update` closes over."""
+
+    def __init__(self, local_steps: int, batch_size: int):
+        self.local_steps = local_steps
+        self.batch_size = batch_size
+
+
+@functools.lru_cache(maxsize=16)
+def cached_update(loss_fn: Callable, local_steps: int, batch_size: int,
+                  lr: float, momentum: float,
+                  state_dtype=None) -> Tuple[Any, Callable]:
+    """(opt, update) memoized on everything the step closes over."""
+    opt = sgd(lr, momentum=momentum, state_dtype=state_dtype)
+    return opt, make_client_update(loss_fn, opt,
+                                   _UpdateConfig(local_steps, batch_size))
+
+
 def reduce_scores(accs: torch.Tensor) -> Tuple[float, float]:
-    """(mean, worst) of the per-client score vector."""
-    return float(accs.mean()), float(accs.min())
+    """(mean, worst) of the per-client score vector, in one copy to the
+    host; both engines reduce their device scores through it."""
+    mean, worst = torch.stack((accs.mean(), accs.min())).tolist()
+    return mean, worst
 
 
-@torch.no_grad()
 def evaluate(acc_fn: Callable, stacked, fed: FederatedData
              ) -> Tuple[float, float]:
     """(mean, worst) validation accuracy across clients, personalized models."""
-    accs = vmap(lambda p, x, y: acc_fn(p, {"x": x, "y": y}))(
-        stacked, fed.x_val, fed.y_val)
-    return reduce_scores(accs)
+    return reduce_scores(client_scores(acc_fn, stacked, fed.x_val,
+                                       fed.y_val))
 
 
 class HostVmap(Placement):
@@ -61,9 +83,9 @@ class HostVmap(Placement):
     name = "host_vmap"
 
     def build_update(self, loss_fn: Callable, fl) -> Tuple[Any, Callable]:
-        opt = sgd(fl.lr, momentum=fl.momentum,
-                  state_dtype=getattr(fl, "opt_state_dtype", None))
-        return opt, make_client_update(loss_fn, opt, fl)
+        return cached_update(loss_fn, fl.local_steps, fl.batch_size, fl.lr,
+                             fl.momentum,
+                             getattr(fl, "opt_state_dtype", None))
 
     def stack(self, params0, m: int):
         return stack_params(params0, m)

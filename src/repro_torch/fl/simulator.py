@@ -1,8 +1,9 @@
-"""Federated learning round engine: the eventful per-round loop.
+"""Federated learning round engine: the fused superstep and the eventful
+per-round loop.
 
-Counterpart of the eventful half of `repro/fl/simulator.py`
-(`run_federated` with ``superstep=False``, which the reference pins as
-bit-identical to its fused default), without its fault, quorum and
+Counterpart of `repro/fl/simulator.py` (`run_federated` with its fused
+superstep default and ``superstep=False``'s eventful loop, which the
+reference pins as bit-identical), without its fault, quorum and
 hierarchy branches.  The engine owns the local update, client sampling,
 the uplink channel, evaluation and the analytic clock; the `Strategy`
 owns aggregation and the `Placement` the layout:
@@ -17,15 +18,26 @@ roll the non-participants of the sampler's mask back to their pre-round
 model and optimizer state, pass the participants' update v = Δ + e
 through the channel codec with error feedback (on the card: the QSGD or
 top-k kernels), let the strategy mix (Y = W Θ on the card, one kernel
-launch per leaf), charge the round on the clock (through the link
+launch a round), charge the round on the clock (through the link
 profile when a channel is attached) and in `History.comm_bits`, and
 evaluate every ``eval_every`` rounds.
+
+By default (``superstep=None``) a run whose strategy and sampler are
+traceable (`superstep_support`) is fused: the rounds between two eval
+boundaries (`_eval_rounds`) and the eval ending them run as one chunk
+(`Placement.run_supersteps`), on the card one captured CUDA graph
+replayed with nothing enqueued by the host in between, on the CPU the
+same round function run eagerly.  The chunk's draws are taken before it
+runs, in the eventful order (`fl.draws.chunk_draws`); the clock and the
+comm accounting are replayed on the host after it, in the eventful
+order; so the fused run's history and final params are bitwise the
+eventful run's.  ``superstep=False`` forces the eventful loop, and True
+raises `ValueError` when the run cannot fuse.
 
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
 Options that belong to later slices of the port (faults, hierarchy,
-async, paging, the fused superstep) raise `NotImplementedError` naming
-their ROADMAP item.
+async, paging) raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,10 +56,13 @@ from repro_torch.fl.channel import (Channel, ChannelCost, resolve_channel,
                                     round_downlink_time, tree_bits,
                                     zeros_like_stack)
 from repro_torch.fl.comm import SYSTEMS, SystemModel
-from repro_torch.fl.draws import TorchDraws, init_generator
-from repro_torch.fl.placement import Placement, resolve_placement
+from repro_torch.fl.draws import TorchDraws, chunk_draws, init_generator
+from repro_torch.fl.placement import (Placement, reduce_scores,
+                                      resolve_placement)
+from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.fl.strategies import (ClientSampler, CommCost, RoundContext,
-                                       Strategy, StrategyExtras, get_strategy)
+                                       Strategy, StrategyExtras, TracedMix,
+                                       get_strategy)
 from repro_torch.models import lenet
 
 
@@ -92,7 +107,6 @@ class NonFiniteEvalWarning(RuntimeWarning):
 
 # What each option waits for, by its item in ROADMAP.md's Queue 1.
 _LATER = {
-    "superstep": "item 8 (superstep)",
     "async_cfg": "item 9 (async runtime)",
     "paging": "item 12 (paging)",
     "hierarchy": "item 13 (hierarchy)",
@@ -286,6 +300,192 @@ def finalize_history(history: History, strategy: Strategy, state: Any,
     return history
 
 
+# ---------------------------------------------------------------------------
+# the fused superstep: eval_every rounds as one chunk
+
+
+def _mro_definer(cls: type, name: str) -> Optional[type]:
+    """The class in ``cls``'s MRO that actually defines ``name``."""
+    for c in cls.__mro__:
+        if name in vars(c):
+            return c
+    return None
+
+
+def superstep_support(strategy: Strategy,
+                      sampler: Optional[ClientSampler]) -> tuple:
+    """(ok, reason): whether this run qualifies for the fused superstep.
+
+    Strategy and sampler must declare the traceability contract; every
+    registered codec's ``roundtrip`` runs inside a fused round, so a
+    `Channel` never blocks fusion.  A subclass of a traceable strategy
+    that overrides ``aggregate`` WITHOUT re-implementing
+    ``aggregate_traced`` would silently fuse with the parent's rule; it
+    goes to the eventful loop instead."""
+    if not strategy.traceable:
+        return False, (f"strategy {strategy.spec!r} is not traceable "
+                       "(eventful per-round state)")
+    cls = type(strategy)
+    traced_at = _mro_definer(cls, "aggregate_traced")
+    at = _mro_definer(cls, "aggregate")
+    if at is not Strategy and not issubclass(traced_at, at):
+        return False, (
+            f"{cls.__name__} overrides aggregate() below the class "
+            f"defining aggregate_traced ({traced_at.__name__}); the fused "
+            "round would silently diverge: override aggregate_traced too "
+            "(or set traceable=False)")
+    if sampler is not None and not sampler.traceable:
+        return False, (f"sampler {type(sampler).__name__} does not "
+                       "implement sample_traced")
+    return True, ""
+
+
+# built supersteps, shared across `run_federated` calls: key -> {(chunk
+# length, input shapes) -> chunk, ("statics", shapes) -> static buffers}.
+# The key holds everything the round function closes over (the cached
+# update step carries the loss_fn / FLConfig identity; strategy and
+# sampler their spec-level identities; the placement its own; ``acc_fn``
+# the chunk-end eval).  LRU, bounded: a sweep over many configurations
+# does not pin every captured graph.
+_SUPERSTEP_FNS: Dict[tuple, Dict] = {}
+_SUPERSTEP_CACHE_MAX = 32
+
+
+def _superstep_cache(placement: Placement, strategy: Strategy,
+                     sampler: Optional[ClientSampler], codec,
+                     error_feedback: bool, update_fn: Callable,
+                     acc_fn: Callable) -> Dict:
+    key = (placement.cache_key(), type(strategy), strategy.spec,
+           None if sampler is None else sampler.cache_key,
+           codec, bool(error_feedback), update_fn, acc_fn)
+    cache = _SUPERSTEP_FNS.pop(key, None)   # re-insert: LRU, not FIFO
+    if cache is None:
+        while len(_SUPERSTEP_FNS) >= _SUPERSTEP_CACHE_MAX:
+            _SUPERSTEP_FNS.pop(next(iter(_SUPERSTEP_FNS)))
+        cache = {}
+    _SUPERSTEP_FNS[key] = cache
+    return cache
+
+
+def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
+                        codec, error_feedback: bool, placement: Placement,
+                        update_fn: Callable) -> Callable:
+    """The fused round (local update → sampler select → codec uplink with
+    error feedback → strategy aggregate) as one function
+
+        round_fn((stacked, opt_state, ef), (x, y), consts, (idx, mask, noise))
+            -> (stacked', opt_state', ef')
+
+    of the eventful round's arithmetic, op for op, on the round's draws
+    (``mask`` all-True where the eventful sampler gives None: the select
+    is then a bitwise identity).  It reads nothing back to the host: on
+    the card it runs inside a captured CUDA graph."""
+    tmix = TracedMix(placement)
+    lossy = codec is not None and not codec.is_identity
+
+    def round_fn(carry, data, consts, draw):
+        stacked, opt_state, ef = carry
+        x, y = data
+        idx, mask, noise = draw
+        prev, prev_opt = stacked, opt_state
+        stacked, opt_state = update_fn(stacked, opt_state, x, y, idx)
+        if sampler is not None:
+            stacked = placement.select(mask, stacked, prev)
+            opt_state = placement.select(mask, opt_state, prev_opt)
+        if lossy:
+            stacked, new_ef = placement.uplink(codec, stacked, prev, ef,
+                                               noise, mask)
+            ef = new_ef if error_feedback else ef
+        stacked = strategy.aggregate_traced(consts, stacked, prev, tmix)
+        return stacked, opt_state, ef
+
+    return round_fn
+
+
+def _eval_rounds(rounds: int, eval_every: int):
+    """The eventful engine's eval boundaries (``rnd % eval_every == 0 or
+    rnd == rounds - 1``) as consecutive chunks: yields ``(first, last)``
+    round of each."""
+    rnd = 0
+    while rnd < rounds:
+        nxt = min(((rnd + eval_every - 1) // eval_every) * eval_every,
+                  rounds - 1)
+        yield rnd, nxt
+        rnd = nxt + 1
+
+
+def _run_superstep(strategy: Strategy, fed: FederatedData, *,
+                   sampler: Optional[ClientSampler], fl: FLConfig,
+                   model_init: Optional[Callable], loss_fn: Callable,
+                   acc_fn: Callable, system: Optional[SystemModel],
+                   placement: Placement, channel: Optional[Channel],
+                   keep_state: bool, seed: int, draws: Any,
+                   device) -> History:
+    """The fused run: chunk by chunk (`_eval_rounds`), the chunk's draws
+    taken first, its rounds and chunk-end eval run by
+    `Placement.run_supersteps`, its scores brought back in one copy, then
+    the clock and comm accounting replayed on the host in the eventful
+    engine's per-round order (`charge_round`)."""
+    m = fed.m
+    update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
+        strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
+        draws, device)
+    payload, link, model_bits, ef, channel = init_channel(
+        channel, ctx, stacked, system, m)
+    lossy = channel is not None and not channel.codec.is_identity
+    # identity codecs run no uplink: channel-less and identity-channel runs
+    # share one superstep
+    codec = channel.codec if lossy else None
+    ef_flag = channel.error_feedback if lossy else True
+    consts = strategy.traced_state(state)
+    round_fn = _build_traced_round(strategy, sampler, codec, ef_flag,
+                                   placement, update_fn)
+    cache = _superstep_cache(placement, strategy, sampler, codec, ef_flag,
+                             update_fn, acc_fn)
+    eval_fn = lambda st, ed: placement.eval_traced(acc_fn, st, ed[0], ed[1])
+    # round-constant by the traceability contract: read once, as the
+    # eventful loop would read them every round
+    cost = strategy.comm(state)
+    assignment = None if link is None else strategy.membership(state)
+    ul_bits_pc = per_client_uplink_bits(channel, ctx, payload, m)
+    noise_d = (sum(leaf[0].numel() for leaf in stacked.values())
+               if lossy and codec.needs_noise else None)
+
+    history = History()
+    t_accum = 0.0
+    carry = (stacked, opt_state, ef if lossy else None)
+    for rnd, nxt in _eval_rounds(fl.rounds, fl.eval_every):
+        length = nxt - rnd + 1
+        cd = chunk_draws(draws, range(rnd, nxt + 1), n=n, n_slots=x.shape[1],
+                         batch_size=fl.batch_size,
+                         local_steps=fl.local_steps, sampler=sampler, m=m,
+                         noise_d=noise_d, device=x.device)
+        carry, accs = placement.run_supersteps(
+            round_fn, carry, (x, y), consts, length, cache=cache,
+            eval_fn=eval_fn, eval_data=(fed.x_val, fed.y_val),
+            draws=(cd.slots, cd.mask, cd.noise))
+        mean_acc, worst_acc = reduce_scores(accs)
+        for i in range(length):
+            t_accum = charge_round(
+                history, cost, None if cd.mask_np is None else cd.mask_np[i],
+                m, payload, link, system, channel, t_accum, assignment,
+                ul_bits_pc)
+        record_eval(history, nxt, mean_acc, worst_acc, t_accum)
+
+    if keep_state:
+        # on the card the carry is the chunks' static buffers, which the
+        # next run of this configuration overwrites
+        carry = tree_map(torch.clone, carry)
+    stacked, opt_state, ef = carry
+    history = finalize_history(history, strategy, state, keep_state, stacked,
+                               opt_state)
+    if channel is not None:
+        channel_extra(history, channel, link, model_bits, payload)
+        if keep_state:
+            history.final_residual = ef
+    return history
+
+
 def run_federated(algorithm: Union[str, Strategy, None] = None,
                   fed: Optional[FederatedData] = None, *,
                   strategy: Optional[Strategy] = None,
@@ -322,12 +522,15 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     link) is bit-identical to no channel.  ``draws`` supplies the run's
     random draws (default `TorchDraws(seed, device)`).
     ``keep_state=True`` attaches the final stacked params / opt state to
-    the History.  ``superstep`` None or False runs this eventful loop;
-    True raises, as do the options of later slices.
+    the History.  ``superstep`` None (default) fuses the rounds between
+    two evals into one chunk exactly when `superstep_support` allows it
+    (on the card a captured CUDA graph; bitwise the eventful run's
+    history either way), False forces the eventful per-round loop, True
+    raises `ValueError` if the run cannot fuse.  The options of later
+    slices raise `NotImplementedError`.
     """
     later = dict(async_cfg=async_cfg, paging=paging, hierarchy=hierarchy,
-                 faults=faults, robust_agg=robust_agg, min_quorum=min_quorum,
-                 superstep=superstep or None)
+                 faults=faults, robust_agg=robust_agg, min_quorum=min_quorum)
     for name, value in later.items():
         if value is not None:
             raise NotImplementedError(
@@ -345,6 +548,18 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     channel = resolve_channel(channel)
     lossy = channel is not None and not channel.codec.is_identity
     draws = TorchDraws(seed, dev) if draws is None else draws
+    if superstep is None or superstep:
+        ok, why = superstep_support(strategy, sampler)
+        if not ok and superstep:
+            raise ValueError(f"superstep=True but this run cannot fuse: "
+                             f"{why}")
+        if ok:
+            return _run_superstep(strategy, fed, sampler=sampler, fl=fl,
+                                  model_init=model_init, loss_fn=loss_fn,
+                                  acc_fn=acc_fn, system=system,
+                                  placement=placement, channel=channel,
+                                  keep_state=keep_state, seed=seed,
+                                  draws=draws, device=dev)
     m = fed.m
     update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,

@@ -6,7 +6,7 @@ fedfomo come with a later slice.
 """
 from repro_torch.fl.strategies.base import (CommCost, MixingExtras,
                                             RoundContext, Strategy,
-                                            StrategyExtras)
+                                            StrategyExtras, TracedMix)
 from repro_torch.fl.strategies.registry import (STRATEGIES,
                                                 available_strategies,
                                                 get_strategy,
@@ -23,6 +23,7 @@ from repro_torch.fl.strategies.ucfl import UCFL
 
 __all__ = ["ClientSampler", "CommCost", "FedAvg", "FullParticipation",
            "Local", "MixingExtras", "Oracle", "RoundContext", "STRATEGIES",
-           "Strategy", "StrategyExtras", "UCFL", "UniformFraction",
+           "Strategy", "StrategyExtras", "TracedMix", "UCFL",
+           "UniformFraction",
            "available_strategies", "get_strategy", "get_strategy_class",
            "parse_spec", "register"]

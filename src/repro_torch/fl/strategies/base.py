@@ -7,6 +7,11 @@ arrive with their slices):
     state = strategy.setup(ctx)                       # once, before round 0
     stacked, state = strategy.aggregate(state, stacked, prev, ctx)  # per round
     cost = strategy.comm(state)                       # per round, after agg
+
+A ``traceable`` strategy also has the fused superstep's pair: the
+tensors `traced_state` takes from the setup state once, and
+`aggregate_traced`, the same rule as a function of them, mixing through
+`TracedMix`.
 """
 from __future__ import annotations
 
@@ -55,6 +60,26 @@ class RoundContext:
         return self.placement.mix_plan(stacked, plan)
 
 
+class TracedMix:
+    """The mixing dispatcher `Strategy.aggregate_traced` gets inside a
+    fused round: `RoundContext.mix` / `mix_plan`'s arithmetic for a
+    synchronous round, through the placement's `mix_traced` /
+    `mix_plan_traced` hooks.  Counterpart of the reference's `TracedMix`
+    without its quarantine reweighting (ROADMAP.md Queue 1 item 14)."""
+
+    def __init__(self, placement: Any):
+        self.placement = placement
+
+    def mix(self, stacked: Any, w: torch.Tensor) -> Any:
+        """θ_i ← Σ_j w[i,j] θ_j for a full per-client matrix (m, m)."""
+        return self.placement.mix_traced(stacked, w)
+
+    def mix_plan(self, stacked: Any, centroids: torch.Tensor,
+                 assignment: torch.Tensor) -> Any:
+        """k-stream aggregation: centroid mix + group broadcast."""
+        return self.placement.mix_plan_traced(stacked, centroids, assignment)
+
+
 @dataclass
 class StrategyExtras:
     """Base for typed per-strategy results attached to `History.extras`."""
@@ -75,6 +100,12 @@ class Strategy(abc.ABC):
 
     # Whether `aggregate` reads its `prev` argument (the pre-update models).
     reads_prev: ClassVar[bool] = True
+
+    # Whether `traced_state` / `aggregate_traced` are implemented and the
+    # state never changes after `setup` (so `comm(state)` and
+    # `membership(state)` are round-constant): the engine may then fuse
+    # ``eval_every`` rounds into one superstep.
+    traceable: ClassVar[bool] = False
 
     @property
     def spec(self) -> str:
@@ -102,6 +133,26 @@ class Strategy(abc.ABC):
     def membership(self, state: Any) -> Optional[np.ndarray]:
         """(m,) int client→stream map, or None when the strategy has none."""
         return None
+
+    def traced_state(self, state: Any) -> Any:
+        """The tensors `aggregate_traced` reads, taken once from the
+        `setup` state before the first fused chunk.  Their structure must
+        be a function of ``(type(self), self.spec)``: the superstep cache
+        is keyed on that identity."""
+        raise NotImplementedError(
+            f"{type(self).__name__} sets traceable=True but does not "
+            "implement traced_state")
+
+    def aggregate_traced(self, arrays: Any, stacked: Any, prev: Any,
+                         tmix: TracedMix) -> Any:
+        """The fused round's sibling of `aggregate`: ``arrays`` is
+        `traced_state(state)`, mixing goes through ``tmix``; returns only
+        ``stacked'`` (a traceable strategy's state is round-constant).
+        It must not read anything back to the host: on the card it runs
+        inside a captured CUDA graph."""
+        raise NotImplementedError(
+            f"{type(self).__name__} sets traceable=True but does not "
+            "implement aggregate_traced")
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.spec!r})"

@@ -12,9 +12,16 @@ from repro_torch.fl.strategies.registry import register
 class Local(Strategy):
     name = "local"
     reads_prev = False
+    traceable = True        # identity aggregation: trivially fusible
 
     def aggregate(self, state, stacked, prev, ctx):
         return stacked, state
+
+    def traced_state(self, state):
+        return None
+
+    def aggregate_traced(self, arrays, stacked, prev, tmix):
+        return stacked
 
     def comm(self, state) -> CommCost:
         return CommCost(0, 0)

@@ -24,6 +24,7 @@ class OracleState(NamedTuple):
 class Oracle(Strategy):
     name = "oracle"
     reads_prev = False
+    traceable = True        # pure block-diagonal W-mix
 
     def setup(self, ctx: RoundContext) -> OracleState:
         group = ctx.fed.group.cpu().numpy()
@@ -32,6 +33,12 @@ class Oracle(Strategy):
 
     def aggregate(self, state: OracleState, stacked, prev, ctx):
         return ctx.mix(stacked, state.weights), state
+
+    def traced_state(self, state: OracleState):
+        return state.weights
+
+    def aggregate_traced(self, arrays, stacked, prev, tmix):
+        return tmix.mix(stacked, arrays)
 
     def comm(self, state: OracleState) -> CommCost:
         return CommCost(state.n_streams, 0)

@@ -33,6 +33,7 @@ class UCFLState(NamedTuple):
 class UCFL(Strategy):
     name = "ucfl"
     reads_prev = False
+    traceable = True        # pure W / StreamPlan mix, round-constant state
 
     def __init__(self, k: Optional[int] = None):
         if k is not None and k < 1:
@@ -60,6 +61,18 @@ class UCFL(Strategy):
         if state.plan is None:
             return ctx.mix(stacked, state.w), state
         return ctx.mix_plan(stacked, state.plan), state
+
+    def traced_state(self, state: UCFLState):
+        # structure depends only on the spec: unicast (k=None) mixes the
+        # full W, stream reduction mixes the k-means plan
+        if state.plan is None:
+            return (state.w,)
+        return (state.plan.centroids, state.plan.assignment)
+
+    def aggregate_traced(self, arrays, stacked, prev, tmix):
+        if len(arrays) == 1:
+            return tmix.mix(stacked, arrays[0])
+        return tmix.mix_plan(stacked, arrays[0], arrays[1])
 
     def comm(self, state: UCFLState) -> CommCost:
         return CommCost(state.n_streams, 0)

@@ -8,7 +8,11 @@
 // with s = 2^(b-1) - 1 levels, scale = absmax * (1/s) (the reciprocal
 // rounded to f32 once, on the host), inv = 1/scale (0 for a zero row) and
 // q = clip(floor(x * inv + u), -s, s); a NaN level (a row holding NaN or
-// inf) converts to 0, as XLA's conversion and cvt.rzi give.
+// inf) converts to 0, as XLA's conversion and cvt.rzi give.  A subnormal
+// absmax, scale or inv is flushed to 0 (`flush`), as the reference's XLA
+// runs flush them, so such a row crosses as zeros.  The flush is explicit
+// on these scalars and nowhere else: -ftz=true would change every kernel
+// the same flags build.
 //
 // Arithmetic: every product and sum goes through the IEEE intrinsics
 // (__fmul_rn, __fadd_rn, __fdiv_rn).  nvcc never contracts those into an
@@ -50,6 +54,7 @@
 // n mod 4 elements one by one.  D < 4, or an array that does not start on
 // 16 bytes (a view into a larger buffer), takes the scalar path
 // throughout.
+#include <cfloat>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -72,12 +77,17 @@ __device__ __forceinline__ unsigned abs_bits(float v) {
   return __float_as_uint(v) & 0x7fffffffu;
 }
 
+// v, or 0 where v is subnormal (NaN and inf kept)
+__device__ __forceinline__ float flush(float v) {
+  return fabsf(v) < FLT_MIN ? 0.0f : v;
+}
+
 __device__ __forceinline__ float scale_of(float amax, float inv_levels) {
-  return __fmul_rn(amax, inv_levels);
+  return flush(__fmul_rn(amax, inv_levels));
 }
 
 __device__ __forceinline__ float inv_of(float scale) {
-  return scale > 0.0f ? __fdiv_rn(1.0f, scale) : 0.0f;
+  return scale > 0.0f ? flush(__fdiv_rn(1.0f, scale)) : 0.0f;
 }
 
 // clip(floor(x * inv + u), -s, s) as jnp.clip does (a NaN stays NaN), then
@@ -165,7 +175,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   unsigned am = rmax_s[0];
 #pragma unroll
   for (int r = 1; r < kCluster; ++r) am = max(am, rmax_s[r]);
-  const float amax = __uint_as_float(am);
+  const float amax = flush(__uint_as_float(am));
   if (OUT != kRoundtrip && rank == 0 && tid == 0) a.amax[row] = amax;
   if constexpr (kLevels) {
     const float scale = scale_of(amax, a.inv_levels);

@@ -5,9 +5,12 @@
 // for each row of |x| (m, D), 30 bisection steps over [0, max] keep
 // count(|x| >= lo) >= k, so lo ends at most one ulp below the k-th largest
 // magnitude; k > D never moves lo from 0.  Every step is the reference's
-// f32 arithmetic: mid = 0.5 * (lo + hi) through __fmul_rn / __fadd_rn, an
-// exact integer count, then count >= k moves lo or hi.  So the thresholds
-// are bitwise those of the reference and of kernels/ref.py.
+// f32 arithmetic: mid = 0.5 * (lo + hi) through __fmul_rn / __fadd_rn,
+// flushed to 0 where subnormal (as the reference's XLA runs flush it; the
+// flush is explicit, not -ftz=true, which would change every kernel the
+// same flags build), an exact integer count, then count >= k moves lo or
+// hi.  So the thresholds are bitwise those of the reference and of
+// kernels/ref.py.
 //
 // Bound on this card: one read of |x| (3.81 MB at the main path's
 // (20, 47,571) f32: 0.0011 ms at 3.35 TB/s).  What sets the time is not
@@ -49,6 +52,7 @@
 //    shrinks about 8x a pass.  (Above 1e38 a midpoint could overflow past
 //    hi, and a NaN hi compares false with all: there every value stays.)
 // Integer counts, no atomics: the result is the same from call to call.
+#include <cfloat>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -217,7 +221,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
             h = mid[anc - 1];
         }
       }
-      mid[nd - 1] = __fmul_rn(0.5f, __fadd_rn(l, h));
+      const float c = __fmul_rn(0.5f, __fadd_rn(l, h));
+      mid[nd - 1] = fabsf(c) < FLT_MIN ? 0.0f : c;
     }
     // counted in f32 (exact: a thread counts fewer than 2^24 values)
     float cf[kSlots];

@@ -28,10 +28,16 @@ under the kernel `flash_route` picks (``FLASH_COUNTERS``):
 count a call, though it makes two launches, the partials and the
 merge), ``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
 ``flash_attention`` (the CUDA-core kernel, the other prefills).
+
+A CUDA graph launches its kernels on replay without calling the
+wrappers, so its capture takes the counts it made out of ``LAUNCHES``
+(`launches_set_aside`) and every replay adds them back (`add_launches`):
+a fused run counts what the eventful run of the same rounds counts.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,6 +71,28 @@ FLASH_COUNTERS = {route: c for route, (_, c) in FLASH_KERNELS.items()}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def launches_set_aside() -> Iterator[Dict[str, int]]:
+    """The counts made inside the block are taken out of ``LAUNCHES`` on
+    leaving it and go into the dict it yields: a graph's capture (whose
+    replays launch those kernels) or its warm-up (run once, outside the
+    rounds a run counts)."""
+    before = dict(LAUNCHES)
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update({k: n - before[k] for k, n in LAUNCHES.items()
+                     if n != before[k]})
+        LAUNCHES.update(before)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add one replay's recorded counts to ``LAUNCHES``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -186,8 +214,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-__all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "flash_attention",
-           "flash_route", "gram_matrix", "mixing_aggregate",
+__all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "add_launches",
+           "flash_attention", "flash_route", "gram_matrix",
+           "launches_set_aside", "mixing_aggregate",
            "mixing_aggregate_leaves",
            "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",
            "qsgd_roundtrip", "ref", "reset_launches", "rowwise_absmax",

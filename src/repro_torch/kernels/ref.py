@@ -40,9 +40,17 @@ def pairwise_sqdist_ref(g: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # channel codecs: QSGD and the top-k threshold (the reference's Pallas
 # kernels in repro/kernels/quantize.py and topk_threshold.py; these repeat
-# the kernels' f32 arithmetic op for op, so they agree bit for bit)
+# the kernels' f32 arithmetic op for op, so they agree bit for bit).  The
+# reference's XLA runs flush subnormal results to 0; so do these, for the
+# per-row scalars (absmax, scale, 1/scale) and the bisection's midpoints.
 
 TOPK_ITERS = 30         # bisection steps of the top-k threshold kernel
+FLT_MIN = torch.finfo(torch.float32).tiny    # the smallest normal f32
+
+
+def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its subnormal values replaced by 0 (NaN and inf kept)."""
+    return torch.where(t.abs() < FLT_MIN, torch.zeros_like(t), t)
 
 
 def qsgd_levels(bits: int):
@@ -56,31 +64,36 @@ def qsgd_levels(bits: int):
 
 
 def rowwise_absmax_ref(x: torch.Tensor) -> torch.Tensor:
-    """(m, D) -> (m, 1) per-row max |x|; a NaN anywhere in a row gives NaN
-    (as ``jnp.max``)."""
-    return x.abs().amax(dim=1, keepdim=True)
+    """(m, D) -> (m, 1) per-row max |x|, a subnormal max flushed to 0; a
+    NaN anywhere in a row gives NaN (as ``jnp.max``)."""
+    return flush_subnormal(x.abs().amax(dim=1, keepdim=True))
 
 
 def qsgd_quantize_ref(x: torch.Tensor, noise: torch.Tensor, bits: int,
                       absmax: Optional[torch.Tensor] = None):
     """``(levels, absmax)``: int32 levels ``clip(floor(x·inv + u), −s, s)``
-    with scale = absmax·(1/s) and inv = 1/scale (0 for an all-zero row).
-    ``absmax`` given is used as is (the quantize kernel's own input).  A
-    NaN level (a NaN or ±inf in the row) becomes 0, as XLA's and CUDA's
-    float-to-int conversions give; PyTorch's CPU cast would give INT_MIN."""
+    with scale = absmax·(1/s) and inv = 1/scale (0 for an all-zero row),
+    each flushed to 0 where subnormal, as the reference's run flushes
+    them (such a row crosses as zeros).  ``absmax`` given is used as is
+    (the quantize kernel's own input).  A NaN level (a NaN or ±inf in the
+    row) becomes 0, as XLA's and CUDA's float-to-int conversions give;
+    PyTorch's CPU cast would give INT_MIN."""
     s, inv_s = qsgd_levels(bits)
     amax = rowwise_absmax_ref(x) if absmax is None else absmax
-    scale = amax * inv_s.to(x.device)
-    inv = torch.where(scale > 0, scale.reciprocal(), torch.zeros_like(scale))
+    scale = flush_subnormal(amax * inv_s.to(x.device))
+    inv = torch.where(scale > 0, flush_subnormal(scale.reciprocal()),
+                      torch.zeros_like(scale))
     q = torch.clamp(torch.floor(x * inv + noise), -s, s)
     return torch.nan_to_num(q, nan=0.0).to(torch.int32), amax
 
 
 def qsgd_dequantize_ref(q: torch.Tensor, absmax: torch.Tensor,
                         bits: int) -> torch.Tensor:
-    """float(q) · (absmax·(1/s)): (m, D) int32 -> (m, D) f32."""
+    """float(q) · (absmax·(1/s)), the scale flushed to 0 where subnormal:
+    (m, D) int32 -> (m, D) f32."""
     _, inv_s = qsgd_levels(bits)
-    return q.to(torch.float32) * (absmax * inv_s.to(absmax.device))
+    return q.to(torch.float32) * flush_subnormal(
+        absmax * inv_s.to(absmax.device))
 
 
 def qsgd_roundtrip_ref(x: torch.Tensor, noise: torch.Tensor,
@@ -93,13 +106,15 @@ def qsgd_roundtrip_ref(x: torch.Tensor, noise: torch.Tensor,
 def topk_threshold_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
     """Per-row top-k cutoff by the kernel's 30 f32 bisection steps over
     [0, max]: (m, D) magnitudes -> (m, 1) with count(absx >= t) >= k.  It
-    lands at most one ulp below the exact k-th value; k > D leaves 0."""
+    lands at most one ulp below the exact k-th value; k > D leaves 0.  A
+    subnormal midpoint is flushed to 0, as the reference's run flushes
+    it (so a k-th value below the normal range gives 0)."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     hi = absx.amax(dim=1, keepdim=True)
     lo = torch.zeros_like(hi)
     for _ in range(TOPK_ITERS):
-        mid = 0.5 * (lo + hi)
+        mid = flush_subnormal(0.5 * (lo + hi))
         ge = (absx >= mid).sum(dim=1, keepdim=True) >= k
         lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
     return lo
@@ -110,7 +125,8 @@ def topk_threshold_tree_ref(absx: torch.Tensor, k: int,
     """`topk_threshold_ref`'s function computed as the CUDA kernel
     computes it: the 30 steps taken ``levels`` at a time.  A pass forms
     the tree of the next L = min(levels, steps left) steps' candidates in
-    heap order (node n's midpoint 0.5·(lo_n + hi_n); its child 2n, for
+    heap order (node n's midpoint 0.5·(lo_n + hi_n), flushed to 0 where
+    subnormal; its child 2n, for
     count < k, takes hi = mid, its child 2n + 1 takes lo = mid), counts
     every candidate in one pass over the row, then walks down the tree
     with the sequential rule.  Each midpoint is the same f32 expression
@@ -128,7 +144,7 @@ def topk_threshold_tree_ref(absx: torch.Tensor, k: int,
         nlo, nhi = {1: lo}, {1: hi}
         mids = []
         for nd in range(1, n_nodes + 1):
-            mid = 0.5 * (nlo[nd] + nhi[nd])
+            mid = flush_subnormal(0.5 * (nlo[nd] + nhi[nd]))
             mids.append(mid)
             if 2 * nd <= n_nodes:
                 nlo[2 * nd], nhi[2 * nd] = nlo[nd], mid

@@ -36,6 +36,7 @@ from repro_torch.models import lenet
 NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
 TNARROW = lenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
 M = 4
+TINY = np.float32(np.finfo(np.float32).tiny)   # the smallest normal f32
 
 
 def _t(a):
@@ -174,6 +175,59 @@ def test_qsgd_nonfinite_rows_match_reference(case, bits):
         assert np.isnan(row).all()
         assert int(q[r].abs().max()) <= 2 ** (bits - 1) - 1
     assert np.isfinite(np.delete(got.numpy(), r, axis=0)).all()
+
+
+def _subnormal_scalar_rows() -> np.ndarray:
+    """(11, 64) f32 rows whose QSGD scalars leave f32's normal range,
+    between ordinary rows (0, 3, 6, 10): rows 1-2 ±1e-37 (scale
+    subnormal at bits 8), rows 4-5 ±0.5 with one 1.7e38 in row 5 (inv
+    subnormal at bits 2), rows 7-8 all 1e-40 (absmax subnormal), row 9
+    magnitudes in [1e-37, 4e-37), every element normal (scale subnormal
+    at bits 8)."""
+    rng = np.random.default_rng(37)
+    x = (rng.standard_normal((11, 64)) * 3).astype(np.float32)
+    sign = np.where(rng.uniform(size=(11, 64)) < 0.5, -1, 1).astype(
+        np.float32)
+    x[1:3] = np.float32(1e-37) * sign[1:3]
+    x[4:6] = np.float32(0.5) * sign[4:6]
+    x[5, 17] = np.float32(1.7e38)
+    x[7:9] = np.float32(1e-40)
+    x[9] = (1e-37 * (1 + 3 * rng.uniform(size=64))).astype(np.float32) \
+        * sign[9]
+    return x
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+def test_qsgd_subnormal_scalars_match_reference(bits):
+    """The reference's XLA run flushes a subnormal absmax, scale or 1/scale
+    to 0, so such a row crosses as zeros: the port's levels, absmax and
+    values bitwise equal the Pallas ops' (interpret mode) and the
+    reference's adaptive codec at the same width, and the ordinary rows
+    and rows whose scalars are normal are bitwise as before the flush."""
+    x = _subnormal_scalar_rows()
+    u = np.random.default_rng(bits).uniform(size=x.shape).astype(np.float32)
+    jx, ju = jnp.asarray(x), jnp.asarray(u)
+    jq, jamax = jops.qsgd_quantize(jx, ju, bits=bits)
+    q, amax = ops.qsgd_quantize(_t(x), _t(u), bits=bits)
+    _same(amax, jamax)
+    _same(ops.rowwise_absmax(_t(x)), jamax)
+    _same(q, jq)
+    got = ops.qsgd_roundtrip(_t(x), _t(u), bits=bits)
+    _same(got, jops.qsgd_roundtrip(jx, ju, bits=bits))
+    _same(ops.qsgd_dequantize(q, amax, bits=bits),
+          jops.qsgd_dequantize(jq, jamax, bits=bits))
+    # the rate-adaptive codec's plain arithmetic, every row at this width
+    key = jax.random.PRNGKey(bits)
+    noise = np.asarray(jax.random.uniform(key, x.shape, jnp.float32))
+    widths = np.full(x.shape[0], bits, np.int64)
+    _same(ch.BoundAdaptive("adaptive", widths).roundtrip(_t(x), _t(noise)),
+          jch.BoundAdaptive("adaptive", widths).roundtrip(jx, key))
+    assert float(amax[7, 0]) == 0.0 and bool(torch.all(got[7:9] == 0))
+    s = 2 ** (bits - 1) - 1
+    flushed = [1, 2, 9] if 1e-37 * 4 / s < TINY else []
+    if bits == 2:
+        flushed.append(5)
+    assert bool(torch.all(got[flushed] == 0))
 
 
 def test_cpu_channel_ops_count_no_launches_and_refuse_bad_args():

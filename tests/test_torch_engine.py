@@ -173,8 +173,8 @@ def test_entry_points_refuse_what_this_slice_lacks():
             run_federated("fedavg", fed)
         with pytest.raises(RuntimeError, match="cuda"):
             scenario_label_shift(0, n=100, m=2)
-    for kw in (dict(superstep=True), dict(faults="crash:0.1"),
-               dict(async_cfg=object()), dict(min_quorum=2)):
+    for kw in (dict(faults="crash:0.1"), dict(async_cfg=object()),
+               dict(min_quorum=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_federated("fedavg", fed, device="cpu", **kw)
     fl = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=1)

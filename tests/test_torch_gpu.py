@@ -258,12 +258,14 @@ def _bits(t):
 
 
 def _qsgd_rows(m, d, gen):
-    """x, u (m, D) on the card: row 0 random; rows 1..6, as m allows, all
-    zero, a NaN coordinate, +inf, -inf, denormal and all NaN; the rest
-    random."""
+    """x, u (m, D) on the card: row 0 random; rows 1..9, as m allows, all
+    zero, a NaN coordinate, +inf, -inf, denormal, all NaN, ±1e-37 (scale
+    subnormal at bits 8), ±0.5 with one 1.7e38 (inv subnormal at bits 2)
+    and all 1e-40 (absmax subnormal); the rest random."""
     x = torch.randn((m, d), generator=gen, device="cuda") * 3
     u = torch.rand((m, d), generator=gen, device="cuda")
-    cases = ["zero", "nan", "+inf", "-inf", "denormal", "all_nan"]
+    cases = ["zero", "nan", "+inf", "-inf", "denormal", "all_nan",
+             "scale_subnormal", "inv_subnormal", "all_subnormal"]
     for i, case in enumerate(cases[:m - 1], start=1):
         if case == "zero":
             x[i] = 0.0
@@ -275,8 +277,15 @@ def _qsgd_rows(m, d, gen):
             x[i, 0] = float("-inf")
         elif case == "denormal":
             x[i] *= 1e-39
-        else:
+        elif case == "all_nan":
             x[i] = float("nan")
+        elif case == "scale_subnormal":
+            x[i] = torch.sign(x[i]) * 1e-37
+        elif case == "inv_subnormal":
+            x[i] = torch.sign(x[i]) * 0.5
+            x[i, d // 3] = 1.7e38
+        else:
+            x[i] = 1e-40
     return x, u
 
 
@@ -323,6 +332,13 @@ def test_qsgd_kernels_match_plain_bitwise(m, d, path, bits):
         assert bool(torch.isnan(out[2:7:4]).all())     # NaN rows: all NaN
         assert bool(torch.isnan(out[3:5]).all())       # ±inf rows: all NaN
         assert bool(torch.all(q[2:5] == 0)) and bool(torch.all(q[6] == 0))
+    if m > 9:
+        # subnormal scalars flushed: these rows cross as zeros
+        assert float(amax[9, 0]) == 0.0 and bool(torch.all(out[9] == 0))
+        if bits == 8:
+            assert bool(torch.all(out[7] == 0))
+        if bits == 2:
+            assert bool(torch.all(out[8] == 0))
 
 
 @pytest.mark.gpu
@@ -364,8 +380,9 @@ def test_topk_threshold_kernel_matches_plain_bitwise(m, d, path):
     """m from 1 to 257 (more rows than the card has SMs for a cluster
     each), D on each of the kernel's three paths and not a multiple of
     its cluster of 8; a zero row, a NaN row, a row of ties, a denormal
-    row, a row holding inf and a row whose midpoints overflow to inf among
-    random ones; k = 1, 10, D/10, D and D + 1."""
+    row, a row holding inf, a row whose midpoints overflow to inf and a
+    row of ~1e-37 whose midpoints fall below the normal range (flushed to
+    0) among random ones; k = 1, 10, D/10, D − 1, D and D + 1."""
     _require_cuda()
     from repro_torch.kernels.topk_threshold import row_path
     assert row_path(d) == path
@@ -381,7 +398,9 @@ def test_topk_threshold_kernel_matches_plain_bitwise(m, d, path):
     if m > 5:
         absx[4, ::7] = float("inf")
         absx[5] = absx[5].clamp(max=6.0) * 5e37   # midpoints overflow
-    for k in sorted({1, 10, -(-d // 10), d, d + 1}):
+    if m > 6:
+        absx[6] *= 1e-37                     # midpoints subnormal near D
+    for k in sorted({1, 10, -(-d // 10), max(1, d - 1), d, d + 1}):
         got = ops.topk_threshold(absx, k=k)
         _same(got, ref.topk_threshold_ref(absx, k))
         ok = ~torch.isnan(absx).any(1)
@@ -893,3 +912,143 @@ def test_flash_attention_tc_refuses_what_it_does_not_take():
     n0 = ops.LAUNCHES["flash_attention_tc"]
     ops.flash_attention(q, k, v)
     assert ops.LAUNCHES["flash_attention_tc"] == n0
+
+
+# ---------------------------------------------------------------------------
+# the fused superstep: captured CUDA graphs of eval-to-eval chunks
+
+SS_FL = dict(rounds=7, local_steps=2, batch_size=16, eval_every=5)
+
+
+def _ss_fed():
+    from repro_torch.data import scenario_label_shift
+    return scenario_label_shift(0, n=2000, m=20, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,sampled,codec", [
+    ("ucfl_k4", True, "qsgd:8"), ("fedavg", False, None)])
+def test_superstep_fused_equals_eventful_on_card(spec, sampled, codec):
+    """Full-width LeNet, m = 20, chunks of 1, 5 and 1 rounds (three
+    graphs): the fused run's history, clock, comm bits and final params
+    and residuals bitwise the eventful run's on the card, with the same
+    kernel launch counts; a second fused run replays the cached graphs
+    and gives the same bits again."""
+    _require_cuda()
+    from repro_torch.fl import (Channel, FLConfig, SYSTEMS, UniformFraction,
+                                run_federated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fed = _ss_fed()
+    kw = dict(fl=FLConfig(**SS_FL), system=SYSTEMS["wireless_slow"],
+              sampler=UniformFraction(0.5) if sampled else None,
+              channel=None if codec is None else Channel(codec=codec,
+                                                         link="tiered:4"),
+              keep_state=True, seed=3, device="cuda")
+    runs, counts = [], []
+    for superstep in (False, None, None):
+        n0 = dict(ops.LAUNCHES)
+        runs.append(run_federated(spec, fed, superstep=superstep, **kw))
+        torch.cuda.synchronize()
+        counts.append({k: n - n0[k] for k, n in ops.LAUNCHES.items()})
+    ev = runs[0]
+    assert counts[0]["mixing_aggregate"] == SS_FL["rounds"]
+    for h, c in zip(runs[1:], counts[1:]):
+        assert c == counts[0]
+        assert (h.rounds, h.mean_acc, h.worst_acc, h.time, h.comm,
+                h.comm_bits) == (ev.rounds, ev.mean_acc, ev.worst_acc,
+                                 ev.time, ev.comm, ev.comm_bits)
+        for k, v in ev.final_params.items():
+            assert torch.equal(_bits(h.final_params[k]), _bits(v)), k
+        if codec is not None:
+            for k, v in ev.final_residual.items():
+                assert torch.equal(_bits(h.final_residual[k]), _bits(v)), k
+
+
+def _ss_chunk_inputs(length):
+    """A ucfl_k2 + UniformFraction(0.5) + qsgd:4 round function and one
+    chunk's inputs on the card, from the engine's own pieces."""
+    from repro_torch.fl import FLConfig, UniformFraction, get_codec
+    from repro_torch.fl.draws import TorchDraws, chunk_draws
+    from repro_torch.fl.placement import HostVmap
+    from repro_torch.fl.simulator import _build_traced_round, init_run
+    from repro_torch.fl.strategies import get_strategy
+    from repro_torch.models import lenet
+    fed = _ss_fed()
+    fl = FLConfig(**SS_FL)
+    placement, strategy = HostVmap(), get_strategy("ucfl_k2")
+    sampler, codec = UniformFraction(0.5), get_codec("qsgd:4")
+    draws = TorchDraws(5, "cuda")
+    update_fn, stacked, opt_state, (x, y, n), _, state = init_run(
+        strategy, fed, fl, None, lenet.loss_fn, lenet.accuracy, placement,
+        5, draws, torch.device("cuda"))
+    ef = {k: torch.zeros_like(v) for k, v in stacked.items()}
+    round_fn = _build_traced_round(strategy, sampler, codec, True,
+                                   placement, update_fn)
+    d = sum(v[0].numel() for v in stacked.values())
+    cd = chunk_draws(draws, range(length), n=n, n_slots=x.shape[1],
+                     batch_size=fl.batch_size, local_steps=fl.local_steps,
+                     sampler=sampler, m=fed.m, noise_d=d, device=x.device)
+    eval_fn = lambda st, ed: placement.eval_traced(lenet.accuracy, st, *ed)
+    inputs = ((stacked, opt_state, ef), (x, y), strategy.traced_state(state),
+              (cd.slots, cd.mask, cd.noise), (fed.x_val, fed.y_val))
+    return round_fn, eval_fn, inputs
+
+
+@pytest.mark.gpu
+def test_superstep_replayed_chunk_equals_eager_chunk():
+    """A 5-round chunk captured as a CUDA graph: its replay equals the same
+    rounds and eval run eagerly, bitwise (carry and scores), twice; the
+    counts one replay adds equal the eager chunk's launches."""
+    _require_cuda()
+    from repro_torch.fl.placement.graphs import (CapturedChunk, StaticInputs,
+                                                 draw_row, leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    round_fn, eval_fn, inputs = _ss_chunk_inputs(5)
+    carry, data, consts, draws, eval_data = inputs
+    n0 = dict(ops.LAUNCHES)
+    want = carry
+    for i in range(5):
+        want = round_fn(want, data, consts, draw_row(draws, i))
+    want_accs = eval_fn(want[0], eval_data)
+    torch.cuda.synchronize()
+    eager = {k: n - n0[k] for k, n in ops.LAUNCHES.items() if n != n0[k]}
+    assert eager == {"mixing_aggregate": 5, "qsgd_roundtrip": 5}
+    chunk = CapturedChunk(round_fn, eval_fn, 5,
+                          StaticInputs(carry, data, consts, eval_data),
+                          inputs)
+    assert chunk.launches == eager
+    for _ in range(2):
+        n0 = dict(ops.LAUNCHES)
+        got, accs = chunk(*inputs)
+        torch.cuda.synchronize()
+        assert {k: n - n0[k] for k, n in ops.LAUNCHES.items()
+                if n != n0[k]} == eager
+        assert torch.equal(accs, want_accs)
+        for g, w in zip(leaves(got), leaves(want), strict=True):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_superstep_capture_refuses_a_host_sync():
+    """A round that reads a value back to the host (a planted ``float()``)
+    cannot be captured: building the chunk raises, and the card works on
+    afterwards."""
+    _require_cuda()
+    from repro_torch.fl.placement.graphs import CapturedChunk, StaticInputs
+    round_fn, eval_fn, inputs = _ss_chunk_inputs(1)
+    carry, data, consts, draws, eval_data = inputs
+
+    def syncing_round(carry, data, consts, draw):
+        out = round_fn(carry, data, consts, draw)
+        if float(out[0]["out_b"].sum()) > 1e30:      # a host sync
+            raise AssertionError("unreachable")
+        return out
+
+    n0 = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        CapturedChunk(syncing_round, eval_fn, 1,
+                      StaticInputs(carry, data, consts, eval_data), inputs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == n0
+    assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0

@@ -135,3 +135,26 @@ def test_topk_tree_walk_refuses_bad_args():
         ref.topk_threshold_tree_ref(absx, 0, 3)
     with pytest.raises(ValueError, match="levels"):
         ref.topk_threshold_tree_ref(absx, 1, 0)
+
+
+def test_topk_subnormal_midpoints_match_pallas():
+    """A normal row of ~1e-37 magnitudes (its smallest ones subnormal)
+    between ordinary rows, k = 199 of D = 200: the bisection's midpoints
+    fall below f32's normal range, where the reference's XLA run flushes
+    them to 0, so the threshold is 0 and all 200 coordinates survive.
+    The sequential version, its multi-level walk at every level count
+    and the Pallas kernel (interpret mode) agree bitwise on the inputs as
+    they are; the ordinary rows keep exactly k."""
+    rng = np.random.default_rng(199)
+    x = np.abs(rng.standard_normal((3, 200))).astype(np.float32)
+    x[1] *= np.float32(1e-37)
+    assert np.any(x[1] < TINY) and np.all(x[1] > 0)
+    absx = torch.from_numpy(x)
+    want = np.asarray(jops.topk_threshold(jnp.asarray(x), k=199))
+    got = ref.topk_threshold_ref(absx, 199)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for levels in (1, 2, 3, 5):
+        np.testing.assert_array_equal(
+            ref.topk_threshold_tree_ref(absx, 199, levels).numpy(), want)
+    assert float(got[1, 0]) == 0.0
+    assert ((absx >= got).sum(1) == torch.tensor([199, 200, 199])).all()

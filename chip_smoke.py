@@ -29,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
                 on ragged shapes, 128 at [lm] (a)'s prefill, 256 and 80
                 at [lm] (c)'s);
   4. agree    — a small label-shift run on the card against the same run
-                on the CPU (same init, same draws); one uplink crossing
+                on the CPU (same init, same draws; the CPU side on one
+                intra-op thread, so its bits repeat); one uplink crossing
                 bitwise across the devices; a small run with a sampler and
                 a qsgd channel on both devices;
   5. main     — run_federated for ucfl, ucfl_k4 and fedavg on the paper's
@@ -47,13 +48,25 @@ Phases (any failure raises and the script exits non-zero):
                 CUDA graph an eval-to-eval chunk) and eventful
                 (superstep=False): histories equal line for line, final
                 params and residuals bitwise, the same launch counts;
-  7. superstep — ucfl_k4 at phase 5's config, the graphs captured anew:
+  7. faults   — phase 5's config through the last two strategies and the
+                fault/defense layer: cfl (eventful only: its state
+                changes between rounds), fedfomo, ucfl_k4 +
+                byz:0.25:sign_flip + trimmed_mean:0.25, fedavg +
+                crash:0.3,nan:0.2 + median, ucfl + crash:0.5 +
+                min_quorum=12, and ucfl_k4 + UniformFraction(0.5) +
+                qsgd:8 + bitrot:0.3,seed:2 + krum:0.25, each fused and
+                eventful: histories, final params and
+                ``extra["faults"]`` equal across engines, the stated
+                launch counts of each engine (the fused round always
+                mixes and gates the mix with a ``where``; the eventful
+                loop skips the mix below quorum), wall s a round;
+  8. superstep — ucfl_k4 at phase 5's config, the graphs captured anew:
                 capture seconds and the graphs' pool memory apart, wall
                 s a round of each engine (median of 3 after a warm run,
                 with and without the setup), and one torch.profiler
                 trace of a 5-round chunk under each engine (wall, device
                 busy, idle share; the local update, mix and eval apart);
-  8. lm       — dense-decoder serving at gemma2-27b's full width (depth
+  9. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
                 prompt (past the 4,096 window, so the local ring wraps
@@ -445,8 +458,9 @@ def check_channel_kernels(gen) -> list:
     stream's quantize with absmax given and dequantize) and the top-k
     kernel bitwise against their plain versions on ragged shapes, bits
     2/4/8, top-k k in {1, 10, ceil(D/10), D-1, D, D+1}, an all-zero row,
-    a row with one NaN, a row with an inf and rows whose scalars or
-    midpoints are subnormal (levels compared on every row),
+    a row with one NaN, a row with an inf, rows whose scalars or
+    midpoints are subnormal and rows of normal scale holding subnormal
+    elements (levels compared on every row),
     each kernel on each of its paths (the QSGD row in registers or
     re-read; the top-k row in registers, shared memory or global) and at
     257 rows (clusters queue); then timed at the main path's (20, 47,571)
@@ -471,6 +485,15 @@ def check_channel_kernels(gen) -> list:
             x[5, d // 3] = 1.7e38
             x[6] *= 1e-37
             x[7] = 1e-40
+        if m > 9:
+            # subnormal elements of normal-scale rows, read as 0: row 8 is
+            # 2e-36 with its odd elements 5e-39 at u = 0.9 (level 1 if they
+            # were read as they are), row 9 random with every third
+            # element about 1e-39
+            x[8] = 2e-36
+            x[8, 1::2] = 5e-39
+            u[8] = 0.9
+            x[9, ::3] = torch.sign(x[9, ::3]) * 1e-39
         amax = qsgd.rowwise_absmax_cuda(x)
         same(f"rowwise_absmax ({m}, {d})", amax, ref.rowwise_absmax_ref(x))
         for bits in (2, 4, 8):
@@ -498,6 +521,13 @@ def check_channel_kernels(gen) -> list:
                 raise AssertionError(f"qsgd bits={bits}: a row with a "
                                      "subnormal scalar did not cross as "
                                      "zeros")
+            if m > 9 and not (bool(torch.all(q_enc[8, 1::2] == 0))
+                              and bool(torch.all(q_enc[9, ::3] == 0))
+                              and bool(torch.all(q[8:10][
+                                  x[8:10].abs() < ref.FLT_MIN] == 0))):
+                raise AssertionError(f"qsgd bits={bits}: a subnormal "
+                                     "element of a normal row did not get "
+                                     "level 0")
         absx = x.abs()
         if m > 2:
             absx[2, d // 2] = 0.0
@@ -1438,14 +1468,18 @@ def lm_c_path(card: str) -> dict:
     return out
 
 
-def run_both(spec, fed, fl, **kw):
+def run_both(spec, fed, fl, engines=("fused", "eventful"), **kw):
     """``run_federated`` fused (the default: captured CUDA graphs) and then
     eventful (``superstep=False``), ``keep_state=True``: the two histories
     must be equal line for line (rounds, accuracies, clock, comm,
-    comm_bits) and the final params and residuals bitwise.  Returns
-    ``[(engine, History, launches, wall s), ...]``, fused first."""
+    comm_bits, the fault ledger and cluster assignment where the run has
+    them) and the final params and residuals bitwise.  Returns
+    ``[(engine, History, launches, wall s), ...]``, fused first;
+    ``engines=("eventful",)`` runs the eventful loop alone."""
     out = []
     for engine, superstep in (("fused", None), ("eventful", False)):
+        if engine not in engines:
+            continue
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
         h = run_federated(spec, fed, fl=fl, seed=0, keep_state=True,
@@ -1454,6 +1488,8 @@ def run_both(spec, fed, fl, **kw):
         wall = time.perf_counter() - t0
         out.append((engine, h, {k: ops.LAUNCHES[k] - before[k]
                                 for k in before}, wall))
+    if len(out) == 1:
+        return out
     a, b = out[0][1], out[1][1]
     for field in ("rounds", "mean_acc", "worst_acc", "time", "comm",
                   "comm_bits"):
@@ -1461,6 +1497,14 @@ def run_both(spec, fed, fl, **kw):
             raise AssertionError(f"{spec}: fused and eventful {field} differ:"
                                  f" {getattr(a, field)} != "
                                  f"{getattr(b, field)}")
+    for key in ("faults", "clusters"):
+        va, vb = a.extra.get(key), b.extra.get(key)
+        same = (va is None and vb is None) or (
+            va is not None and vb is not None
+            and (va == vb if key == "faults" else bool((va == vb).all())))
+        if not same:
+            raise AssertionError(f"{spec}: fused and eventful extra[{key!r}] "
+                                 f"differ: {va} != {vb}")
     for part in ("final_params", "final_residual"):
         ta, tb = getattr(a, part), getattr(b, part)
         if (ta is None) != (tb is None):
@@ -1589,6 +1633,89 @@ def channel_path(fed, fl, base_clock: list) -> None:
               f"{ {k: v for k, v in launched.items() if v} }  wall "
               f"{wall:.2f} s ({wall / rounds * 1e3:.1f} ms/round incl. "
               f"setup){up}", flush=True)
+
+
+# [faults]: (label, spec, run_federated options, engines).  cfl changes
+# its state between rounds, so it has no fused run.
+FAULT_RUNS = (
+    ("cfl", "cfl", {}, ("eventful",)),
+    ("fedfomo", "fedfomo", {}, ("fused", "eventful")),
+    ("byz+trimmed", "ucfl_k4", dict(faults="byz:0.25:sign_flip",
+                                    robust_agg="trimmed_mean:0.25"),
+     ("fused", "eventful")),
+    ("crash,nan+median", "fedavg", dict(faults="crash:0.3,nan:0.2",
+                                        robust_agg="median"),
+     ("fused", "eventful")),
+    ("crash+quorum", "ucfl", dict(faults="crash:0.5", min_quorum=12),
+     ("fused", "eventful")),
+    ("qsgd8+bitrot+krum", "ucfl_k4",
+     dict(sampler=UniformFraction(0.5),
+          channel=Channel(codec="qsgd:8", link="tiered:4"),
+          faults="bitrot:0.3,seed:2", robust_agg="krum:0.25"),
+     ("fused", "eventful")),
+)
+
+
+def faults_path(fed, fl, card: str) -> None:
+    """[faults]: `FAULT_RUNS` at [main]'s config.  Each engine's launches
+    are stated before the run and must be met: a mix a round on the fused
+    engine (it always mixes and gates the result with a ``where``), a mix
+    a round that met the quorum on the eventful loop; the Gram and Δ once
+    a ucfl run; a QSGD row pass a round of the qsgd run; nothing else.
+    Prints each run's accuracies, streams, fault ledger and wall s a
+    round beside the card: the first run's (the fused one capturing its
+    graphs) and a second run's (the graphs cached; its launches are not
+    counted)."""
+    system = SYSTEMS["wireless_slow"]
+    rounds = MAIN["rounds"]
+    for label, spec, kw, engines in FAULT_RUNS:
+        runs = run_both(spec, fed, fl, engines=engines, system=system, **kw)
+        counts = dict(ops.LAUNCHES)
+        again = {}
+        for engine in engines:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_federated(spec, fed, fl=fl, seed=0, device="cuda",
+                          superstep=None if engine == "fused" else False,
+                          system=system, **kw)
+            torch.cuda.synchronize()
+            again[engine] = time.perf_counter() - t0
+        ops.LAUNCHES.update(counts)
+        for engine, h, launched, wall in runs:
+            fx = h.extra.get("faults", {})
+            skipped = fx.get("skipped_rounds", 0)
+            want = {k: 0 for k in launched}
+            want["mixing_aggregate"] = (rounds if engine == "fused"
+                                        else rounds - skipped)
+            want["gram_matrix"] = 1 if spec.startswith("ucfl") else 0
+            if "channel" in kw:
+                want["qsgd_roundtrip"] = rounds
+            if launched != want:
+                raise AssertionError(f"[faults] {label} {engine}: launches "
+                                     f"{launched}, want {want}")
+            if not all(math.isfinite(a) for a in h.mean_acc + h.worst_acc):
+                raise AssertionError(f"[faults] {label} {engine}: "
+                                     f"non-finite accuracy {h.mean_acc}")
+            if "faults" in kw and fx.get("rounds") != rounds:
+                raise AssertionError(f"[faults] {label}: ledger {fx}")
+            if "min_quorum" in kw and not 0 < skipped < rounds:
+                raise AssertionError(f"[faults] {label}: {skipped} skipped "
+                                     "rounds, want some but not all")
+            ledger = {k: fx[k] for k in ("byzantine_clients",
+                                         "crashed_total",
+                                         "quarantined_total",
+                                         "skipped_rounds") if k in fx}
+            clusters = h.extra.get("clusters")
+            streams = sorted({c.n_streams for c in h.comm})
+            print(f"  {label:18s} {spec:8s} {engine:8s} mean_acc "
+                  f"{[round(a, 4) for a in h.mean_acc]}  streams {streams}"
+                  + ("" if clusters is None else
+                     f"  clusters {int(clusters.max()) + 1}")
+                  + f"  {ledger}  launches "
+                  f"{ {k: v for k, v in launched.items() if v} }  wall "
+                  f"{wall:.2f} s ({wall / rounds:.4f} s/round incl. setup), "
+                  f"again {again[engine]:.2f} s ({again[engine] / rounds:.4f}"
+                  f" s/round; {card})", flush=True)
 
 
 class WindowDraws(TorchDraws):
@@ -1777,10 +1904,18 @@ def main() -> int:
 
     print("[agree] small runs and one uplink crossing, cuda against cpu",
           flush=True)
-    small_agreement()
-    uplink_agreement()
-    channel_agreement()
-    lm_agreement()
+    # the CPU side is the reference here: with one intra-op thread its
+    # reductions run in one order, so its bits repeat from process to
+    # process (with the host's cores they did not, now and then)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        small_agreement()
+        uplink_agreement()
+        channel_agreement()
+        lm_agreement()
+    finally:
+        torch.set_num_threads(threads)
 
     t0 = time.perf_counter()
     fed = scenario_label_shift(0, n=MAIN["n"], m=MAIN["m"], device="cuda")
@@ -1801,6 +1936,15 @@ def main() -> int:
     ops.reset_launches()          # and from here on the channel path's
     channel_path(fed, fl, hists["fedavg"].time)
     print(f"  [channel] launches {dict(ops.LAUNCHES)}", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
+
+    print(f"[faults] run_federated n={MAIN['n']} m={MAIN['m']}: cfl, "
+          f"fedfomo and the fault/defense layer, fused and eventful "
+          f"({card})", flush=True)
+    ops.reset_launches()          # and from here on the faults path's
+    faults_path(fed, fl, card)
+    print(f"  [faults] launches {dict(ops.LAUNCHES)}", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
 

@@ -26,7 +26,9 @@ def mix_pytree(stacked: Dict[str, torch.Tensor],
     (k, ...) in each leaf's dtype, fp32 accumulation.  W is rounded to a
     leaf's dtype first, as the reference does, so bf16 leaves mix with
     bf16-rounded weights.  Leaves go to the op in sorted-key order, one
-    call per dtype."""
+    call per dtype; a strided leaf (a column block of a flat (m, D) view,
+    as the fault injector and the defense hand back) is made contiguous
+    first, since the kernel reads rows of the leaf's own width."""
     groups: Dict[torch.dtype, list] = {}
     for name in sorted(stacked):
         groups.setdefault(stacked[name].dtype, []).append(name)
@@ -34,7 +36,8 @@ def mix_pytree(stacked: Dict[str, torch.Tensor],
     for dtype, names in groups.items():
         leaves = [stacked[n] for n in names]
         outs = ops.mixing_aggregate_leaves(
-            w.to(dtype), [v.reshape(v.shape[0], -1) for v in leaves])
+            w.to(dtype),
+            [v.reshape(v.shape[0], -1).contiguous() for v in leaves])
         for n, v, y in zip(names, leaves, outs):
             mixed[n] = y.reshape((w.shape[0],) + tuple(v.shape[1:]))
     return {name: mixed[name] for name in stacked}

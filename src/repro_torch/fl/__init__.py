@@ -2,20 +2,26 @@
 from repro_torch.fl.channel import Channel, LinkProfile, get_codec
 from repro_torch.fl.comm import SYSTEMS, SystemModel, harmonic
 from repro_torch.fl.draws import TorchDraws
+from repro_torch.fl.faults import (FaultConfig, FaultPlan,
+                                   get_robust_aggregator, parse_fault_spec,
+                                   resolve_fault_plan)
 from repro_torch.fl.placement import HostVmap, Placement
 from repro_torch.fl.simulator import (FLConfig, History, NonFiniteEvalWarning,
                                       run_federated, superstep_support)
 from repro_torch.fl.stats import full_client_gradients, sigma2_estimates
-from repro_torch.fl.strategies import (CommCost, FullParticipation,
-                                       MixingExtras, RoundContext, Strategy,
+from repro_torch.fl.strategies import (ClusterExtras, CommCost,
+                                       FullParticipation, MixingExtras,
+                                       RoundContext, Strategy,
                                        StrategyExtras, UniformFraction,
                                        available_strategies, get_strategy,
                                        register)
 
-__all__ = ["Channel", "CommCost", "FLConfig", "FullParticipation", "History",
-           "HostVmap", "LinkProfile", "MixingExtras", "NonFiniteEvalWarning",
+__all__ = ["Channel", "ClusterExtras", "CommCost", "FLConfig", "FaultConfig",
+           "FaultPlan", "FullParticipation", "History", "HostVmap",
+           "LinkProfile", "MixingExtras", "NonFiniteEvalWarning",
            "Placement", "RoundContext", "SYSTEMS", "Strategy",
            "StrategyExtras", "SystemModel", "TorchDraws", "UniformFraction",
            "available_strategies", "full_client_gradients", "get_codec",
-           "get_strategy", "harmonic", "register", "run_federated",
-           "sigma2_estimates", "superstep_support"]
+           "get_robust_aggregator", "get_strategy", "harmonic",
+           "parse_fault_spec", "register", "resolve_fault_plan",
+           "run_federated", "sigma2_estimates", "superstep_support"]

@@ -282,9 +282,11 @@ class BoundAdaptive(Codec):
     def roundtrip(self, flat, noise):
         """The plain QSGD arithmetic with the level count a per-row (m, 1)
         column (the kernels take one scalar level count), a subnormal
-        absmax, scale or 1/scale flushed to 0 as in `ref.qsgd_quantize_ref`;
-        rows whose width equals b match ``qsgd:<b>`` bit for bit."""
+        element, absmax, scale or 1/scale flushed to 0 as in
+        `ref.qsgd_quantize_ref`; rows whose width equals b match
+        ``qsgd:<b>`` bit for bit."""
         s = self._s
+        flat = flush_subnormal(flat)
         amax = flush_subnormal(flat.abs().amax(dim=1, keepdim=True))
         scale = flush_subnormal(amax * self._inv_s)
         inv = torch.where(scale > 0, flush_subnormal(scale.reciprocal()),

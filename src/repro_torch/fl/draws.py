@@ -17,14 +17,21 @@ object with two methods instead:
     codec_noise(rnd, shape) -> (m, D) float32 in [0, 1)
         the stochastic-rounding noise of a QSGD uplink (the reference's
         ``uniform(fold_in(kround, 2), shape)``), drawn only for a codec
-        that needs noise.
+        that needs noise;
+    fault_draws(rnd, m, d, cfg) -> FaultDraws
+        a faulted run's per-round fault draws (the reference's
+        ``fold_in(fold_in(kround, 3), i)`` for i = 0..4): the crash row,
+        the NaN row, the bit-rot row, the bit-rot element mask (m, D) and
+        the flipped bit's index (m, D), each drawn only when its axis of
+        the `FaultConfig` ``cfg`` is on.
 
 `TorchDraws` is the default and draws from `torch.Generator`s.  A parity
 test passes an object that replays the reference's key chain instead.
 
 The fused superstep takes a chunk's draws before the chunk runs
 (`chunk_draws`): round by round, in the eventful engine's call order
-(the batch slots, the sampler's mask, the codec noise), from the same
+(the batch slots, the sampler's mask, the fault draws, the codec
+noise), from the same
 object, stacked into (length, ...) tensors that the chunk reads by
 round.  The two engines consume identical streams, and a captured graph
 reads no generator.
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fl.placement.graphs import stack_rows
 
 
 def split_seed(seed: int, n: int) -> List[int]:
@@ -52,19 +60,30 @@ def init_generator(seed: int, device: DeviceLike = "cuda") -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(split_seed(seed, 3)[0])
 
 
+class FaultDraws(NamedTuple):
+    """One round's fault draws (None where the axis is off), on the run's
+    device, or a chunk's stacked (L, ...) rows of them."""
+    crash: Optional[torch.Tensor]     # (m,) bool: the client crashes
+    nan: Optional[torch.Tensor]       # (m,) bool: uploads NaN
+    rot: Optional[torch.Tensor]       # (m,) bool: its upload bit-rots
+    elem: Optional[torch.Tensor]      # (m, D) bool: this entry flips a bit
+    bit: Optional[torch.Tensor]       # (m, D) int32 in [0, 32): which bit
+
+
 class TorchDraws:
-    """Default draws: batches and codec noise from generators on
-    ``device``, the k-means start and the client permutations from CPU
+    """Default draws: batches, codec noise and fault draws from generators
+    on ``device``, the k-means start and the client permutations from CPU
     generators; seeds split from ``seed`` so that no stream repeats
     another or the model-init stream."""
 
     def __init__(self, seed: int = 0, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
-        _, s_batch, s_kmeans, s_perm, s_noise = split_seed(seed, 5)
+        _, s_batch, s_kmeans, s_perm, s_noise, s_fault = split_seed(seed, 6)
         self._batch = torch.Generator(device=self.device).manual_seed(s_batch)
         self._kmeans_seed = s_kmeans
         self._perm = torch.Generator().manual_seed(s_perm)
         self._noise = torch.Generator(device=self.device).manual_seed(s_noise)
+        self._fault = torch.Generator(device=self.device).manual_seed(s_fault)
 
     def batch_indices(self, rnd: int, n: torch.Tensor, n_slots: int,
                       batch_size: int, local_steps: int) -> torch.Tensor:
@@ -85,6 +104,21 @@ class TorchDraws:
         return torch.rand(tuple(shape), generator=self._noise,
                           device=self.device, dtype=torch.float32)
 
+    def fault_draws(self, rnd: int, m: int, d: int, cfg: Any) -> FaultDraws:
+        def coin(shape, p):
+            return torch.rand(shape, generator=self._fault,
+                              device=self.device) < p
+
+        crash = coin((m,), cfg.crash) if cfg.crash > 0 else None
+        nan = coin((m,), cfg.nan) if cfg.nan > 0 else None
+        rot = elem = bit = None
+        if cfg.bitrot > 0:
+            rot = coin((m,), cfg.bitrot)
+            elem = coin((m, d), cfg.bitrot_density)
+            bit = torch.randint(0, 32, (m, d), generator=self._fault,
+                                device=self.device, dtype=torch.int32)
+        return FaultDraws(crash, nan, rot, elem, bit)
+
 
 class ChunkDraws(NamedTuple):
     """One chunk's draws, a row per round."""
@@ -94,22 +128,37 @@ class ChunkDraws(NamedTuple):
     mask_np: Optional[np.ndarray]     # the same rows on the host
     noise: Optional[torch.Tensor]     # (L, m, D) f32 on the device; None
                                       # without a noisy codec
+    faults: Optional[FaultDraws]      # (L, ...) rows on the device; None
+                                      # without faults
+
+
+def round_fault_draws(draws: Any, rnd: int, m: int, d: int, cfg: Any,
+                      device: torch.device) -> FaultDraws:
+    """``draws.fault_draws`` for round ``rnd``, moved to ``device``."""
+    fd = draws.fault_draws(rnd, m, d, cfg)
+    return FaultDraws(*(None if t is None else t.to(device) for t in fd))
 
 
 def chunk_draws(draws: Any, rounds: range, *, n: torch.Tensor, n_slots: int,
                 batch_size: int, local_steps: int, sampler: Any, m: int,
-                noise_d: Optional[int], device: torch.device) -> ChunkDraws:
+                noise_d: Optional[int], device: torch.device,
+                fault_cfg: Any = None,
+                fault_d: Optional[int] = None) -> ChunkDraws:
     """The draws of ``rounds``, taken per round as the eventful engine
     takes them: ``batch_indices``, then the sampler's mask
     (``sampler.sample_traced``: all-True where the eventful ``sample``
-    gives None), then ``codec_noise`` of (m, ``noise_d``) when ``noise_d``
-    is given."""
-    slots, masks, noise = [], [], []
+    gives None), then ``fault_draws`` of (m, ``fault_d``) when
+    ``fault_cfg`` is given, then ``codec_noise`` of (m, ``noise_d``) when
+    ``noise_d`` is given."""
+    slots, masks, faults, noise = [], [], [], []
     for rnd in rounds:
         slots.append(draws.batch_indices(rnd, n, n_slots, batch_size,
                                          local_steps).to(device))
         if sampler is not None:
             masks.append(sampler.sample_traced(rnd, m, draws))
+        if fault_cfg is not None:
+            faults.append(round_fault_draws(draws, rnd, m, fault_d,
+                                            fault_cfg, device))
         if noise_d is not None:
             noise.append(draws.codec_noise(rnd, (m, noise_d)).to(device))
     mask_cpu = torch.stack(masks) if masks else None
@@ -117,4 +166,5 @@ def chunk_draws(draws: Any, rounds: range, *, n: torch.Tensor, n_slots: int,
         slots=torch.stack(slots),
         mask=None if mask_cpu is None else mask_cpu.to(device),
         mask_np=None if mask_cpu is None else mask_cpu.numpy(),
-        noise=torch.stack(noise) if noise else None)
+        noise=torch.stack(noise) if noise else None,
+        faults=FaultDraws(*stack_rows(faults)) if faults else None)

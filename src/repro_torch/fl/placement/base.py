@@ -25,7 +25,8 @@ from torch.func import vmap
 from repro_torch.core.streams import StreamPlan
 from repro_torch.data.federated import FederatedData
 from repro_torch.fl.placement.graphs import (CapturedChunk, StaticInputs,
-                                             draw_row, leaves, tree_spec)
+                                             draw_row, leaves, stack_rows,
+                                             tree_spec)
 
 
 def stack_params(params: Dict[str, torch.Tensor], m: int
@@ -122,7 +123,7 @@ class Placement(abc.ABC):
                     y_val: Any) -> torch.Tensor:
         """Per-client validation scores (m,) on the device, the fused
         chunk-end eval: `client_scores`, as the eventful `evaluate`; the
-        (mean, worst) reduction is the caller's (`host.reduce_scores`, on
+        (mean, worst) reduction is the caller's (`host.score_stats`, on
         both engines, so they cannot drift)."""
         return client_scores(acc_fn, stacked, x_val, y_val)
 
@@ -130,8 +131,9 @@ class Placement(abc.ABC):
                     eval_fn: Callable, inputs: Tuple,
                     cache: Dict) -> Callable:
         """``length`` consecutive rounds of ``round_fn(carry, data, consts,
-        draw) -> carry'`` and ``eval_fn(carry'[0], eval_data)``, as
-        ``fn(carry, data, consts, draws, eval_data) -> (carry', scores)``.
+        draw) -> (carry', outs)`` and ``eval_fn(carry'[0], eval_data)``,
+        as ``fn(carry, data, consts, draws, eval_data) -> (carry', scores,
+        outs)``, the rounds' ``outs`` stacked (`graphs.stack_rows`).
         On the card a `CapturedChunk` (its carry, data and consts buffers
         shared, through ``cache``, with the other chunk lengths of these
         shapes); on the CPU the same rounds run eagerly."""
@@ -145,21 +147,25 @@ class Placement(abc.ABC):
             return CapturedChunk(round_fn, eval_fn, length, statics, inputs)
 
         def chunk(carry, data, consts, draws, eval_data):
+            rows = []
             for i in range(length):
-                carry = round_fn(carry, data, consts, draw_row(draws, i))
-            return carry, eval_fn(carry[0], eval_data)
+                carry, row = round_fn(carry, data, consts,
+                                      draw_row(draws, i))
+                rows.append(row)
+            return carry, eval_fn(carry[0], eval_data), stack_rows(rows)
 
         return chunk
 
     def run_supersteps(self, round_fn: Callable, carry: Any, data: Any,
                        consts: Any, length: int, *, cache: Dict,
                        eval_fn: Callable, eval_data: Any,
-                       draws: Any) -> Tuple[Any, torch.Tensor]:
+                       draws: Any) -> Tuple[Any, torch.Tensor, Tuple]:
         """Run ``length`` fused rounds and the chunk-end eval, building
         (and caching in ``cache``, by length and input shapes) the chunk
         on first use.  ``draws`` holds the chunk's per-round draws stacked
-        (length, ...).  Returns ``(carry', scores)``; on the card both are
-        the chunk's static buffers, overwritten by its next replay."""
+        (length, ...).  Returns ``(carry', scores, outs)``; on the card
+        all are the chunk's static buffers, overwritten by its next
+        replay."""
         inputs = (carry, data, consts, draws, eval_data)
         key = (length, tree_spec(inputs))
         fn = cache.get(key)

@@ -8,13 +8,18 @@ buffer, and replays it; the host then enqueues nothing between two eval
 boundaries.
 
     chunk = CapturedChunk(round_fn, eval_fn, length, statics, inputs)
-    carry, accs = chunk(carry, data, consts, draws, eval_data)
+    carry, accs, outs = chunk(carry, data, consts, draws, eval_data)
 
 * ``inputs`` are ``(carry, data, consts, draws, eval_data)``, nested
   dicts / tuples of tensors (None where a part is absent).  ``draws``
-  holds a (length, ...) row per round: batch slots, the sampler's masks
-  and the codec noise, taken on the host before the replay
-  (`repro_torch.fl.draws.chunk_draws`), so the graph reads no generator.
+  holds a (length, ...) row per round: batch slots, the sampler's masks,
+  the fault draws and the codec noise, taken on the host before the
+  replay (`repro_torch.fl.draws.chunk_draws`), so the graph reads no
+  generator.
+* ``round_fn`` returns ``(carry', outs)``, ``outs`` a tuple of per-round
+  tensors or None (a faulted run's crash and quarantine rows); the chunk
+  returns them stacked (length, ...), in the graph's own output buffers
+  beside the scores.
 * ``statics`` (`StaticInputs`) holds the carry, data, consts and eval
   buffers, shared by the graphs of every chunk length of one run
   configuration: the graph updates the carry in place with in-graph
@@ -88,6 +93,13 @@ def draw_row(draws: Any, i: int) -> Any:
     return tree_map(lambda t: t[i], draws)
 
 
+def stack_rows(outs: List[Tuple]) -> Tuple:
+    """The rounds' ``outs`` tuples stacked field by field into (length,
+    ...) tensors; a field that is None stays None."""
+    return tuple(None if rows[0] is None else torch.stack(rows)
+                 for rows in zip(*outs))
+
+
 class StaticInputs:
     """The static buffers of a chunk's carry, data, consts and eval data:
     fresh tensors of the example's shapes, shared by every captured chunk
@@ -113,8 +125,9 @@ class StaticInputs:
 
 class CapturedChunk:
     """``length`` rounds of ``round_fn(carry, data, consts, draw) ->
-    carry'`` and ``eval_fn(carry'[0], eval_data) -> (m,) scores``,
-    captured as one CUDA graph on first use; see the module docstring.
+    (carry', outs)`` and ``eval_fn(carry'[0], eval_data) -> (m,)
+    scores``, captured as one CUDA graph on first use; see the module
+    docstring.
     ``capture_s`` is the wall time of the warm-up and the capture,
     ``launches`` the kernel counts one replay adds."""
 
@@ -134,30 +147,33 @@ class CapturedChunk:
         side = torch.cuda.Stream(device=leaves(draws)[0].device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), ops.launches_set_aside():
-            warm = round_fn(st.carry, st.data, st.consts,
-                            draw_row(self.draws, 0))
+            warm, _ = round_fn(st.carry, st.data, st.consts,
+                               draw_row(self.draws, 0))
             eval_fn(warm[0], st.eval_data)
             del warm
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with ops.launches_set_aside() as self.launches:
             with torch.cuda.graph(self.graph):
-                out = st.carry
+                out, rows = st.carry, []
                 for i in range(self.length):
-                    out = round_fn(out, st.data, st.consts,
-                                   draw_row(self.draws, i))
+                    out, row = round_fn(out, st.data, st.consts,
+                                        draw_row(self.draws, i))
+                    rows.append(row)
                 self.accs = eval_fn(out[0], st.eval_data)
+                self.outs = stack_rows(rows)
                 copy_into(st.carry, out)
                 del out
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, carry: Any, data: Any, consts: Any, draws: Any,
-                 eval_data: Any) -> Tuple[Any, torch.Tensor]:
+                 eval_data: Any) -> Tuple[Any, torch.Tensor, Tuple]:
         """Load the inputs, replay; returns the static carry (updated in
-        place) and the static (m,) scores, valid until the next replay."""
+        place), the static (m,) scores and the stacked ``outs``, valid
+        until the next replay."""
         self.statics.load(carry, data, consts, eval_data)
         copy_into(self.draws, draws)
         self.graph.replay()
         ops.add_launches(self.launches)
-        return self.statics.carry, self.accs
+        return self.statics.carry, self.accs, self.outs

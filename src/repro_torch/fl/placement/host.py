@@ -63,10 +63,16 @@ def cached_update(loss_fn: Callable, local_steps: int, batch_size: int,
                                    _UpdateConfig(local_steps, batch_size))
 
 
+def score_stats(accs: torch.Tensor) -> torch.Tensor:
+    """(2,) device tensor: mean and min of the per-client score vector;
+    both engines reduce their device scores through it."""
+    return torch.stack((accs.mean(), accs.min()))
+
+
 def reduce_scores(accs: torch.Tensor) -> Tuple[float, float]:
     """(mean, worst) of the per-client score vector, in one copy to the
-    host; both engines reduce their device scores through it."""
-    mean, worst = torch.stack((accs.mean(), accs.min())).tolist()
+    host."""
+    mean, worst = score_stats(accs).tolist()
     return mean, worst
 
 

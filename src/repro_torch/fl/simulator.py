@@ -3,10 +3,11 @@ per-round loop.
 
 Counterpart of `repro/fl/simulator.py` (`run_federated` with its fused
 superstep default and ``superstep=False``'s eventful loop, which the
-reference pins as bit-identical), without its fault, quorum and
-hierarchy branches.  The engine owns the local update, client sampling,
-the uplink channel, evaluation and the analytic clock; the `Strategy`
-owns aggregation and the `Placement` the layout:
+reference pins as bit-identical), with its fault, defense and quorum
+branches and without its hierarchy branch.  The engine owns the local
+update, client sampling, fault injection, the uplink channel, the
+defense layer, evaluation and the analytic clock; the `Strategy` owns
+aggregation and the `Placement` the layout:
 
     run_federated("ucfl_k4", fed, fl=FLConfig(rounds=20),
                   sampler=UniformFraction(0.5),
@@ -15,12 +16,18 @@ owns aggregation and the `Placement` the layout:
 
 Every round: draw the minibatch slots, run every client's local SGD,
 roll the non-participants of the sampler's mask back to their pre-round
-model and optimizer state, pass the participants' update v = Δ + e
-through the channel codec with error feedback (on the card: the QSGD or
-top-k kernels), let the strategy mix (Y = W Θ on the card, one kernel
-launch a round), charge the round on the clock (through the link
-profile when a channel is attached) and in `History.comm_bits`, and
-evaluate every ``eval_every`` rounds.
+model and optimizer state, inject the round's faults (``faults=``:
+Byzantine, bit-rot and NaN corrupt what a client transmits, a crash
+rolls its row back like a no-show), pass the participants' update
+v = Δ + e through the channel codec with error feedback (on the card:
+the QSGD or top-k kernels), screen and robustify the decoded updates
+(``robust_agg=``; quarantined clients' weight columns renormalized
+away), let the strategy mix (Y = W Θ on the card, one kernel launch a
+round) unless fewer than ``min_quorum`` clients took part, charge the
+round on the clock (through the link profile when a channel is
+attached), in `History.comm_bits` and in the fault ledger
+(``History.extra["faults"]``), and evaluate every ``eval_every``
+rounds.
 
 By default (``superstep=None``) a run whose strategy and sampler are
 traceable (`superstep_support`) is fused: the rounds between two eval
@@ -36,8 +43,8 @@ raises `ValueError` when the run cannot fuse.
 
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
-Options that belong to later slices of the port (faults, hierarchy,
-async, paging) raise `NotImplementedError` naming their ROADMAP item.
+Options that belong to later slices of the port (hierarchy, async,
+paging) raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -56,9 +63,14 @@ from repro_torch.fl.channel import (Channel, ChannelCost, resolve_channel,
                                     round_downlink_time, tree_bits,
                                     zeros_like_stack)
 from repro_torch.fl.comm import SYSTEMS, SystemModel
-from repro_torch.fl.draws import TorchDraws, chunk_draws, init_generator
-from repro_torch.fl.placement import (Placement, reduce_scores,
-                                      resolve_placement)
+from repro_torch.fl.draws import (TorchDraws, chunk_draws, init_generator,
+                                  round_fault_draws)
+from repro_torch.fl.faults import (FaultMeter, crash_mask,
+                                   get_robust_aggregator, inject_values,
+                                   resolve_fault_plan, resolve_faults,
+                                   screen_and_defend)
+from repro_torch.fl.placement import (Placement, resolve_placement,
+                                      score_stats)
 from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.fl.strategies import (ClientSampler, CommCost, RoundContext,
                                        Strategy, StrategyExtras, TracedMix,
@@ -78,6 +90,10 @@ class FLConfig:
     rounds: int = 60
     sigma_batches: int = 5
     eval_every: int = 5
+    fomo_candidates: int = 5
+    cfl_eps1: float = 0.04
+    cfl_eps2: float = 0.06
+    cfl_min_rounds: int = 10
 
 
 @dataclass
@@ -110,9 +126,6 @@ _LATER = {
     "async_cfg": "item 9 (async runtime)",
     "paging": "item 12 (paging)",
     "hierarchy": "item 13 (hierarchy)",
-    "faults": "item 14 (faults)",
-    "robust_agg": "item 14 (faults)",
-    "min_quorum": "item 14 (faults)",
 }
 
 
@@ -142,10 +155,12 @@ def resolve_strategy(algorithm: Union[str, Strategy, None],
 def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
              model_init: Optional[Callable], loss_fn: Callable,
              acc_fn: Callable, placement: Placement, seed: int, draws: Any,
-             device):
+             device, faults: Optional[Any] = None):
     """Run prologue: model init, update step, client stack/opt/data
     placement, RoundContext and `strategy.setup`.  Returns
-    ``(update_fn, stacked, opt_state, data, ctx, state)``."""
+    ``(update_fn, stacked, opt_state, data, ctx, state)``.  ``faults`` (a
+    `FaultConfig`) is resolved once here into the run's `FaultPlan`
+    (static Byzantine set), on ``ctx.fault_plan`` (None: no faults)."""
     if model_init is None:
         model_init = default_model_init(fed)
     params0 = model_init(init_generator(seed, device))
@@ -156,6 +171,7 @@ def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
     ctx = RoundContext(fed=fed, fl=fl, loss_fn=loss_fn, acc_fn=acc_fn,
                        params0=params0, seed=seed, draws=draws,
                        placement=placement)
+    ctx.fault_plan = resolve_fault_plan(faults, fed.m)
     state = strategy.setup(ctx)
     return update_fn, stacked, opt_state, data, ctx, state
 
@@ -269,6 +285,27 @@ def charge_round(history: History, cost: CommCost,
     return t_accum
 
 
+def charge_faults(fmeter: FaultMeter, crow: Optional[np.ndarray],
+                  qrow: Optional[np.ndarray], eff: Optional[np.ndarray],
+                  n_eff: int, ok: bool, channel: Optional[Channel],
+                  payload: Optional[int],
+                  ul_bits_pc: Optional[np.ndarray]) -> None:
+    """Book one round in the fault ledger: ``crow`` the host crash row
+    (None: no crash axis), ``qrow`` the quarantine survival row (None: no
+    defense), ``eff`` the participation row after crashes (None: all), of
+    ``n_eff`` clients, ``ok`` whether the quorum held.  With a channel the
+    round's uplink bits are wasted when the quorum fails, the quarantined
+    rows' share when it holds."""
+    rbits = qbits = 0
+    if channel is not None:
+        rbits = (n_eff * payload if ul_bits_pc is None else
+                 int(np.sum(ul_bits_pc[eff]) if eff is not None
+                     else np.sum(ul_bits_pc)))
+        if qrow is not None:
+            qbits = int(np.sum(qrow <= 0)) * payload
+    fmeter.charge(crow, qrow, ok, rbits, qbits)
+
+
 def record_eval(history: History, rnd: int, mean_acc: float,
                 worst_acc: float, t_accum: float) -> None:
     """Append one eval row; a NaN/Inf accuracy warns `NonFiniteEvalWarning`
@@ -354,10 +391,15 @@ _SUPERSTEP_CACHE_MAX = 32
 def _superstep_cache(placement: Placement, strategy: Strategy,
                      sampler: Optional[ClientSampler], codec,
                      error_feedback: bool, update_fn: Callable,
-                     acc_fn: Callable) -> Dict:
+                     acc_fn: Callable, fault_cfg: Optional[Any] = None,
+                     robust_spec: Optional[str] = None,
+                     min_quorum: Optional[int] = None) -> Dict:
+    # the fault injector, the defense and the quorum gate run inside the
+    # round function a cached chunk holds: their identity is in the key
     key = (placement.cache_key(), type(strategy), strategy.spec,
            None if sampler is None else sampler.cache_key,
-           codec, bool(error_feedback), update_fn, acc_fn)
+           codec, bool(error_feedback), update_fn, acc_fn,
+           fault_cfg, robust_spec, min_quorum)
     cache = _SUPERSTEP_FNS.pop(key, None)   # re-insert: LRU, not FIFO
     if cache is None:
         while len(_SUPERSTEP_FNS) >= _SUPERSTEP_CACHE_MAX:
@@ -369,35 +411,80 @@ def _superstep_cache(placement: Placement, strategy: Strategy,
 
 def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
                         codec, error_feedback: bool, placement: Placement,
-                        update_fn: Callable) -> Callable:
-    """The fused round (local update → sampler select → codec uplink with
-    error feedback → strategy aggregate) as one function
+                        update_fn: Callable, fault_plan: Optional[Any] = None,
+                        defense: Optional[Any] = None,
+                        min_quorum: Optional[int] = None) -> Callable:
+    """The fused round (local update → sampler select → fault injection →
+    codec uplink with error feedback → screening/robust defense →
+    strategy aggregate → quorum gate) as one function
 
-        round_fn((stacked, opt_state, ef), (x, y), consts, (idx, mask, noise))
-            -> (stacked', opt_state', ef')
+        round_fn((stacked, opt_state, ef), (x, y), consts,
+                 (idx, mask, noise, faults))
+            -> ((stacked', opt_state', ef'), (crash, quarantine))
 
     of the eventful round's arithmetic, op for op, on the round's draws
     (``mask`` all-True where the eventful sampler gives None: the select
-    is then a bitwise identity).  It reads nothing back to the host: on
-    the card it runs inside a captured CUDA graph."""
+    is then a bitwise identity).  With ``fault_plan``, ``consts`` is the
+    pair ``(strategy_consts, byz_row)`` (the static adversary row rides
+    as an input) and ``faults`` the round's `FaultDraws`.  ``min_quorum``
+    snapshots the clients' own models before the uplink and keeps them
+    when too few rows took part: the mix always runs and a ``where``
+    picks, so the round has one shape whatever the count.  ``crash`` and
+    ``quarantine`` are the round's (m,) rows, or None where the axis is
+    off.  It reads nothing back to the host: on the card it runs inside
+    a captured CUDA graph."""
     tmix = TracedMix(placement)
     lossy = codec is not None and not codec.is_identity
+    faulted = fault_plan is not None
 
     def round_fn(carry, data, consts, draw):
+        if faulted:
+            consts, byz_row = consts
         stacked, opt_state, ef = carry
         x, y = data
-        idx, mask, noise = draw
+        idx, mask, noise, fd = draw
+        m = x.shape[0]
         prev, prev_opt = stacked, opt_state
         stacked, opt_state = update_fn(stacked, opt_state, x, y, idx)
         if sampler is not None:
             stacked = placement.select(mask, stacked, prev)
             opt_state = placement.select(mask, opt_state, prev_opt)
+        crash = None
+        if faulted:
+            if fault_plan.value_faults:
+                stacked = inject_values(fault_plan, byz_row, stacked, prev,
+                                        fd, rows=mask)
+            crash = crash_mask(fault_plan, fd)
+            if crash is not None:
+                # a crashed client never reports: row rollback, exactly a
+                # sampler no-show
+                stacked = placement.select(~crash, stacked, prev)
+                opt_state = placement.select(~crash, opt_state, prev_opt)
+        part = mask
+        if crash is not None:
+            part = ~crash if part is None else part & ~crash
+        # quorum snapshot: the clients' own post-update models BEFORE the
+        # uplink; on a skipped round each keeps what it computed
+        clients = stacked if min_quorum is not None else None
         if lossy:
             stacked, new_ef = placement.uplink(codec, stacked, prev, ef,
-                                               noise, mask)
+                                               noise, part)
             ef = new_ef if error_feedback else ef
+        q = None
+        if defense is not None:
+            stacked, q = screen_and_defend(defense, stacked, prev)
+            tmix.quarantine = q
         stacked = strategy.aggregate_traced(consts, stacked, prev, tmix)
-        return stacked, opt_state, ef
+        tmix.quarantine = None
+        if min_quorum is not None:
+            if part is None:            # everyone took part: m is known
+                if m < min_quorum:
+                    stacked = clients
+            else:
+                ok = part.to(torch.float32).sum() >= float(min_quorum)
+                stacked = {k: torch.where(ok, a, clients[k])
+                           for k, a in stacked.items()}
+        return (stacked, opt_state, ef), (crash, q)
 
     return round_fn
 
@@ -419,17 +506,26 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
                    model_init: Optional[Callable], loss_fn: Callable,
                    acc_fn: Callable, system: Optional[SystemModel],
                    placement: Placement, channel: Optional[Channel],
-                   keep_state: bool, seed: int, draws: Any,
-                   device) -> History:
+                   keep_state: bool, seed: int, draws: Any, device,
+                   faults: Optional[Any] = None,
+                   robust_agg: Optional[Any] = None,
+                   min_quorum: Optional[int] = None) -> History:
     """The fused run: chunk by chunk (`_eval_rounds`), the chunk's draws
     taken first, its rounds and chunk-end eval run by
-    `Placement.run_supersteps`, its scores brought back in one copy, then
-    the clock and comm accounting replayed on the host in the eventful
-    engine's per-round order (`charge_round`)."""
+    `Placement.run_supersteps`, its scores and its rounds' crash and
+    quarantine rows brought back in one copy, then the clock, comm and
+    fault accounting replayed on the host in the eventful engine's
+    per-round order (`charge_round`, `charge_faults`)."""
     m = fed.m
     update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
-        draws, device)
+        draws, device, faults=faults)
+    plan = ctx.fault_plan
+    defense = get_robust_aggregator(robust_agg)
+    robust_spec = "none" if defense is None else str(robust_agg)
+    fmeter = None
+    if plan is not None or defense is not None or min_quorum is not None:
+        fmeter = FaultMeter(plan, robust_spec, min_quorum)
     payload, link, model_bits, ef, channel = init_channel(
         channel, ctx, stacked, system, m)
     lossy = channel is not None and not channel.codec.is_identity
@@ -438,18 +534,24 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
     codec = channel.codec if lossy else None
     ef_flag = channel.error_feedback if lossy else True
     consts = strategy.traced_state(state)
+    if plan is not None:
+        # the static adversary row rides as an input of the chunk
+        consts = (consts, torch.from_numpy(plan.byz_row()).to(x.device))
     round_fn = _build_traced_round(strategy, sampler, codec, ef_flag,
-                                   placement, update_fn)
+                                   placement, update_fn, fault_plan=plan,
+                                   defense=defense, min_quorum=min_quorum)
     cache = _superstep_cache(placement, strategy, sampler, codec, ef_flag,
-                             update_fn, acc_fn)
+                             update_fn, acc_fn,
+                             fault_cfg=None if plan is None else plan.cfg,
+                             robust_spec=robust_spec, min_quorum=min_quorum)
     eval_fn = lambda st, ed: placement.eval_traced(acc_fn, st, ed[0], ed[1])
     # round-constant by the traceability contract: read once, as the
     # eventful loop would read them every round
     cost = strategy.comm(state)
     assignment = None if link is None else strategy.membership(state)
     ul_bits_pc = per_client_uplink_bits(channel, ctx, payload, m)
-    noise_d = (sum(leaf[0].numel() for leaf in stacked.values())
-               if lossy and codec.needs_noise else None)
+    d = sum(leaf[0].numel() for leaf in stacked.values())
+    noise_d = d if lossy and codec.needs_noise else None
 
     history = History()
     t_accum = 0.0
@@ -459,17 +561,47 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
         cd = chunk_draws(draws, range(rnd, nxt + 1), n=n, n_slots=x.shape[1],
                          batch_size=fl.batch_size,
                          local_steps=fl.local_steps, sampler=sampler, m=m,
-                         noise_d=noise_d, device=x.device)
-        carry, accs = placement.run_supersteps(
+                         noise_d=noise_d, device=x.device,
+                         fault_cfg=None if plan is None else plan.cfg,
+                         fault_d=d)
+        carry, accs, (crashes, qs) = placement.run_supersteps(
             round_fn, carry, (x, y), consts, length, cache=cache,
             eval_fn=eval_fn, eval_data=(fed.x_val, fed.y_val),
-            draws=(cd.slots, cd.mask, cd.noise))
-        mean_acc, worst_acc = reduce_scores(accs)
+            draws=(cd.slots, cd.mask, cd.noise, cd.faults))
+        # the chunk's one copy to the host: the scores' mean and min, and
+        # the rounds' crash and quarantine rows
+        parts = [score_stats(accs)] + [r.reshape(-1).to(torch.float32)
+                                       for r in (crashes, qs)
+                                       if r is not None]
+        host = torch.cat(parts).cpu().numpy()
+        mean_acc, worst_acc = float(host[0]), float(host[1])
+        rows, at = [], 2
+        for r in (crashes, qs):
+            if r is None:
+                rows.append(None)
+            else:
+                rows.append(host[at:at + r.numel()].reshape(tuple(r.shape)))
+                at += r.numel()
+        crashes_np, qs_np = rows
         for i in range(length):
+            mrow = None if cd.mask_np is None else cd.mask_np[i]
+            crow = None if crashes_np is None else crashes_np[i] > 0
+            eff = mrow
+            if crow is not None:
+                eff = ~crow if eff is None else eff & ~crow
+            n_eff = m if eff is None else int(eff.sum())
+            ok = min_quorum is None or n_eff >= min_quorum
+            # a quorum-skipped round moves no server model: no downlink
+            # streams, no membership-aware broadcast; the clients did
+            # compute and upload
             t_accum = charge_round(
-                history, cost, None if cd.mask_np is None else cd.mask_np[i],
-                m, payload, link, system, channel, t_accum, assignment,
-                ul_bits_pc)
+                history, cost if ok else CommCost(0, 0), eff, m, payload,
+                link, system, channel, t_accum,
+                assignment if ok else None, ul_bits_pc)
+            if fmeter is not None:
+                charge_faults(fmeter, crow,
+                              None if qs_np is None else qs_np[i], eff,
+                              n_eff, ok, channel, payload, ul_bits_pc)
         record_eval(history, nxt, mean_acc, worst_acc, t_accum)
 
     if keep_state:
@@ -479,6 +611,8 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
     stacked, opt_state, ef = carry
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
+    if fmeter is not None:
+        history.extra["faults"] = fmeter.extra()
     if channel is not None:
         channel_extra(history, channel, link, model_bits, payload)
         if keep_state:
@@ -503,7 +637,7 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                   paging: Optional[Any] = None,
                   hierarchy: Optional[Any] = None,
                   faults: Optional[Any] = None,
-                  robust_agg: Optional[str] = None,
+                  robust_agg: Optional[Any] = None,
                   min_quorum: Optional[int] = None,
                   seed: int = 0,
                   draws: Optional[Any] = None,
@@ -511,31 +645,43 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     """Run one strategy on one scenario; returns the accuracy/time history.
 
     ``algorithm`` is a registry spec (``"fedavg"``, ``"ucfl"``,
-    ``"ucfl_k4"``) or a `Strategy`; alternatively pass ``strategy=``.
-    ``fed`` must live on ``device``.  ``model_init`` is called with a
-    `torch.Generator` on ``device`` and returns the param dict (default:
-    LeNet-5 sized to the scenario).  ``sampler`` (`UniformFraction`,
-    `FullParticipation`) selects each round's participants (default:
-    everyone).  ``channel`` (a `Channel` or codec spec string) turns on
-    bit-level payload accounting, uplink compression with error feedback
-    and per-client link timing; ``Channel()`` (identity codec, uniform
-    link) is bit-identical to no channel.  ``draws`` supplies the run's
-    random draws (default `TorchDraws(seed, device)`).
-    ``keep_state=True`` attaches the final stacked params / opt state to
-    the History.  ``superstep`` None (default) fuses the rounds between
-    two evals into one chunk exactly when `superstep_support` allows it
-    (on the card a captured CUDA graph; bitwise the eventful run's
-    history either way), False forces the eventful per-round loop, True
-    raises `ValueError` if the run cannot fuse.  The options of later
-    slices raise `NotImplementedError`.
+    ``"ucfl_k4"``, ``"cfl"``, ``"fedfomo"``) or a `Strategy`;
+    alternatively pass ``strategy=``.  ``fed`` must live on ``device``.
+    ``model_init`` is called with a `torch.Generator` on ``device`` and
+    returns the param dict (default: LeNet-5 sized to the scenario).
+    ``sampler`` (`UniformFraction`, `FullParticipation`) selects each
+    round's participants (default: everyone).  ``channel`` (a `Channel`
+    or codec spec string) turns on bit-level payload accounting, uplink
+    compression with error feedback and per-client link timing;
+    ``Channel()`` (identity codec, uniform link) is bit-identical to no
+    channel.  ``faults`` (a `FaultConfig` or spec string such as
+    ``"crash:0.1,byz:0.25:sign_flip"``) injects seeded client failures;
+    ``robust_agg`` (``none | clip:<c> | trimmed_mean:<f> | median |
+    krum:<f>`` or a `RobustAggregator`) screens non-finite uploads and
+    robustifies the aggregation; ``min_quorum`` skips the aggregation on
+    rounds where fewer clients take part.  All three default off, off is
+    the faults-off engine, and on, the run's fault ledger lands in
+    ``History.extra["faults"]``.  ``draws`` supplies the run's random
+    draws (default `TorchDraws(seed, device)`).  ``keep_state=True``
+    attaches the final stacked params / opt state to the History.
+    ``superstep`` None (default) fuses the rounds between two evals into
+    one chunk exactly when `superstep_support` allows it (on the card a
+    captured CUDA graph; bitwise the eventful run's history either way),
+    False forces the eventful per-round loop, True raises `ValueError` if
+    the run cannot fuse.  The options of later slices raise
+    `NotImplementedError`.
     """
-    later = dict(async_cfg=async_cfg, paging=paging, hierarchy=hierarchy,
-                 faults=faults, robust_agg=robust_agg, min_quorum=min_quorum)
+    later = dict(async_cfg=async_cfg, paging=paging, hierarchy=hierarchy)
     for name, value in later.items():
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP.md Queue 1 "
                 f"{_LATER[name]}")
+    if min_quorum is not None:
+        min_quorum = int(min_quorum)
+        if min_quorum < 1:
+            raise ValueError(f"min_quorum must be >= 1, got {min_quorum}")
+    faults = resolve_faults(faults)     # validates the spec once, up front
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)
     if fed is None:
@@ -559,14 +705,25 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                                   acc_fn=acc_fn, system=system,
                                   placement=placement, channel=channel,
                                   keep_state=keep_state, seed=seed,
-                                  draws=draws, device=dev)
+                                  draws=draws, device=dev, faults=faults,
+                                  robust_agg=robust_agg,
+                                  min_quorum=min_quorum)
     m = fed.m
+    defense = get_robust_aggregator(robust_agg)
     update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
-        draws, dev)
+        draws, dev, faults=faults)
+    plan = ctx.fault_plan
+    robust_spec = "none" if defense is None else str(robust_agg)
+    byz_row = (None if plan is None
+               else torch.from_numpy(plan.byz_row()).to(dev))
+    fmeter = None
+    if plan is not None or defense is not None or min_quorum is not None:
+        fmeter = FaultMeter(plan, robust_spec, min_quorum)
     payload, link, model_bits, ef, channel = init_channel(
         channel, ctx, stacked, system, m)
     ul_bits_pc = per_client_uplink_bits(channel, ctx, payload, m)
+    d = sum(leaf[0].numel() for leaf in stacked.values())
 
     history = History()
     t_accum = 0.0
@@ -585,24 +742,64 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                 mask_np, mask = cpu_mask.numpy(), cpu_mask.to(dev)
                 stacked = placement.select(mask, stacked, prev)
                 opt_state = placement.select(mask, opt_state, prev_opt)
+        crash = None
+        if plan is not None:
+            # value faults corrupt what the row transmits; a crash rolls
+            # the row back like a no-show
+            fd = round_fault_draws(draws, rnd, m, d, plan.cfg, dev)
+            if plan.value_faults:
+                stacked = inject_values(plan, byz_row, stacked, prev, fd,
+                                        rows=mask)
+            crash = crash_mask(plan, fd)
+            if crash is not None:
+                stacked = placement.select(~crash, stacked, prev)
+                opt_state = placement.select(~crash, opt_state, prev_opt)
+        part = mask
+        if crash is not None:
+            part = ~crash if part is None else part & ~crash
+        # quorum snapshot: the clients' own post-update models BEFORE the
+        # uplink; on a skipped round each keeps what it computed
+        clients_snap = stacked if min_quorum is not None else None
         if lossy:
             # the server receives the codec's decode(encode(Δ + residual))
             stacked, ef = channel_uplink(placement, channel, stacked, prev,
-                                         ef, draws, rnd, mask)
-        ctx.rnd, ctx.participation = rnd, mask
-        stacked, state = strategy.aggregate(state, stacked, prev, ctx)
+                                         ef, draws, rnd, part)
+        q = None
+        if defense is not None:
+            # screening + robust aggregation, before the strategy's mix
+            stacked, q = screen_and_defend(defense, stacked, prev)
+        eff_np = mask_np if crash is None else part.cpu().numpy()
+        n_eff = m if eff_np is None else int(eff_np.sum())
+        ok = min_quorum is None or n_eff >= min_quorum
+        if ok:
+            ctx.rnd, ctx.participation, ctx.quarantine = rnd, part, q
+            stacked, state = strategy.aggregate(state, stacked, prev, ctx)
+            ctx.quarantine = None
+        else:
+            # below quorum: the mix never happens, every client keeps its
+            # own pre-uplink model and the round's uploads are wasted
+            stacked = clients_snap
         # the client->stream map is read only where a link profile charges
         # per stream (it syncs with the card)
-        assignment = None if link is None else strategy.membership(state)
-        t_accum = charge_round(history, strategy.comm(state), mask_np, m,
-                               payload, link, system, channel, t_accum,
-                               assignment, ul_bits_pc)
+        assignment = (None if link is None or not ok
+                      else strategy.membership(state))
+        t_accum = charge_round(history,
+                               strategy.comm(state) if ok else CommCost(0, 0),
+                               eff_np, m, payload, link, system, channel,
+                               t_accum, assignment, ul_bits_pc)
+        if fmeter is not None:
+            charge_faults(fmeter,
+                          None if crash is None else crash.cpu().numpy(),
+                          None if q is None else q.cpu().numpy(), eff_np,
+                          n_eff, ok, channel, payload, ul_bits_pc)
         if rnd % fl.eval_every == 0 or rnd == fl.rounds - 1:
             mean_acc, worst_acc = placement.evaluate(acc_fn, stacked, fed)
             record_eval(history, rnd, mean_acc, worst_acc, t_accum)
 
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
+    if fmeter is not None:
+        history.extra["faults"] = fmeter.extra()
     if channel is not None:
         channel_extra(history, channel, link, model_bits, payload)
         if keep_state:

@@ -1,8 +1,8 @@
 """Strategy protocol: the server-side aggregation surface.
 
-Counterpart of `repro/fl/strategies/base.py` for synchronous rounds (the
-staleness and quarantine reweighting of the async and faults engines
-arrive with their slices):
+Counterpart of `repro/fl/strategies/base.py` for synchronous rounds, with
+the defense layer's quarantine reweighting (the staleness reweighting of
+the async engine arrives with its slice):
 
     state = strategy.setup(ctx)                       # once, before round 0
     stacked, state = strategy.aggregate(state, stacked, prev, ctx)  # per round
@@ -11,7 +11,10 @@ arrive with their slices):
 A ``traceable`` strategy also has the fused superstep's pair: the
 tensors `traced_state` takes from the setup state once, and
 `aggregate_traced`, the same rule as a function of them, mixing through
-`TracedMix`.
+`TracedMix`.  Both mixing dispatchers route every weight matrix through
+`quarantine_reweight` when the engine has set the defense layer's
+survival row (``quarantine``), so every strategy degrades gracefully
+under a defense without code of its own.
 """
 from __future__ import annotations
 
@@ -32,10 +35,29 @@ class CommCost(NamedTuple):
     n_unicasts: int
 
 
+def quarantine_reweight(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Zero quarantined contributor columns of an aggregation-rule matrix
+    and renormalize each row back to its ORIGINAL mass.
+
+    ``w`` is any (r, m) weight matrix whose columns index contributing
+    client models; ``q[j]`` is the defense layer's survival weight of
+    model j (1 kept, 0 quarantined).  Row-stochastic rules stay
+    row-stochastic, UCFL's personalized rows keep their totals.  A row
+    whose surviving mass is zero falls back to its undefended weights (the
+    screen already zeroed the quarantined deltas, so that mixes the
+    previous, finite, models).  All-ones ``q`` is an exact identity."""
+    wq = w * q[None, :].to(w.dtype)
+    mass = w.sum(dim=1, keepdim=True)
+    new_mass = wq.sum(dim=1, keepdim=True)
+    scaled = wq * (mass / torch.clamp(new_mass, min=1e-12))
+    return torch.where(new_mass > 0, scaled, w).to(w.dtype)
+
+
 @dataclass
 class RoundContext:
-    """Everything a strategy may read about the run; ``rnd`` and
-    ``participation`` are set by the engine each round."""
+    """Everything a strategy may read about the run; ``rnd``,
+    ``participation`` and ``quarantine`` are set by the engine each
+    round."""
     fed: FederatedData
     fl: Any                         # FLConfig (kept untyped to avoid a cycle)
     loss_fn: Callable
@@ -46,17 +68,30 @@ class RoundContext:
     placement: Any                  # the run's `Placement`
     rnd: int = 0
     participation: Optional[torch.Tensor] = None   # (m,) bool, None = all
+    # the defense layer's (m,) f32 survival row, set by the engine after
+    # screening and robust aggregation (None = no defense)
+    quarantine: Optional[torch.Tensor] = None
 
     @property
     def m(self) -> int:
         return self.fed.m
 
+    def reweighted(self, w: torch.Tensor) -> torch.Tensor:
+        """``w`` with the quarantined columns renormalized away."""
+        if self.quarantine is None:
+            return w
+        return quarantine_reweight(w, self.quarantine)
+
     def mix(self, stacked: Any, w: torch.Tensor) -> Any:
         """θ_i ← Σ_j w[i,j] θ_j for a full per-client matrix (m, m)."""
-        return self.placement.mix(stacked, w)
+        return self.placement.mix(stacked, self.reweighted(w))
 
     def mix_plan(self, stacked: Any, plan: Any) -> Any:
-        """k-stream aggregation: centroid mix + group broadcast."""
+        """k-stream aggregation: centroid mix + group broadcast (the
+        quarantine applies to the centroid rules, before the folded
+        ``centroids[assignment]`` mix)."""
+        if self.quarantine is not None:
+            plan = plan._replace(centroids=self.reweighted(plan.centroids))
         return self.placement.mix_plan(stacked, plan)
 
 
@@ -64,20 +99,29 @@ class TracedMix:
     """The mixing dispatcher `Strategy.aggregate_traced` gets inside a
     fused round: `RoundContext.mix` / `mix_plan`'s arithmetic for a
     synchronous round, through the placement's `mix_traced` /
-    `mix_plan_traced` hooks.  Counterpart of the reference's `TracedMix`
-    without its quarantine reweighting (ROADMAP.md Queue 1 item 14)."""
+    `mix_plan_traced` hooks.  ``quarantine`` is the defense layer's
+    survival row, set by the fused round right before
+    `Strategy.aggregate_traced` and cleared right after, as
+    `RoundContext.quarantine` is on the eventful path."""
 
     def __init__(self, placement: Any):
         self.placement = placement
+        self.quarantine: Optional[torch.Tensor] = None
+
+    def _reweighted(self, w: torch.Tensor) -> torch.Tensor:
+        if self.quarantine is None:
+            return w
+        return quarantine_reweight(w, self.quarantine)
 
     def mix(self, stacked: Any, w: torch.Tensor) -> Any:
         """θ_i ← Σ_j w[i,j] θ_j for a full per-client matrix (m, m)."""
-        return self.placement.mix_traced(stacked, w)
+        return self.placement.mix_traced(stacked, self._reweighted(w))
 
     def mix_plan(self, stacked: Any, centroids: torch.Tensor,
                  assignment: torch.Tensor) -> Any:
         """k-stream aggregation: centroid mix + group broadcast."""
-        return self.placement.mix_plan_traced(stacked, centroids, assignment)
+        return self.placement.mix_plan_traced(
+            stacked, self._reweighted(centroids), assignment)
 
 
 @dataclass
@@ -91,6 +135,12 @@ class MixingExtras(StrategyExtras):
     client→stream assignment (each client its own stream under unicast)."""
     mixing_matrix: np.ndarray
     assignment: Optional[np.ndarray] = None
+
+
+@dataclass
+class ClusterExtras(StrategyExtras):
+    """CFL: final client -> cluster assignment."""
+    clusters: np.ndarray
 
 
 class Strategy(abc.ABC):

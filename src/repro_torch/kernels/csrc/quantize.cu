@@ -9,10 +9,14 @@
 // rounded to f32 once, on the host), inv = 1/scale (0 for a zero row) and
 // q = clip(floor(x * inv + u), -s, s); a NaN level (a row holding NaN or
 // inf) converts to 0, as XLA's conversion and cvt.rzi give.  A subnormal
-// absmax, scale or inv is flushed to 0 (`flush`), as the reference's XLA
-// runs flush them, so such a row crosses as zeros.  The flush is explicit
-// on these scalars and nowhere else: -ftz=true would change every kernel
-// the same flags build.
+// absmax, scale or inv, and a subnormal element of x where its level is
+// computed (`level`), are flushed to 0 (`flush`), as the reference's XLA
+// runs flush them: such a row crosses as zeros, such an element gets level
+// 0.  The max needs no flush of its own: a subnormal element raises it only
+// where every element is subnormal, and the max itself is flushed.  (At the
+// loads, the element's flush made the row pass half as slow again; see
+// PERF.md.)  The flush is explicit on these values and nowhere else:
+// -ftz=true would change every kernel the same flags build.
 //
 // Arithmetic: every product and sum goes through the IEEE intrinsics
 // (__fmul_rn, __fadd_rn, __fdiv_rn).  nvcc never contracts those into an
@@ -91,9 +95,9 @@ __device__ __forceinline__ float inv_of(float scale) {
 }
 
 // clip(floor(x * inv + u), -s, s) as jnp.clip does (a NaN stays NaN), then
-// int32 with NaN -> 0
+// int32 with NaN -> 0; a subnormal x reads as 0
 __device__ __forceinline__ int level(float x, float u, float inv, float s) {
-  float y = floorf(__fadd_rn(__fmul_rn(x, inv), u));
+  float y = floorf(__fadd_rn(__fmul_rn(flush(x), inv), u));
   y = y < -s ? -s : (y > s ? s : y);
   return y == y ? __float2int_rz(y) : 0;
 }

@@ -41,8 +41,10 @@ def pairwise_sqdist_ref(g: torch.Tensor) -> torch.Tensor:
 # channel codecs: QSGD and the top-k threshold (the reference's Pallas
 # kernels in repro/kernels/quantize.py and topk_threshold.py; these repeat
 # the kernels' f32 arithmetic op for op, so they agree bit for bit).  The
-# reference's XLA runs flush subnormal results to 0; so do these, for the
-# per-row scalars (absmax, scale, 1/scale) and the bisection's midpoints.
+# reference's XLA runs flush subnormal values to 0; so do these, for QSGD's
+# input elements and per-row scalars (absmax, scale, 1/scale) and for the
+# bisection's midpoints.  Top-k reads its subnormal elements as they are:
+# against a normal or zero threshold that gives the reference's mask.
 
 TOPK_ITERS = 30         # bisection steps of the top-k threshold kernel
 FLT_MIN = torch.finfo(torch.float32).tiny    # the smallest normal f32
@@ -64,8 +66,9 @@ def qsgd_levels(bits: int):
 
 
 def rowwise_absmax_ref(x: torch.Tensor) -> torch.Tensor:
-    """(m, D) -> (m, 1) per-row max |x|, a subnormal max flushed to 0; a
-    NaN anywhere in a row gives NaN (as ``jnp.max``)."""
+    """(m, D) -> (m, 1) per-row max |x|, a subnormal max flushed to 0 (the
+    max of the elements read with subnormals as 0, as the reference's run
+    reads them); a NaN anywhere in a row gives NaN (as ``jnp.max``)."""
     return flush_subnormal(x.abs().amax(dim=1, keepdim=True))
 
 
@@ -73,12 +76,14 @@ def qsgd_quantize_ref(x: torch.Tensor, noise: torch.Tensor, bits: int,
                       absmax: Optional[torch.Tensor] = None):
     """``(levels, absmax)``: int32 levels ``clip(floor(x·inv + u), −s, s)``
     with scale = absmax·(1/s) and inv = 1/scale (0 for an all-zero row),
-    each flushed to 0 where subnormal, as the reference's run flushes
-    them (such a row crosses as zeros).  ``absmax`` given is used as is
-    (the quantize kernel's own input).  A NaN level (a NaN or ±inf in the
-    row) becomes 0, as XLA's and CUDA's float-to-int conversions give;
-    PyTorch's CPU cast would give INT_MIN."""
+    x's elements, absmax, scale and inv each flushed to 0 where subnormal,
+    as the reference's run flushes them (a subnormal element gets level
+    0, a row with a subnormal scalar crosses as zeros).  ``absmax`` given
+    is used as is (the quantize kernel's own input).  A NaN level (a NaN
+    or ±inf in the row) becomes 0, as XLA's and CUDA's float-to-int
+    conversions give; PyTorch's CPU cast would give INT_MIN."""
     s, inv_s = qsgd_levels(bits)
+    x = flush_subnormal(x)
     amax = rowwise_absmax_ref(x) if absmax is None else absmax
     scale = flush_subnormal(amax * inv_s.to(x.device))
     inv = torch.where(scale > 0, flush_subnormal(scale.reciprocal()),

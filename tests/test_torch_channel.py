@@ -230,6 +230,109 @@ def test_qsgd_subnormal_scalars_match_reference(bits):
     assert bool(torch.all(got[flushed] == 0))
 
 
+def _subnormal_element_rows():
+    """(x, u), (8, 64) f32: rows holding subnormal elements with normal
+    scalars, between ordinary rows (0, 7).  Row 1 is 2e-36 (a normal scale
+    at bits 8) with its odd elements 5e-39, at u = 0.9: x·(1/scale) of
+    such an element is 0.32, so its level is 1 unless it is read as 0;
+    row 2 random with a quarter of its elements ±[1e-45, 1e-38); row 3
+    the same at magnitudes near 1e-36; row 4 ±0.5 with one 1.7e38 and
+    subnormal elements (inv subnormal at bits 2); row 5 ±[1e-39, 1.1e-38)
+    with one 1.2e-38, at u = 0.95 (at bits 2 a normal scale, and levels 1
+    unless the elements are read as 0; a subnormal scale above); row 6 a
+    NaN among subnormals."""
+    rng = np.random.default_rng(39)
+    x = (rng.standard_normal((8, 64)) * 3).astype(np.float32)
+    u = rng.uniform(size=x.shape).astype(np.float32)
+    sign = np.where(rng.uniform(size=x.shape) < 0.5, -1, 1).astype(
+        np.float32)
+    tiny = (np.exp(rng.uniform(np.log(1e-45), np.log(1e-38), x.shape))
+            * sign).astype(np.float32)
+    x[1] = np.float32(2e-36)
+    x[1, 1::2] = np.float32(5e-39)
+    u[1] = np.float32(0.9)
+    sub = rng.uniform(size=x.shape) < 0.25
+    x[2] = np.where(sub[2], tiny[2], x[2])
+    x[3] = np.where(sub[3], tiny[3], x[3] * np.float32(1e-36))
+    x[4] = np.where(sub[4], tiny[4], np.float32(0.5) * sign[4])
+    x[4, 9] = np.float32(1.7e38)
+    x[5] = (rng.uniform(1e-39, 1.1e-38, 64) * sign[5]).astype(np.float32)
+    x[5, 30] = np.float32(1.2e-38)
+    u[5] = np.float32(0.95)
+    x[6] = tiny[6]
+    x[6, 3] = np.nan
+    assert (np.abs(x[1:7]) < TINY).any(axis=1).all()
+    return x, u
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+def test_qsgd_subnormal_elements_match_reference(bits):
+    """The reference's XLA run reads a subnormal element of x as 0, so its
+    level is floor(u) = 0: the port's levels, absmax, values and the
+    rate-adaptive codec bitwise equal the Pallas ops' (interpret mode) and
+    the reference's `BoundAdaptive` on rows that hold such elements
+    beside normal ones (row 1: the port gave level 1 before the flush)."""
+    x, u = _subnormal_element_rows()
+    jx, ju = jnp.asarray(x), jnp.asarray(u)
+    jq, jamax = jops.qsgd_quantize(jx, ju, bits=bits)
+    q, amax = ops.qsgd_quantize(_t(x), _t(u), bits=bits)
+    _same(amax, jamax)
+    _same(ops.rowwise_absmax(_t(x)), jamax)
+    _same(q, jq)
+    got = ops.qsgd_roundtrip(_t(x), _t(u), bits=bits)
+    _same(got, jops.qsgd_roundtrip(jx, ju, bits=bits))
+    _same(ops.qsgd_dequantize(q, amax, bits=bits),
+          jops.qsgd_dequantize(jq, jamax, bits=bits))
+    sub = np.abs(x) < TINY
+    assert bool(torch.all(q[torch.from_numpy(sub)] == 0))
+    if bits == 8:
+        assert bool(torch.all(q[1, 1::2] == 0)) and int(q[1, 0]) == 127
+    key = jax.random.PRNGKey(bits + 10)
+    noise = np.asarray(jax.random.uniform(key, x.shape, jnp.float32))
+    widths = np.full(x.shape[0], bits, np.int64)
+    _same(ch.BoundAdaptive("adaptive", widths).roundtrip(_t(x), _t(noise)),
+          jch.BoundAdaptive("adaptive", widths).roundtrip(jx, key))
+    # rows without subnormal elements: bitwise the unflushed arithmetic
+    plain = [0, 7]
+    xp, up = _t(x[plain]), _t(u[plain])
+    _same(ops.qsgd_roundtrip(xp, up, bits=bits), got.numpy()[plain])
+
+
+def test_topk_subnormal_elements_match_pallas():
+    """Top-k reads a subnormal element as it is, and agrees with the Pallas
+    op (interpret mode) and the reference's top-k codec all the same: its
+    threshold is 0 or normal, so the mask ``|x| >= t`` is the one the
+    reference's flushed read gives.  Rows of 1e-3 with subnormal
+    elements, all-subnormal rows (threshold 0: every element kept as is)
+    and zero rows with one subnormal, at k = 1, D - 1, D and D + 1."""
+    rng = np.random.default_rng(41)
+    d = 128
+    flat = np.full((5, d), 1e-3, np.float32) * np.where(
+        rng.uniform(size=(5, d)) < 0.5, -1, 1).astype(np.float32)
+    flat[0, 5] = np.float32(5e-39)
+    flat[1, ::3] = np.float32(-1e-40)
+    flat[2] = np.float32(5e-39)
+    flat[2, 7] = 0.0
+    flat[3] = 0.0
+    flat[3, 3] = np.float32(-5e-39)
+    flat[4] = (rng.uniform(size=d) * 1e-38).astype(np.float32)
+    jflat = jnp.asarray(flat)
+    for k in (1, d - 1, d, d + 1):
+        jt = jops.topk_threshold(jnp.abs(jflat), k=k)
+        t = ops.topk_threshold(_t(flat).abs(), k=k)
+        _same(t, jt)
+        tf = _t(flat)
+        got = torch.where(tf.abs() >= t, tf, torch.zeros_like(tf))
+        want = jnp.where(jnp.abs(jflat) >= jt, jflat, 0.0)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      np.asarray(want).view(np.int32))
+    codec, jcodec = ch.TopK(frac=1.0), jch.TopK(frac=1.0)
+    np.testing.assert_array_equal(
+        codec.roundtrip(_t(flat), None).numpy().view(np.int32),
+        np.asarray(jcodec.roundtrip(jflat, jax.random.PRNGKey(0))).view(
+            np.int32))
+
+
 def test_cpu_channel_ops_count_no_launches_and_refuse_bad_args():
     before = dict(ops.LAUNCHES)
     x = torch.randn(3, 50)

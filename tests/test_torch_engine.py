@@ -26,6 +26,7 @@ from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.data import scenario_label_shift
 from repro_torch.fl import (FLConfig, SYSTEMS, TorchDraws, run_federated)
+from repro_torch.fl.draws import FaultDraws
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,7 +44,11 @@ class ReplayDraws:
     split(ckey, S); per step randint(k, (B,), 0, 2**30) % max(n_i, 1) %
     n_slots.  The k-means start is randint(PRNGKey(seed + 1), (), 0, m),
     a sampler's order permutation(ksample, m), the codec noise
-    uniform(fold_in(kround, 2), (m, D))."""
+    uniform(fold_in(kround, 2), (m, D)), and a faulted run's draws
+    fold_in(kfault, i) of kfault = fold_in(kround, 3): i = 0 the crash
+    row, 1 the NaN row, 2 the bit-rot row (bernoulli, (m,)), 3 the bit-rot
+    element mask (bernoulli, (m, D)), 4 the flipped bit (randint in
+    [0, 32), int32, (m, D))."""
 
     def __init__(self, seed, rounds, sampler_keys=False):
         key = jax.random.PRNGKey(seed)
@@ -82,6 +87,24 @@ class ReplayDraws:
         return torch.from_numpy(np.array(jax.random.uniform(
             jax.random.fold_in(self.krounds[rnd], 2), tuple(shape),
             jnp.float32)))
+
+    def fault_draws(self, rnd, m, d, cfg):
+        kfault = jax.random.fold_in(self.krounds[rnd], 3)
+
+        def bern(i, p, shape):
+            return torch.from_numpy(np.array(jax.random.bernoulli(
+                jax.random.fold_in(kfault, i), p, shape)))
+
+        crash = bern(0, cfg.crash, (m,)) if cfg.crash > 0 else None
+        nan = bern(1, cfg.nan, (m,)) if cfg.nan > 0 else None
+        rot = elem = bit = None
+        if cfg.bitrot > 0:
+            rot = bern(2, cfg.bitrot, (m,))
+            elem = bern(3, cfg.bitrot_density, (m, d))
+            bit = torch.from_numpy(np.array(jax.random.randint(
+                jax.random.fold_in(kfault, 4), (m, d), 0, 32,
+                dtype=jnp.int32)))
+        return FaultDraws(crash, nan, rot, elem, bit)
 
 
 @pytest.fixture(scope="module")
@@ -173,22 +196,22 @@ def test_entry_points_refuse_what_this_slice_lacks():
             run_federated("fedavg", fed)
         with pytest.raises(RuntimeError, match="cuda"):
             scenario_label_shift(0, n=100, m=2)
-    for kw in (dict(faults="crash:0.1"), dict(async_cfg=object()),
-               dict(min_quorum=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(async_cfg=object()), "item 9"),
+                     (dict(paging=object()), "item 12")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             run_federated("fedavg", fed, device="cpu", **kw)
     fl = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=1)
     for spec, streams in (("local", 0), ("oracle", 1)):
         h = run_federated(spec, fed, fl=fl, device="cpu")
         assert h.comm == [(streams, 0)] and np.isfinite(h.mean_acc).all()
     with pytest.raises(ValueError, match="unknown strategy"):
-        run_federated("cfl", fed, device="cpu")
+        run_federated("nope", fed, device="cpu")
 
 
 def test_port_imports_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.']\n"
             "import repro_torch.fl, repro_torch.fl.channel, "
-            "repro_torch.convert, chip_smoke\n"
+            "repro_torch.fl.faults, repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
             "k.startswith('repro.')]\n"

@@ -258,14 +258,16 @@ def _bits(t):
 
 
 def _qsgd_rows(m, d, gen):
-    """x, u (m, D) on the card: row 0 random; rows 1..9, as m allows, all
+    """x, u (m, D) on the card: row 0 random; rows 1..10, as m allows, all
     zero, a NaN coordinate, +inf, -inf, denormal, all NaN, ±1e-37 (scale
-    subnormal at bits 8), ±0.5 with one 1.7e38 (inv subnormal at bits 2)
-    and all 1e-40 (absmax subnormal); the rest random."""
+    subnormal at bits 8), ±0.5 with one 1.7e38 (inv subnormal at bits 2),
+    all 1e-40 (absmax subnormal) and 2e-36 with subnormal odd elements
+    (normal scalars); the rest random."""
     x = torch.randn((m, d), generator=gen, device="cuda") * 3
     u = torch.rand((m, d), generator=gen, device="cuda")
     cases = ["zero", "nan", "+inf", "-inf", "denormal", "all_nan",
-             "scale_subnormal", "inv_subnormal", "all_subnormal"]
+             "scale_subnormal", "inv_subnormal", "all_subnormal",
+             "subnormal_elements"]
     for i, case in enumerate(cases[:m - 1], start=1):
         if case == "zero":
             x[i] = 0.0
@@ -284,8 +286,14 @@ def _qsgd_rows(m, d, gen):
         elif case == "inv_subnormal":
             x[i] = torch.sign(x[i]) * 0.5
             x[i, d // 3] = 1.7e38
-        else:
+        elif case == "all_subnormal":
             x[i] = 1e-40
+        else:
+            # 2e-36 (a normal scale at bits 8) with its odd elements
+            # 5e-39 at u = 0.9: they get level 0, read as 0
+            x[i] = 2e-36
+            x[i, 1::2] = 5e-39
+            u[i] = 0.9
     return x, u
 
 
@@ -339,6 +347,56 @@ def test_qsgd_kernels_match_plain_bitwise(m, d, path, bits):
             assert bool(torch.all(out[7] == 0))
         if bits == 2:
             assert bool(torch.all(out[8] == 0))
+    if m > 10:
+        # subnormal elements of a normal row: level 0
+        assert bool(torch.all(q[10, 1::2] == 0)) and float(amax[10, 0]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,path", [(47571, "registers"), (70000, "global")])
+@pytest.mark.parametrize("bits", [2, 3, 8])
+def test_qsgd_kernels_subnormal_elements_bitwise(d, path, bits):
+    """Rows of normal scale holding subnormal elements, on both paths of
+    the row pass and on the stream: every subnormal element gets level 0
+    (read as 0, as the reference's run reads it), bitwise the plain
+    version.  Row 1 is 2e-36 with its odd elements 5e-39 at u = 0.9 (level
+    1 if they were read as they are); row 2 random with every third
+    element ±1e-39; row 3 ±[1e-39, 1.1e-38) with one 1.2e-38 at u = 0.95
+    (a normal scale at bits 2); row 4 random with subnormals of every
+    magnitude."""
+    _require_cuda()
+    from repro_torch.kernels.quantize import (qsgd_dequantize_cuda,
+                                              qsgd_encode_cuda,
+                                              qsgd_quantize_cuda,
+                                              qsgd_roundtrip_cuda,
+                                              row_path, rowwise_absmax_cuda)
+    assert row_path(d) == path
+    gen = torch.Generator(device="cuda").manual_seed(d + bits)
+    x = torch.randn((6, d), generator=gen, device="cuda") * 3
+    u = torch.rand((6, d), generator=gen, device="cuda")
+    sign = torch.sign(x)
+    x[1] = 2e-36
+    x[1, 1::2] = 5e-39
+    u[1] = 0.9
+    x[2, ::3] = sign[2, ::3] * 1e-39
+    x[3] = sign[3] * (1e-39 + 1e-38 * torch.rand(d, generator=gen,
+                                                 device="cuda"))
+    x[3, 17] = 1.2e-38
+    u[3] = 0.95
+    x[4, 1::2] = sign[4, 1::2] * torch.exp(
+        torch.rand(d // 2, generator=gen, device="cuda") * -10 - 89)
+    sub = x.abs() < ref.FLT_MIN
+    assert bool(sub[1:5].any(dim=1).all()) and not bool(sub[[0, 5]].any())
+    want_q, want_amax = ref.qsgd_quantize_ref(x, u, bits)
+    assert bool(torch.all(want_q[sub] == 0))
+    _same(rowwise_absmax_cuda(x), want_amax)
+    q, amax = qsgd_encode_cuda(x, u, bits)
+    _same(q, want_q)
+    _same(amax, want_amax)
+    _same(qsgd_quantize_cuda(x, u, want_amax, bits), want_q)
+    _same(qsgd_dequantize_cuda(q, amax, bits),
+          ref.qsgd_dequantize_ref(want_q, want_amax, bits))
+    _same(qsgd_roundtrip_cuda(x, u, bits), ref.qsgd_roundtrip_ref(x, u, bits))
 
 
 @pytest.mark.gpu
@@ -991,7 +1049,8 @@ def _ss_chunk_inputs(length):
                      sampler=sampler, m=fed.m, noise_d=d, device=x.device)
     eval_fn = lambda st, ed: placement.eval_traced(lenet.accuracy, st, *ed)
     inputs = ((stacked, opt_state, ef), (x, y), strategy.traced_state(state),
-              (cd.slots, cd.mask, cd.noise), (fed.x_val, fed.y_val))
+              (cd.slots, cd.mask, cd.noise, cd.faults),
+              (fed.x_val, fed.y_val))
     return round_fn, eval_fn, inputs
 
 
@@ -1009,7 +1068,8 @@ def test_superstep_replayed_chunk_equals_eager_chunk():
     n0 = dict(ops.LAUNCHES)
     want = carry
     for i in range(5):
-        want = round_fn(want, data, consts, draw_row(draws, i))
+        want, outs = round_fn(want, data, consts, draw_row(draws, i))
+        assert outs == (None, None)          # no faults, no defense
     want_accs = eval_fn(want[0], eval_data)
     torch.cuda.synchronize()
     eager = {k: n - n0[k] for k, n in ops.LAUNCHES.items() if n != n0[k]}
@@ -1020,8 +1080,9 @@ def test_superstep_replayed_chunk_equals_eager_chunk():
     assert chunk.launches == eager
     for _ in range(2):
         n0 = dict(ops.LAUNCHES)
-        got, accs = chunk(*inputs)
+        got, accs, outs = chunk(*inputs)
         torch.cuda.synchronize()
+        assert outs == (None, None)
         assert {k: n - n0[k] for k, n in ops.LAUNCHES.items()
                 if n != n0[k]} == eager
         assert torch.equal(accs, want_accs)
@@ -1041,7 +1102,7 @@ def test_superstep_capture_refuses_a_host_sync():
 
     def syncing_round(carry, data, consts, draw):
         out = round_fn(carry, data, consts, draw)
-        if float(out[0]["out_b"].sum()) > 1e30:      # a host sync
+        if float(out[0][0]["out_b"].sum()) > 1e30:   # a host sync
             raise AssertionError("unreachable")
         return out
 
@@ -1051,4 +1112,95 @@ def test_superstep_capture_refuses_a_host_sync():
                       StaticInputs(carry, data, consts, eval_data), inputs)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == n0
+    assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0
+
+
+# ---------------------------------------------------------------------------
+# cfl, fedfomo and the fault/defense layer on the card
+
+FAULT_CASES = {
+    "fedfomo": ("fedfomo", {}),
+    "ucfl_k4_sampler_qsgd8_bitrot_krum": ("ucfl_k4", dict(
+        sampled=True, codec="qsgd:8", faults="bitrot:0.3,seed:2",
+        robust_agg="krum:0.25")),
+    "fedavg_crash_quorum": ("fedavg", dict(faults="crash:0.5",
+                                           min_quorum=12)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FAULT_CASES))
+def test_faults_fused_equals_eventful_on_card(case):
+    """Full-width LeNet, m = 20, chunks of 1, 5 and 1 rounds: the fused
+    run's history, clock, comm bits, fault ledger and final params and
+    residuals bitwise the eventful run's on the card, twice (the second
+    replays the cached graphs).  Launches: the fused round mixes every
+    round (the quorum gate is a ``where``), the eventful loop only on
+    rounds that met the quorum; every other count equal."""
+    _require_cuda()
+    from repro_torch.fl import (Channel, FLConfig, SYSTEMS, UniformFraction,
+                                run_federated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec, opts = FAULT_CASES[case]
+    opts = dict(opts)
+    sampled, codec = opts.pop("sampled", False), opts.pop("codec", None)
+    fed = _ss_fed()
+    kw = dict(fl=FLConfig(**SS_FL), system=SYSTEMS["wireless_slow"],
+              sampler=UniformFraction(0.5) if sampled else None,
+              channel=None if codec is None else Channel(codec=codec,
+                                                         link="tiered:4"),
+              keep_state=True, seed=3, device="cuda", **opts)
+    runs, counts = [], []
+    for superstep in (False, None, None):
+        n0 = dict(ops.LAUNCHES)
+        runs.append(run_federated(spec, fed, superstep=superstep, **kw))
+        torch.cuda.synchronize()
+        counts.append({k: n - n0[k] for k, n in ops.LAUNCHES.items()})
+    ev = runs[0]
+    skipped = ev.extra.get("faults", {}).get("skipped_rounds", 0)
+    if "min_quorum" in opts:
+        assert 0 < skipped < SS_FL["rounds"]
+    assert counts[0]["mixing_aggregate"] == SS_FL["rounds"] - skipped
+    for h, c in zip(runs[1:], counts[1:]):
+        assert c["mixing_aggregate"] == SS_FL["rounds"]
+        assert {k: v for k, v in c.items() if k != "mixing_aggregate"} == \
+            {k: v for k, v in counts[0].items() if k != "mixing_aggregate"}
+        assert (h.rounds, h.mean_acc, h.worst_acc, h.time, h.comm,
+                h.comm_bits) == (ev.rounds, ev.mean_acc, ev.worst_acc,
+                                 ev.time, ev.comm, ev.comm_bits)
+        assert h.extra.get("faults") == ev.extra.get("faults")
+        for k, v in ev.final_params.items():
+            assert torch.equal(_bits(h.final_params[k]), _bits(v)), k
+        if codec is not None:
+            for k, v in ev.final_residual.items():
+                assert torch.equal(_bits(h.final_residual[k]), _bits(v)), k
+
+
+@pytest.mark.gpu
+def test_superstep_capture_refuses_a_host_sync_in_the_defense():
+    """A robust aggregator that reads a value back to the host cannot be
+    captured: the fused run raises (nothing falls back to an eager run),
+    the eventful run of the same configuration runs, and the card works
+    on afterwards."""
+    _require_cuda()
+    from repro_torch.fl import FLConfig, run_federated
+    from repro_torch.fl.faults.defense import Clip
+
+    class SyncingClip(Clip):
+        def transform(self, delta, keep):
+            if float(delta.abs().max()) < 0:         # a host sync
+                raise AssertionError("unreachable")
+            return super().transform(delta, keep)
+
+    fed = _ss_fed()
+    kw = dict(fl=FLConfig(**SS_FL), faults="crash:0.2", seed=3,
+              device="cuda")
+    with pytest.raises(RuntimeError):
+        run_federated("fedavg", fed, robust_agg=SyncingClip(1.0),
+                      superstep=True, **kw)
+    torch.cuda.synchronize()
+    h = run_federated("fedavg", fed, robust_agg=SyncingClip(1.0),
+                      superstep=False, **kw)
+    assert len(h.mean_acc) == len(h.rounds) > 0
     assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0

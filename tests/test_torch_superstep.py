@@ -219,11 +219,14 @@ class _BothAvg(FedAvg):
 
 
 def test_superstep_support_matrix():
-    assert {s.split("_k")[0] for s in SPECS} == set(available_strategies())
-    for spec in SPECS:
+    assert ({s.split("_k")[0] for s in SPECS} | {"cfl", "fedfomo"}
+            == set(available_strategies()))
+    for spec in SPECS + ["fedfomo"]:
         for sampler in (None, UniformFraction(0.5), FullParticipation()):
             assert superstep_support(get_strategy(spec), sampler) == (True,
                                                                       "")
+    ok, why = superstep_support(get_strategy("cfl"), None)
+    assert not ok and "'cfl' is not traceable" in why
     ok, why = superstep_support(_NotTraceable(), None)
     assert not ok and "not traceable" in why
     ok, why = superstep_support(get_strategy("fedavg"), _Eventful())
@@ -251,9 +254,11 @@ def test_superstep_true_raises_for_what_cannot_fuse(fed):
         run_federated("fedavg", fed, sampler=_Eventful(), **kw)
     with pytest.raises(ValueError, match="cannot fuse.*not traceable"):
         run_federated(strategy=_NotTraceable(), fed=fed, **kw)
+    with pytest.raises(ValueError, match="cannot fuse.*'cfl'"):
+        run_federated("cfl", fed, **kw)
     # the options of later slices still name their ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_federated("fedavg", fed, faults="crash:0.1", **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run_federated("fedavg", fed, async_cfg=object(), **kw)
     # an eventful sampler under the default runs the eventful loop
     h = run_federated("fedavg", fed, sampler=_Eventful(), fl=FL,
                       model_init=_init, device="cpu")

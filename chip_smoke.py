@@ -66,7 +66,24 @@ Phases (any failure raises and the script exits non-zero):
                 with and without the setup), and one torch.profiler
                 trace of a 5-round chunk under each engine (wall, device
                 busy, idle share; the local update, mix and eval apart);
-  9. lm       — dense-decoder serving at gemma2-27b's full width (depth
+  9. async    — phase 5's config through the buffered-async runtime
+                (`run_federated(async_cfg=...)`, 20 events): the cohort
+                update against the masked full update (bitwise at
+                k = 5 and 10); the lockstep anchor (ucfl_k4, `wired`,
+                K = m) bitwise the sync run;
+                ucfl_k4 K=5 (max_staleness 3, exp 0.8), fedavg K=5 (poly
+                α 0.5), ucfl K=10 with qsgd:8 over tiered:4, fedavg +
+                crash:0.3 + median + min_quorum=3 (max_retries 2), each
+                with its stated launches (a mix an event that met its
+                quorum, the Gram and Δ once a ucfl run, a QSGD row pass
+                an event of the qsgd run), s/event of a first and a
+                second run, the virtual clock against the sync run's,
+                and one torch.profiler trace of a K=5 run (device busy,
+                idle share);
+ 10. checkpoint — the K=5 ucfl_k4 run's final params and optimizer state
+                (and a bf16 copy of the params) saved and restored on
+                the card bitwise; one flipped byte must raise;
+ 11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
                 prompt (past the 4,096 window, so the local ring wraps
@@ -91,7 +108,8 @@ Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at two smoke configs.
+the card against the CPU at two smoke configs, and a buffered-async
+run on the card against the CPU, without a channel and with qsgd:8.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -111,12 +129,15 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import (CheckpointCorruptError,  # noqa: E402
+                                    restore_train_state, save_train_state)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import StreamPlan, mix_pytree, stream_aggregate  # noqa: E402,E501
 from repro_torch.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
-from repro_torch.fl import (Channel, FLConfig, SYSTEMS,  # noqa: E402
-                            TorchDraws, UniformFraction, run_federated)
+from repro_torch.fl import (AsyncConfig, Channel, FLConfig,  # noqa: E402
+                            SYSTEMS, TorchDraws, UniformFraction,
+                            run_federated)
 from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.pairwise_sqdist import card_plan  # noqa: E402
@@ -1101,6 +1122,61 @@ def small_agreement() -> None:
           f"{perr:.2e}, max |Δacc| {acc_err:.4f})", flush=True)
 
 
+def async_agreement() -> None:
+    """ucfl_k4 through the buffered-async runtime (K = 3 of m = 6,
+    max_staleness 2) on the card and on the CPU, from the same init and
+    the same draws, without a channel and with qsgd:8 over tiered:4:
+    clock, comm, comm bits and ``extra["async"]`` equal, accuracies
+    within two argmax flips.  Params: without the channel within 1e-3
+    (as `small_agreement`); with qsgd:8, a last-bit difference in the
+    local update moves a stochastic-rounding floor by one level
+    (absmax/127) now and then, so at most 0.1 % of the elements may lie
+    outside that tolerance, none by more than 1e-3 (two such levels;
+    `tests/test_torch_gpu.py` holds the same)."""
+    fed_cpu = scenario_label_shift(3, n=600, m=6, device="cpu")
+    fed_gpu = FederatedData(*(t.to("cuda") for t in fed_cpu))
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    fl = FLConfig(rounds=4, local_steps=3, batch_size=16, eval_every=1)
+    for codec in (None, "qsgd:8"):
+        runs = {}
+        for dev, fed in (("cpu", fed_cpu), ("cuda", fed_gpu)):
+            runs[dev] = run_federated(
+                "ucfl_k4", fed, fl=fl, system=SYSTEMS["wireless_slow"],
+                async_cfg=AsyncConfig(buffer_k=3, max_staleness=2),
+                channel=(None if codec is None
+                         else Channel(codec=codec, link="tiered:4")),
+                model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+                draws=TorchDraws(11, "cpu"), keep_state=True, device=dev)
+        a, b = runs["cpu"], runs["cuda"]
+        if ((a.time, a.comm, a.comm_bits, a.extra["async"])
+                != (b.time, b.comm, b.comm_bits, b.extra["async"])):
+            raise AssertionError(f"async {codec}: cuda and cpu disagree on "
+                                 "clock, comm, comm_bits or extra['async']")
+        flip = 1.0 / (fed_cpu.m * fed_cpu.x_val.shape[1])
+        acc_err = max(abs(x - y) for x, y in zip(a.mean_acc + a.worst_acc,
+                                                 b.mean_acc + b.worst_acc))
+        if acc_err > 2 * flip + 1e-6:
+            raise AssertionError(f"async {codec}: accuracies differ by "
+                                 f"{acc_err}")
+        perr, outside, total = 0.0, 0, 0
+        for k, v in a.final_params.items():
+            d = (b.final_params[k].cpu() - v).abs()
+            perr = max(perr, float(d.max()))
+            outside += int((d > 1e-4 + 1e-3 * v.abs()).sum())
+            total += v.numel()
+        allowed = 0 if codec is None else total // 1000
+        if outside > allowed or (codec is not None and perr > 1e-3):
+            raise AssertionError(f"async {codec}: final params differ cuda "
+                                 f"vs cpu: {outside} of {total} elements "
+                                 f"outside rtol 1e-3 / atol 1e-4, max |Δ| "
+                                 f"{perr:.3e}")
+        print(f"  async ucfl_k4 K=3 n=600 m=6 {codec or 'no channel'}: cuda "
+              f"agrees with cpu (clock {b.time[-1]:.4f}, max |Δparam| "
+              f"{perr:.2e}, {outside} of {total} elements outside rtol "
+              f"1e-3 / atol 1e-4, max |Δacc| {acc_err:.4f})", flush=True)
+
+
 def uplink_agreement() -> None:
     """One uplink crossing (narrow LeNet, m=6, 3 participants, a non-zero
     residual) through uplink_roundtrip on the card and on the CPU: new
@@ -1777,6 +1853,11 @@ def chunk_trace(spec, fed, fl, system, superstep) -> tuple:
         parts[part] += us / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
         spans.append((e.time_range.start, e.time_range.end))
+    return wall * 1e3, busy_us(spans) / 1e3, parts, len(kernels), by_name
+
+
+def busy_us(spans) -> float:
+    """µs of the union of the (start, end) spans, sorted by start."""
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for st, en in spans[1:]:
         if st > cur_e:
@@ -1784,8 +1865,7 @@ def chunk_trace(spec, fed, fl, system, superstep) -> tuple:
             cur_s, cur_e = st, en
         else:
             cur_e = max(cur_e, en)
-    busy += cur_e - cur_s
-    return wall * 1e3, busy / 1e3, parts, len(kernels), by_name
+    return busy + cur_e - cur_s
 
 
 def graph_pool_mib():
@@ -1871,6 +1951,246 @@ def superstep_path(fed, fl, card: str) -> None:
                       flush=True)
 
 
+# [async]: (label, spec, AsyncConfig, run_federated options); every run
+# under wireless_slow, 20 events at [main]'s config
+ASYNC_RUNS = (
+    ("ucfl_k4 K=5 exp", "ucfl_k4",
+     AsyncConfig(buffer_k=5, max_staleness=3, staleness_discount=0.8), {}),
+    ("fedavg K=5 poly", "fedavg",
+     AsyncConfig(buffer_k=5, staleness_schedule="poly", staleness_alpha=0.5),
+     {}),
+    ("ucfl K=10 qsgd:8", "ucfl", AsyncConfig(buffer_k=10),
+     dict(channel=Channel(codec="qsgd:8", link="tiered:4"))),
+    ("fedavg crash+median", "fedavg", AsyncConfig(buffer_k=5, max_retries=2),
+     dict(faults="crash:0.3", robust_agg="median", min_quorum=3)),
+)
+
+
+def async_trace(spec, fed, fl, cfg, **kw):
+    """One async run under torch.profiler (device activity only): (wall
+    ms, device-busy ms, kernels), or None when the trace holds no device
+    events."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated(spec, fed, fl=fl, seed=0, device="cuda",
+                      async_cfg=cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    return wall * 1e3, busy_us(spans) / 1e3, len(spans)
+
+
+def cohort_check(fed, fl, card: str) -> None:
+    """`HostVmap.update_cohort` (gather k of the 20 rows, update, scatter)
+    against the run-every-row-and-mask default at [main]'s shapes: bitwise
+    for the cohorts [async] runs (k = 5 and 10), and the max |Δ| at k = 1,
+    where cuBLAS may pick another kernel for the convs' batched GEMM."""
+    from repro_torch.fl import HostVmap, Placement
+    from repro_torch.fl.simulator import default_model_init
+    p = HostVmap()
+    opt, update = p.build_update(lenet.loss_fn, fl)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stacked = p.stack(default_model_init(fed)(gen), fed.m)
+    opt_state = p.init_opt(opt, stacked)
+    batch = TorchDraws(4, "cuda").batch_indices(
+        0, fed.n, fed.x.shape[1], fl.batch_size, fl.local_steps)
+    out = []
+    for k in (5, 10, 1):
+        idx = torch.arange(k, device="cuda") * (fed.m // k)
+        keep = torch.ones(k, dtype=torch.bool, device="cuda")
+        args = (update, idx, keep, stacked, opt_state, fed.x, fed.y, fed.n,
+                batch)
+        fast = p.update_cohort(*args)[0]
+        slow = Placement.update_cohort(p, *args)[0]
+        err = max(float((fast[n] - v).abs().max()) for n, v in slow.items())
+        bitwise = all(torch.equal(fast[n].view(torch.int32),
+                                  v.view(torch.int32))
+                      for n, v in slow.items())
+        if k > 1 and not bitwise:
+            raise AssertionError(f"[async] cohort update k={k} is not "
+                                 f"bitwise the masked full update ({err})")
+        out.append(f"k={k} " + ("bitwise" if bitwise else
+                                f"max |Δ| {err:.2e}"))
+    print(f"  cohort update vs masked full update ({fl.local_steps} local "
+          f"steps, batch {fl.batch_size}): {', '.join(out)} ({card})",
+          flush=True)
+
+
+def async_path(fed, fl, card: str, sync_clock: dict):
+    """[async]: the lockstep anchor, then `ASYNC_RUNS`, each run twice
+    (the second run's launches are not counted), with the launches each
+    run must make stated first; then one profiler trace.  ``sync_clock``
+    is {spec: final clock} of [main]'s sync runs.  Returns the first K=5
+    ucfl_k4 History (``keep_state``) for [checkpoint]."""
+    system, events = SYSTEMS["wireless_slow"], MAIN["rounds"]
+    m = MAIN["m"]
+    cohort_check(fed, fl, card)
+    # the anchor: inv_mu = 0, K = m, no staleness bound is the sync
+    # engine's run, bit for bit (the sync run replays [main]'s graphs)
+    kw = dict(fl=fl, system=SYSTEMS["wired"], seed=0, keep_state=True,
+              device="cuda")
+    t0 = time.perf_counter()
+    sync = run_federated("ucfl_k4", fed, **kw)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    anchor = run_federated("ucfl_k4", fed, async_cfg=AsyncConfig(buffer_k=m),
+                           **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for field in ("rounds", "mean_acc", "worst_acc", "comm"):
+        if getattr(anchor, field) != getattr(sync, field):
+            raise AssertionError(f"[async] anchor {field} differs from the "
+                                 f"sync run: {getattr(anchor, field)} != "
+                                 f"{getattr(sync, field)}")
+    if not all(math.isclose(a, b, rel_tol=1e-12)
+               for a, b in zip(anchor.time, sync.time)):
+        raise AssertionError(f"[async] anchor clock {anchor.time} != "
+                             f"{sync.time}")
+    for k, v in sync.final_params.items():
+        if not torch.equal(anchor.final_params[k].view(torch.int32),
+                           v.view(torch.int32)):
+            raise AssertionError(f"[async] anchor params {k} not bitwise "
+                                 "the sync run's")
+    want = {k: 0 for k in launched}
+    want.update(mixing_aggregate=events, gram_matrix=1)
+    if launched != want:
+        raise AssertionError(f"[async] anchor launches {launched}, want "
+                             f"{want}")
+    print(f"  anchor ucfl_k4 K={m} wired: bitwise the sync run (history, "
+          f"params), clock {anchor.time[-1]:.4f}; launches "
+          f"{ {k: v for k, v in launched.items() if v} }  wall {wall:.2f} s "
+          f"({wall / events:.4f} s/event incl. setup; the sync run "
+          f"{sync_wall:.2f} s; {card})", flush=True)
+    keep = None
+    for label, spec, cfg, opts in ASYNC_RUNS:
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        h = run_federated(spec, fed, fl=fl, system=system, seed=0,
+                          keep_state=True, device="cuda", async_cfg=cfg,
+                          **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        counts = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated(spec, fed, fl=fl, system=system, seed=0,
+                      device="cuda", async_cfg=cfg, **opts)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        ops.LAUNCHES.update(counts)       # the second run does not count
+        fx = h.extra.get("faults", {})
+        skipped = fx.get("skipped_rounds", 0)
+        want = {k: 0 for k in launched}
+        want.update(mixing_aggregate=events - skipped,
+                    gram_matrix=1 if spec.startswith("ucfl") else 0)
+        if "channel" in opts:
+            want["qsgd_roundtrip"] = events
+        if launched != want:
+            raise AssertionError(f"[async] {label}: launches {launched}, "
+                                 f"want {want}")
+        if len(h.comm) != events or h.extra["async"]["events"] != events:
+            raise AssertionError(f"[async] {label}: {len(h.comm)} events")
+        if any(c.n_streams > cfg.buffer_k for c in h.comm):
+            raise AssertionError(f"[async] {label}: more streams than the "
+                                 f"cohort: {h.comm}")
+        if h.time != sorted(h.time) or not h.time[-1] > 0:
+            raise AssertionError(f"[async] {label}: clock {h.time}")
+        if not all(math.isfinite(a) for a in h.mean_acc + h.worst_acc):
+            raise AssertionError(f"[async] {label}: non-finite accuracy "
+                                 f"{h.mean_acc}")
+        if "faults" in opts and fx.get("rounds") != events:
+            raise AssertionError(f"[async] {label}: ledger {fx}")
+        if keep is None and spec == "ucfl_k4":
+            keep = h
+        sync = sync_clock.get(spec)
+        vs = "" if sync is None else f" (sync run {sync:.4f})"
+        ledger = {k: fx[k] for k in ("retries", "dead_clients",
+                                     "skipped_rounds") if k in fx}
+        print(f"  {label:20s} mean_acc {[round(a, 4) for a in h.mean_acc]}"
+              f"  clock {h.time[-1]:.4f}{vs}  streams "
+              f"{sorted({c.n_streams for c in h.comm})}"
+              + (f"  {ledger}" if ledger else "")
+              + f"  launches { {k: v for k, v in launched.items() if v} }"
+              f"  wall {wall:.2f} s ({wall / events:.4f} s/event incl. "
+              f"setup), again {again:.2f} s ({again / events:.4f} s/event; "
+              f"{card})", flush=True)
+    label, spec, cfg, opts = ASYNC_RUNS[0]
+    counts = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    got = async_trace(spec, fed, fl, cfg, system=system, **opts)
+    traced = time.perf_counter() - t0
+    ops.LAUNCHES.update(counts)
+    if got is None:
+        print(f"  trace of {label}: no device events; busy share not "
+              f"measured ({card})", flush=True)
+    else:
+        wall, busy, n_kernels = got
+        print(f"  trace of {label} ({events} events, setup included): wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms, idle "
+              f"{1 - busy / wall:.1%}; {n_kernels} kernels; the trace took "
+              f"{traced:.1f} s ({card})", flush=True)
+    return keep
+
+
+def _tree_equal(a, b) -> bool:
+    """Nested dicts of tensors (None kept) equal bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.device == b.device
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def checkpoint_path(h, card: str) -> None:
+    """[checkpoint]: the run's final params and optimizer state, and a
+    bf16 copy of the params, saved from the card and restored onto it
+    bitwise; the same file with one byte flipped must raise."""
+    ckpt = Path(__file__).resolve().parent / "build" / "checkpoint"
+    path = str(ckpt / "async.msgpack")
+    params, opt = h.final_params, h.final_opt_state
+    bf16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    t0 = time.perf_counter()
+    save_train_state(path, MAIN["rounds"], params, opt,
+                     extra={"bf16": bf16, "spec": "ucfl_k4"})
+    saved = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, p, o, extra = restore_train_state(path, device="cuda")
+    torch.cuda.synchronize()
+    restored = time.perf_counter() - t0
+    if (step != MAIN["rounds"] or extra["spec"] != "ucfl_k4"
+            or not _tree_equal(p, params) or not _tree_equal(o, opt)
+            or not _tree_equal(extra["bf16"], bf16)):
+        raise AssertionError("[checkpoint] restored state differs")
+    blob = bytearray(Path(path).read_bytes())
+    blob[len(blob) // 2] ^= 0x04
+    bad = ckpt / "flipped.msgpack"
+    bad.write_bytes(bytes(blob))
+    try:
+        restore_train_state(str(bad), device="cuda")
+    except CheckpointCorruptError as e:
+        why = str(e).split(": ", 1)[1][:40]
+    else:
+        raise AssertionError("[checkpoint] a flipped byte restored")
+    print(f"  params + opt state + bf16 params ({len(blob) / 2**20:.2f} "
+          f"MiB): save {saved:.3f} s, restore {restored:.3f} s, bitwise on "
+          f"the card; one flipped byte raises ({why}...) ({card})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1911,6 +2231,7 @@ def main() -> int:
     torch.set_num_threads(1)
     try:
         small_agreement()
+        async_agreement()
         uplink_agreement()
         channel_agreement()
         lm_agreement()
@@ -1952,6 +2273,19 @@ def main() -> int:
           f"m={MAIN['m']}: fused (CUDA graphs) against eventful ({card})",
           flush=True)
     superstep_path(fed, fl, card)
+
+    print(f"[async] run_federated(async_cfg=...) n={MAIN['n']} m={MAIN['m']}, "
+          f"{MAIN['rounds']} events ({card})", flush=True)
+    ops.reset_launches()          # and from here on the async path's
+    t0 = time.perf_counter()
+    keep = async_path(fed, fl, card,
+                      {spec: h.time[-1] for spec, h in hists.items()})
+    print(f"  [async] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
+    print(f"[checkpoint] save and restore on the card ({card})", flush=True)
+    checkpoint_path(keep, card)
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
@@ -1966,7 +2300,7 @@ def main() -> int:
                   "QSGD stream, is on no ported path)", flush=True)
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
-                                 "channel or lm path")
+                                 "channel, faults, async or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

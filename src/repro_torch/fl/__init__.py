@@ -6,6 +6,7 @@ from repro_torch.fl.faults import (FaultConfig, FaultPlan,
                                    get_robust_aggregator, parse_fault_spec,
                                    resolve_fault_plan)
 from repro_torch.fl.placement import HostVmap, Placement
+from repro_torch.fl.runtime import AsyncConfig, VirtualClock, run_async
 from repro_torch.fl.simulator import (FLConfig, History, NonFiniteEvalWarning,
                                       run_federated, superstep_support)
 from repro_torch.fl.stats import full_client_gradients, sigma2_estimates
@@ -16,7 +17,7 @@ from repro_torch.fl.strategies import (ClusterExtras, CommCost,
                                        available_strategies, get_strategy,
                                        register)
 
-__all__ = ["Channel", "ClusterExtras", "CommCost", "FLConfig", "FaultConfig",
+__all__ = ["AsyncConfig", "Channel", "ClusterExtras", "CommCost", "FLConfig", "FaultConfig",
            "FaultPlan", "FullParticipation", "History", "HostVmap",
            "LinkProfile", "MixingExtras", "NonFiniteEvalWarning",
            "Placement", "RoundContext", "SYSTEMS", "Strategy",
@@ -24,4 +25,5 @@ __all__ = ["Channel", "ClusterExtras", "CommCost", "FLConfig", "FaultConfig",
            "available_strategies", "full_client_gradients", "get_codec",
            "get_robust_aggregator", "get_strategy", "harmonic",
            "parse_fault_spec", "register", "resolve_fault_plan",
-           "run_federated", "sigma2_estimates", "superstep_support"]
+           "run_async", "run_federated", "sigma2_estimates",
+           "superstep_support", "VirtualClock"]

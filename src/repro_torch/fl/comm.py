@@ -1,8 +1,8 @@
 """Communication/straggler time model (paper §IV-C).
 
-Copied from `repro/fl/comm.py` (`harmonic`, `SystemModel`, `SYSTEMS`); it
-is pure Python, and the port keeps its own copy rather than importing the
-reference package.
+Copied from `repro/fl/comm.py` (`harmonic`, `SystemModel` with the async
+runtime's compute draws, `SYSTEMS`); it is pure Python, and the port
+keeps its own copy rather than importing the reference package.
 
 Time unit = T_dl (one model broadcast on the downlink).
   * uplink per round: ρ = T_ul/T_dl ∈ [1, 4]   (clients upload in parallel)
@@ -45,6 +45,22 @@ class SystemModel:
         """Analytic synchronous round: E[max of m stragglers] + UL + DL,
         ``m`` the participant count."""
         return self.compute_time(m) + self.rho + n_streams + n_unicasts
+
+    def sample_compute_time(self, rng) -> float:
+        """One client's compute draw for the async runtime: the shifted
+        exponential ``t_min + Exp(1/μ)`` whose order statistics give the
+        analytic ``E[max] = t_min + H_m/μ``.  ``inv_mu=0`` is the
+        deterministic ``t_min`` (lockstep arrivals).  Exactly one draw
+        from the numpy Generator ``rng`` when ``inv_mu > 0``, none
+        otherwise: the virtual clock's draw sequence depends on that."""
+        extra = float(rng.exponential(self.inv_mu)) if self.inv_mu else 0.0
+        return self.t_min + extra
+
+    def sample_client_time(self, rng) -> float:
+        """Compute draw plus the homogeneous ρ uplink: the whole
+        download-to-upload round trip under this system's own channel
+        (a `LinkProfile` replaces the ρ term per client)."""
+        return self.sample_compute_time(rng) + self.rho
 
 
 # the three systems of Fig. 3

@@ -1,10 +1,11 @@
 """Placement protocol: where clients live and how their models move.
 
 Counterpart of `repro/fl/placement/base.py`, with the hooks the round
-engine uses: build the local-update step, stack the common
+engines use: build the local-update step, stack the common
 initialization into the client-stacked dict, place the data, roll back
-non-participants, pass the uplink through the channel codec, apply a
-mixing matrix or a `StreamPlan`, and evaluate the personalized models.
+non-participants, run an async event's cohort update, pass the uplink
+through the channel codec, apply a mixing matrix or a `StreamPlan`, and
+evaluate the personalized models.
 Strategies route every mix through `RoundContext.mix` / `mix_plan`
 (eventful) or `TracedMix` (fused), which dispatch here.
 
@@ -82,6 +83,29 @@ class Placement(abc.ABC):
     def select(self, mask: torch.Tensor, new: Any, old: Any) -> Any:
         """Participation rollback: keep ``old`` where ``mask`` is False."""
         return where_clients(mask, new, old)
+
+    def update_cohort(self, update_fn: Callable, idx: torch.Tensor,
+                      keep: torch.Tensor, stacked: Any, opt_state: Any,
+                      x: Any, y: Any, n: Any, batch_idx: torch.Tensor
+                      ) -> Tuple[Any, Any]:
+        """Run the local update for the cohort ``idx`` (k,) only, keeping
+        the rows where ``keep`` (k,) is True; every other client row is
+        untouched (the async runtime's per-event step).
+
+        ``batch_idx`` is every client's (m, S, B) minibatch slots for the
+        event, drawn for all m clients as a synchronous round draws them,
+        where the reference takes the m per-client keys ``ckeys``: a
+        replayed run then consumes the reference's ``ckeys[idx]``
+        exactly.  ``n`` is unused (the slots already hold its rule); it
+        keeps the reference's argument list.  Default: run every slot and
+        mask (the static-layout path); `HostVmap` gathers the k rows
+        instead."""
+        m = x.shape[0]
+        mask = torch.zeros((m,), dtype=torch.bool, device=keep.device)
+        mask[idx] = keep
+        upd, upd_opt = update_fn(stacked, opt_state, x, y, batch_idx)
+        return (self.select(mask, upd, stacked),
+                self.select(mask, upd_opt, opt_state))
 
     def uplink(self, codec: Any, stacked: Any, prev: Any, ef: Any,
                noise: Optional[torch.Tensor],

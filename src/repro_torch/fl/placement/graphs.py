@@ -43,18 +43,21 @@ import torch
 from repro_torch.kernels import ops
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` on every tensor of a nested dict / tuple / list; None stays."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` on every tensor of a nested dict / tuple / list, with the
+    matching tensors of the same-structured trees ``rest``; None stays."""
     if tree is None:
         return None
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        kids = [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+        return (type(tree)(*kids) if hasattr(tree, "_fields")
+                else type(tree)(kids))
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
 
 

@@ -4,9 +4,11 @@ Counterpart of `repro/fl/placement/host.py`: all clients live in one
 stacked param dict on one device; the local update is ``local_steps``
 momentum-SGD steps, each one `torch.func.vmap(grad(loss_fn))` over the
 clients, and the mix goes through `core.aggregation` (the Y = W Θ kernel
-on CUDA).  The update step is cached across calls on what it closes
-over, as the reference caches its jitted step, so the superstep cache
-(keyed on the step) serves repeated `run_federated` calls.
+on CUDA).  An async event updates only its cohort's rows
+(`HostVmap.update_cohort`: gather, update, scatter).  The update step
+is cached across calls on what it closes over, as the reference caches
+its jitted step, so the superstep cache (keyed on the step) serves
+repeated `run_federated` calls.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.core.aggregation import (stream_aggregate,
 from repro_torch.core.streams import StreamPlan
 from repro_torch.data.federated import FederatedData
 from repro_torch.fl.placement.base import (Placement, client_scores,
-                                           stack_params)
+                                           stack_params, where_clients)
+from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.optim import apply_updates, sgd
 
 
@@ -95,6 +98,22 @@ class HostVmap(Placement):
 
     def stack(self, params0, m: int):
         return stack_params(params0, m)
+
+    def update_cohort(self, update_fn, idx, keep, stacked, opt_state,
+                      x, y, n, batch_idx):
+        # gather the k cohort rows, update them, scatter the kept ones
+        # back (out of place: the caller's stacked is the event's prev):
+        # an event's local update costs O(k), not O(m)
+        take = lambda t: tree_map(lambda a: a.index_select(0, idx), t)
+        sub, sub_opt = take(stacked), take(opt_state)
+        new_sub, new_opt = update_fn(sub, sub_opt, x.index_select(0, idx),
+                                     y.index_select(0, idx),
+                                     batch_idx.index_select(0, idx))
+        new_sub = where_clients(keep, new_sub, sub)
+        new_opt = where_clients(keep, new_opt, sub_opt)
+        scatter = lambda full, part: tree_map(
+            lambda a, b: a.index_copy(0, idx, b), full, part)
+        return scatter(stacked, new_sub), scatter(opt_state, new_opt)
 
     def mix(self, stacked, w: torch.Tensor):
         return user_centric_aggregate(stacked, w)

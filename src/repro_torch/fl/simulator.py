@@ -41,10 +41,14 @@ order; so the fused run's history and final params are bitwise the
 eventful run's.  ``superstep=False`` forces the eventful loop, and True
 raises `ValueError` when the run cannot fuse.
 
+``async_cfg=`` (an `AsyncConfig`) delegates to the buffered-async event
+loop (`repro_torch.fl.runtime.run_async`), which takes no sampler and
+never fuses.
+
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
-Options that belong to later slices of the port (hierarchy, async,
-paging) raise `NotImplementedError` naming their ROADMAP item.
+Options that belong to later slices of the port (hierarchy, paging)
+raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -123,10 +127,19 @@ class NonFiniteEvalWarning(RuntimeWarning):
 
 # What each option waits for, by its item in ROADMAP.md's Queue 1.
 _LATER = {
-    "async_cfg": "item 9 (async runtime)",
     "paging": "item 12 (paging)",
     "hierarchy": "item 13 (hierarchy)",
 }
+
+
+def refuse_later(**options: Any) -> None:
+    """Raise `NotImplementedError` naming the ROADMAP item of the first
+    option of a later slice (`_LATER`) that is set."""
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}= is not ported yet: ROADMAP.md Queue 1 "
+                f"{_LATER[name]}")
 
 
 def default_model_init(fed: FederatedData) -> Callable:
@@ -156,8 +169,9 @@ def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
              model_init: Optional[Callable], loss_fn: Callable,
              acc_fn: Callable, placement: Placement, seed: int, draws: Any,
              device, faults: Optional[Any] = None):
-    """Run prologue: model init, update step, client stack/opt/data
-    placement, RoundContext and `strategy.setup`.  Returns
+    """Run prologue of the sync and async engines: model init, update
+    step, client stack/opt/data placement, RoundContext and
+    `strategy.setup`.  Returns
     ``(update_fn, stacked, opt_state, data, ctx, state)``.  ``faults`` (a
     `FaultConfig`) is resolved once here into the run's `FaultPlan`
     (static Byzantine set), on ``ctx.fault_plan`` (None: no faults)."""
@@ -170,7 +184,7 @@ def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
     data = placement.place_data(fed)
     ctx = RoundContext(fed=fed, fl=fl, loss_fn=loss_fn, acc_fn=acc_fn,
                        params0=params0, seed=seed, draws=draws,
-                       placement=placement)
+                       placement=placement, strategy=strategy)
     ctx.fault_plan = resolve_fault_plan(faults, fed.m)
     state = strategy.setup(ctx)
     return update_fn, stacked, opt_state, data, ctx, state
@@ -668,20 +682,34 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     one chunk exactly when `superstep_support` allows it (on the card a
     captured CUDA graph; bitwise the eventful run's history either way),
     False forces the eventful per-round loop, True raises `ValueError` if
-    the run cannot fuse.  The options of later slices raise
-    `NotImplementedError`.
+    the run cannot fuse.  ``async_cfg`` (an `AsyncConfig`) runs the
+    buffered-async event loop instead (`run_async`): it takes no
+    ``sampler`` and no ``superstep=True`` (`TypeError`), and
+    ``superstep=None`` does not fuse it.  The options of later slices
+    raise `NotImplementedError`.
     """
-    later = dict(async_cfg=async_cfg, paging=paging, hierarchy=hierarchy)
-    for name, value in later.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: ROADMAP.md Queue 1 "
-                f"{_LATER[name]}")
     if min_quorum is not None:
         min_quorum = int(min_quorum)
         if min_quorum < 1:
             raise ValueError(f"min_quorum must be >= 1, got {min_quorum}")
     faults = resolve_faults(faults)     # validates the spec once, up front
+    if async_cfg is not None:
+        if sampler is not None:
+            raise TypeError("the async runtime takes no ClientSampler — "
+                            "the arrival buffer is the per-event cohort")
+        if superstep:
+            raise TypeError("superstep fusion is a synchronous-engine "
+                            "feature; the async runtime is event-driven")
+        from repro_torch.fl.runtime import run_async
+        return run_async(algorithm, fed, strategy=strategy,
+                         async_cfg=async_cfg, fl=fl, model_init=model_init,
+                         loss_fn=loss_fn, acc_fn=acc_fn, system=system,
+                         placement=placement, channel=channel,
+                         keep_state=keep_state, paging=paging,
+                         hierarchy=hierarchy, faults=faults,
+                         robust_agg=robust_agg, min_quorum=min_quorum,
+                         seed=seed, draws=draws, device=device)
+    refuse_later(paging=paging, hierarchy=hierarchy)
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)
     if fed is None:

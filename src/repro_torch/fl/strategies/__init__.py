@@ -5,13 +5,15 @@ registers the reference's seven algorithms:
 
     fedavg | local | oracle | ucfl | ucfl_k<k> | cfl | fedfomo
 
-and exports the client samplers and the quarantine reweighting of the
-defense layer.
+and exports the client samplers, the async runtime's staleness
+reweighting and the quarantine reweighting of the defense layer.
 """
 from repro_torch.fl.strategies.base import (ClusterExtras, CommCost,
                                             MixingExtras, RoundContext,
                                             Strategy, StrategyExtras,
-                                            TracedMix, quarantine_reweight)
+                                            TracedMix, quarantine_reweight,
+                                            staleness_factors,
+                                            staleness_reweight)
 from repro_torch.fl.strategies.registry import (STRATEGIES,
                                                 available_strategies,
                                                 get_strategy,
@@ -33,4 +35,5 @@ __all__ = ["CFL", "ClientSampler", "ClusterExtras", "CommCost", "FedAvg",
            "RoundContext", "STRATEGIES", "Strategy", "StrategyExtras",
            "TracedMix", "UCFL", "UniformFraction",
            "available_strategies", "get_strategy", "get_strategy_class",
-           "parse_spec", "quarantine_reweight", "register"]
+           "parse_spec", "quarantine_reweight", "register",
+           "staleness_factors", "staleness_reweight"]

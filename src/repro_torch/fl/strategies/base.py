@@ -1,8 +1,7 @@
 """Strategy protocol: the server-side aggregation surface.
 
-Counterpart of `repro/fl/strategies/base.py` for synchronous rounds, with
-the defense layer's quarantine reweighting (the staleness reweighting of
-the async engine arrives with its slice):
+Counterpart of `repro/fl/strategies/base.py`, with the async runtime's
+staleness reweighting and the defense layer's quarantine reweighting:
 
     state = strategy.setup(ctx)                       # once, before round 0
     stacked, state = strategy.aggregate(state, stacked, prev, ctx)  # per round
@@ -14,7 +13,11 @@ tensors `traced_state` takes from the setup state once, and
 `TracedMix`.  Both mixing dispatchers route every weight matrix through
 `quarantine_reweight` when the engine has set the defense layer's
 survival row (``quarantine``), so every strategy degrades gracefully
-under a defense without code of its own.
+under a defense without code of its own.  `RoundContext`'s dispatchers
+also route it through `Strategy.reweight` first, which discounts stale
+contributors under the async runtime (``ctx.staleness``) and is the
+identity on synchronous rounds; `TracedMix` does not, since the fused
+superstep is synchronous only.
 """
 from __future__ import annotations
 
@@ -33,6 +36,44 @@ class CommCost(NamedTuple):
     unit T_dl, see `repro_torch.fl.comm.SystemModel`)."""
     n_streams: int
     n_unicasts: int
+
+
+def staleness_factors(staleness: torch.Tensor, *, schedule: str = "exp",
+                      discount: float = 1.0,
+                      alpha: float = 0.5) -> torch.Tensor:
+    """Per-contributor staleness weights s(age) in (0, 1], float32.
+
+    ``exp`` is FedBuff's geometric ``discount ** age``; ``poly`` is
+    FedAsync's ``(1 + age) ** -alpha`` (Xie et al. 2019).  Both are
+    exactly 1 at age 0.  An f32 ``pow``, as in the reference; the two
+    libraries' ``pow`` may differ in the last bit."""
+    age = staleness.to(torch.float32)
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=age.device)
+    if schedule == "exp":
+        return torch.pow(f32(discount), age)
+    if schedule == "poly":
+        return torch.pow(1.0 + age, f32(-alpha))
+    raise ValueError(f"unknown staleness schedule {schedule!r}; "
+                     "one of exp | poly")
+
+
+def staleness_reweight(w: torch.Tensor, staleness: torch.Tensor,
+                       discount: float, *, schedule: str = "exp",
+                       alpha: float = 0.5) -> torch.Tensor:
+    """Discount stale contributor columns of an aggregation-rule matrix.
+
+    ``w`` is any (r, m) weight matrix whose columns index contributing
+    client models; ``staleness[j]`` is model j's age in server versions.
+    Each column is scaled by `staleness_factors` and each row rescaled
+    back to its ORIGINAL mass: row-stochastic rules stay row-stochastic,
+    FedFOMO's sub-stochastic rows keep their self-residual, a zero row
+    stays zero.  All-zero ages are an exact identity."""
+    d = staleness_factors(staleness, schedule=schedule, discount=discount,
+                          alpha=alpha)
+    wd = w * d[None, :].to(w.dtype)
+    mass = w.sum(dim=1, keepdim=True)
+    new_mass = wd.sum(dim=1, keepdim=True)
+    return (wd * (mass / torch.clamp(new_mass, min=1e-12))).to(w.dtype)
 
 
 def quarantine_reweight(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -57,7 +98,7 @@ def quarantine_reweight(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 class RoundContext:
     """Everything a strategy may read about the run; ``rnd``,
     ``participation`` and ``quarantine`` are set by the engine each
-    round."""
+    round, ``staleness`` each async event."""
     fed: FederatedData
     fl: Any                         # FLConfig (kept untyped to avoid a cycle)
     loss_fn: Callable
@@ -68,6 +109,14 @@ class RoundContext:
     placement: Any                  # the run's `Placement`
     rnd: int = 0
     participation: Optional[torch.Tensor] = None   # (m,) bool, None = all
+    # the async runtime: each client model's (m,) f32 age in server
+    # versions (None on synchronous rounds and on events where every age
+    # is 0), and the discount law `Strategy.reweight` applies to it
+    staleness: Optional[torch.Tensor] = None
+    staleness_discount: float = 1.0
+    staleness_schedule: str = "exp"     # exp | poly
+    staleness_alpha: float = 0.5        # the poly schedule's exponent
+    strategy: Optional[Any] = None      # the running Strategy (`reweight`)
     # the defense layer's (m,) f32 survival row, set by the engine after
     # screening and robust aggregation (None = no defense)
     quarantine: Optional[torch.Tensor] = None
@@ -77,20 +126,29 @@ class RoundContext:
         return self.fed.m
 
     def reweighted(self, w: torch.Tensor) -> torch.Tensor:
-        """``w`` with the quarantined columns renormalized away."""
-        if self.quarantine is None:
-            return w
-        return quarantine_reweight(w, self.quarantine)
+        """``w`` through the strategy's `reweight` (the staleness discount;
+        the identity on synchronous rounds), then with the quarantined
+        columns renormalized away."""
+        if self.strategy is not None:
+            w = self.strategy.reweight(w, self)
+        elif self.staleness is not None:    # driven without a strategy
+            w = staleness_reweight(w, self.staleness,
+                                   self.staleness_discount,
+                                   schedule=self.staleness_schedule,
+                                   alpha=self.staleness_alpha)
+        if self.quarantine is not None:
+            w = quarantine_reweight(w, self.quarantine)
+        return w
 
     def mix(self, stacked: Any, w: torch.Tensor) -> Any:
         """θ_i ← Σ_j w[i,j] θ_j for a full per-client matrix (m, m)."""
         return self.placement.mix(stacked, self.reweighted(w))
 
     def mix_plan(self, stacked: Any, plan: Any) -> Any:
-        """k-stream aggregation: centroid mix + group broadcast (the
-        quarantine applies to the centroid rules, before the folded
+        """k-stream aggregation: centroid mix + group broadcast (staleness
+        and quarantine apply to the centroid rules, before the folded
         ``centroids[assignment]`` mix)."""
-        if self.quarantine is not None:
+        if self.staleness is not None or self.quarantine is not None:
             plan = plan._replace(centroids=self.reweighted(plan.centroids))
         return self.placement.mix_plan(stacked, plan)
 
@@ -99,10 +157,10 @@ class TracedMix:
     """The mixing dispatcher `Strategy.aggregate_traced` gets inside a
     fused round: `RoundContext.mix` / `mix_plan`'s arithmetic for a
     synchronous round, through the placement's `mix_traced` /
-    `mix_plan_traced` hooks.  ``quarantine`` is the defense layer's
-    survival row, set by the fused round right before
-    `Strategy.aggregate_traced` and cleared right after, as
-    `RoundContext.quarantine` is on the eventful path."""
+    `mix_plan_traced` hooks (no staleness: the superstep is synchronous
+    only).  ``quarantine`` is the defense layer's survival row, set by
+    the fused round right before `Strategy.aggregate_traced` and cleared
+    right after, as `RoundContext.quarantine` is on the eventful path."""
 
     def __init__(self, placement: Any):
         self.placement = placement
@@ -203,6 +261,18 @@ class Strategy(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} sets traceable=True but does not "
             "implement aggregate_traced")
+
+    def reweight(self, w: torch.Tensor, ctx: RoundContext) -> torch.Tensor:
+        """Staleness hook: `RoundContext.mix` routes every weight matrix
+        through here (`mix_plan` its centroids, when the event carries
+        staleness).  Default: the identity while ``ctx.staleness`` is None;
+        under the async runtime, stale contributor columns discounted by
+        ``ctx.staleness_schedule``, mass-preserving per row."""
+        if ctx.staleness is None:
+            return w
+        return staleness_reweight(w, ctx.staleness, ctx.staleness_discount,
+                                  schedule=ctx.staleness_schedule,
+                                  alpha=ctx.staleness_alpha)
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.spec!r})"

@@ -13,7 +13,7 @@ tests/test_torch_engine.py's tolerances, the clock, comm, comm bits and
 ``extra["faults"]`` exact.  Then all-crash keeps the init, NaN warns
 undefended and stays finite defended, the quorum skips and validates,
 and `pop_with_retries`' backoff ladder, one fake clock driving both
-packages' functions.
+packages' functions, then both packages' real `VirtualClock`s.
 """
 import warnings
 
@@ -35,6 +35,7 @@ from repro.fl.faults import resolve_fault_plan as j_resolve_fault_plan
 from repro.fl.faults.defense import screen_and_defend as j_screen_and_defend
 from repro.fl.faults.runtime import FaultMeter as JFaultMeter
 from repro.fl.faults.runtime import pop_with_retries as j_pop_with_retries
+from repro.fl.runtime import VirtualClock as JVirtualClock
 from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.fl import (SYSTEMS, Channel, FaultConfig, FLConfig,
@@ -43,6 +44,7 @@ from repro_torch.fl import (SYSTEMS, Channel, FaultConfig, FLConfig,
                             resolve_fault_plan, run_federated)
 from repro_torch.fl.faults import (FaultMeter, inject_values,
                                    pop_with_retries, screen_and_defend)
+from repro_torch.fl.runtime import VirtualClock
 from repro_torch.fl.strategies import quarantine_reweight
 from repro_torch.models import lenet
 from test_torch_engine import ReplayDraws
@@ -458,3 +460,21 @@ def test_pop_with_retries_backoff_ladder():
     assert logs[0][1] == 4 and logs[0][2] == {2, 5}
     clock = FakeClock()
     assert pop_with_retries(clock, None, 2, 1.0, {}, None) == (1.0, 5)
+    # both packages' real clocks and crash plans (numpy streams, the same
+    # bits): the same pops, backoff requeues, retries and dead clients
+    logs = []
+    for clock_cls, system, plan_of, pop, meter_cls in (
+            (VirtualClock, SYSTEMS["wireless_slow"], resolve_fault_plan,
+             pop_with_retries, FaultMeter),
+            (JVirtualClock, J_SYSTEMS["wireless_slow"], j_resolve_fault_plan,
+             j_pop_with_retries, JFaultMeter)):
+        clock, plan = clock_cls(system, seed=4), plan_of("crash:0.6", 6)
+        meter, attempts, log = meter_cls(plan, "none", None), {}, []
+        for c in range(6):
+            clock.schedule(c, 0.0)
+        while (nxt := pop(clock, plan, 1, 0.5, attempts, meter)) is not None:
+            log.append((nxt, clock.now, len(clock)))
+            clock.schedule(nxt[1], nxt[0] + 1.0)
+        logs.append((log, meter.retries, meter.dead))
+    assert logs[0] == logs[1]
+    assert logs[0][1] > 0 and logs[0][2] == set(range(6))

@@ -1204,3 +1204,169 @@ def test_superstep_capture_refuses_a_host_sync_in_the_defense():
                       superstep=False, **kw)
     assert len(h.mean_acc) == len(h.rounds) > 0
     assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0
+
+
+# ---------------------------------------------------------------------------
+# the buffered-async runtime and the checkpoint format on the card
+
+
+@pytest.mark.gpu
+def test_async_lockstep_equals_sync_on_card():
+    """ucfl_k4 at m = 20, full-width LeNet, inv_mu = 0 and K = m: the
+    async run's history and final params bitwise the (fused) sync run's,
+    the clock equal, one mix an event and one Gram."""
+    _require_cuda()
+    from repro_torch.fl import AsyncConfig, FLConfig, SYSTEMS, run_federated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fed = _ss_fed()
+    kw = dict(fl=FLConfig(**SS_FL), system=SYSTEMS["wired"],
+              keep_state=True, seed=3, device="cuda")
+    sync = run_federated("ucfl_k4", fed, **kw)
+    n0 = dict(ops.LAUNCHES)
+    a = run_federated("ucfl_k4", fed, async_cfg=AsyncConfig(buffer_k=fed.m),
+                      **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mixing_aggregate"] - n0["mixing_aggregate"] == \
+        SS_FL["rounds"]
+    assert ops.LAUNCHES["gram_matrix"] - n0["gram_matrix"] == 1
+    assert (a.rounds, a.mean_acc, a.worst_acc, a.comm) == \
+        (sync.rounds, sync.mean_acc, sync.worst_acc, sync.comm)
+    assert a.time == pytest.approx(sync.time, rel=1e-12)
+    for k, v in sync.final_params.items():
+        assert torch.equal(_bits(a.final_params[k]), _bits(v)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [5, 10, 1])
+def test_async_cohort_update_matches_masked_full_update_on_card(k):
+    """`HostVmap.update_cohort` (gather k of m = 20 rows, update, scatter)
+    against the run-every-row-and-mask default on the card, at `[main]`'s
+    shapes (n = 10,000, batch 64): bitwise, params and optimizer state,
+    for the cohorts `chip_smoke.py` `[async]` runs (k = 5 and 10).  At
+    k = 1 cuBLAS picks another kernel for the vmapped convs' batched
+    GEMM (a batch of 1 is not the first row of a batch of 20, bitwise;
+    measured on an H100: the two paths then differ by at most 2.6e-7),
+    so it is held at f32's rtol 1e-5 / atol 1e-6."""
+    _require_cuda()
+    from repro_torch.data import scenario_label_shift
+    from repro_torch.fl import FLConfig, HostVmap, Placement, TorchDraws
+    from repro_torch.fl.simulator import default_model_init
+    from repro_torch.models import lenet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fed = scenario_label_shift(0, n=10000, m=20, device="cuda")
+    fl = FLConfig(local_steps=2, batch_size=64)
+    p = HostVmap()
+    _, update = p.build_update(lenet.loss_fn, fl)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stacked = p.stack(default_model_init(fed)(gen), fed.m)
+    stacked = {k: v + 0.01 * torch.randn(v.shape, generator=gen,
+                                         device="cuda")
+               for k, v in stacked.items()}
+    opt_state = p.init_opt(p.build_update(lenet.loss_fn, fl)[0], stacked)
+    batch = TorchDraws(4, "cuda").batch_indices(
+        0, fed.n, fed.x.shape[1], fl.batch_size, fl.local_steps)
+    idx = torch.tensor([7, 0, 19, 3, 11, 2, 5, 8, 13, 16][:k],
+                       device="cuda")
+    keep = torch.ones(k, dtype=torch.bool, device="cuda")
+    keep[k // 2] = k == 1            # one row not kept, but for k = 1
+    args = (update, idx, keep, stacked, opt_state, fed.x, fed.y, fed.n,
+            batch)
+    fast = p.update_cohort(*args)
+    slow = Placement.update_cohort(p, *args)
+    torch.cuda.synchronize()
+    pairs = [(fast[0][n], v) for n, v in slow[0].items()]
+    pairs += [(fast[1]["mu"][n], v) for n, v in slow[1]["mu"].items()]
+    for a, b in pairs:
+        if k == 1:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(fast[1]["step"], slow[1]["step"])
+
+
+@pytest.mark.gpu
+def test_async_buffered_qsgd_run_on_card_matches_cpu():
+    """A buffered ucfl_k4 + qsgd:8 run (K = 3 of m = 6, max_staleness 2)
+    on the card against the same run on the CPU (same init, same draws,
+    the CPU on one intra-op thread): clock, comm, comm bits and
+    ``extra["async"]`` equal, accuracies within two argmax flips, final
+    params within `[agree]`'s rtol 1e-3 / atol 1e-4 but for QSGD level
+    flips: a last-bit difference in the local update moves an element's
+    stochastic-rounding floor by one level (absmax/127, ~4e-4 here) now
+    and then, and the mix spreads it.  So at most 0.1 % of the elements
+    may lie outside, none by more than 1e-3 (two such levels; measured
+    on an H100: 38 of 285,426, at most 4.2e-4; the same run without the
+    channel has none outside, at most 8.9e-8)."""
+    _require_cuda()
+    from repro_torch.data import FederatedData, scenario_label_shift
+    from repro_torch.fl import (AsyncConfig, Channel, FLConfig, SYSTEMS,
+                                TorchDraws, run_federated)
+    from repro_torch.models import lenet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fed_cpu = scenario_label_shift(3, n=600, m=6, device="cpu")
+    fed_gpu = FederatedData(*(t.to("cuda") for t in fed_cpu))
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = {}
+        for dev, fed in (("cpu", fed_cpu), ("cuda", fed_gpu)):
+            runs[dev] = run_federated(
+                "ucfl_k4", fed,
+                fl=FLConfig(rounds=4, local_steps=3, batch_size=16,
+                            eval_every=1),
+                system=SYSTEMS["wireless_slow"],
+                async_cfg=AsyncConfig(buffer_k=3, max_staleness=2),
+                channel=Channel(codec="qsgd:8", link="tiered:4"),
+                model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+                draws=TorchDraws(11, "cpu"), keep_state=True, device=dev)
+    finally:
+        torch.set_num_threads(threads)
+    a, b = runs["cpu"], runs["cuda"]
+    assert (a.time, a.comm, a.comm_bits, a.extra["async"]) == \
+        (b.time, b.comm, b.comm_bits, b.extra["async"])
+    flip = 1.0 / (fed_cpu.m * fed_cpu.x_val.shape[1])
+    for x, y in zip(a.mean_acc + a.worst_acc, b.mean_acc + b.worst_acc):
+        assert abs(x - y) <= 2 * flip + 1e-6
+    outside = total = 0
+    for k, v in a.final_params.items():
+        d = (b.final_params[k].cpu() - v).abs()
+        outside += int((d > 1e-4 + 1e-3 * v.abs()).sum())
+        total += v.numel()
+        assert float(d.max()) <= 1e-3, k
+    assert outside <= total // 1000, (outside, total)
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_cuda_tensors_restores_bitwise(tmp_path):
+    """f32 (NaN, -0.0 and a subnormal included), bf16, int32, int64 and
+    bool tensors on the card, nested, saved and restored onto the card
+    and onto the CPU bit for bit."""
+    _require_cuda()
+    from repro_torch.checkpoint import restore, save
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32 = torch.randn((33, 17), generator=gen, device="cuda")
+    f32[0, :3] = torch.tensor([float("nan"), -0.0, 1e-40], device="cuda")
+    tree = {"f32": f32, "bf16": f32.to(torch.bfloat16),
+            "i32": torch.arange(-5, 5, device="cuda", dtype=torch.int32),
+            "i64": torch.tensor([2**40, -1], device="cuda"),
+            "mask": f32 > 0, "t": f32.T,
+            "nested": [{"w": f32[:2], "none": None}, "tag", 3]}
+    path = str(tmp_path / "c.msgpack")
+    save(path, tree)
+    for dev in ("cuda", "cpu"):
+        got = restore(path, device=dev)
+        for k in ("f32", "bf16", "i32", "i64", "mask", "t"):
+            want = tree[k].contiguous().cpu()
+            g = got[k]
+            assert g.device.type == dev and g.dtype == want.dtype, k
+            assert torch.equal(g.cpu().view(torch.uint8),
+                               want.view(torch.uint8)), k
+        assert torch.equal(got["nested"][0]["w"].cpu().view(torch.int32),
+                           f32[:2].cpu().view(torch.int32))
+        assert got["nested"][0]["none"] is None
+        assert got["nested"][1:] == ["tag", 3]

@@ -256,8 +256,8 @@ def test_superstep_true_raises_for_what_cannot_fuse(fed):
         run_federated(strategy=_NotTraceable(), fed=fed, **kw)
     with pytest.raises(ValueError, match="cannot fuse.*'cfl'"):
         run_federated("cfl", fed, **kw)
-    # the options of later slices still name their ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the async runtime is event-driven: the reference's TypeError
+    with pytest.raises(TypeError, match="superstep fusion"):
         run_federated("fedavg", fed, async_cfg=object(), **kw)
     # an eventful sampler under the default runs the eventful loop
     h = run_federated("fedavg", fed, sampler=_Eventful(), fl=FL,

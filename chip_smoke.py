@@ -83,6 +83,29 @@ Phases (any failure raises and the script exits non-zero):
  10. checkpoint — the K=5 ucfl_k4 run's final params and optimizer state
                 (and a bf16 copy of the params) saved and restored on
                 the card bitwise; one flipped byte must raise;
+ 10b. serve   — the personalised serving plane (`fl.serve`): identity,
+                qsgd:4 and topk:0.25 `DeltaStore`s of phase 5's ucfl
+                models (every user its own) keyed on ucfl_k4's streams,
+                and ucfl_k4's own qsgd:4 store (`from_history`, zero
+                deltas, its params back bitwise): the identity store
+                gives the trained params and their logits back bitwise,
+                the parity anchor (`check_parity`) over the 20 users,
+                14 flushes of 128 requests at max_batch 16 (req/s, batch
+                p50/p99/max over the 104 batches after the first flush,
+                accounted and resident bytes, one QSGD stream launch a
+                qsgd batch), the stream's decode of a batch's 16 rows
+                bitwise its plain version, the micro-batcher's contract
+                (a request alone or in a batch of 2 within rtol 1e-5 of
+                it in a batch of 16), a profiled flush (device busy,
+                against the untraced flushes' median wall);
+                then a 2,048-user qsgd:4 store (ucfl's models plus
+                seeded noise, the rounding noise given): build time, its
+                levels and absmax (the row pass's encode at (2,048,
+                47,571)) and the stream's decode of 64 and of 2,048 rows
+                bitwise their plain versions, the anchor on 64 users,
+                8 flushes of 1,024 requests at max_batch 64.  The qsgd
+                builds run the QSGD row pass's encode, the decodes the
+                QSGD stream;
  11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -124,6 +147,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -138,7 +162,10 @@ from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
 from repro_torch.fl import (AsyncConfig, Channel, FLConfig,  # noqa: E402
                             SYSTEMS, TorchDraws, UniformFraction,
                             run_federated)
-from repro_torch.fl.channel import get_codec, uplink_roundtrip  # noqa: E402
+from repro_torch.fl import DeltaStore, ServeEngine, check_parity  # noqa: E402
+from repro_torch.fl.serve.store import refined_delta  # noqa: E402
+from repro_torch.fl.channel import (get_codec, stacked_ravel,  # noqa: E402
+                                    uplink_roundtrip)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.pairwise_sqdist import card_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -467,11 +494,11 @@ def same(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # the QSGD rows of [kernels]: the row pass's instances count the row
-# pass's launches on the main paths, the stream's the stream's.  The
-# stream's callers (the codecs' at-rest encode/decode, ROADMAP Queue 1
-# item 11) are not ported, so no main path launches it.
+# pass's launches on the main paths, the stream's dequantize its own (the
+# at-rest decode of [serve]).  The stream's quantize with absmax given
+# has no caller on any path: its row counts nothing and is marked off
+# the path.
 ROW_PASS_COUNTERS = ("rowwise_absmax", "qsgd_quantize", "qsgd_roundtrip")
-STREAM_COUNTERS = ("qsgd_dequantize",)
 
 
 def check_channel_kernels(gen) -> list:
@@ -604,14 +631,14 @@ def check_channel_kernels(gen) -> list:
          None, 12 * md + b4, 5 * md,
          lambda: same("quantize", qsgd.qsgd_quantize_cuda(x, u, amax, bits),
                       ref.qsgd_quantize_ref(x, u, bits, absmax=amax)[0]),
-         STREAM_COUNTERS),
+         ()),
         ("qsgd_dequantize", "quantize.cu", "quantize.py:136",
          lambda: qsgd.qsgd_dequantize_cuda(q, amax, bits),
          lambda: ref.qsgd_dequantize_ref(q, amax, bits),
          lambda: torch.mul(q, scale), 8 * md + b4, 2 * md,
          lambda: same("dequantize", qsgd.qsgd_dequantize_cuda(q, amax, bits),
                       ref.qsgd_dequantize_ref(q, amax, bits)),
-         STREAM_COUNTERS),
+         ("qsgd_dequantize",)),
         ("qsgd_encode", "quantize.cu", "quantize.py:104",
          lambda: qsgd.qsgd_encode_cuda(x, u, bits),
          lambda: ref.qsgd_quantize_ref(x, u, bits),
@@ -648,8 +675,7 @@ def check_channel_kernels(gen) -> list:
                    ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=b,
                    bound_by=by,
                    library_ms=None if lib is None else time_ms(lib),
-                   counters=counters,
-                   off_path=counters == STREAM_COUNTERS)
+                   counters=counters, off_path=not counters)
         lib_s = ("none" if row["library_ms"] is None
                  else f"{row['library_ms']:.4f} ms")
         print(f"  {name} ({m}, {d}) f32: kernel {row['ms']:.4f} ms  plain "
@@ -2191,6 +2217,254 @@ def checkpoint_path(h, card: str) -> None:
           flush=True)
 
 
+# flushes: enough that the batches after the first flush (8 a flush of
+# 128 at max_batch 16, 16 a flush of 1,024 at 64) number over 100, so
+# their p99 is not their max
+SERVE = dict(codecs=("identity", "qsgd:4", "topk:0.25"), requests=128,
+             flushes=14, max_batch=16, users=2048, big_requests=1024,
+             big_flushes=8, big_batch=64, big_parity=64)
+
+
+def serve_apply(params, x):
+    """One user's LeNet-5 params x one image -> logits (the engine vmaps
+    it over the batch)."""
+    return lenet.apply(params, x[None])[0]
+
+
+def serve_flushes(engine, fed, n_users: int, n_req: int, flushes: int,
+                  rng) -> tuple:
+    """``flushes`` times: ``n_req`` requests of users drawn by ``rng``
+    (each a validation image of user u mod m), submitted and flushed.
+    Returns ([wall s a flush], [chunk latencies of every flush but the
+    first], dequantize launches, batches) and checks every output is
+    finite logits."""
+    walls, lat, batches = [], [], 0
+    m, n_val = fed.x_val.shape[:2]
+    before = ops.LAUNCHES["qsgd_dequantize"]
+    for f in range(flushes):
+        users = rng.integers(0, n_users, n_req)
+        j = torch.as_tensor(rng.integers(0, n_val, n_req), device="cuda")
+        xs = fed.x_val[torch.as_tensor(users % m, device="cuda"), j]
+        for u, x in zip(users.tolist(), xs):
+            engine.submit(u, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.flush()
+        walls.append(time.perf_counter() - t0)
+        if f:
+            lat += engine.last_stats["latency_s"]
+        batches += engine.last_stats["batches"]
+        if len(outs) != n_req or not all(
+                o.shape == (47,) and bool(np.isfinite(o).all())
+                for o in outs):
+            raise AssertionError("[serve] outputs not finite (47,) logits")
+    return walls, lat, ops.LAUNCHES["qsgd_dequantize"] - before, batches
+
+
+def serve_trace(engine, fed, n_req: int) -> tuple:
+    """One torch.profiler trace of a flush of ``n_req`` requests: (wall
+    ms under the profiler, device-busy ms, device events, batches)."""
+    rng = np.random.default_rng(1)
+    users = rng.integers(0, engine.store.m, n_req)
+    xs = fed.x_val[torch.as_tensor(users % fed.x_val.shape[0],
+                                   device="cuda"), 0]
+    for u, x in zip(users.tolist(), xs):
+        engine.submit(u, x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.flush()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return wall * 1e3, None, 0, engine.last_stats["batches"]
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    return (wall * 1e3, busy_us(spans) / 1e3, len(events),
+            engine.last_stats["batches"])
+
+
+def serve_report(label, store, engine, fed, n_users, n_req, flushes,
+                 card) -> list:
+    """Times ``flushes`` flushes of ``n_req`` requests and prints
+    requests/s, batch p50 / p99 / max and the store's bytes; returns the
+    flushes' walls (s)."""
+    walls, lat, deq, batches = serve_flushes(
+        engine, fed, n_users, n_req, flushes, np.random.default_rng(0))
+    want_deq = batches if store.codec.spec.startswith("qsgd") else 0
+    if deq != want_deq:
+        raise AssertionError(f"[serve] {label}: {deq} dequantize launches "
+                             f"for {batches} batches")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    if len(lat_ms) < 100:
+        raise AssertionError(f"[serve] {label}: {len(lat_ms)} batches are "
+                             "too few for a p99")
+    p50 = statistics.median(lat_ms)
+    p99 = lat_ms[math.ceil(0.99 * len(lat_ms)) - 1]     # nearest rank
+    rps = sorted(n_req / w for w in walls)
+    print(f"  {label}: {n_req} requests x{flushes} at max_batch "
+          f"{engine.max_batch}: req/s median {statistics.median(rps):.1f} "
+          f"(min {rps[0]:.1f}, max {rps[-1]:.1f}); batch p50 {p50:.3f} ms "
+          f"p99 {p99:.3f} ms max {lat_ms[-1]:.3f} ms (the {len(lat_ms)} "
+          f"batches after the first flush); bytes accounted "
+          f"{store.bits.total_bytes} resident {store.resident_bytes()} "
+          f"({card})", flush=True)
+    return walls
+
+
+def serve_decode_check(label, store, users) -> None:
+    """The QSGD stream at a served shape: the decode of ``users``' gathered
+    payload rows (as `ServeEngine.params_for` decodes them) bitwise its
+    plain version; launches set aside."""
+    rows = torch.as_tensor(np.asarray(users, np.int64), device="cuda")
+    lv = store.payload["levels"].index_select(0, rows)
+    am = store.payload["absmax"].index_select(0, rows)
+    with ops.launches_set_aside():
+        got = store.codec.decode({"levels": lv, "absmax": am}, d=store.d)
+    same(f"[serve] {label} decode of {rows.numel()} rows", got,
+         ref.qsgd_dequantize_ref(lv, am, store.codec.bits))
+
+
+def serve_path(hists, fed, card: str) -> None:
+    """[serve]: stores from [main]'s ucfl run (every user its own model)
+    keyed on ucfl_k4's streams, one a codec, and ucfl_k4's own store
+    (`from_history`, zero deltas): reconstruction, the parity anchor over
+    the 20 users, timed flushes; then a 2,048-user qsgd:4 store."""
+    m = MAIN["m"]
+    ucfl, k4 = hists["ucfl"], hists["ucfl_k4"]
+    asn = np.asarray(k4.extras.assignment)
+    trained = stacked_ravel(ucfl.final_params)
+    users = list(range(m))
+    xs = fed.x_val[:, 0]
+    stores, walls = [], {}
+    for codec in SERVE["codecs"]:
+        t0 = time.perf_counter()
+        store = DeltaStore.build(ucfl.final_params, assignment=asn,
+                                 codec=codec, device="cuda")
+        torch.cuda.synchronize()
+        stores.append((f"ucfl {codec}", store, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    own = DeltaStore.from_history(k4, codec="qsgd:4", device="cuda")
+    torch.cuda.synchronize()
+    stores.append(("ucfl_k4 own qsgd:4", own, time.perf_counter() - t0))
+    k4_flat = stacked_ravel(k4.final_params)
+    if not (1 <= own.k <= 4 and torch.equal(own.params_flat(), k4_flat)):
+        raise AssertionError(f"[serve] ucfl_k4's own store: k={own.k}, or "
+                             "its zero deltas do not give the params back")
+    for label, store, build_s in stores:
+        eng = ServeEngine(store, serve_apply, max_batch=SERVE["max_batch"])
+        if store.codec.is_identity:
+            if not torch.equal(store.params_flat().view(torch.int32),
+                               trained.view(torch.int32)):
+                raise AssertionError("[serve] the identity store does not "
+                                     "give the trained params back bitwise")
+            served = eng.serve(users, xs)
+            direct = eng.forward(store.unravel_batch(trained), xs)
+            if not torch.equal(served, direct):
+                raise AssertionError("[serve] identity: served logits != "
+                                     "the trained models' logits")
+        top = check_parity(eng, users, xs)
+        print(f"  {label}: k={store.k}, build {build_s:.3f} s, max recon "
+              f"err {store.recon_err.max():.3e}, fixup entries "
+              f"{store.fix_values.shape[1]}/user, parity anchor over {m} "
+              f"users OK (max|logit| {top:.3f})", flush=True)
+        walls[label] = serve_report(label, store, eng, fed, m,
+                                    SERVE["requests"], SERVE["flushes"],
+                                    card)
+    # the qsgd:4 decode of one big batch's rows, timed alone
+    q = stores[1][1]
+    serve_decode_check("ucfl qsgd:4", q, range(SERVE["max_batch"]))
+    rows = torch.arange(SERVE["big_batch"], device="cuda") % m
+    enc = {k: v.index_select(0, rows) for k, v in q.payload.items()}
+    with ops.launches_set_aside():
+        dec_ms = time_ms(lambda: q.codec.decode(enc, d=q.d))
+    print(f"  qsgd:4 decode of {SERVE['big_batch']} rows: {dec_ms:.4f} ms "
+          f"(bound {bound_ms(8 * SERVE['big_batch'] * q.d, 0)[0]:.4f} ms, "
+          "bytes)", flush=True)
+    # the micro-batcher's contract on the card: each request of a batch of
+    # 16 against it alone and in a batch of 2 (cuBLAS picks its GEMM by
+    # the batch count: within the parity anchor's rtol 1e-5 of the
+    # batch's max |logit|, not bitwise)
+    eng = ServeEngine(q, serve_apply, max_batch=SERVE["max_batch"])
+    n16 = SERVE["max_batch"]
+    batch = eng.serve(list(range(n16)), fed.x_val[:n16, 0])
+    alone = max(float((eng.serve([u], fed.x_val[u:u + 1, 0])[0]
+                       - batch[u]).abs().max()) for u in range(n16))
+    pair = max(float((eng.serve([u, (u + 1) % n16],
+                                fed.x_val[[u, (u + 1) % n16], 0])[0]
+                      - batch[u]).abs().max()) for u in range(n16))
+    tol = 1e-5 * float(batch.abs().max())
+    if max(alone, pair) > tol:
+        raise AssertionError(f"[serve] a request alone or in a batch of 2 "
+                             f"differs by {max(alone, pair):.3e} > {tol:.3e}"
+                             " from it in a batch")
+    print(f"  micro-batcher contract: a request in a batch of {n16} against "
+          f"it alone max |Δlogit| {alone:.3e}, in a batch of 2 "
+          f"{pair:.3e} (bound {tol:.3e}: rtol 1e-5 of max |logit|)",
+          flush=True)
+    with ops.launches_set_aside():
+        wall, busy, n_ev, nb = serve_trace(eng, fed, SERVE["requests"])
+    # the busy share against this run's untraced flushes of the same
+    # store and size (the profiler slows the host's side)
+    plain = statistics.median(walls["ucfl qsgd:4"]) * 1e3
+    busy_s = "not measured (no device events)" if busy is None else (
+        f"device busy {busy:.3f} ms: {100 * busy / wall:.1f} % of it, "
+        f"{100 * busy / plain:.1f} % of the median untraced flush of this "
+        f"store ({plain:.3f} ms); {n_ev / nb:.1f} device events a batch")
+    print(f"  ucfl qsgd:4 traced flush of {SERVE['requests']} requests "
+          f"({nb} batches): wall {wall:.3f} ms under the profiler, "
+          f"{busy_s} ({card})", flush=True)
+
+    # (b) a 2,048-user population: user u is ucfl's model u mod m plus
+    # Gaussian noise at 1e-2 of each leaf's std, on stream asn[u mod m]
+    n = SERVE["users"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.arange(n, device="cuda") % m
+    big = {k: v[idx] + 1e-2 * v.std() * torch.randn(
+        (n,) + tuple(v.shape[1:]), generator=gen, device="cuda")
+        for k, v in ucfl.final_params.items()}
+    # the stochastic-rounding noise given, so that the encode can be held
+    # to its plain version on the same inputs below
+    noise = torch.rand((n, D_LENET), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = DeltaStore.build(big, assignment=asn[np.arange(n) % m],
+                             codec="qsgd:4", noise=noise, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the row pass's encode at (2,048, 47,571): the store's levels and
+    # absmax bitwise the plain version's of the same delta and noise
+    flat = stacked_ravel(big)
+    del big
+    base_rows = store.base_flat.index_select(
+        0, torch.as_tensor(store.assignment, device="cuda"))
+    lv, am = ref.qsgd_quantize_ref(refined_delta(flat, base_rows), noise,
+                                   store.codec.bits)
+    same(f"[serve] {n}-user qsgd:4 levels", store.payload["levels"], lv)
+    same(f"[serve] {n}-user qsgd:4 absmax", store.payload["absmax"], am)
+    del flat, base_rows, noise, lv, am
+    eng = ServeEngine(store, serve_apply, max_batch=SERVE["big_batch"])
+    probe = np.random.default_rng(2).choice(n, SERVE["big_parity"],
+                                            replace=False)
+    # the stream at a served batch's shape and at the full decode's
+    serve_decode_check(f"{n}-user qsgd:4", store, probe)
+    serve_decode_check(f"{n}-user qsgd:4", store, range(n))
+    top = check_parity(eng, probe, fed.x_val[torch.as_tensor(
+        probe % m, device="cuda"), 0])
+    print(f"  {n}-user qsgd:4 store: k={store.k}, build {build_s:.3f} s, "
+          f"levels {store.payload['levels'].numel() * 4 / 2**20:.1f} MiB "
+          f"resident, max recon err {store.recon_err.max():.3e}; encode "
+          f"({n}, {store.d}) and decodes of {SERVE['big_parity']} and {n} "
+          f"rows bitwise their plain versions; parity anchor on "
+          f"{SERVE['big_parity']} users OK (max|logit| {top:.3f})",
+          flush=True)
+    serve_report(f"{n}-user qsgd:4", store, eng, fed, n,
+                 SERVE["big_requests"], SERVE["big_flushes"], card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2286,6 +2560,15 @@ def main() -> int:
         launches[name] += n
     print(f"[checkpoint] save and restore on the card ({card})", flush=True)
     checkpoint_path(keep, card)
+    print(f"[serve] the personalised serving plane over [main]'s ucfl "
+          f"models, n={MAIN['n']} m={MAIN['m']} ({card})", flush=True)
+    ops.reset_launches()          # and from here on the serving path's
+    t0 = time.perf_counter()
+    serve_path(hists, fed, card)
+    print(f"  [serve] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
@@ -2296,11 +2579,12 @@ def main() -> int:
         r["launches"] = sum(counts[c] for c in
                             r.get("counters", (r.get("counter", r["name"]),)))
         if r.get("off_path"):
-            print(f"  {r['name']}: {r['launches']} launches (its kernel, the "
-                  "QSGD stream, is on no ported path)", flush=True)
+            print(f"  {r['name']}: {r['launches']} launches (the QSGD "
+                  "stream's quantize with absmax given is on no ported "
+                  "path)", flush=True)
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
-                                 "channel, faults, async or lm path")
+                                 "channel, faults, async, serve or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

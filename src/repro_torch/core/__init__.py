@@ -1,17 +1,32 @@
 """The paper's contribution, in PyTorch: user-centric aggregation.
 
-similarity  — Δ from client gradients (Gram kernel)
-mixing      — Eq. 6 collaboration coefficients
-streams     — k-means stream reduction
-aggregation — Eq. 5 mixing of stacked param dicts (Y = W Θ kernel)
-"""
-from repro_torch.core.aggregation import (mix_pytree, stream_aggregate,
-                                          user_centric_aggregate)
-from repro_torch.core.mixing import (fedavg_weights, groupwise_weights,
-                                     mixing_matrix)
-from repro_torch.core.similarity import delta_matrix, flatten_pytree
-from repro_torch.core.streams import StreamPlan, kmeans
+Counterpart of `repro/core/` (the mesh's `distributed` schedules go with
+the mesh placement, ROADMAP.md Queue 1 item 15):
 
-__all__ = ["StreamPlan", "delta_matrix", "fedavg_weights", "flatten_pytree",
-           "groupwise_weights", "kmeans", "mix_pytree", "mixing_matrix",
-           "stream_aggregate", "user_centric_aggregate"]
+similarity  — pre-training round statistics (Δ via the Gram kernel, σ², n)
+mixing      — Eq. 6 collaboration coefficients
+streams     — k-means stream reduction + silhouette guidance
+aggregation — Eq. 5 mixing of stacked param dicts (Y = W Θ kernel)
+theory      — Theorem 1 bound + bound-minimizing weights (beyond paper)
+"""
+from repro_torch.core.aggregation import (downlink_models, fedavg_aggregate,
+                                          mix_pytree, stream_aggregate,
+                                          user_centric_aggregate)
+from repro_torch.core.mixing import (effective_samples, fedavg_weights,
+                                     groupwise_weights, mixing_matrix)
+from repro_torch.core.similarity import (client_gradients, delta_matrix,
+                                         flatten_pytree, full_gradient,
+                                         sigma_estimates, similarity_round)
+from repro_torch.core.streams import (StreamPlan, kmeans, select_num_streams,
+                                      silhouette_score)
+from repro_torch.core.theory import bound_minimizing_weights, theorem1_bound
+
+__all__ = [
+    "downlink_models", "fedavg_aggregate", "mix_pytree", "stream_aggregate",
+    "user_centric_aggregate", "effective_samples", "fedavg_weights",
+    "groupwise_weights", "mixing_matrix", "client_gradients", "delta_matrix",
+    "flatten_pytree",
+    "full_gradient", "sigma_estimates", "similarity_round", "StreamPlan",
+    "kmeans", "select_num_streams", "silhouette_score",
+    "bound_minimizing_weights", "theorem1_bound",
+]

@@ -1,7 +1,8 @@
 """User-centric aggregation (paper Eq. 5) over client-stacked param dicts.
 
 Counterpart of `repro/core/aggregation.py` (`mix_pytree`,
-`user_centric_aggregate`, `stream_aggregate`).  Every leaf carries a
+`user_centric_aggregate`, `fedavg_aggregate`, `stream_aggregate`,
+`downlink_models`).  Every leaf carries a
 leading client dim m; the mix is one `kernels.ops.mixing_aggregate_leaves`
 call per leaf dtype over ``leaf.reshape(m, -1)`` — on CUDA, one launch of
 the hand-written Y = W Θ kernel for the whole tree (one a round for
@@ -48,9 +49,25 @@ def user_centric_aggregate(stacked, w: torch.Tensor):
     return mix_pytree(stacked, w)
 
 
+def fedavg_aggregate(stacked, n: torch.Tensor):
+    """FedAvg: one weighted mean, broadcast back to all m clients (the
+    (m, m) rule with every row n / Σn, one mix)."""
+    m = n.shape[0]
+    w = (n / n.sum())[None, :].expand(m, m).contiguous()
+    return mix_pytree(stacked, w)
+
+
 def stream_aggregate(stacked, plan: StreamPlan):
     """k-stream aggregation: client i gets stream a(i)'s mix, here as one
     mix with the (m, m) rule ``centroids[assignment]`` — the same function
     as mixing to the k centroids and gathering rows (group broadcast), in
     one launch and with no per-leaf gather."""
     return mix_pytree(stacked, plan.centroids[plan.assignment])
+
+
+def downlink_models(w_or_plan) -> int:
+    """Number of distinct models the PS must transmit (comm-model input):
+    a `StreamPlan`'s k, else the rows of a mixing matrix."""
+    if isinstance(w_or_plan, StreamPlan):
+        return int(w_or_plan.centroids.shape[0])
+    return int(w_or_plan.shape[0])

@@ -1,7 +1,7 @@
 """User-centric mixing coefficients (paper Eq. 6).
 
 Counterpart of `repro/core/mixing.py` (`mixing_matrix`,
-`fedavg_weights`, `groupwise_weights`):
+`fedavg_weights`, `groupwise_weights`, `effective_samples`):
 
     w_{i,j} ∝ (n_j / n_i) · exp( −Δ_{i,j} / (2 σ_i σ_j) ),   normalized over j.
 """
@@ -42,3 +42,9 @@ def groupwise_weights(n: torch.Tensor, group: np.ndarray
         idx = np.where(group == g)[0]
         wmat[np.ix_(idx, idx)] = nn[idx] / nn[idx].sum()
     return torch.from_numpy(wmat).to(n.device)
+
+
+def effective_samples(w: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """1 / Σ_j w_ij²/n_j — the variance-reduction term of Theorem 1 per
+    user."""
+    return 1.0 / torch.sum(w ** 2 / torch.clamp(n[None, :], min=1.0), dim=1)

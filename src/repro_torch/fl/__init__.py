@@ -7,6 +7,7 @@ from repro_torch.fl.faults import (FaultConfig, FaultPlan,
                                    resolve_fault_plan)
 from repro_torch.fl.placement import HostVmap, Placement
 from repro_torch.fl.runtime import AsyncConfig, VirtualClock, run_async
+from repro_torch.fl.serve import DeltaStore, ServeEngine, StoreBits, check_parity
 from repro_torch.fl.simulator import (FLConfig, History, NonFiniteEvalWarning,
                                       run_federated, superstep_support)
 from repro_torch.fl.stats import full_client_gradients, sigma2_estimates
@@ -17,13 +18,14 @@ from repro_torch.fl.strategies import (ClusterExtras, CommCost,
                                        available_strategies, get_strategy,
                                        register)
 
-__all__ = ["AsyncConfig", "Channel", "ClusterExtras", "CommCost", "FLConfig", "FaultConfig",
-           "FaultPlan", "FullParticipation", "History", "HostVmap",
-           "LinkProfile", "MixingExtras", "NonFiniteEvalWarning",
-           "Placement", "RoundContext", "SYSTEMS", "Strategy",
-           "StrategyExtras", "SystemModel", "TorchDraws", "UniformFraction",
-           "available_strategies", "full_client_gradients", "get_codec",
-           "get_robust_aggregator", "get_strategy", "harmonic",
-           "parse_fault_spec", "register", "resolve_fault_plan",
-           "run_async", "run_federated", "sigma2_estimates",
-           "superstep_support", "VirtualClock"]
+__all__ = ["AsyncConfig", "available_strategies", "Channel", "check_parity",
+           "ClusterExtras", "CommCost", "DeltaStore", "FaultConfig",
+           "FaultPlan", "FLConfig", "full_client_gradients",
+           "FullParticipation", "get_codec", "get_robust_aggregator",
+           "get_strategy", "harmonic", "History", "HostVmap", "LinkProfile",
+           "MixingExtras", "NonFiniteEvalWarning", "parse_fault_spec",
+           "Placement", "register", "resolve_fault_plan", "RoundContext",
+           "run_async", "run_federated", "ServeEngine", "sigma2_estimates",
+           "StoreBits", "Strategy", "StrategyExtras", "superstep_support",
+           "SystemModel", "SYSTEMS", "TorchDraws", "UniformFraction",
+           "VirtualClock"]

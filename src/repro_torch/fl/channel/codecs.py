@@ -28,8 +28,17 @@ as the reference's ``"pallas"`` backend does.  The bound adaptive codecs
 are plain torch on both devices, as the reference's are on both of its
 backends.  Not ported yet: the reference's ``"jnp"`` backend (exact
 ``top_k`` masks, first-index ties), which belongs to the mesh placement
-(ROADMAP.md Queue 1 item 15), and the at-rest format (`encode`,
-`decode`, `store_bound`) of the serving plane (item 11).
+(ROADMAP.md Queue 1 item 15).
+
+At rest (the serving plane, `fl.serve`), a codec's payload is a dict of
+row-aligned tensors (every value (m, ...)), so a store can gather a
+request batch's rows and decode only those: ``encode(flat, noise)``,
+``decode(payload, d)`` with ``decode(encode(x, u)) == roundtrip(x, u)``
+bit for bit, and ``store_bound(payload, d)``, the per-row error bound
+computed from the host-side payload.  QSGD keeps int32 levels and the
+row absmax (one launch of the QSGD row pass to encode, one of the QSGD
+stream to decode, on the card); top-k keeps the k largest-|x|
+(value, index) pairs of a row in ``jax.lax.top_k``'s order.
 
 Error feedback: the engine keeps a per-client residual stack e_i; each
 round the codec transmits v = Δ + e and the new residual is
@@ -51,8 +60,13 @@ from repro_torch.fl.placement.base import where_clients
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flush_subnormal
 
-_LATER_AT_REST = ("the codecs' at-rest format (encode/decode/store_bound) is "
-                  "not ported yet: ROADMAP.md Queue 1 item 11 (serving)")
+
+
+def _host(v) -> np.ndarray:
+    """A payload value (tensor or array) as a host numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 class Codec(abc.ABC):
@@ -78,14 +92,27 @@ class Codec(abc.ABC):
                   noise: Optional[torch.Tensor]) -> torch.Tensor:
         """decode(encode(flat)) per row; (m, D) f32 -> (m, D) f32."""
 
-    def encode(self, flat, noise):
-        raise NotImplementedError(_LATER_AT_REST)
+    # ---- at-rest format (the serving plane) -------------------------------
+    # The default keeps the decoded dense values (identity, and any codec
+    # without a compact residency).
 
-    def decode(self, payload, d=None):
-        raise NotImplementedError(_LATER_AT_REST)
+    def encode(self, flat: torch.Tensor, noise: Optional[torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """(m, D) f32 -> payload dict of (m, ...) tensors."""
+        return {"dense": self.roundtrip(flat, noise)}
 
-    def store_bound(self, payload, d):
-        raise NotImplementedError(_LATER_AT_REST)
+    def decode(self, payload: Dict[str, torch.Tensor],
+               d: Optional[int] = None) -> torch.Tensor:
+        """Payload dict (rows possibly gathered) -> (m, D) f32 values.
+        ``d`` is the dense width, needed by sparse payloads only."""
+        return payload["dense"]
+
+    def store_bound(self, payload: Dict[str, Any],
+                    d: int) -> Optional[np.ndarray]:
+        """(m,) float64 bound on each row's max |decode(encode(x)) − x|,
+        from the payload alone (tensors or host arrays); None where the
+        codec documents no bound."""
+        return None
 
     def bind_link(self, link: Any, tree: Any) -> "Codec":
         """Specialize this codec to a resolved `LinkProfile` (the engine
@@ -131,6 +158,9 @@ class Identity(Codec):
     def roundtrip(self, flat, noise):
         return flat
 
+    def store_bound(self, payload, d):
+        return np.zeros(payload["dense"].shape[0])    # lossless: exact
+
 
 @register_codec
 class QSGD(Codec):
@@ -156,6 +186,25 @@ class QSGD(Codec):
 
     def roundtrip(self, flat, noise):
         return ops.qsgd_roundtrip(flat, noise, bits=self.bits)
+
+    def encode(self, flat, noise):
+        """Int32 levels (m, D) and the row absmax (m, 1): the accounted b
+        bits an element and 32-bit scale of `payload_bits`, kept resident
+        as int32 (as the reference keeps them).  One row-pass launch on
+        the card."""
+        q, amax = ops.qsgd_quantize(flat, noise, bits=self.bits)
+        return {"levels": q, "absmax": amax}
+
+    def decode(self, payload, d=None):
+        """One launch of the QSGD stream on the card."""
+        return ops.qsgd_dequantize(payload["levels"], payload["absmax"],
+                                   bits=self.bits)
+
+    def store_bound(self, payload, d):
+        # stochastic rounding moves an element at most one level:
+        # |x − decode| <= scale_i = absmax_i / s
+        s = float(2 ** (self.bits - 1) - 1)
+        return _host(payload["absmax"])[:, 0].astype(np.float64) / s
 
 
 @register_codec
@@ -187,6 +236,36 @@ class TopK(Codec):
         absx = flat.abs()
         thresh = ops.topk_threshold(absx, k=self.k(flat.shape[1]))
         return torch.where(absx >= thresh, flat, torch.zeros_like(flat))
+
+    def encode(self, flat, noise):
+        """The k largest-|x| (value, index) pairs of each row, in
+        ``jax.lax.top_k``'s order: descending magnitude, ties to the first
+        index (a stable descending sort).  `roundtrip` keeps every tied
+        coordinate; both drop nothing above the k-th magnitude, so they
+        share the error bound."""
+        k = self.k(flat.shape[1])
+        idx = torch.sort(flat.abs(), dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        return {"values": flat.gather(1, idx),
+                "indices": idx.to(torch.int32)}
+
+    def decode(self, payload, d=None):
+        if d is None:
+            raise ValueError("topk decode needs the dense width d")
+        vals, idx = payload["values"], payload["indices"]
+        # a row's indices are distinct, so the add is a set, but for a
+        # -0.0 value (it lands as +0.0) and a subnormal one (0: the
+        # reference's XLA scatter-add flushes it), as in the reference
+        return torch.zeros((vals.shape[0], d), dtype=torch.float32,
+                           device=vals.device).scatter_add_(
+                               1, idx.long(), flush_subnormal(vals))
+
+    def store_bound(self, payload, d):
+        # every dropped coordinate is <= the k-th kept magnitude
+        vals = np.abs(_host(payload["values"]).astype(np.float64))
+        if vals.shape[1] >= d:
+            return np.zeros(vals.shape[0])      # k == d keeps everything
+        return np.min(vals, axis=1)
 
 
 def _uplink_rate(link: Any) -> np.ndarray:

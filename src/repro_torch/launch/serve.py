@@ -10,8 +10,15 @@ cache 128, the smoke config), draws params and prompt from
 `torch.Generator`s seeded with ``--seed``, and prints the prefill time,
 the decode rate and a sample, as the reference does.  `generate` also
 takes injected params and tokens, so a test can hand it the reference's.
-Caches are in the compute dtype.  ``--federated`` (the personalised
-serving plane) is ROADMAP.md Queue 1 item 11.
+Caches are in the compute dtype.
+
+``--federated`` refuses: the reference's ``--federated`` trains and
+serves an LM population (`launch/train.py`'s ``_lm_fns`` and
+``lm_federated_data``), which is LM training, ROADMAP.md Queue 1 item
+16b (its ``--placement mesh``, item 15).  Its other flags come with item
+16b.  The personalised serving plane itself is ported
+(`repro_torch.fl.serve`: `DeltaStore`, `ServeEngine`) and serves LeNet
+populations from `run_federated(keep_state=True)`.
 """
 from __future__ import annotations
 
@@ -93,6 +100,17 @@ def smoke_main(args) -> torch.Tensor:
     return res.tokens
 
 
+def federated_main():
+    """The reference's train-then-serve LM population: not ported."""
+    raise NotImplementedError(
+        "--federated trains and serves a federated LM population (the "
+        "reference's launch/train.py _lm_fns, lm_federated_data): LM "
+        "training is not ported yet, ROADMAP.md Queue 1 item 16b (its "
+        "--placement mesh is item 15).  The serving plane itself is "
+        "repro_torch.fl.serve (DeltaStore, ServeEngine) over "
+        "run_federated(keep_state=True).")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="gemma2-27b")
@@ -102,7 +120,13 @@ def main(argv=None):
     p.add_argument("--cache-len", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    return smoke_main(p.parse_args(argv))
+    p.add_argument("--federated", action="store_true",
+                   help="the reference's federated LM serving: not ported "
+                        "yet (ROADMAP.md Queue 1 item 16b)")
+    args = p.parse_args(argv)
+    if args.federated:
+        return federated_main()
+    return smoke_main(args)
 
 
 if __name__ == "__main__":

@@ -426,10 +426,18 @@ def test_codec_grammar_and_errors():
             jch.get_codec(bad)
         with pytest.raises(ValueError):
             ch.get_codec(bad)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ch.get_codec("qsgd:4").encode(torch.zeros(1, 3), None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ch.get_codec("topk:0.5").decode({}, d=3)
+    # the at-rest format (the serving plane): decode round-trips encode,
+    # and a top-k payload needs the dense width
+    x = torch.tensor([[0.5, -2.0, 1.0], [0.0, 0.0, 0.0]])
+    u = torch.full((2, 3), 0.25)
+    for spec, noise in (("identity", None), ("qsgd:4", u),
+                        ("topk:1.0", None)):
+        c = ch.get_codec(spec)
+        assert torch.equal(c.decode(c.encode(x, noise), d=3),
+                           c.roundtrip(x, noise))
+    with pytest.raises(ValueError, match="dense width"):
+        ch.get_codec("topk:0.5").decode(ch.get_codec("topk:0.5").encode(
+            x, None))
 
 
 def test_link_grammar_and_channel_resolution():

@@ -212,6 +212,7 @@ def test_port_imports_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.']\n"
             "import repro_torch.fl, repro_torch.fl.channel, "
             "repro_torch.fl.faults, repro_torch.fl.runtime, "
+            "repro_torch.fl.serve, repro_torch.core, "
             "repro_torch.checkpoint, repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "

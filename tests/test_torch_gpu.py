@@ -1370,3 +1370,150 @@ def test_checkpoint_of_cuda_tensors_restores_bitwise(tmp_path):
                            f32[:2].cpu().view(torch.int32))
         assert got["nested"][0]["none"] is None
         assert got["nested"][1:] == ["tag", 3]
+
+
+# ---------------------------------------------------------------------------
+# the serving plane: stores built on the card against the CPU's, serving
+
+
+def _serve_stack(m=8, seed=0):
+    """A full-width LeNet-5 population on the CPU: m users in 3 streams,
+    each its stream's model plus its own noise, and elements planted so
+    the identity store needs its fixup; with the coarse assignment,
+    injected qsgd noise and one request per user."""
+    from repro_torch.models import lenet
+    gen = torch.Generator().manual_seed(seed)
+    p0 = lenet.init_params(gen, lenet.LeNetConfig(), device="cpu")
+    asn = torch.arange(m) % 3
+    stack = {}
+    for k, v in p0.items():
+        sd = float(v.std()) if v.numel() > 1 and float(v.std()) > 0 else 0.05
+        grp = 0.1 * sd * torch.randn((3,) + v.shape, generator=gen)
+        own = 0.01 * sd * torch.randn((m,) + v.shape, generator=gen)
+        stack[k] = v[None] + grp[asn] + own
+    stack["fc1_w"][2, 0, 0], stack["fc1_w"][5, 0, 0] = 1.0, 1e-9
+    d = sum(v[0].numel() for v in stack.values())
+    noise = torch.rand((m, d), generator=gen)
+    xs = torch.randn((m, 28, 28, 1), generator=gen)
+    return stack, asn.numpy(), noise, xs
+
+
+def _apply_one(params, x):
+    from repro_torch.models import lenet
+    return lenet.apply(params, x[None])[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["identity", "qsgd:4", "topk:0.25"])
+def test_store_built_on_card_equals_cpu_store(codec):
+    """The refinement, the fixup, the QSGD row pass's levels and absmax
+    (one launch) and top-k's stable sort give the CPU's store bitwise;
+    the card's full decode (one QSGD stream launch) its reconstruction."""
+    _require_cuda()
+    from repro_torch.fl import DeltaStore
+    stack, asn, noise, _ = _serve_stack()
+    cpu = DeltaStore.build(stack, assignment=asn, codec=codec, noise=noise,
+                           device="cpu")
+    n0 = dict(ops.LAUNCHES)
+    gpu = DeltaStore.build(stack, assignment=asn, codec=codec, noise=noise,
+                           device="cuda")
+    if codec == "qsgd:4":
+        assert ops.LAUNCHES["qsgd_quantize"] == n0["qsgd_quantize"] + 1
+        assert ops.LAUNCHES["qsgd_dequantize"] == n0["qsgd_dequantize"] + 1
+    pairs = [(gpu.base_flat, cpu.base_flat),
+             (gpu.fix_values, cpu.fix_values),
+             (gpu.fix_indices, cpu.fix_indices),
+             (gpu.params_flat(), cpu.params_flat())]
+    pairs += [(gpu.payload[k], cpu.payload[k]) for k in cpu.payload]
+    for a, b in pairs:
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    assert (gpu.assignment == cpu.assignment).all()
+    assert (gpu.recon_err == cpu.recon_err).all()
+    assert (gpu.bits.delta_bits == cpu.bits.delta_bits).all()
+    if codec == "identity":
+        assert gpu.fix_values.shape[1] >= 1 and gpu.recon_err.max() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["identity", "qsgd:4", "topk:0.25"])
+def test_serve_engine_on_card_matches_cpu(codec):
+    """Served logits on the card against the CPU engine's at `[agree]`'s
+    rtol 1e-3 / atol 1e-4 (the forward's f32 GEMMs sum in another
+    order), equal argmax, and the parity anchor on the card."""
+    _require_cuda()
+    from repro_torch.fl import DeltaStore, ServeEngine, check_parity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stack, asn, noise, xs = _serve_stack()
+    users = [3, 0, 7, 5, 1, 1]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        store = DeltaStore.build(stack, assignment=asn, codec=codec,
+                                 noise=noise, device=dev)
+        eng = ServeEngine(store, _apply_one, max_batch=4)
+        outs[dev] = eng.serve(users, xs[users]).cpu()
+        if dev == "cuda":
+            n0 = ops.LAUNCHES["qsgd_dequantize"]
+            check_parity(eng, users, xs[users])
+            if codec == "qsgd:4":    # the served batch's and the full decode
+                assert ops.LAUNCHES["qsgd_dequantize"] == n0 + 2
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-3,
+                               atol=1e-4)
+    assert torch.equal(outs["cuda"].argmax(1), outs["cpu"].argmax(1))
+
+
+@pytest.mark.gpu
+def test_microbatcher_contract_on_card():
+    """Each request served in a flushed batch (of 4 and of 3) against the
+    same request served alone and in a batch of 2, on the card.  Not
+    bitwise against batch 1: there the vmapped matmuls of the forward
+    (the im2col convs and the FC layers) run cuBLAS's unbatched GEMM,
+    which sums in another order than the batched GEMM of batch counts 2
+    and up (on an H100 the logits here differ by 3e-7; `chip_smoke.py`
+    `[serve]` prints the difference at its config, one ulp of its
+    largest logit, also between batches of 2 and 16).  So a request
+    alone agrees within the parity anchor's rtol 1e-5 of the batch's max
+    |logit|, and here, in a batch of 2, bitwise."""
+    _require_cuda()
+    from repro_torch.fl import DeltaStore, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stack, asn, noise, xs = _serve_stack()
+    store = DeltaStore.build(stack, assignment=asn, codec="qsgd:4",
+                             noise=noise, device="cuda")
+    eng = ServeEngine(store, _apply_one, max_batch=4)
+    users = [2, 0, 3, 1, 2, 6, 7]
+    for u in users:
+        eng.submit(u, xs[u].cuda())
+    outs = eng.flush()
+    assert eng.last_stats["batches"] == 2
+    for i, u in enumerate(users):
+        one = eng.serve([u], xs[u][None]).cpu().numpy()[0]
+        tol = 1e-5 * max(abs(o).max() for o in outs)
+        assert abs(outs[i] - one).max() <= tol, (i, abs(outs[i] - one).max())
+        v = (u + 1) % len(xs)
+        two = eng.serve([u, v], xs[[u, v]]).cpu().numpy()[0]
+        assert (outs[i] == two).all(), (i, abs(outs[i] - two).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["identity", "qsgd:4", "topk:0.25"])
+def test_store_saved_from_card_restores_bitwise(tmp_path, codec):
+    _require_cuda()
+    from repro_torch.fl import DeltaStore
+    stack, asn, noise, _ = _serve_stack()
+    store = DeltaStore.build(stack, assignment=asn, codec=codec,
+                             noise=noise, device="cuda")
+    path = str(tmp_path / "store.msgpack")
+    store.save(path)
+    for dev in ("cuda", "cpu"):
+        back = DeltaStore.load(path, device=dev)
+        assert back.codec.spec == store.codec.spec
+        assert (back.assignment == store.assignment).all()
+        assert (back.recon_err == store.recon_err).all()
+        assert back.bits.total_bytes == store.bits.total_bytes
+        for k in store.payload:
+            assert torch.equal(back.payload[k].cpu().view(torch.uint8),
+                               store.payload[k].cpu().view(torch.uint8))
+        assert torch.equal(back.params_flat().cpu().view(torch.int32),
+                           store.params_flat().cpu().view(torch.int32))

@@ -106,6 +106,25 @@ Phases (any failure raises and the script exits non-zero):
                 8 flushes of 1,024 requests at max_batch 64.  The qsgd
                 builds run the QSGD row pass's encode, the decodes the
                 QSGD stream;
+ 10c. paging  — the cohort paging engine (`run_federated(paging=...)`):
+                [main]'s scenario widened to 1,000 clients over 100,000
+                samples, data and client-state store (params, momentum,
+                EF residuals) on the host, a cohort of 20 on the card,
+                ucfl_k4 + qsgd:8 under wireless_slow, a round and its
+                eval a superstep: (a) a `FixedCohort` of 20 rows bitwise
+                the resident fused run on its sub-population; (b) a
+                20-superstep sweep, prefetch on and off bitwise (history
+                and every store row), s/superstep, and a profiler trace
+                of three supersteps (device busy share, H2D and D2H copy
+                time and how much of it lies under kernels); (c) random
+                overlapping cohorts of a 40-client population, prefetch
+                on and off bitwise; (d) the sweep's peak device memory
+                at 200 and 1,000 clients within 1 MiB; (e) a memmap-store
+                run preempted and resumed bitwise, then resumed past a
+                corrupt newest snapshot (a warning, the one before);
+                (f) the async lockstep anchor (20 clients, K = 20)
+                bitwise the resident `run_async`, then K = 5 over the
+                1,000 clients: s/event.  Every run's launches stated;
  11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -145,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -2465,6 +2485,326 @@ def serve_path(hists, fed, card: str) -> None:
                  SERVE["big_requests"], SERVE["big_flushes"], card)
 
 
+# [paging]: the cohort paging engine.  [main]'s scenario widened to a
+# population of 1,000 clients over 100,000 samples, its data and its
+# client-state store on the host, one cohort of 20 on the card at a time;
+# ucfl_k4 + qsgd:8 under wireless_slow, so the store carries
+# error-feedback residuals and every round runs the QSGD row pass
+PAGING = dict(n=100_000, population=1000, cohort=20, rounds=20,
+              eval_every=1, spec="ucfl_k4", codec="qsgd:8", small=200,
+              overlap=40, resume=100, resume_rounds=6, preempt=3,
+              async_k=5)
+MIB = 2 ** 20
+
+
+def _host_rows(tree, idx=None):
+    """A nested dict of tensors on the host, its rows ``idx`` if given."""
+    if isinstance(tree, dict):
+        return {k: _host_rows(v, idx) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return (tree if idx is None else tree[torch.as_tensor(idx)]).cpu()
+
+
+def _same_paged(label: str, a, b, rows=None) -> None:
+    """Two runs' histories equal and their final rows (params, optimizer
+    state, residuals; ``a``'s rows ``rows`` when given) bitwise."""
+    for field in ("rounds", "mean_acc", "worst_acc", "time", "comm",
+                  "comm_bits"):
+        if getattr(a, field) != getattr(b, field):
+            raise AssertionError(f"[paging] {label}: {field} differs: "
+                                 f"{getattr(a, field)} != "
+                                 f"{getattr(b, field)}")
+    for part in ("final_params", "final_opt_state", "final_residual"):
+        if not _tree_equal(_host_rows(getattr(a, part), rows),
+                           _host_rows(getattr(b, part))):
+            raise AssertionError(f"[paging] {label}: {part} not bitwise")
+
+
+def _overlap_us(spans, cover) -> float:
+    """µs of the (start, end) ``spans`` that lie under the union of the
+    sorted ``cover`` spans."""
+    merged = []
+    for st, en in cover:
+        if merged and st <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], en)
+        else:
+            merged.append([st, en])
+    total = 0.0
+    for st, en in spans:
+        for cs, ce in merged:
+            total += max(0.0, min(en, ce) - max(st, cs))
+    return total
+
+
+def paging_trace(fed, kw: dict):
+    """One torch.profiler trace of a 4-superstep sweep with prefetch on;
+    the window runs from the host taking superstep 1's draws to the end
+    of the run, so it holds supersteps 1-3 (their setups, copies,
+    replays and writebacks).  Returns the window's wall, device busy (the
+    union of every device span), kernel busy, and the H2D / D2H copy
+    time with the part of it under kernel spans; None without device
+    events."""
+    from repro_torch.fl import PagingConfig
+    draws = WindowDraws(11, first=1)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run_federated(PAGING["spec"], fed, draws=draws,
+                      paging=PagingConfig(cohort=PAGING["cohort"]),
+                      **{**kw, "fl": dataclasses.replace(kw["fl"],
+                                                         rounds=4)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - draws.t0
+        draws.range.__exit__(None, None, None)
+    start = min(e.time_range.start for e in prof.events()
+                if e.name == "window")
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "window" and e.time_range.start >= start]
+    if not dev:
+        return None
+    span = lambda e: (e.time_range.start, e.time_range.end)
+    kernels = sorted(span(e) for e in dev
+                     if not e.name.startswith(("Memcpy", "Memset")))
+    h2d = [span(e) for e in dev if "HtoD" in e.name]
+    d2h = [span(e) for e in dev if "DtoH" in e.name]
+    out = {"wall": wall * 1e3,
+           "busy": busy_us(sorted(span(e) for e in dev)) / 1e3,
+           "kernels": busy_us(kernels) / 1e3 if kernels else 0.0,
+           "n_kernels": len(kernels)}
+    for name, spans in (("h2d", h2d), ("d2h", d2h)):
+        out[name] = sum(en - st for st, en in spans) / 1e3
+        out[name + "_n"] = len(spans)
+        out[name + "_under"] = _overlap_us(spans, kernels) / 1e3
+    return out
+
+
+def paging_path(card: str) -> None:
+    """[paging]: (a) a paged `FixedCohort` of 20 rows bitwise the resident
+    fused run on its sub-population; (b) a 20-superstep sweep over the
+    1,000 clients, prefetch on and off bitwise, s/superstep, and a
+    profiler trace of three supersteps; (c) overlapping random cohorts
+    (population 40) bitwise prefetch off; (d) peak device memory of the
+    sweep at populations 200 and 1,000 within 1 MiB; (e) a memmap-store
+    run preempted and resumed bitwise, then past a corrupt newest
+    snapshot; (f) the async lockstep anchor bitwise the resident
+    `run_async`, then K = 5 over the 1,000 clients.  Each run's launches
+    are stated: a mix and a QSGD row pass a round, a Gram a cohort
+    setup."""
+    import shutil
+    from repro_torch.fl import (FixedCohort, PagingConfig, RandomCohorts,
+                                run_async, sub_federated)
+    from repro_torch.fl.simulator import default_model_init
+    cfg, m_c, rounds = PAGING, PAGING["cohort"], PAGING["rounds"]
+    t0 = time.perf_counter()
+    dev_fed = scenario_label_shift(0, n=cfg["n"], m=cfg["population"],
+                                   device="cuda")
+    fed = FederatedData(*(t.cpu() for t in dev_fed))
+    del dev_fed
+    torch.cuda.empty_cache()
+    data_mib = sum(t.numel() * t.element_size() for t in fed) / MIB
+    fl = FLConfig(rounds=rounds, local_steps=MAIN["local_steps"],
+                  batch_size=MAIN["batch_size"], eval_every=cfg["eval_every"])
+    kw = dict(fl=fl, system=SYSTEMS["wireless_slow"],
+              channel=Channel(codec=cfg["codec"]),
+              model_init=default_model_init(fed), seed=0, device="cuda")
+    print(f"  population {fed.m} clients over {cfg['n']} samples, x "
+          f"{tuple(fed.x.shape)} on the host: data {data_mib:.1f} MiB, a "
+          f"cohort's page {data_mib * m_c / fed.m:.1f} MiB; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def pop(k):
+        """The first k clients (the population's padded shapes)."""
+        return fed if k == fed.m else sub_federated(fed, np.arange(k))
+
+    def run(f, spec=cfg["spec"], fn=run_federated, **extra):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        h = fn(spec, f, **{**kw, **extra})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return h, wall, {k: ops.LAUNCHES[k] - before[k] for k in before
+                         if ops.LAUNCHES[k] != before[k]}
+
+    def want_launches(label, got, rounds_, setups):
+        want = {"mixing_aggregate": rounds_, "qsgd_roundtrip": rounds_,
+                "gram_matrix": setups}
+        if got != want:
+            raise AssertionError(f"[paging] {label}: launches {got}, want "
+                                 f"{want}")
+
+    # (a) the anchor: 20 rows spread over the population
+    idx = np.arange(m_c) * (fed.m // m_c)
+    h_pag, wall, got = run(fed, keep_state=True,
+                           paging=PagingConfig(schedule=FixedCohort(idx)))
+    want_launches("(a) paged", got, rounds, 1)
+    sub = FederatedData(*(t.cuda() for t in sub_federated(fed, idx)))
+    h_res, res_wall, got_res = run(sub, keep_state=True, superstep=True)
+    if got_res != got:
+        raise AssertionError(f"[paging] (a) resident launches {got_res}")
+    _same_paged("(a) FixedCohort against resident", h_pag, h_res, rows=idx)
+    del sub, h_pag, h_res
+    print(f"  (a) FixedCohort {m_c} rows paged: bitwise the resident "
+          f"fused run on the sub-population (history, params, optimizer "
+          f"state, EF residuals); paged {wall:.2f} s (first run, the "
+          f"graph's capture included), resident {res_wall:.2f} s; launches "
+          f"{got} ({card})", flush=True)
+
+    # (b) the sweep: 20 disjoint cohorts, prefetch on and off
+    sweeps = {}
+    for prefetch in (True, False):
+        sweeps[prefetch] = run(fed, keep_state=True, paging=PagingConfig(
+            cohort=m_c, prefetch=prefetch))
+        want_launches(f"(b) prefetch {prefetch}", sweeps[prefetch][2],
+                      rounds, rounds)
+    _same_paged("(b) sweep prefetch on against off", sweeps[True][0],
+                sweeps[False][0])
+    h = sweeps[True][0]
+    store_mb = h.extra["paging"]["store_bytes"] / 1e6
+    accs = [round(a, 4) for a in h.mean_acc]
+    print(f"  (b) sweep, {rounds} supersteps of one round and its eval, "
+          f"cohort {m_c}: store {store_mb:.1f} MB on the host "
+          f"({store_mb * 1e3 / fed.m:.1f} kB a client: params, momentum, "
+          f"EF); prefetch on and off bitwise (history and every store "
+          f"row); {sweeps[True][1] / rounds:.4f} s/superstep with "
+          f"prefetch, {sweeps[False][1] / rounds:.4f} without (UCFL setup "
+          f"of each new cohort included); mean_acc {accs[:3]}...{accs[-1]}"
+          f"; launches {sweeps[True][2]} ({card})", flush=True)
+    del sweeps, h
+    tr = paging_trace(fed, kw)
+    if tr is None:
+        print(f"  (b) trace: no device events in the window; busy share "
+              f"and copy overlap not measured ({card})", flush=True)
+    else:
+        print(f"  (b) trace of supersteps 1-3: wall {tr['wall']:.1f} ms, "
+              f"device busy {tr['busy']:.1f} ms ({tr['busy'] / tr['wall']:.1%}"
+              f"), kernels {tr['kernels']:.1f} ms ({tr['n_kernels']}); H2D "
+              f"{tr['h2d']:.2f} ms in {tr['h2d_n']} copies, "
+              f"{tr['h2d_under']:.2f} ms of it under kernels; D2H "
+              f"{tr['d2h']:.2f} ms in {tr['d2h_n']} copies, "
+              f"{tr['d2h_under']:.2f} ms under kernels: the copies overlap "
+              f"the replay and the setups' kernels for "
+              f"{(tr['h2d_under'] + tr['d2h_under']) / (tr['h2d'] + tr['d2h']):.0%}"
+              f" of their time ({card})", flush=True)
+
+    # (c) overlapping cohorts: the drain-before-gather path
+    sched = RandomCohorts(m_c, seed=0)
+    overlaps = sum(np.intersect1d(sched.indices(t, cfg["overlap"]),
+                                  sched.indices(t + 1, cfg["overlap"])).size
+                   > 0 for t in range(rounds - 1))
+    if overlaps != rounds - 1:
+        raise AssertionError(f"[paging] (c) {overlaps} overlapping steps")
+    f40 = pop(cfg["overlap"])
+    runs = [run(f40, keep_state=True, paging=PagingConfig(
+        schedule=sched, prefetch=prefetch)) for prefetch in (True, False)]
+    _same_paged("(c) random cohorts prefetch on against off", runs[0][0],
+                runs[1][0])
+    print(f"  (c) population {cfg['overlap']}, random cohorts of {m_c} "
+          f"(every step overlaps the last): prefetch on and off bitwise; "
+          f"{runs[0][1] / rounds:.4f} and {runs[1][1] / rounds:.4f} "
+          f"s/superstep ({card})", flush=True)
+    del runs, f40
+
+    # (d) device memory follows the cohort, not the population
+    peaks = {}
+    for n_pop in (cfg["small"], fed.m):
+        f = pop(n_pop)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        h, wall, _ = run(f, paging=PagingConfig(cohort=m_c))
+        peaks[n_pop] = (torch.cuda.max_memory_allocated(), base,
+                        h.extra["paging"]["store_bytes"], wall)
+    (p_s, b_s, s_s, w_s), (p_l, b_l, s_l, w_l) = peaks.values()
+    if abs(p_s - p_l) > MIB:
+        raise AssertionError(f"[paging] (d) peak device memory {p_s} at "
+                             f"{cfg['small']} clients, {p_l} at {fed.m}")
+    print(f"  (d) peak device memory of the sweep: {p_s / MIB:.2f} MiB at "
+          f"{cfg['small']} clients ({(p_s - b_s) / MIB:.2f} over the "
+          f"{b_s / MIB:.2f} MiB already held; store {s_s / 1e6:.1f} MB), "
+          f"{p_l / MIB:.2f} MiB at {fed.m} ({(p_l - b_l) / MIB:.2f} over; "
+          f"store {s_l / 1e6:.1f} MB): within "
+          f"{abs(p_s - p_l) / MIB:.3f} MiB; {w_l / rounds:.4f} s/superstep "
+          f"without keep_state ({card})", flush=True)
+
+    # (e) preempt and resume, memmap store, TorchDraws
+    root = Path(__file__).resolve().parent / "build" / "paging"
+    shutil.rmtree(root, ignore_errors=True)
+    f100 = pop(cfg["resume"])
+    fl_r = dataclasses.replace(fl, rounds=cfg["resume_rounds"])
+    base = dict(cohort=m_c, store_dir=str(root / "store"),
+                checkpoint_dir=str(root / "ck"))
+    full, _, _ = run(f100, fl=fl_r, keep_state=True,
+                     paging=PagingConfig(cohort=m_c))
+    part, _, _ = run(f100, fl=fl_r, paging=PagingConfig(
+        max_chunks=cfg["preempt"], **base))
+    if part.rounds != full.rounds[:cfg["preempt"]]:
+        raise AssertionError(f"[paging] (e) preempted run {part.rounds}")
+    t0 = time.perf_counter()
+    res, _, _ = run(f100, fl=fl_r, keep_state=True,
+                    paging=PagingConfig(resume=True, **base))
+    res_wall = time.perf_counter() - t0
+    _same_paged("(e) resumed against uninterrupted", res, full)
+    if res.extra["paging"]["resumed_at"] != cfg["preempt"]:
+        raise AssertionError(f"[paging] (e) {res.extra['paging']}")
+    snaps = sorted((root / "ck").iterdir())
+    snap_mib = snaps[-1].stat().st_size / MIB
+    blob = bytearray(snaps[-1].read_bytes())
+    blob[len(blob) // 2] ^= 0x10
+    snaps[-1].write_bytes(bytes(blob))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        again, _, _ = run(f100, fl=fl_r, keep_state=True,
+                          paging=PagingConfig(resume=True, **base))
+    warned = [str(w.message) for w in caught
+              if "failed its integrity check" in str(w.message)]
+    if (len(warned) != 1
+            or again.extra["paging"]["resumed_at"] != len(snaps) - 1):
+        raise AssertionError(f"[paging] (e) fallback: {warned}, "
+                             f"{again.extra['paging']}")
+    _same_paged("(e) resumed past a corrupt snapshot", again, full)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  (e) population {cfg['resume']}, memmap store, "
+          f"{cfg['resume_rounds']} supersteps: preempted after "
+          f"{cfg['preempt']}, resumed bitwise the uninterrupted run (resume "
+          f"{res_wall:.2f} s, snapshots {snap_mib:.1f} MiB each); with the "
+          f"newest snapshot's byte flipped the resume warned, fell back to "
+          f"the one before and ended bitwise again ({card})", flush=True)
+    del full, part, res, again, f100
+
+    # (f) the paged async engine
+    f20 = pop(m_c)
+    akw = dict(system=SYSTEMS["wired"], keep_state=True,
+               async_cfg=AsyncConfig(buffer_k=m_c))
+    res, res_wall, got_res = run(
+        FederatedData(*(t.cuda() for t in f20)), fn=run_async, **akw)
+    pag, wall, got = run(f20, fn=run_async, paging=PagingConfig(cohort=m_c),
+                         **akw)
+    if got != got_res:
+        raise AssertionError(f"[paging] (f) launches {got} != {got_res}")
+    _same_paged("(f) async lockstep against resident", pag, res)
+    print(f"  (f) async lockstep, population {m_c}, K={m_c}, wired: paged "
+          f"bitwise the resident run_async (history, params, optimizer "
+          f"state, EF); {wall / rounds:.4f} s/event paged, "
+          f"{res_wall / rounds:.4f} resident; launches {got} ({card})",
+          flush=True)
+    k = cfg["async_k"]
+    h, wall, got = run(fed, fn=run_async,
+                       async_cfg=AsyncConfig(buffer_k=k),
+                       paging=PagingConfig(cohort=k))
+    want_launches("(f) K=5", got, rounds, got.get("gram_matrix", 0))
+    if not (1 <= got["gram_matrix"] <= rounds) or not all(
+            math.isfinite(a) for a in h.mean_acc):
+        raise AssertionError(f"[paging] (f) K={k}: {got}, {h.mean_acc}")
+    print(f"  (f) async K={k} over {fed.m} clients, {rounds} events, "
+          f"wireless_slow: {wall / rounds:.4f} s/event (a UCFL setup an "
+          f"event whose cohort is new); clock {h.time[-1]:.2f}, streams "
+          f"{sorted({c.n_streams for c in h.comm})}; launches {got} "
+          f"({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2569,6 +2909,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
+    print(f"[paging] the cohort paging engine: {PAGING['population']} "
+          f"clients on the host, {PAGING['cohort']} on the card at a time "
+          f"({card})", flush=True)
+    ops.reset_launches()          # and from here on the paging path's
+    t0 = time.perf_counter()
+    paging_path(card)
+    print(f"  [paging] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
@@ -2584,7 +2934,8 @@ def main() -> int:
                   "path)", flush=True)
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
-                                 "channel, faults, async, serve or lm path")
+                                 "channel, faults, async, serve, paging or "
+                                 "lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

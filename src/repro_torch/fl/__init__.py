@@ -6,6 +6,11 @@ from repro_torch.fl.faults import (FaultConfig, FaultPlan,
                                    get_robust_aggregator, parse_fault_spec,
                                    resolve_fault_plan)
 from repro_torch.fl.placement import HostVmap, Placement
+from repro_torch.fl.population import (ClientStateStore, CohortSchedule,
+                                       FixedCohort, PagingConfig,
+                                       RandomCohorts, SequentialSweep,
+                                       run_async_paged, run_paged,
+                                       sub_federated)
 from repro_torch.fl.runtime import AsyncConfig, VirtualClock, run_async
 from repro_torch.fl.serve import DeltaStore, ServeEngine, StoreBits, check_parity
 from repro_torch.fl.simulator import (FLConfig, History, NonFiniteEvalWarning,
@@ -19,13 +24,16 @@ from repro_torch.fl.strategies import (ClusterExtras, CommCost,
                                        register)
 
 __all__ = ["AsyncConfig", "available_strategies", "Channel", "check_parity",
-           "ClusterExtras", "CommCost", "DeltaStore", "FaultConfig",
-           "FaultPlan", "FLConfig", "full_client_gradients",
+           "ClientStateStore", "ClusterExtras", "CohortSchedule",
+           "CommCost", "DeltaStore", "FaultConfig", "FaultPlan",
+           "FixedCohort", "FLConfig", "full_client_gradients",
            "FullParticipation", "get_codec", "get_robust_aggregator",
            "get_strategy", "harmonic", "History", "HostVmap", "LinkProfile",
-           "MixingExtras", "NonFiniteEvalWarning", "parse_fault_spec",
-           "Placement", "register", "resolve_fault_plan", "RoundContext",
-           "run_async", "run_federated", "ServeEngine", "sigma2_estimates",
-           "StoreBits", "Strategy", "StrategyExtras", "superstep_support",
-           "SystemModel", "SYSTEMS", "TorchDraws", "UniformFraction",
-           "VirtualClock"]
+           "MixingExtras", "NonFiniteEvalWarning", "PagingConfig",
+           "parse_fault_spec", "Placement", "RandomCohorts", "register",
+           "resolve_fault_plan", "RoundContext", "run_async",
+           "run_async_paged", "run_federated", "run_paged",
+           "SequentialSweep", "ServeEngine", "sigma2_estimates",
+           "StoreBits", "Strategy", "StrategyExtras", "sub_federated",
+           "superstep_support", "SystemModel", "SYSTEMS", "TorchDraws",
+           "UniformFraction", "VirtualClock"]

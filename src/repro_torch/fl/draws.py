@@ -119,6 +119,22 @@ class TorchDraws:
                                 device=self.device, dtype=torch.int32)
         return FaultDraws(crash, nan, rot, elem, bit)
 
+    def _generators(self) -> dict:
+        return {"batch": self._batch, "perm": self._perm,
+                "noise": self._noise, "fault": self._fault}
+
+    def state_dict(self) -> dict:
+        """Where each stateful stream stands (its generator's
+        ``get_state()``, a CPU uint8 tensor): the paging engine's
+        checkpoints keep it where the reference keeps its key."""
+        return {name: gen.get_state()
+                for name, gen in self._generators().items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Put every stream back where `state_dict` found it."""
+        for name, gen in self._generators().items():
+            gen.set_state(torch.as_tensor(state[name]).cpu())
+
 
 class ChunkDraws(NamedTuple):
     """One chunk's draws, a row per round."""

@@ -5,7 +5,8 @@ engines use: build the local-update step, stack the common
 initialization into the client-stacked dict, place the data, roll back
 non-participants, run an async event's cohort update, pass the uplink
 through the channel codec, apply a mixing matrix or a `StreamPlan`, and
-evaluate the personalized models.
+evaluate the personalized models, and move a paged cohort's rows between
+host and card (`stage`, `fetch`).
 Strategies route every mix through `RoundContext.mix` / `mix_plan`
 (eventful) or `TracedMix` (fused), which dispatch here.
 
@@ -25,6 +26,8 @@ from torch.func import vmap
 
 from repro_torch.core.streams import StreamPlan
 from repro_torch.data.federated import FederatedData
+from repro_torch.fl.placement.copies import (Fetched, Staged, fetch_tree,
+                                             stage_tree)
 from repro_torch.fl.placement.graphs import (CapturedChunk, StaticInputs,
                                              draw_row, leaves, stack_rows,
                                              tree_spec)
@@ -124,6 +127,21 @@ class Placement(abc.ABC):
     @abc.abstractmethod
     def mix_plan(self, stacked: Any, plan: StreamPlan) -> Any:
         """Apply a k-stream `StreamPlan` (centroid mix + group broadcast)."""
+
+    # ---- the paging engine's copy legs (`fl.placement.copies`) -------------
+
+    def stage(self, tree: Any, m: int, device: torch.device) -> Staged:
+        """Begin the host -> device copy of a gathered cohort tree of ``m``
+        rows (numpy arrays or CPU tensors): the paging engine's H2D leg.
+        Returns a `Staged`; its ``wait()`` gives the device tree, ordered
+        after the copy on the current stream."""
+        return stage_tree(tree, device)
+
+    def fetch(self, tree: Any, device: torch.device) -> Fetched:
+        """Snapshot a device tree (a captured chunk's static buffers
+        included) and begin its copy to the host: the paging engine's D2H
+        leg.  ``wait()`` gives the host tree."""
+        return fetch_tree(tree, device)
 
     @abc.abstractmethod
     def evaluate(self, acc_fn: Callable, stacked: Any, fed: FederatedData

@@ -38,17 +38,19 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` on every tensor of a nested dict / tuple / list, with the
-    matching tensors of the same-structured trees ``rest``; None stays."""
+    """``fn`` on every tensor (or numpy array) of a nested dict / tuple /
+    list, with the matching leaves of the same-structured trees ``rest``;
+    None stays."""
     if tree is None:
         return None
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
@@ -73,10 +75,10 @@ def tree_spec(tree: Any) -> Any:
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a tree (dict keys sorted)."""
+    """The tensors (or numpy arrays) of a tree (dict keys sorted)."""
     if tree is None:
         return []
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [tree]
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]

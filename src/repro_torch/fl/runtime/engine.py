@@ -1,8 +1,9 @@
 """Buffered-asynchronous federated round engine.
 
 Counterpart of `repro/fl/runtime/engine.py` (`AsyncConfig`, `run_async`),
-followed line for line, without its paging and hierarchy branches (they
-raise `NotImplementedError` naming their ROADMAP items).
+followed line for line, without its hierarchy branch (it raises
+`NotImplementedError` naming its ROADMAP item); ``paging=`` delegates to
+`repro_torch.fl.population.run_async_paged`.
 
 The synchronous engine makes every round wait for the slowest of m
 shifted-exponential stragglers.  This runtime replaces that barrier
@@ -152,10 +153,27 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
     bit accounting and per-client link timing; ``faults``, ``robust_agg``
     and ``min_quorum`` as in `run_federated`, a crash deciding at the
     clock (`pop_with_retries`).  ``History.extra["async"]`` records the
-    configuration.  ``paging`` and ``hierarchy`` raise
-    `NotImplementedError` naming their ROADMAP items.
+    configuration.  ``paging`` (a `PagingConfig`) runs the store-backed
+    engine (`run_async_paged`: the arrival buffer is the page request,
+    ``fed`` may live on the host); ``hierarchy`` raises
+    `NotImplementedError` naming its ROADMAP item, and `TypeError` beside
+    ``paging``.
     """
-    refuse_later(paging=paging, hierarchy=hierarchy)
+    if paging is not None:
+        if hierarchy is not None:
+            raise TypeError("the hierarchy tier does not compose with the "
+                            "cohort paging engine yet (the store pages "
+                            "flat client rows, not device fleets)")
+        from repro_torch.fl.population import run_async_paged
+        return run_async_paged(algorithm, fed, paging=paging,
+                               strategy=strategy, async_cfg=async_cfg, fl=fl,
+                               model_init=model_init, loss_fn=loss_fn,
+                               acc_fn=acc_fn, system=system,
+                               placement=placement, channel=channel,
+                               keep_state=keep_state, faults=faults,
+                               robust_agg=robust_agg, min_quorum=min_quorum,
+                               seed=seed, draws=draws, device=device)
+    refuse_later(hierarchy=hierarchy)
     faults = resolve_faults(faults)
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)

@@ -43,12 +43,14 @@ raises `ValueError` when the run cannot fuse.
 
 ``async_cfg=`` (an `AsyncConfig`) delegates to the buffered-async event
 loop (`repro_torch.fl.runtime.run_async`), which takes no sampler and
-never fuses.
+never fuses.  ``paging=`` (a `PagingConfig`) delegates to the cohort
+paging engine (`repro_torch.fl.population.run_paged`), which runs this
+module's fused superstep one cohort at a time.
 
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
-Options that belong to later slices of the port (hierarchy, paging)
-raise `NotImplementedError` naming their ROADMAP item.
+The option that belongs to a later slice of the port (hierarchy) raises
+`NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -127,7 +129,6 @@ class NonFiniteEvalWarning(RuntimeWarning):
 
 # What each option waits for, by its item in ROADMAP.md's Queue 1.
 _LATER = {
-    "paging": "item 12 (paging)",
     "hierarchy": "item 13 (hierarchy)",
 }
 
@@ -685,8 +686,13 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     the run cannot fuse.  ``async_cfg`` (an `AsyncConfig`) runs the
     buffered-async event loop instead (`run_async`): it takes no
     ``sampler`` and no ``superstep=True`` (`TypeError`), and
-    ``superstep=None`` does not fuse it.  The options of later slices
-    raise `NotImplementedError`.
+    ``superstep=None`` does not fuse it.  ``paging`` (a `PagingConfig`)
+    runs the cohort paging engine (`run_paged`): the population's state
+    and data stay on the host, one cohort at a time on ``device``, and
+    ``fed`` may then live on the host; it needs a run that can fuse
+    (`ValueError` otherwise) and refuses ``superstep=False`` and
+    ``hierarchy`` (`TypeError`).  ``hierarchy`` (a later slice) raises
+    `NotImplementedError`.
     """
     if min_quorum is not None:
         min_quorum = int(min_quorum)
@@ -709,7 +715,23 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                          hierarchy=hierarchy, faults=faults,
                          robust_agg=robust_agg, min_quorum=min_quorum,
                          seed=seed, draws=draws, device=device)
-    refuse_later(paging=paging, hierarchy=hierarchy)
+    if paging is not None:
+        if hierarchy is not None:
+            raise TypeError("the hierarchy tier does not compose with the "
+                            "cohort paging engine yet (the store pages "
+                            "flat client rows, not device fleets)")
+        if superstep is False:
+            raise TypeError("the paging engine runs fused supersteps only; "
+                            "superstep=False cannot page")
+        from repro_torch.fl.population import run_paged
+        return run_paged(algorithm, fed, paging=paging, strategy=strategy,
+                         sampler=sampler, fl=fl, model_init=model_init,
+                         loss_fn=loss_fn, acc_fn=acc_fn, system=system,
+                         placement=placement, channel=channel,
+                         keep_state=keep_state, faults=faults,
+                         robust_agg=robust_agg, min_quorum=min_quorum,
+                         seed=seed, draws=draws, device=device)
+    refuse_later(hierarchy=hierarchy)
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)
     if fed is None:

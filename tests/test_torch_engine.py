@@ -196,10 +196,8 @@ def test_entry_points_refuse_what_this_slice_lacks():
             run_federated("fedavg", fed)
         with pytest.raises(RuntimeError, match="cuda"):
             scenario_label_shift(0, n=100, m=2)
-    for kw, item in ((dict(paging=object()), "item 12"),
-                     (dict(hierarchy=object()), "item 13")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            run_federated("fedavg", fed, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        run_federated("fedavg", fed, device="cpu", hierarchy=object())
     fl = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=1)
     for spec, streams in (("local", 0), ("oracle", 1)):
         h = run_federated(spec, fed, fl=fl, device="cpu")
@@ -212,7 +210,8 @@ def test_port_imports_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.']\n"
             "import repro_torch.fl, repro_torch.fl.channel, "
             "repro_torch.fl.faults, repro_torch.fl.runtime, "
-            "repro_torch.fl.serve, repro_torch.core, "
+            "repro_torch.fl.serve, repro_torch.fl.population, "
+            "repro_torch.core, "
             "repro_torch.checkpoint, repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "

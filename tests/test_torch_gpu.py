@@ -24,6 +24,7 @@ its three paths, and against its multi-level walk
 launch is held bitwise against one-leaf calls and the Gram bitwise
 against itself, with Δ bitwise `ref.sqdist_from_gram` of its G.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1517,3 +1518,200 @@ def test_store_saved_from_card_restores_bitwise(tmp_path, codec):
                                store.payload[k].cpu().view(torch.uint8))
         assert torch.equal(back.params_flat().cpu().view(torch.int32),
                            store.params_flat().cpu().view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# cohort paging on the card: the population on the host, a cohort of 20
+# through the resident engine's captured chunks
+
+PG_FL = dict(rounds=4, local_steps=2, batch_size=16, eval_every=1)
+
+
+def _pg_fed(m=80):
+    """A full-width LeNet population of ``m`` clients, on the host."""
+    from repro_torch.data import FederatedData, scenario_label_shift
+    fed = scenario_label_shift(0, n=100 * m, m=m, device="cuda")
+    return FederatedData(*(t.cpu() for t in fed))
+
+
+def _pg_kw(fed, codec="qsgd:4", **kw):
+    from repro_torch.fl import Channel, FLConfig, SYSTEMS
+    from repro_torch.fl.simulator import default_model_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dict(fl=FLConfig(**{**PG_FL, **kw}),
+                system=SYSTEMS["wireless_slow"],
+                channel=None if codec is None else Channel(codec=codec),
+                model_init=default_model_init(fed), keep_state=True, seed=3,
+                device="cuda")
+
+
+def _pg_rows(tree, idx):
+    if isinstance(tree, dict):
+        return {k: _pg_rows(v, idx) for k, v in tree.items()}
+    return None if tree is None else tree[torch.as_tensor(idx)]
+
+
+def _pg_same(a, b, rows=None):
+    """Histories equal; final params, optimizer state and residuals (``a``'s
+    rows ``rows`` when given) bitwise, wherever they live."""
+    assert (a.rounds, a.mean_acc, a.worst_acc, a.time, a.comm,
+            a.comm_bits) == (b.rounds, b.mean_acc, b.worst_acc, b.time,
+                             b.comm, b.comm_bits)
+
+    def same(x, y):
+        if isinstance(x, dict):
+            assert set(x) == set(y)
+            for k in x:
+                same(x[k], y[k])
+            return
+        assert (x is None) == (y is None)
+        if x is not None:
+            x, y = x.cpu(), y.cpu()
+            assert x.dtype == y.dtype
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+    for part in ("final_params", "final_opt_state", "final_residual"):
+        x = getattr(a, part)
+        same(x if rows is None else _pg_rows(x, rows), getattr(b, part))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "qsgd:4"])
+def test_paged_fixed_cohort_is_resident_on_card(codec):
+    """A paged `FixedCohort` of 20 rows of an 80-client host population:
+    history and rows bitwise the resident fused run (CUDA graphs) on the
+    sub-population on the card, with the same launches."""
+    _require_cuda()
+    from repro_torch.data import FederatedData
+    from repro_torch.fl import (FixedCohort, PagingConfig, run_federated,
+                                sub_federated)
+    fed = _pg_fed()
+    idx = np.arange(20) * 4
+    kw = _pg_kw(fed, codec)
+    n0 = dict(ops.LAUNCHES)
+    pag = run_federated("ucfl_k4", fed, **kw,
+                        paging=PagingConfig(schedule=FixedCohort(idx)))
+    torch.cuda.synchronize()
+    n1 = dict(ops.LAUNCHES)
+    sub = FederatedData(*(t.cuda() for t in sub_federated(fed, idx)))
+    res = run_federated("ucfl_k4", sub, superstep=True, **kw)
+    torch.cuda.synchronize()
+    assert ({k: n1[k] - n0[k] for k in n0}
+            == {k: ops.LAUNCHES[k] - n1[k] for k in n0})
+    assert n1["mixing_aggregate"] - n0["mixing_aggregate"] == PG_FL["rounds"]
+    _pg_same(pag, res, rows=idx)
+    assert pag.final_params["conv1_w"].device.type == "cpu"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["sweep", "random"])
+def test_paged_prefetch_on_equals_off_on_card(schedule):
+    """Prefetch on and off bitwise on the card: a disjoint sweep (80
+    clients, cohorts of 20) and random cohorts of 20 out of 30, where
+    every step overlaps the last (the drain-before-gather path)."""
+    _require_cuda()
+    from repro_torch.fl import PagingConfig, RandomCohorts, run_federated
+    fed = _pg_fed()
+    if schedule == "random":
+        from repro_torch.fl import sub_federated
+        fed = sub_federated(fed, np.arange(30))
+        sched = RandomCohorts(20, seed=1)
+        assert all(np.intersect1d(sched.indices(t, 30),
+                                  sched.indices(t + 1, 30)).size
+                   for t in range(PG_FL["rounds"] - 1))
+    else:
+        sched = "sweep"
+    kw = _pg_kw(fed)
+    on, off = (run_federated("ucfl_k4", fed, **kw, paging=PagingConfig(
+        cohort=20, schedule=sched, prefetch=p)) for p in (True, False))
+    _pg_same(on, off)
+
+
+@pytest.mark.gpu
+def test_paged_pending_rows_survive_the_next_replay(tmp_path):
+    """Every store row after a 4-chunk disjoint sweep, with prefetch on
+    and off, against the same sweep run one chunk an invocation (resumed
+    from its snapshot each time, so no chunk is ever pending while
+    another replays): a chunk's rows read from the graph's static
+    buffers after the next replay would carry the next cohort's values.
+    The four cohorts' rows must also differ from each other."""
+    _require_cuda()
+    from repro_torch.fl import PagingConfig, run_federated
+    fed = _pg_fed()
+    kw = _pg_kw(fed)
+    ck = dict(cohort=20, checkpoint_dir=str(tmp_path / "ck"))
+    for _ in range(PG_FL["rounds"]):
+        serial = run_federated("ucfl_k4", fed, **kw, paging=PagingConfig(
+            max_chunks=1, resume=True, **ck))
+    assert serial.extra["paging"]["resumed_at"] == PG_FL["rounds"] - 1
+    for prefetch in (True, False):
+        _pg_same(run_federated("ucfl_k4", fed, **kw, paging=PagingConfig(
+            cohort=20, prefetch=prefetch)), serial)
+    w = serial.final_params["out_w"]
+    blocks = [w[20 * c:20 * (c + 1)] for c in range(4)]
+    assert all(not torch.equal(blocks[i], blocks[j])
+               for i in range(4) for j in range(i + 1, 4))
+
+
+@pytest.mark.gpu
+def test_paged_fetch_snapshot_survives_overwrite():
+    """`Placement.fetch` snapshots on the compute stream: writing the
+    source in place right after does not reach the host copy."""
+    _require_cuda()
+    from repro_torch.fl import HostVmap
+    src = {"a": torch.arange(1 << 20, device="cuda", dtype=torch.float32)}
+    want = src["a"].cpu()
+    fetched = HostVmap().fetch(src, torch.device("cuda"))
+    src["a"].mul_(-1.0)
+    got = fetched.wait()
+    assert got["a"].device.type == "cpu" and got["a"].is_pinned()
+    assert torch.equal(got["a"], want)
+
+
+@pytest.mark.gpu
+def test_paged_one_captured_chunk_serves_two_populations(tmp_path):
+    """Paged sweeps over 40 and then 80 clients of the same padded shapes:
+    the second adds no captured chunk and no cache entry; resume with
+    `TorchDraws` on the card is bitwise."""
+    _require_cuda()
+    from repro_torch.fl import PagingConfig, run_federated, sub_federated
+    from repro_torch.fl import simulator as sim
+    from repro_torch.fl.placement.graphs import CapturedChunk
+    fed = _pg_fed()
+    kw = _pg_kw(fed)
+    run_federated("ucfl_k4", sub_federated(fed, np.arange(40)), **kw,
+                  paging=PagingConfig(cohort=20))
+    before = {k: dict(v) for k, v in sim._SUPERSTEP_FNS.items()}
+    chunks = [c for v in before.values() for c in v.values()
+              if isinstance(c, CapturedChunk)]
+    assert chunks
+    full = run_federated("ucfl_k4", fed, **kw, paging=PagingConfig(cohort=20))
+    assert set(sim._SUPERSTEP_FNS) == set(before)
+    for key, entry in sim._SUPERSTEP_FNS.items():
+        assert entry.keys() == before[key].keys()
+        assert all(entry[k] is c for k, c in before[key].items())
+    base = dict(cohort=20, store_dir=str(tmp_path / "store"),
+                checkpoint_dir=str(tmp_path / "ck"))
+    run_federated("ucfl_k4", fed, **kw,
+                  paging=PagingConfig(max_chunks=2, **base))
+    res = run_federated("ucfl_k4", fed, **kw,
+                        paging=PagingConfig(resume=True, **base))
+    assert res.extra["paging"]["resumed_at"] == 2
+    _pg_same(res, full)
+
+
+@pytest.mark.gpu
+def test_async_paged_lockstep_is_resident_on_card():
+    """K = population = 20 on the wired system: the store-backed async
+    loop bitwise the resident `run_async` on the card."""
+    _require_cuda()
+    from repro_torch.data import FederatedData
+    from repro_torch.fl import (AsyncConfig, PagingConfig, SYSTEMS,
+                                run_async)
+    fed = _pg_fed(20)
+    kw = dict(_pg_kw(fed), system=SYSTEMS["wired"],
+              async_cfg=AsyncConfig(buffer_k=20))
+    res = run_async("ucfl_k4", FederatedData(*(t.cuda() for t in fed)), **kw)
+    pag = run_async("ucfl_k4", fed, paging=PagingConfig(cohort=20), **kw)
+    _pg_same(pag, res)

@@ -125,6 +125,23 @@ Phases (any failure raises and the script exits non-zero):
                 (f) the async lockstep anchor (20 clients, K = 20)
                 bitwise the resident `run_async`, then K = 5 over the
                 1,000 clients: s/event.  Every run's launches stated;
+ 10d. hierarchy — the hierarchical edge tier at phase 5's scenario: (a)
+                `HierarchyConfig(devices_per_user=1)` with ucfl_k4 on
+                both engines bitwise phase 5's flat ucfl_k4 (history,
+                clock, comm bits, final params, launches); (b) ucfl_k4
+                two-level (ragged:2-4 devices, a qsgd:4 edge codec over
+                a tiered:4 edge link, edge latency 0.5) fused bitwise
+                eventful (history, edge books, final params and
+                `EdgeState`), one QSGD row pass a round over the
+                (m·d_max, F) device rows, s/round of each engine and a
+                profiler trace of a 5-round chunk each (busy share);
+                (c) a topk:0.1 edge codec, eventful: one top-k launch a
+                round on the device rows; (d) drop_stragglers:0.4 with
+                device dropout 0.25: finite, fewer edge uplink bits than
+                the mean aggregator's; (e) the async engine two-level,
+                K = 5, on a row-local plan and on a drop_stragglers plan
+                (partial events full width): s/event, a row pass an
+                event;
  11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -150,8 +167,9 @@ Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at two smoke configs, and a buffered-async
-run on the card against the CPU, without a channel and with qsgd:8.
+the card against the CPU at two smoke configs, a buffered-async run on
+the card against the CPU, without a channel and with qsgd:8, and a
+two-level run (qsgd:8 edge codec) on the card against the CPU.
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1223,6 +1241,57 @@ def async_agreement() -> None:
               f"1e-3 / atol 1e-4, max |Δacc| {acc_err:.4f})", flush=True)
 
 
+def hierarchy_agreement() -> None:
+    """ucfl_k2 two-level (ragged:2-4 devices, a qsgd:8 edge codec over a
+    tiered:4 edge link, edge latency 0.5) on a small scenario, on the card
+    and on the CPU, from the same init and the same draws: clock, comm
+    and the edge books equal, accuracies within two argmax flips; params
+    within rtol 1e-3 / atol 1e-4 but for the edge codec's level flips (a
+    last-bit difference in the local update moves a stochastic-rounding
+    floor by one level now and then): at most 0.1 % of the elements
+    outside, none by more than 1e-3, as `async_agreement` holds qsgd:8."""
+    from repro_torch.fl import HierarchyConfig
+    fed_cpu = scenario_label_shift(3, n=600, m=6, device="cpu")
+    fed_gpu = FederatedData(*(t.to("cuda") for t in fed_cpu))
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    fl = FLConfig(rounds=3, local_steps=3, batch_size=16, eval_every=1)
+    hc = HierarchyConfig(devices_per_user="ragged:2-4", edge_codec="qsgd:8",
+                         edge_link="tiered:4", edge_latency=0.5)
+    runs = {}
+    for dev, fed in (("cpu", fed_cpu), ("cuda", fed_gpu)):
+        runs[dev] = run_federated(
+            "ucfl_k2", fed, fl=fl, system=SYSTEMS["wireless_slow"],
+            hierarchy=hc,
+            model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+            draws=TorchDraws(11, "cpu"), keep_state=True, device=dev)
+    a, b = runs["cpu"], runs["cuda"]
+    if ((a.time, a.comm, a.extra["hierarchy"])
+            != (b.time, b.comm, b.extra["hierarchy"])):
+        raise AssertionError("hierarchy: cuda and cpu disagree on clock, "
+                             "comm or extra['hierarchy']")
+    flip = 1.0 / (fed_cpu.m * fed_cpu.x_val.shape[1])
+    acc_err = max(abs(x - y) for x, y in zip(a.mean_acc + a.worst_acc,
+                                             b.mean_acc + b.worst_acc))
+    if acc_err > 2 * flip + 1e-6:
+        raise AssertionError(f"hierarchy: accuracies differ by {acc_err}")
+    perr, outside, total = 0.0, 0, 0
+    for k, v in a.final_params.items():
+        d = (b.final_params[k].cpu() - v).abs()
+        perr = max(perr, float(d.max()))
+        outside += int((d > 1e-4 + 1e-3 * v.abs()).sum())
+        total += v.numel()
+    if outside > total // 1000 or perr > 1e-3:
+        raise AssertionError(f"hierarchy: final params differ cuda vs cpu: "
+                             f"{outside} of {total} elements outside rtol "
+                             f"1e-3 / atol 1e-4, max |Δ| {perr:.3e}")
+    print(f"  hierarchy ucfl_k2 ragged:2-4 qsgd:8 n=600 m=6: cuda agrees "
+          f"with cpu (clock {b.time[-1]:.4f}, edge ul bits "
+          f"{b.extra['hierarchy']['edge_ul_bits_total']}, max |Δparam| "
+          f"{perr:.2e}, {outside} of {total} elements outside rtol 1e-3 / "
+          f"atol 1e-4, max |Δacc| {acc_err:.4f})", flush=True)
+
+
 def uplink_agreement() -> None:
     """One uplink crossing (narrow LeNet, m=6, 3 participants, a non-zero
     residual) through uplink_roundtrip on the card and on the CPU: new
@@ -1850,15 +1919,23 @@ class WindowDraws(TorchDraws):
         super().__init__(seed, "cuda")
         self.first, self.range, self.t0 = first, None, None
 
-    def batch_indices(self, rnd, *args):
+    def _open(self, rnd):
         if rnd == self.first and self.range is None:
             self.range = torch.profiler.record_function("window")
             self.range.__enter__()
             self.t0 = time.perf_counter()
+
+    def batch_indices(self, rnd, *args):
+        self._open(rnd)
         return super().batch_indices(rnd, *args)
 
+    def device_batch_indices(self, rnd, *args):
+        # a two-level run's first draw of a round
+        self._open(rnd)
+        return super().device_batch_indices(rnd, *args)
 
-def chunk_trace(spec, fed, fl, system, superstep) -> tuple:
+
+def chunk_trace(spec, fed, fl, system, superstep, **kw) -> tuple:
     """One torch.profiler trace of a 5-round chunk (rounds 1-5 and the
     eval ending them, of a 6-round run at eval_every 5) under one engine:
     (wall ms of the window, device-busy ms, {part: device ms}, kernels,
@@ -1873,7 +1950,7 @@ def chunk_trace(spec, fed, fl, system, superstep) -> tuple:
     with torch.profiler.profile(activities=acts) as prof:
         run_federated(spec, fed, fl=dataclasses.replace(fl, rounds=6),
                       system=system, seed=0, draws=draws, device="cuda",
-                      superstep=superstep)
+                      superstep=superstep, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - draws.t0
         draws.range.__exit__(None, None, None)
@@ -2805,6 +2882,220 @@ def paging_path(card: str) -> None:
           f"({card})", flush=True)
 
 
+# [hierarchy]: the edge tier at [main]'s scenario; the reference tests'
+# two-level configuration
+HIER_TWO = dict(devices_per_user="ragged:2-4", edge_codec="qsgd:4",
+                edge_link="tiered:4", edge_latency=0.5)
+HIER_ASYNC_K = 5
+
+
+def _hier_launches(label: str, got: dict, want: dict) -> None:
+    """Fail unless ``got`` holds each of ``want``'s counts exactly."""
+    bad = {k: (got.get(k, 0), n) for k, n in want.items()
+           if got.get(k, 0) != n}
+    if bad:
+        raise AssertionError(f"[hierarchy] {label}: launches (got, want) "
+                             f"{bad}; all {got}")
+
+
+def _hier_finite(label: str, h) -> None:
+    if not all(math.isfinite(a) for a in h.mean_acc + h.worst_acc):
+        raise AssertionError(f"[hierarchy] {label}: non-finite accuracy "
+                             f"{h.mean_acc}")
+
+
+def hierarchy_path(fed, fl, base, card: str) -> None:
+    """[hierarchy]: (a) `HierarchyConfig(devices_per_user=1)` with ucfl_k4
+    on both engines bitwise [main]'s flat ucfl_k4 (``base``: history,
+    clock, comm bits, final params, launches); (b) ucfl_k4 two-level
+    (ragged:2-4 devices, qsgd:4 edge codec over a tiered:4 edge link,
+    edge latency 0.5) fused bitwise eventful (history, edge books, final
+    params and `EdgeState`), one QSGD row pass a round over the
+    (m·d_max, F) device rows, s/round of a second run of each engine and
+    of a setup-only run, a profiler trace of a 5-round chunk each;
+    (c) a topk:0.1 edge codec, eventful: one top-k launch a round on the
+    device rows; (d) drop_stragglers:0.4 with device_dropout 0.25: finite,
+    fewer edge uplink bits than the mean aggregator's; (e) `run_async`
+    two-level, K = 5, on a row-local plan and on a drop_stragglers plan
+    (full-width partial events): s/event and a row pass an event."""
+    from repro_torch.fl import HierarchyConfig
+    from repro_torch.fl.placement.graphs import leaves
+    system, rounds, m = SYSTEMS["wireless_slow"], fl.rounds, fed.m
+    kw = dict(fl=fl, system=system)
+
+    # (a) the flat anchor
+    flat = HierarchyConfig(devices_per_user=1)
+    for engine, h, got, wall in run_both("ucfl_k4", fed, fl, system=system,
+                                         hierarchy=flat):
+        for f in ("rounds", "mean_acc", "worst_acc", "time", "comm",
+                  "comm_bits"):
+            if getattr(h, f) != getattr(base, f):
+                raise AssertionError(f"[hierarchy] (a) {engine}: {f} "
+                                     "differs from [main]'s flat ucfl_k4")
+        for k, v in base.final_params.items():
+            if not torch.equal(h.final_params[k].view(torch.int32),
+                               v.view(torch.int32)):
+                raise AssertionError(f"[hierarchy] (a) {engine}: final "
+                                     f"params {k} not bitwise [main]'s")
+        _hier_launches(f"(a) {engine}", got,
+                       {"mixing_aggregate": rounds, "gram_matrix": 1,
+                        "qsgd_roundtrip": 0})
+        print(f"  (a) devices_per_user=1, ucfl_k4 {engine:8s}: bitwise "
+              f"[main]'s flat run (history, clock, comm bits, final "
+              f"params); d_max {h.extra['hierarchy']['d_max']}; launches "
+              f"{ {k: v for k, v in got.items() if v} }; wall {wall:.2f} s "
+              f"({card})", flush=True)
+
+    # (b) two-level, both engines
+    two = HierarchyConfig(**HIER_TWO)
+    runs = run_both("ucfl_k4", fed, fl, system=system, hierarchy=two)
+    (_, hf, _, _), (_, he, _, _) = runs
+    if hf.extra["hierarchy"] != he.extra["hierarchy"]:
+        raise AssertionError("[hierarchy] (b) fused and eventful edge books "
+                             "differ")
+    for a, b in zip(leaves(hf.final_opt_state), leaves(he.final_opt_state),
+                    strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[hierarchy] (b) fused and eventful final "
+                                 "EdgeState not bitwise equal")
+    if he.final_opt_state.edge_ef is None:
+        raise AssertionError("[hierarchy] (b) no edge EF residuals")
+    ex = he.extra["hierarchy"]
+    d_max = ex["d_max"]
+    setup_walls = []
+    for engine, h, got, wall in runs:
+        _hier_finite(f"(b) {engine}", h)
+        _hier_launches(f"(b) {engine}", got,
+                       {"mixing_aggregate": rounds, "gram_matrix": 1,
+                        "qsgd_roundtrip": rounds, "topk_threshold": 0})
+    timed = {}
+    for engine, superstep in (("fused", None), ("eventful", False),
+                              ("setup", False)):
+        f = fl if engine != "setup" else dataclasses.replace(fl, rounds=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated("ucfl_k4", fed, fl=f, system=system, seed=0,
+                      device="cuda", superstep=superstep, hierarchy=two)
+        torch.cuda.synchronize()
+        timed[engine] = time.perf_counter() - t0
+    print(f"  (b) two-level ucfl_k4, devices {ex['devices_per_user']} "
+          f"(d_max {d_max}, {m * d_max} device rows of {D_LENET}), qsgd:4 "
+          f"over tiered:4, latency 0.5: fused = eventful (history, edge "
+          f"books, final params, EdgeState bitwise); clock "
+          f"{he.time[-1]:.4f}, edge bits dl {ex['edge_dl_bits_total']} ul "
+          f"{ex['edge_ul_bits_total']}; mean_acc "
+          f"{[round(a, 4) for a in he.mean_acc]} ({card})", flush=True)
+    for engine, h, got, wall in runs:
+        run_s = timed[engine]
+        print(f"      {engine:8s}: {run_s / rounds:.5f} s/round incl. setup "
+              f"({(run_s - timed['setup']) / rounds:.5f} less the "
+              f"setup-only run, {timed['setup']:.3f} s; first run "
+              f"{wall:.2f} s); QSGD row pass launches "
+              f"{got['qsgd_roundtrip']} ({got['qsgd_roundtrip'] / rounds:g} "
+              f"a round); launches { {k: v for k, v in got.items() if v} } "
+              f"({card})", flush=True)
+    for engine, superstep in (("fused", None), ("eventful", False)):
+        got = chunk_trace("ucfl_k4", fed, fl, system, superstep,
+                          hierarchy=two)
+        if got is None:
+            print(f"      {engine:8s} trace: no device events in the "
+                  f"window; busy share not measured ({card})", flush=True)
+            continue
+        wall, busy, parts, n_kernels, by_name = got
+        # the QSGD row pass is `row_kernel` (kernels/csrc/quantize.cu)
+        row_ms = sum(v for k, v in by_name.items() if "row_kernel" in k)
+        print(f"      {engine:8s} trace of a 5-round chunk: wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.1%}"
+              f"), idle {1 - busy / wall:.1%}; "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f" (the row pass {row_ms:.4f} ms of the local update); "
+              f"{n_kernels} kernels ({card})", flush=True)
+    # the edge crossing's kernels alone at its (m·d_max, F) rows, through
+    # the uncounted entry points (these launches are no path's)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = m * d_max
+    x = torch.randn((rows, D_LENET), generator=gen, device="cuda") * 1e-2
+    u = torch.rand((rows, D_LENET), generator=gen, device="cuda")
+    same(f"qsgd_roundtrip ({rows}, {D_LENET}) bits=4",
+         qsgd.qsgd_roundtrip_cuda(x, u, 4), ref.qsgd_roundtrip_ref(x, u, 4))
+    a, k = x.abs(), -(-D_LENET // 10)
+    same(f"topk_threshold ({rows}, {D_LENET})", topk_threshold_cuda(a, k),
+         ref.topk_threshold_ref(a, k))
+    x_bytes = x.numel() * 4
+    for name, fn, plain, n_bytes in (
+            ("QSGD row pass qsgd:4",
+             lambda: qsgd.qsgd_roundtrip_cuda(x, u, 4),
+             lambda: ref.qsgd_roundtrip_ref(x, u, 4), 3 * x_bytes),
+            ("top-k threshold k=4,758", lambda: topk_threshold_cuda(a, k),
+             lambda: ref.topk_threshold_ref(a, k), x_bytes + rows * 4)):
+        bound, by = bound_ms(n_bytes, 0.0)
+        print(f"      {name} at the device rows ({rows}, {D_LENET}): "
+              f"bitwise its plain version; kernel {time_ms(fn):.4f} ms, "
+              f"plain {time_ms(plain, iters=10):.4f} ms, bound {bound:.4f} "
+              f"ms ({by}) ({card})", flush=True)
+    del x, u, a
+
+    # (c) a top-k edge codec, eventful
+    topk = HierarchyConfig(**dict(HIER_TWO, edge_codec="topk:0.1"))
+    (_, h, got, wall), = run_both("ucfl_k4", fed, fl, engines=("eventful",),
+                                  system=system, hierarchy=topk)
+    _hier_finite("(c)", h)
+    _hier_launches("(c)", got, {"topk_threshold": rounds,
+                                "qsgd_roundtrip": 0,
+                                "mixing_aggregate": rounds})
+    print(f"  (c) topk:0.1 edge codec, eventful: {got['topk_threshold']} "
+          f"top-k launches on the ({m * d_max}, {D_LENET}) device rows; "
+          f"mean_acc {[round(a, 4) for a in h.mean_acc]}; "
+          f"{wall / rounds:.4f} s/round incl. setup ({card})", flush=True)
+
+    # (d) straggler dropping with device dropout
+    dd = dict(devices_per_user="ragged:2-4", edge_link="tiered:4",
+              device_dropout=0.25)
+    books = {}
+    for agg in ("drop_stragglers:0.4", "mean"):
+        h = run_federated("ucfl_k4", fed, **kw, seed=0, device="cuda",
+                          hierarchy=HierarchyConfig(edge_aggregator=agg,
+                                                    **dd))
+        _hier_finite(f"(d) {agg}", h)
+        books[agg] = h.extra["hierarchy"]["edge_ul_bits_total"]
+    if not books["drop_stragglers:0.4"] < books["mean"]:
+        raise AssertionError(f"[hierarchy] (d) edge uplink bits {books}")
+    print(f"  (d) drop_stragglers:0.4 + device_dropout 0.25: finite; edge "
+          f"uplink bits {books['drop_stragglers:0.4']} < the mean "
+          f"aggregator's {books['mean']} ({card})", flush=True)
+
+    # (e) the async engine, a row-local and a full-width plan
+    from repro_torch.fl.hierarchy import fleet_plan
+    from repro_torch.fl.simulator import default_model_init
+    p0 = default_model_init(fed)(torch.Generator(device=fed.x.device))
+    drop = dict(HIER_TWO, edge_aggregator="drop_stragglers:0.4")
+    for label, cfg in (("row-local", HIER_TWO),
+                       ("drop_stragglers:0.4, full width", drop)):
+        hc = HierarchyConfig(**cfg)
+        if fleet_plan(hc, m, p0, system).row_local != (label == "row-local"):
+            raise AssertionError(f"[hierarchy] (e) {label}: row_local")
+        before = dict(ops.LAUNCHES)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = run_federated("ucfl_k4", fed, **kw, seed=0, device="cuda",
+                              async_cfg=AsyncConfig(buffer_k=HIER_ASYNC_K),
+                              hierarchy=hc)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = {k: (ops.LAUNCHES[k] - before[k]) // 2 for k in before}
+        _hier_finite(f"(e) {label}", h)
+        if len(h.extra["hierarchy"]["comm_bits"]) != rounds:
+            raise AssertionError(f"[hierarchy] (e) {label}: edge books")
+        _hier_launches(f"(e) {label}", got, {"qsgd_roundtrip": rounds})
+        print(f"  (e) async K={HIER_ASYNC_K} two-level, {label}: "
+              f"{walls[0] / rounds:.4f} then {walls[1] / rounds:.4f} "
+              f"s/event; clock {h.time[-1]:.4f}; launches a run "
+              f"{ {k: v for k, v in got.items() if v} } ({card})",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2846,6 +3137,7 @@ def main() -> int:
     try:
         small_agreement()
         async_agreement()
+        hierarchy_agreement()
         uplink_agreement()
         channel_agreement()
         lm_agreement()
@@ -2919,6 +3211,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
+    print(f"[hierarchy] the edge tier: [main]'s scenario, each user a fleet "
+          f"of devices ({card})", flush=True)
+    ops.reset_launches()          # and from here on the hierarchy path's
+    t0 = time.perf_counter()
+    hierarchy_path(fed, fl, hists["ucfl_k4"], card)
+    print(f"  [hierarchy] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
@@ -2934,8 +3235,8 @@ def main() -> int:
                   "path)", flush=True)
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
-                                 "channel, faults, async, serve, paging or "
-                                 "lm path")
+                                 "channel, faults, async, serve, paging, "
+                                 "hierarchy or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -5,6 +5,10 @@ from repro_torch.fl.draws import TorchDraws
 from repro_torch.fl.faults import (FaultConfig, FaultPlan,
                                    get_robust_aggregator, parse_fault_spec,
                                    resolve_fault_plan)
+from repro_torch.fl.hierarchy import (EdgeAggregator, EdgeMeter, EdgeState,
+                                      HierarchyConfig, get_edge_aggregator,
+                                      register_edge_aggregator,
+                                      resolve_hierarchy)
 from repro_torch.fl.placement import HostVmap, Placement
 from repro_torch.fl.population import (ClientStateStore, CohortSchedule,
                                        FixedCohort, PagingConfig,
@@ -25,13 +29,16 @@ from repro_torch.fl.strategies import (ClusterExtras, CommCost,
 
 __all__ = ["AsyncConfig", "available_strategies", "Channel", "check_parity",
            "ClientStateStore", "ClusterExtras", "CohortSchedule",
-           "CommCost", "DeltaStore", "FaultConfig", "FaultPlan",
-           "FixedCohort", "FLConfig", "full_client_gradients",
-           "FullParticipation", "get_codec", "get_robust_aggregator",
-           "get_strategy", "harmonic", "History", "HostVmap", "LinkProfile",
-           "MixingExtras", "NonFiniteEvalWarning", "PagingConfig",
-           "parse_fault_spec", "Placement", "RandomCohorts", "register",
-           "resolve_fault_plan", "RoundContext", "run_async",
+           "CommCost", "DeltaStore", "EdgeAggregator", "EdgeMeter",
+           "EdgeState", "FaultConfig", "FaultPlan", "FixedCohort",
+           "FLConfig", "full_client_gradients", "FullParticipation",
+           "get_codec", "get_edge_aggregator", "get_robust_aggregator",
+           "get_strategy", "harmonic", "HierarchyConfig", "History",
+           "HostVmap", "LinkProfile", "MixingExtras",
+           "NonFiniteEvalWarning", "PagingConfig", "parse_fault_spec",
+           "Placement", "RandomCohorts", "register",
+           "register_edge_aggregator", "resolve_fault_plan",
+           "resolve_hierarchy", "RoundContext", "run_async",
            "run_async_paged", "run_federated", "run_paged",
            "SequentialSweep", "ServeEngine", "sigma2_estimates",
            "StoreBits", "Strategy", "StrategyExtras", "sub_federated",

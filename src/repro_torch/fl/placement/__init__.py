@@ -5,10 +5,9 @@ slice; the mesh placement comes with its own slice.
 """
 from repro_torch.fl.placement.base import (Placement, resolve_placement,
                                            stack_params, where_clients)
-from repro_torch.fl.placement.host import (HostVmap, evaluate,
-                                           make_client_update, reduce_scores,
-                                           score_stats)
+from repro_torch.fl.placement.host import (ClientUpdate, HostVmap, evaluate,
+                                           reduce_scores, score_stats)
 
-__all__ = ["HostVmap", "Placement", "evaluate", "make_client_update",
+__all__ = ["ClientUpdate", "HostVmap", "Placement", "evaluate",
            "reduce_scores", "resolve_placement", "score_stats",
            "stack_params", "where_clients"]

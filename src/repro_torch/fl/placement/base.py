@@ -5,8 +5,9 @@ engines use: build the local-update step, stack the common
 initialization into the client-stacked dict, place the data, roll back
 non-participants, run an async event's cohort update, pass the uplink
 through the channel codec, apply a mixing matrix or a `StreamPlan`, and
-evaluate the personalized models, and move a paged cohort's rows between
-host and card (`stage`, `fetch`).
+evaluate the personalized models, move a paged cohort's rows between
+host and card (`stage`, `fetch`), and place a hierarchy run's
+device-partitioned data (`place_fleet`).
 Strategies route every mix through `RoundContext.mix` / `mix_plan`
 (eventful) or `TracedMix` (fused), which dispatch here.
 
@@ -30,7 +31,7 @@ from repro_torch.fl.placement.copies import (Fetched, Staged, fetch_tree,
                                              stage_tree)
 from repro_torch.fl.placement.graphs import (CapturedChunk, StaticInputs,
                                              draw_row, leaves, stack_rows,
-                                             tree_spec)
+                                             tree_map, tree_spec)
 
 
 def stack_params(params: Dict[str, torch.Tensor], m: int
@@ -43,11 +44,15 @@ def stack_params(params: Dict[str, torch.Tensor], m: int
 def where_clients(mask: torch.Tensor, new: Any, old: Any) -> Any:
     """Per-client select over stacked trees (leading dim m): nested dicts
     such as the optimizer state ``{"mu": {...} or None, "step": (m,)}``
-    keep their structure, None stays None."""
+    and tuples such as a hierarchy run's `EdgeState` keep their
+    structure, None stays None."""
     if new is None:
         return None
     if isinstance(new, dict):
         return {k: where_clients(mask, a, old[k]) for k, a in new.items()}
+    if isinstance(new, tuple):
+        kids = [where_clients(mask, a, old[i]) for i, a in enumerate(new)]
+        return type(new)(*kids) if hasattr(new, "_fields") else tuple(kids)
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new,
                        old)
 
@@ -68,8 +73,10 @@ class Placement(abc.ABC):
     @abc.abstractmethod
     def build_update(self, loss_fn: Callable, fl: Any) -> Tuple[Any, Callable]:
         """Returns ``(opt, update_fn)`` where ``update_fn(stacked, opt_state,
-        x, y, idx) -> (stacked', opt_state')`` runs every client's local
-        SGD on the minibatch slots ``idx`` (m, local_steps, batch_size)."""
+        x, y, n, idx) -> (stacked', opt_state')`` runs every client's local
+        SGD on the minibatch slots ``idx`` (m, local_steps, batch_size),
+        which ``update_fn.draw(draws, rnd, x, n)`` draws (`host.
+        ClientUpdate`)."""
 
     @abc.abstractmethod
     def stack(self, params0: Dict[str, torch.Tensor], m: int) -> Any:
@@ -83,6 +90,13 @@ class Placement(abc.ABC):
         """Place the stacked client train arrays ``(x, y, n)``."""
         return fed.x, fed.y, fed.n
 
+    def place_fleet(self, tree: Any, m: int, device: torch.device) -> Any:
+        """Place device-partitioned (m, d_max, ...) fleet arrays (the
+        hierarchy tier's nested device axis) on ``device``: dim 0 is the
+        user axis.  Tensors already there pass through (the d_max = 1
+        views of the flat data); numpy arrays are copied."""
+        return tree_map(lambda a: torch.as_tensor(a).to(device), tree)
+
     def select(self, mask: torch.Tensor, new: Any, old: Any) -> Any:
         """Participation rollback: keep ``old`` where ``mask`` is False."""
         return where_clients(mask, new, old)
@@ -95,18 +109,17 @@ class Placement(abc.ABC):
         the rows where ``keep`` (k,) is True; every other client row is
         untouched (the async runtime's per-event step).
 
-        ``batch_idx`` is every client's (m, S, B) minibatch slots for the
-        event, drawn for all m clients as a synchronous round draws them,
-        where the reference takes the m per-client keys ``ckeys``: a
-        replayed run then consumes the reference's ``ckeys[idx]``
-        exactly.  ``n`` is unused (the slots already hold its rule); it
-        keeps the reference's argument list.  Default: run every slot and
-        mask (the static-layout path); `HostVmap` gathers the k rows
-        instead."""
+        ``batch_idx`` is the step's draw for the event (``update_fn.
+        draw``): every client's (m, S, B) minibatch slots, drawn for all m
+        clients as a synchronous round draws them, where the reference
+        takes the m per-client keys ``ckeys``, so a replayed run consumes
+        the reference's ``ckeys[idx]`` exactly (a hierarchy run's
+        `FleetDraws` likewise).  Default: run every slot and mask (the
+        static-layout path); `HostVmap` gathers the k rows instead."""
         m = x.shape[0]
         mask = torch.zeros((m,), dtype=torch.bool, device=keep.device)
         mask[idx] = keep
-        upd, upd_opt = update_fn(stacked, opt_state, x, y, batch_idx)
+        upd, upd_opt = update_fn(stacked, opt_state, x, y, n, batch_idx)
         return (self.select(mask, upd, stacked),
                 self.select(mask, upd_opt, opt_state))
 

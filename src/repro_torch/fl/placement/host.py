@@ -28,28 +28,44 @@ from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.optim import apply_updates, sgd
 
 
-def make_client_update(loss_fn: Callable, opt, fl) -> Callable:
-    """Returns ``update(stacked, opt_state, x, y, idx)`` running
-    ``fl.local_steps`` SGD steps for every client, step s on the slots
-    ``idx[:, s]``.  The update is functional: the caller's ``stacked`` and
+class ClientUpdate:
+    """The per-client local-SGD step, ``update(stacked, opt_state, x, y,
+    n, idx)``: ``fl.local_steps`` SGD steps for every client, step s on
+    the slots ``idx[:, s]``.  ``n`` is unused (the slots already hold the
+    sample-count rule); it is there so that every update step, a
+    hierarchy run's fleet update included, takes the same ``(x, y, n,
+    draw)``.  The update is functional: the caller's ``stacked`` and
     ``opt_state`` are left as they were."""
-    vgrad = vmap(grad(loss_fn, has_aux=True))
 
-    def update(stacked, opt_state, x, y, idx):
+    def __init__(self, loss_fn: Callable, opt, fl):
+        self.opt = opt
+        self.local_steps = fl.local_steps
+        self.batch_size = fl.batch_size
+        self._vgrad = vmap(grad(loss_fn, has_aux=True))
+
+    def draw(self, draws, rnd: int, x: torch.Tensor, n: torch.Tensor, *,
+             row: int = 0, rows=None) -> torch.Tensor:
+        """Round (or async event) ``rnd``'s (m, S, B) minibatch slots of
+        every client, on ``x``'s device.  ``row`` and ``rows`` (the rows
+        an async cohort update sees) do not apply: a cohort update
+        gathers its rows of the slots (`HostVmap.update_cohort`)."""
+        return draws.batch_indices(rnd, n, x.shape[1], self.batch_size,
+                                   self.local_steps).to(x.device)
+
+    def __call__(self, stacked, opt_state, x, y, n, idx):
         rows = torch.arange(x.shape[0], device=x.device)[:, None]
         p, o = stacked, opt_state
-        for s in range(fl.local_steps):
+        for s in range(self.local_steps):
             slots = idx[:, s]                  # (m, B), explicit client dim
-            grads, _ = vgrad(p, {"x": x[rows, slots], "y": y[rows, slots]})
-            upd, o = opt.update(grads, o, p)
+            grads, _ = self._vgrad(p, {"x": x[rows, slots],
+                                       "y": y[rows, slots]})
+            upd, o = self.opt.update(grads, o, p)
             p = apply_updates(p, upd)
         return p, o
 
-    return update
-
 
 class _UpdateConfig:
-    """The FLConfig fields `make_client_update` closes over."""
+    """The FLConfig fields `ClientUpdate` closes over."""
 
     def __init__(self, local_steps: int, batch_size: int):
         self.local_steps = local_steps
@@ -62,8 +78,8 @@ def cached_update(loss_fn: Callable, local_steps: int, batch_size: int,
                   state_dtype=None) -> Tuple[Any, Callable]:
     """(opt, update) memoized on everything the step closes over."""
     opt = sgd(lr, momentum=momentum, state_dtype=state_dtype)
-    return opt, make_client_update(loss_fn, opt,
-                                   _UpdateConfig(local_steps, batch_size))
+    return opt, ClientUpdate(loss_fn, opt,
+                             _UpdateConfig(local_steps, batch_size))
 
 
 def score_stats(accs: torch.Tensor) -> torch.Tensor:
@@ -103,11 +119,12 @@ class HostVmap(Placement):
                       x, y, n, batch_idx):
         # gather the k cohort rows, update them, scatter the kept ones
         # back (out of place: the caller's stacked is the event's prev):
-        # an event's local update costs O(k), not O(m)
+        # an event's local update costs O(k), not O(m); the draw gathers
+        # its own rows (a plain slot tensor, or a hierarchy run's
+        # `FleetDraws`, whose edge draws are already the cohort's)
         take = lambda t: tree_map(lambda a: a.index_select(0, idx), t)
         sub, sub_opt = take(stacked), take(opt_state)
-        new_sub, new_opt = update_fn(sub, sub_opt, x.index_select(0, idx),
-                                     y.index_select(0, idx),
+        new_sub, new_opt = update_fn(sub, sub_opt, *take((x, y, n)),
                                      batch_idx.index_select(0, idx))
         new_sub = where_clients(keep, new_sub, sub)
         new_opt = where_clients(keep, new_opt, sub_opt)

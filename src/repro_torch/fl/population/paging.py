@@ -365,10 +365,9 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         if plan is not None:
             # the cohort-gathered adversary row, a const input of the chunk
             consts = (consts, torch.from_numpy(plan.byz_row(idx)).to(dev))
-        x, y, n_c = placement.place_data(sub)
         return (state, consts, strategy.comm(state),
                 None if link is None else strategy.membership(state),
-                (x, y), n_c, (sub.x_val, sub.y_val))
+                placement.place_data(sub), (sub.x_val, sub.y_val))
 
     setups = _CohortSetups(build_setup)
     chunks = list(_eval_rounds(fl.rounds, fl.eval_every))
@@ -476,8 +475,7 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         if pending is not None and not _disjoint(pending.idx, idx):
             finalize(pending)   # overlapping rows: the scatter must land
             pending = None      # before this cohort's gather
-        state, consts, cost, assignment, data, n_c, eval_data = \
-            setups.get(idx)
+        state, consts, cost, assignment, data, eval_data = setups.get(idx)
         if staged is not None and staged_for == idx.tobytes():
             rows = staged
         else:
@@ -487,9 +485,8 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         carry = (rows["params"], rows["opt"], rows.get("ef"))
 
         length = nxt - rnd + 1
-        cd = chunk_draws(draws, range(rnd, nxt + 1), n=n_c,
-                         n_slots=data[0].shape[1], batch_size=fl.batch_size,
-                         local_steps=fl.local_steps, sampler=sampler, m=m_c,
+        cd = chunk_draws(draws, range(rnd, nxt + 1), step=update_fn,
+                         x=data[0], n=data[2], sampler=sampler, m=m_c,
                          noise_d=noise_d, device=dev,
                          fault_cfg=None if plan is None else plan.cfg,
                          fault_d=d)
@@ -685,11 +682,10 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
         rows = placement.stage(store.gather(idx), k, dev).wait()
         stacked, opt_state, ef = rows["params"], rows["opt"], rows.get("ef")
 
-        batch_idx = draws.batch_indices(event, n_c, x_c.shape[1],
-                                        fl.batch_size,
-                                        fl.local_steps).to(dev)
+        batch_idx = update_fn.draw(draws, event, x_c, n_c)
         prev, prev_opt = stacked, opt_state
-        upd, upd_opt = update_fn(stacked, opt_state, x_c, y_c, batch_idx)
+        upd, upd_opt = update_fn(stacked, opt_state, x_c, y_c, n_c,
+                                 batch_idx)
         if fresh.all():
             mask = None
             stacked, opt_state = upd, upd_opt

@@ -1,9 +1,8 @@
 """Buffered-asynchronous federated round engine.
 
 Counterpart of `repro/fl/runtime/engine.py` (`AsyncConfig`, `run_async`),
-followed line for line, without its hierarchy branch (it raises
-`NotImplementedError` naming its ROADMAP item); ``paging=`` delegates to
-`repro_torch.fl.population.run_async_paged`.
+followed line for line, its hierarchy branch included; ``paging=``
+delegates to `repro_torch.fl.population.run_async_paged`.
 
 The synchronous engine makes every round wait for the slowest of m
 shifted-exponential stragglers.  This runtime replaces that barrier
@@ -30,12 +29,22 @@ event
   * `History.time` records the virtual clock (arrival of the K-th
     upload plus the downlink), replacing the analytic max.
 
+``hierarchy=`` nests an edge sub-round inside every upload: the update
+step is the fleet update (`repro_torch.fl.hierarchy`), each arrival's
+clock draw carries its user's edge sub-round time (``schedule(extra=)``)
+and each event books its buffered users' device bits
+(`EdgeMeter.charge_event`).  Under static straggler dropping the fleet
+update bakes a per-user mask, so partial events take the base
+full-width `Placement.update_cohort`.
+
 The random draws come from the run's ``draws`` object, the event index
-standing for the round: ``draws.batch_indices(event, ...)`` for all m
-clients (the cohort's rows are gathered), ``fault_draws`` and
-``codec_noise`` as the synchronous engine takes them.  The clock draws
-from its own numpy stream, as in the reference, so arrival orders and
-times are the reference's bit for bit.
+standing for the round: the update step's ``draw(draws, event, ...)``,
+the batch slots of all m clients (the cohort's rows are gathered), and
+for a fleet update its edge noise and dropout coins of the rows the
+update sees (from the cohort's first user when the cohort is gathered);
+then ``fault_draws`` and ``codec_noise`` as the synchronous engine takes
+them.  The clock draws from its own numpy stream, as in the reference,
+so arrival orders and times are the reference's bit for bit.
 
 Equivalence anchor: with ``inv_mu=0``, ``buffer_k=m`` and unbounded
 staleness every event is a lockstep full-participation round, the
@@ -59,13 +68,14 @@ from repro_torch.fl.draws import TorchDraws, round_fault_draws
 from repro_torch.fl.faults import (FaultMeter, get_robust_aggregator,
                                    inject_values, pop_with_retries,
                                    resolve_faults, screen_and_defend)
+from repro_torch.fl.hierarchy import EdgeMeter, resolve_hierarchy
 from repro_torch.fl.placement import Placement, resolve_placement
 from repro_torch.fl.runtime.clock import VirtualClock
 from repro_torch.fl.simulator import (FLConfig, History, channel_extra,
                                       channel_uplink, finalize_history,
                                       init_channel, init_run,
                                       per_client_uplink_bits, record_eval,
-                                      refuse_later, resolve_strategy)
+                                      resolve_strategy)
 from repro_torch.fl.strategies import CommCost, Strategy
 from repro_torch.models import lenet
 
@@ -155,9 +165,11 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
     clock (`pop_with_retries`).  ``History.extra["async"]`` records the
     configuration.  ``paging`` (a `PagingConfig`) runs the store-backed
     engine (`run_async_paged`: the arrival buffer is the page request,
-    ``fed`` may live on the host); ``hierarchy`` raises
-    `NotImplementedError` naming its ROADMAP item, and `TypeError` beside
-    ``paging``.
+    ``fed`` may live on the host; `TypeError` beside ``hierarchy``).
+    ``hierarchy`` nests an edge sub-round inside every client upload:
+    device uploads buffer at the user's edge, the user's pseudo-update is
+    what arrives at the server, and each arrival's clock draw carries the
+    user's edge sub-round time as a fixed ``extra`` term.
     """
     if paging is not None:
         if hierarchy is not None:
@@ -173,7 +185,8 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
                                keep_state=keep_state, faults=faults,
                                robust_agg=robust_agg, min_quorum=min_quorum,
                                seed=seed, draws=draws, device=device)
-    refuse_later(hierarchy=hierarchy)
+    if hierarchy is not None:
+        hierarchy = resolve_hierarchy(hierarchy)
     faults = resolve_faults(faults)
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)
@@ -197,9 +210,17 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
 
     # the sync engine's init path (the lockstep anchor); the update is
     # functional, so `prev` stays intact for every event's rollbacks
-    update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
+    update_fn, stacked, opt_state, data, ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
-        draws, dev, faults=faults)
+        draws, dev, faults=faults, hierarchy=hierarchy, system=system)
+    x, _, n = data
+    hplan = ctx.hierarchy_plan
+    meter = None if hplan is None else EdgeMeter(hplan)
+    # the fleet step bakes a static per-user straggler mask: row gathers
+    # would misalign it, so partial events take the base full-width path
+    full_width = hplan is not None and not hplan.row_local
+    cohort = (Placement.update_cohort if full_width
+              else type(placement).update_cohort)
     plan = ctx.fault_plan
     defense = get_robust_aggregator(robust_agg)
     robust_spec = "none" if defense is None else str(robust_agg)
@@ -224,8 +245,14 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
     # the clock's draws come from its own numpy stream; the link profile
     # (if any) swaps the homogeneous ρ uplink for each client's own
     clock = VirtualClock(system, seed=seed, link=link)
+
+    def _edge_time(c: int) -> float:
+        # the device fleet's sub-round runs before the user's own compute
+        # begins; 0.0 without a hierarchy, which is exact in the clock
+        return meter.time_of(c) if meter is not None else 0.0
+
     for i in range(m):
-        clock.schedule(i, 0.0, ul_bits=_ul_bits(i))
+        clock.schedule(i, 0.0, ul_bits=_ul_bits(i), extra=_edge_time(i))
     # server version at each client's last model download; a model's age
     # at event e is  e - version[i]
     version = np.zeros(m, dtype=np.int64)
@@ -256,23 +283,27 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
         fresh_np[[c for c in buffered if age[c] <= tau]] = True
         all_fresh = bool(fresh_np.all())
 
-        batch_idx = draws.batch_indices(event, n, x.shape[1], fl.batch_size,
-                                        fl.local_steps).to(x.device)
+        # a fleet update's edge draws are those of the rows the update
+        # sees: the gathered cohort's, from its first user, or every row's
+        gathered = not all_fresh and not full_width
+        batch_idx = update_fn.draw(
+            draws, event, x, n, row=buffered[0] if gathered else 0,
+            rows=len(buffered) if gathered else None)
         prev, prev_opt = stacked, opt_state
         if all_fresh:
             # lockstep event (K=m, nothing stale): the sync engine's step
             mask = None
-            stacked, opt_state = update_fn(stacked, opt_state, x, y,
+            stacked, opt_state = update_fn(stacked, opt_state, *data,
                                            batch_idx)
         else:
             # only the fresh cohort's local work lands; in-flight clients
             # and stale-dropped updates stay at their server-known models
             mask = torch.from_numpy(fresh_np).to(dev)
-            stacked, opt_state = placement.update_cohort(
-                update_fn, torch.tensor(buffered, dtype=torch.int64,
-                                        device=dev),
+            stacked, opt_state = cohort(
+                placement, update_fn,
+                torch.tensor(buffered, dtype=torch.int64, device=dev),
                 torch.from_numpy(fresh_np[buffered]).to(dev), stacked,
-                opt_state, x, y, n, batch_idx)
+                opt_state, *data, batch_idx)
 
         if plan is not None and plan.value_faults:
             # the fresh cohort's TRANSMITTED updates are corrupted (arrival
@@ -338,6 +369,10 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
             history.comm_bits.append(ChannelCost(
                 dl_bits=(cost.n_streams + cost.n_unicasts) * payload,
                 ul_bits=ul_total))
+        if meter is not None:
+            # the device→user hop's bits of this event's arrivals (their
+            # edge time is already in each arrival's clock draw)
+            meter.charge_event(buffered)
         if quorum_ok:
             if link is not None:
                 # the sync clock's charging rule over the buffered cohort,
@@ -355,7 +390,8 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
         # broadcast completes before an earlier long one
         t_done = max(t_done, done)
         for c in buffered:
-            clock.schedule(c, done, ul_bits=_ul_bits(c))
+            clock.schedule(c, done, ul_bits=_ul_bits(c),
+                           extra=_edge_time(c))
             if quorum_ok:
                 version[c] = event + 1
         if fmeter is not None:
@@ -380,6 +416,8 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
                               "max_retries": cfg.max_retries,
                               "retry_backoff": cfg.retry_backoff,
                               "events": fl.rounds}
+    if meter is not None:
+        history.extra["hierarchy"] = meter.extra()
     if fmeter is not None:
         history.extra["faults"] = fmeter.extra()
     if channel is not None:

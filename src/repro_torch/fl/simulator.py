@@ -4,9 +4,9 @@ per-round loop.
 Counterpart of `repro/fl/simulator.py` (`run_federated` with its fused
 superstep default and ``superstep=False``'s eventful loop, which the
 reference pins as bit-identical), with its fault, defense and quorum
-branches and without its hierarchy branch.  The engine owns the local
-update, client sampling, fault injection, the uplink channel, the
-defense layer, evaluation and the analytic clock; the `Strategy` owns
+branches and its hierarchy branch.  The engine owns the local update,
+client sampling, fault injection, the uplink channel, the defense
+layer, evaluation and the analytic clock; the `Strategy` owns
 aggregation and the `Placement` the layout:
 
     run_federated("ucfl_k4", fed, fl=FLConfig(rounds=20),
@@ -27,7 +27,13 @@ round) unless fewer than ``min_quorum`` clients took part, charge the
 round on the clock (through the link profile when a channel is
 attached), in `History.comm_bits` and in the fault ledger
 (``History.extra["faults"]``), and evaluate every ``eval_every``
-rounds.
+rounds.  ``hierarchy=`` (`repro_torch.fl.hierarchy`) nests an edge
+sub-round inside the local update: the update step becomes the fleet
+update (per-device local SGD, the edge codec with error feedback over
+the (m·d_max, F) device rows, the edge aggregator's combine), the
+optimizer-state slot carries the `EdgeState`, and the `EdgeMeter`
+charges the device→user hop on the clock and in
+``History.extra["hierarchy"]``.
 
 By default (``superstep=None``) a run whose strategy and sampler are
 traceable (`superstep_support`) is fused: the rounds between two eval
@@ -49,8 +55,6 @@ module's fused superstep one cohort at a time.
 
 The reference's JAX key chain is replaced by a ``draws`` object
 (`repro_torch.fl.draws`); the default draws from `torch.Generator`s.
-The option that belongs to a later slice of the port (hierarchy) raises
-`NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -75,6 +79,8 @@ from repro_torch.fl.faults import (FaultMeter, crash_mask,
                                    get_robust_aggregator, inject_values,
                                    resolve_fault_plan, resolve_faults,
                                    screen_and_defend)
+from repro_torch.fl.hierarchy import (EdgeMeter, init_fleet_run,
+                                      resolve_hierarchy)
 from repro_torch.fl.placement import (Placement, resolve_placement,
                                       score_stats)
 from repro_torch.fl.placement.graphs import tree_map
@@ -127,22 +133,6 @@ class NonFiniteEvalWarning(RuntimeWarning):
     """A recorded eval score was NaN/Inf — the run diverged."""
 
 
-# What each option waits for, by its item in ROADMAP.md's Queue 1.
-_LATER = {
-    "hierarchy": "item 13 (hierarchy)",
-}
-
-
-def refuse_later(**options: Any) -> None:
-    """Raise `NotImplementedError` naming the ROADMAP item of the first
-    option of a later slice (`_LATER`) that is set."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: ROADMAP.md Queue 1 "
-                f"{_LATER[name]}")
-
-
 def default_model_init(fed: FederatedData) -> Callable:
     """LeNet sized to the scenario's images; called with a generator."""
     in_size, channels = fed.x.shape[2], fed.x.shape[4]
@@ -169,23 +159,39 @@ def resolve_strategy(algorithm: Union[str, Strategy, None],
 def init_run(strategy: Strategy, fed: FederatedData, fl: FLConfig,
              model_init: Optional[Callable], loss_fn: Callable,
              acc_fn: Callable, placement: Placement, seed: int, draws: Any,
-             device, faults: Optional[Any] = None):
+             device, faults: Optional[Any] = None,
+             hierarchy: Optional[Any] = None,
+             system: Optional[SystemModel] = None):
     """Run prologue of the sync and async engines: model init, update
     step, client stack/opt/data placement, RoundContext and
     `strategy.setup`.  Returns
     ``(update_fn, stacked, opt_state, data, ctx, state)``.  ``faults`` (a
     `FaultConfig`) is resolved once here into the run's `FaultPlan`
-    (static Byzantine set), on ``ctx.fault_plan`` (None: no faults)."""
+    (static Byzantine set), on ``ctx.fault_plan`` (None: no faults).
+
+    With ``hierarchy`` (a resolved `HierarchyConfig`) the update step is
+    the fleet update (`FleetUpdate`), the data grows the nested device
+    axis, the optimizer-state slot carries the `EdgeState`, and the
+    resolved `FleetPlan` rides on ``ctx.hierarchy_plan`` (None: flat) for
+    the engines' `EdgeMeter`.  ``system`` is read only there (the edge
+    link resolves against it, as `init_channel`'s link does)."""
     if model_init is None:
         model_init = default_model_init(fed)
     params0 = model_init(init_generator(seed, device))
-    opt, update_fn = placement.build_update(loss_fn, fl)
-    stacked = placement.stack(params0, fed.m)
-    opt_state = placement.init_opt(opt, stacked)
-    data = placement.place_data(fed)
+    if hierarchy is None:
+        opt, update_fn = placement.build_update(loss_fn, fl)
+        stacked = placement.stack(params0, fed.m)
+        opt_state = placement.init_opt(opt, stacked)
+        data = placement.place_data(fed)
+        plan = None
+    else:
+        update_fn, stacked, opt_state, data, plan = init_fleet_run(
+            hierarchy, placement, loss_fn, fl, fed, params0, system=system,
+            strategy=strategy)
     ctx = RoundContext(fed=fed, fl=fl, loss_fn=loss_fn, acc_fn=acc_fn,
                        params0=params0, seed=seed, draws=draws,
                        placement=placement, strategy=strategy)
+    ctx.hierarchy_plan = plan
     ctx.fault_plan = resolve_fault_plan(faults, fed.m)
     state = strategy.setup(ctx)
     return update_fn, stacked, opt_state, data, ctx, state
@@ -262,16 +268,21 @@ def charge_round(history: History, cost: CommCost,
                  mask_np: Optional[np.ndarray], m: int, payload: int, link,
                  system: Optional[SystemModel], channel: Optional[Channel],
                  t_accum: float, assignment: Optional[np.ndarray] = None,
-                 ul_bits_pc: Optional[np.ndarray] = None) -> float:
+                 ul_bits_pc: Optional[np.ndarray] = None,
+                 edge: Optional[Any] = None) -> float:
     """One round's comm/bits/clock accounting; returns the updated clock.
     ``mask_np`` is the host-side participation row (None or all-True =
     full cohort), ``assignment`` the strategy's client→stream map
     (membership-aware broadcast charging, None = the cohort-slowest upper
     bound), ``ul_bits_pc`` the (m,) per-client uplink payload vector
-    (rate-adaptive codecs; None = ``payload`` per client)."""
+    (rate-adaptive codecs; None = ``payload`` per client), ``edge`` the
+    hierarchy tier's `EdgeMeter`: the device→user hop's bits land in its
+    own books every round, and its time (the slowest participating
+    user's edge sub-round) is added to the clock when a ``system`` runs
+    one."""
     history.comm.append(cost)
     n_part, participants = m, None
-    if channel is not None or system is not None:
+    if channel is not None or system is not None or edge is not None:
         # the round only waits for the clients that computed: H_|S| under
         # partial participation, not H_m
         if mask_np is not None and not mask_np.all():
@@ -297,6 +308,10 @@ def charge_round(history: History, cost: CommCost,
         else:
             t_accum += system.round_time(n_part, n_streams=cost.n_streams,
                                          n_unicasts=cost.n_unicasts)
+    if edge is not None:
+        t_edge = edge.charge(mask_np)
+        if system is not None:
+            t_accum += t_edge
     return t_accum
 
 
@@ -365,7 +380,8 @@ def _mro_definer(cls: type, name: str) -> Optional[type]:
 
 
 def superstep_support(strategy: Strategy,
-                      sampler: Optional[ClientSampler]) -> tuple:
+                      sampler: Optional[ClientSampler],
+                      hierarchy: Optional[Any] = None) -> tuple:
     """(ok, reason): whether this run qualifies for the fused superstep.
 
     Strategy and sampler must declare the traceability contract; every
@@ -373,7 +389,9 @@ def superstep_support(strategy: Strategy,
     `Channel` never blocks fusion.  A subclass of a traceable strategy
     that overrides ``aggregate`` WITHOUT re-implementing
     ``aggregate_traced`` would silently fuse with the parent's rule; it
-    goes to the eventful loop instead."""
+    goes to the eventful loop instead.  A hierarchy whose edge aggregator
+    weights on the host (``traceable=False``) names itself and runs
+    eventful."""
     if not strategy.traceable:
         return False, (f"strategy {strategy.spec!r} is not traceable "
                        "(eventful per-round state)")
@@ -389,6 +407,11 @@ def superstep_support(strategy: Strategy,
     if sampler is not None and not sampler.traceable:
         return False, (f"sampler {type(sampler).__name__} does not "
                        "implement sample_traced")
+    if hierarchy is not None:
+        agg = hierarchy.edge_aggregator
+        if not agg.traceable:
+            return False, (f"edge aggregator {agg.spec!r} is not traceable "
+                           "(host-side edge weighting)")
     return True, ""
 
 
@@ -433,15 +456,18 @@ def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
     codec uplink with error feedback → screening/robust defense →
     strategy aggregate → quorum gate) as one function
 
-        round_fn((stacked, opt_state, ef), (x, y), consts,
+        round_fn((stacked, opt_state, ef), data, consts,
                  (idx, mask, noise, faults))
             -> ((stacked', opt_state', ef'), (crash, quarantine))
 
     of the eventful round's arithmetic, op for op, on the round's draws
     (``mask`` all-True where the eventful sampler gives None: the select
-    is then a bitwise identity).  With ``fault_plan``, ``consts`` is the
-    pair ``(strategy_consts, byz_row)`` (the static adversary row rides
-    as an input) and ``faults`` the round's `FaultDraws`.  ``min_quorum``
+    is then a bitwise identity).  ``data`` is ``(x, y, n)`` and ``idx``
+    the update step's draw (a hierarchy run's: its `FleetDraws`): the
+    update step takes ``(*data, idx)``.  With
+    ``fault_plan``, ``consts`` is the pair ``(strategy_consts,
+    byz_row)`` (the static adversary row rides as an input) and
+    ``faults`` the round's `FaultDraws`.  ``min_quorum``
     snapshots the clients' own models before the uplink and keeps them
     when too few rows took part: the mix always runs and a ``where``
     picks, so the round has one shape whatever the count.  ``crash`` and
@@ -456,11 +482,10 @@ def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
         if faulted:
             consts, byz_row = consts
         stacked, opt_state, ef = carry
-        x, y = data
         idx, mask, noise, fd = draw
-        m = x.shape[0]
+        m = data[0].shape[0]
         prev, prev_opt = stacked, opt_state
-        stacked, opt_state = update_fn(stacked, opt_state, x, y, idx)
+        stacked, opt_state = update_fn(stacked, opt_state, *data, idx)
         if sampler is not None:
             stacked = placement.select(mask, stacked, prev)
             opt_state = placement.select(mask, opt_state, prev_opt)
@@ -524,17 +549,21 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
                    keep_state: bool, seed: int, draws: Any, device,
                    faults: Optional[Any] = None,
                    robust_agg: Optional[Any] = None,
-                   min_quorum: Optional[int] = None) -> History:
+                   min_quorum: Optional[int] = None,
+                   hierarchy: Optional[Any] = None) -> History:
     """The fused run: chunk by chunk (`_eval_rounds`), the chunk's draws
     taken first, its rounds and chunk-end eval run by
     `Placement.run_supersteps`, its scores and its rounds' crash and
-    quarantine rows brought back in one copy, then the clock, comm and
-    fault accounting replayed on the host in the eventful engine's
+    quarantine rows brought back in one copy, then the clock, comm, edge
+    and fault accounting replayed on the host in the eventful engine's
     per-round order (`charge_round`, `charge_faults`)."""
     m = fed.m
-    update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
+    update_fn, stacked, opt_state, data, ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
-        draws, device, faults=faults)
+        draws, device, faults=faults, hierarchy=hierarchy, system=system)
+    x, _, n = data
+    meter = (None if ctx.hierarchy_plan is None
+             else EdgeMeter(ctx.hierarchy_plan))
     plan = ctx.fault_plan
     defense = get_robust_aggregator(robust_agg)
     robust_spec = "none" if defense is None else str(robust_agg)
@@ -573,14 +602,13 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
     carry = (stacked, opt_state, ef if lossy else None)
     for rnd, nxt in _eval_rounds(fl.rounds, fl.eval_every):
         length = nxt - rnd + 1
-        cd = chunk_draws(draws, range(rnd, nxt + 1), n=n, n_slots=x.shape[1],
-                         batch_size=fl.batch_size,
-                         local_steps=fl.local_steps, sampler=sampler, m=m,
-                         noise_d=noise_d, device=x.device,
+        cd = chunk_draws(draws, range(rnd, nxt + 1), step=update_fn, x=x,
+                         n=n, sampler=sampler, m=m, noise_d=noise_d,
+                         device=x.device,
                          fault_cfg=None if plan is None else plan.cfg,
                          fault_d=d)
         carry, accs, (crashes, qs) = placement.run_supersteps(
-            round_fn, carry, (x, y), consts, length, cache=cache,
+            round_fn, carry, data, consts, length, cache=cache,
             eval_fn=eval_fn, eval_data=(fed.x_val, fed.y_val),
             draws=(cd.slots, cd.mask, cd.noise, cd.faults))
         # the chunk's one copy to the host: the scores' mean and min, and
@@ -612,7 +640,7 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
             t_accum = charge_round(
                 history, cost if ok else CommCost(0, 0), eff, m, payload,
                 link, system, channel, t_accum,
-                assignment if ok else None, ul_bits_pc)
+                assignment if ok else None, ul_bits_pc, meter)
             if fmeter is not None:
                 charge_faults(fmeter, crow,
                               None if qs_np is None else qs_np[i], eff,
@@ -626,6 +654,8 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
     stacked, opt_state, ef = carry
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
+    if meter is not None:
+        history.extra["hierarchy"] = meter.extra()
     if fmeter is not None:
         history.extra["faults"] = fmeter.extra()
     if channel is not None:
@@ -691,14 +721,21 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     and data stay on the host, one cohort at a time on ``device``, and
     ``fed`` may then live on the host; it needs a run that can fuse
     (`ValueError` otherwise) and refuses ``superstep=False`` and
-    ``hierarchy`` (`TypeError`).  ``hierarchy`` (a later slice) raises
-    `NotImplementedError`.
+    ``hierarchy`` (`TypeError`).  ``hierarchy`` (a `HierarchyConfig`,
+    an int devices-per-user or a fleet spec string such as
+    ``"ragged:2-4"``) nests an edge sub-round inside every round: each
+    user aggregates its device fleet before the server sees it, both
+    hops are charged, and the edge books land in
+    ``History.extra["hierarchy"]``; a host-side edge aggregator runs the
+    eventful loop.
     """
     if min_quorum is not None:
         min_quorum = int(min_quorum)
         if min_quorum < 1:
             raise ValueError(f"min_quorum must be >= 1, got {min_quorum}")
     faults = resolve_faults(faults)     # validates the spec once, up front
+    if hierarchy is not None:
+        hierarchy = resolve_hierarchy(hierarchy)
     if async_cfg is not None:
         if sampler is not None:
             raise TypeError("the async runtime takes no ClientSampler — "
@@ -731,7 +768,6 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                          keep_state=keep_state, faults=faults,
                          robust_agg=robust_agg, min_quorum=min_quorum,
                          seed=seed, draws=draws, device=device)
-    refuse_later(hierarchy=hierarchy)
     dev = resolve_device(device)
     strategy = resolve_strategy(algorithm, strategy)
     if fed is None:
@@ -745,7 +781,7 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     lossy = channel is not None and not channel.codec.is_identity
     draws = TorchDraws(seed, dev) if draws is None else draws
     if superstep is None or superstep:
-        ok, why = superstep_support(strategy, sampler)
+        ok, why = superstep_support(strategy, sampler, hierarchy=hierarchy)
         if not ok and superstep:
             raise ValueError(f"superstep=True but this run cannot fuse: "
                              f"{why}")
@@ -757,12 +793,15 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
                                   keep_state=keep_state, seed=seed,
                                   draws=draws, device=dev, faults=faults,
                                   robust_agg=robust_agg,
-                                  min_quorum=min_quorum)
+                                  min_quorum=min_quorum, hierarchy=hierarchy)
     m = fed.m
     defense = get_robust_aggregator(robust_agg)
-    update_fn, stacked, opt_state, (x, y, n), ctx, state = init_run(
+    update_fn, stacked, opt_state, data, ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
-        draws, dev, faults=faults)
+        draws, dev, faults=faults, hierarchy=hierarchy, system=system)
+    x, _, n = data
+    meter = (None if ctx.hierarchy_plan is None
+             else EdgeMeter(ctx.hierarchy_plan))
     plan = ctx.fault_plan
     robust_spec = "none" if defense is None else str(robust_agg)
     byz_row = (None if plan is None
@@ -778,12 +817,10 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     history = History()
     t_accum = 0.0
     for rnd in range(fl.rounds):
-        idx = draws.batch_indices(rnd, n, x.shape[1], fl.batch_size,
-                                  fl.local_steps)
+        idx = update_fn.draw(draws, rnd, x, n)
         # the update is functional: prev and prev_opt stay intact
         prev, prev_opt = stacked, opt_state
-        stacked, opt_state = update_fn(stacked, opt_state, x, y,
-                                       idx.to(x.device))
+        stacked, opt_state = update_fn(stacked, opt_state, *data, idx)
         mask_np = mask = None
         if sampler is not None:
             cpu_mask = sampler.sample(rnd, m, draws)
@@ -836,7 +873,7 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
         t_accum = charge_round(history,
                                strategy.comm(state) if ok else CommCost(0, 0),
                                eff_np, m, payload, link, system, channel,
-                               t_accum, assignment, ul_bits_pc)
+                               t_accum, assignment, ul_bits_pc, meter)
         if fmeter is not None:
             charge_faults(fmeter,
                           None if crash is None else crash.cpu().numpy(),
@@ -848,6 +885,8 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
 
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
+    if meter is not None:
+        history.extra["hierarchy"] = meter.extra()
     if fmeter is not None:
         history.extra["faults"] = fmeter.extra()
     if channel is not None:

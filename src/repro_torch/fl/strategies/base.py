@@ -1,7 +1,8 @@
 """Strategy protocol: the server-side aggregation surface.
 
 Counterpart of `repro/fl/strategies/base.py`, with the async runtime's
-staleness reweighting and the defense layer's quarantine reweighting:
+staleness reweighting, the defense layer's quarantine reweighting and
+the hierarchy tier's edge-weights hook:
 
     state = strategy.setup(ctx)                       # once, before round 0
     stacked, state = strategy.aggregate(state, stacked, prev, ctx)  # per round
@@ -261,6 +262,18 @@ class Strategy(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} sets traceable=True but does not "
             "implement aggregate_traced")
+
+    def edge_weights(self, w: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """Edge-aggregation hook of the hierarchy tier: refine the
+        `EdgeAggregator`'s normalized per-device weight matrix ``w`` (m,
+        d_max) given the per-device sample counts ``n`` (m, d_max).  It
+        runs inside the fleet update, on the card inside a captured CUDA
+        graph, so an override must be pure torch and read nothing back
+        to the host.  Default: the identity; the engine threads a
+        strategy's hook into the fleet update only when a subclass
+        overrides it, so the default costs nothing and keeps the
+        flat-parity anchor."""
+        return w
 
     def reweight(self, w: torch.Tensor, ctx: RoundContext) -> torch.Tensor:
         """Staleness hook: `RoundContext.mix` routes every weight matrix

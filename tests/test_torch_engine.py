@@ -48,7 +48,12 @@ class ReplayDraws:
     fold_in(kfault, i) of kfault = fold_in(kround, 3): i = 0 the crash
     row, 1 the NaN row, 2 the bit-rot row (bernoulli, (m,)), 3 the bit-rot
     element mask (bernoulli, (m, D)), 4 the flipped bit (randint in
-    [0, 32), int32, (m, D))."""
+    [0, 32), int32, (m, D)).  A hierarchy run's device slots are
+    vmap(split(ckey_i, d_max)), then each device's split(·, S) and the
+    slot rule over its own n_id; its edge codec noise is
+    uniform(fold_in(ckeys[row], 0x65646765), shape) of the update's first
+    row, and its device-dropout coins bernoulli(fold_in(ekey, 1), 1 - p,
+    shape) of that edge key ekey."""
 
     def __init__(self, seed, rounds, sampler_keys=False):
         key = jax.random.PRNGKey(seed)
@@ -105,6 +110,34 @@ class ReplayDraws:
                 jax.random.fold_in(kfault, 4), (m, d), 0, 32,
                 dtype=jnp.int32)))
         return FaultDraws(crash, nan, rot, elem, bit)
+
+    def device_batch_indices(self, rnd, n, n_slots, batch_size,
+                             local_steps):
+        m, d_max = n.shape
+
+        def device(dkey, n_id):
+            keys = jax.random.split(dkey, local_steps)
+            r = jax.vmap(lambda k: jax.random.randint(
+                k, (batch_size,), 0, 1 << 30))(keys)
+            return r % jnp.maximum(n_id.astype(jnp.int32), 1) % n_slots
+
+        dkeys = jax.vmap(lambda k: jax.random.split(k, d_max))(
+            jax.random.split(self.krounds[rnd], m))
+        idx = jax.vmap(jax.vmap(device))(dkeys, jnp.asarray(n.numpy()))
+        return torch.from_numpy(np.asarray(idx, np.int64))
+
+    def _edge_key(self, rnd, m, row):
+        return jax.random.fold_in(jax.random.split(self.krounds[rnd], m)[row],
+                                  0x65646765)
+
+    def edge_noise(self, rnd, m, row, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self._edge_key(rnd, m, row), tuple(shape), jnp.float32)))
+
+    def device_dropout(self, rnd, m, row, shape, p):
+        return torch.from_numpy(np.array(jax.random.bernoulli(
+            jax.random.fold_in(self._edge_key(rnd, m, row), 1), 1.0 - p,
+            tuple(shape))))
 
 
 @pytest.fixture(scope="module")
@@ -196,9 +229,11 @@ def test_entry_points_refuse_what_this_slice_lacks():
             run_federated("fedavg", fed)
         with pytest.raises(RuntimeError, match="cuda"):
             scenario_label_shift(0, n=100, m=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    with pytest.raises(TypeError, match="cannot resolve hierarchy"):
         run_federated("fedavg", fed, device="cpu", hierarchy=object())
     fl = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=1)
+    h = run_federated("fedavg", fed, fl=fl, device="cpu", hierarchy=2)
+    assert h.extra["hierarchy"]["d_max"] == 2 and np.isfinite(h.mean_acc).all()
     for spec, streams in (("local", 0), ("oracle", 1)):
         h = run_federated(spec, fed, fl=fl, device="cpu")
         assert h.comm == [(streams, 0)] and np.isfinite(h.mean_acc).all()
@@ -211,6 +246,7 @@ def test_port_imports_no_jax():
             "import repro_torch.fl, repro_torch.fl.channel, "
             "repro_torch.fl.faults, repro_torch.fl.runtime, "
             "repro_torch.fl.serve, repro_torch.fl.population, "
+            "repro_torch.fl.hierarchy, "
             "repro_torch.core, "
             "repro_torch.checkpoint, repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "

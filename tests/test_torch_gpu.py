@@ -1045,11 +1045,11 @@ def _ss_chunk_inputs(length):
     round_fn = _build_traced_round(strategy, sampler, codec, True,
                                    placement, update_fn)
     d = sum(v[0].numel() for v in stacked.values())
-    cd = chunk_draws(draws, range(length), n=n, n_slots=x.shape[1],
-                     batch_size=fl.batch_size, local_steps=fl.local_steps,
+    cd = chunk_draws(draws, range(length), step=update_fn, x=x, n=n,
                      sampler=sampler, m=fed.m, noise_d=d, device=x.device)
     eval_fn = lambda st, ed: placement.eval_traced(lenet.accuracy, st, *ed)
-    inputs = ((stacked, opt_state, ef), (x, y), strategy.traced_state(state),
+    inputs = ((stacked, opt_state, ef), (x, y, n),
+              strategy.traced_state(state),
               (cd.slots, cd.mask, cd.noise, cd.faults),
               (fed.x_val, fed.y_val))
     return round_fn, eval_fn, inputs
@@ -1715,3 +1715,97 @@ def test_async_paged_lockstep_is_resident_on_card():
     res = run_async("ucfl_k4", FederatedData(*(t.cuda() for t in fed)), **kw)
     pag = run_async("ucfl_k4", fed, paging=PagingConfig(cohort=20), **kw)
     _pg_same(pag, res)
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical edge tier: device rows through the channel kernels
+
+HI_TWO = dict(devices_per_user="ragged:2-4", edge_codec="qsgd:4",
+              edge_link="tiered:4", edge_latency=0.5)
+
+
+def _hi_run(spec, fed, superstep, **kw):
+    from repro_torch.fl import FLConfig, SYSTEMS, run_federated
+    n0 = dict(ops.LAUNCHES)
+    h = run_federated(spec, fed, fl=FLConfig(**SS_FL), superstep=superstep,
+                      system=SYSTEMS["wireless_slow"], keep_state=True,
+                      seed=3, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return h, {k: n - n0[k] for k, n in ops.LAUNCHES.items()}
+
+
+def _hi_same_history(a, b):
+    assert (a.rounds, a.mean_acc, a.worst_acc, a.time, a.comm,
+            a.comm_bits) == (b.rounds, b.mean_acc, b.worst_acc, b.time,
+                             b.comm, b.comm_bits)
+
+
+@pytest.mark.gpu
+def test_hierarchy_flat_anchor_on_card():
+    """``HierarchyConfig(devices_per_user=1)`` with ucfl_k4 on both
+    engines: history, clock, comm bits, final params and the launches
+    bitwise the flat run's on the card."""
+    _require_cuda()
+    from repro_torch.fl import HierarchyConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fed = _ss_fed()
+    for superstep in (None, False):
+        flat, c0 = _hi_run("ucfl_k4", fed, superstep)
+        anc, c1 = _hi_run("ucfl_k4", fed, superstep,
+                          hierarchy=HierarchyConfig(devices_per_user=1))
+        _hi_same_history(anc, flat)
+        assert c1 == c0
+        assert anc.extra["hierarchy"]["d_max"] == 1
+        for k, v in flat.final_params.items():
+            assert torch.equal(_bits(anc.final_params[k]), _bits(v)), k
+
+
+@pytest.mark.gpu
+def test_hierarchy_two_level_fused_equals_eventful_on_card():
+    """ucfl_k4 over ``ragged:2-4`` devices with a qsgd:4 edge codec on a
+    tiered:4 edge link: the captured rounds bitwise the eventful loop
+    (history, edge books, final params and `EdgeState`), with one QSGD
+    row pass a round over the (m·d_max, F) device rows on both engines."""
+    _require_cuda()
+    from repro_torch.fl import HierarchyConfig
+    from repro_torch.fl.placement.graphs import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fed = _ss_fed()
+    runs = [_hi_run("ucfl_k4", fed, s, hierarchy=HierarchyConfig(**HI_TWO))
+            for s in (None, False, None)]
+    (ev, c_ev) = runs[1]
+    assert c_ev["qsgd_roundtrip"] == SS_FL["rounds"]
+    assert c_ev["mixing_aggregate"] == SS_FL["rounds"]
+    for h, c in (runs[0], runs[2]):
+        assert c == c_ev
+        _hi_same_history(h, ev)
+        assert h.extra["hierarchy"] == ev.extra["hierarchy"]
+        for k, v in ev.final_params.items():
+            assert torch.equal(_bits(h.final_params[k]), _bits(v)), k
+        for a, b in zip(leaves(h.final_opt_state), leaves(ev.final_opt_state),
+                        strict=True):
+            assert torch.equal(a, b)
+    assert ev.final_opt_state.edge_ef is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+def test_hierarchy_device_rows_through_the_channel_kernels(bits):
+    """The edge crossing's shapes: 20 users of up to 4 devices, (80,
+    47,571) device rows, 20 of them padding rows of zeros (invalid device
+    slots): the QSGD row pass's roundtrip and the top-k kernel bitwise
+    their plain versions, one launch each."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    x = torch.randn((80, 47571), generator=gen, device="cuda") * 0.01
+    x[60:] = 0.0
+    u = torch.rand((80, 47571), generator=gen, device="cuda")
+    n0 = dict(ops.LAUNCHES)
+    got = ops.qsgd_roundtrip(x, u, bits=bits)
+    _same(got, ref.qsgd_roundtrip_ref(x, u, bits))
+    a = x.abs()
+    thresh = ops.topk_threshold(a, k=4758)
+    _same(thresh, ref.topk_threshold_ref(a, 4758))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["qsgd_roundtrip"] - n0["qsgd_roundtrip"] == 1
+    assert ops.LAUNCHES["topk_threshold"] - n0["topk_threshold"] == 1

@@ -407,9 +407,12 @@ def test_paged_refusals(case):
                                             "compose"):
             run_federated("fedavg", fed, fl=FL, paging=pg, hierarchy=2,
                           device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-            run_federated("fedavg", fed, fl=FL, hierarchy=2, device="cpu",
+        h = run_federated("fedavg", fed, fl=FL, hierarchy=2, device="cpu",
                           **kw)
+        assert h.extra["hierarchy"]["d_max"] == 2
+        with pytest.raises(TypeError, match="cannot resolve hierarchy"):
+            run_federated("fedavg", fed, fl=FL, hierarchy=object(),
+                          device="cpu", **kw)
     with pytest.raises(TypeError, match="hierarchy tier does not compose"):
         run_async("fedavg", fed, fl=FL, paging=pg, hierarchy=2, device="cpu")
     if not torch.cuda.is_available():       # the card is the default device

@@ -361,12 +361,17 @@ def test_async_config_validation_and_entry_points():
     with pytest.raises(TypeError, match="superstep"):
         run_federated("fedavg", fed, async_cfg=cfg, device="cpu",
                       superstep=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    with pytest.raises(TypeError, match="cannot resolve hierarchy"):
         run_async("fedavg", fed, async_cfg=cfg, device="cpu",
                   hierarchy=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    with pytest.raises(TypeError, match="cannot resolve hierarchy"):
         run_federated("fedavg", fed, async_cfg=cfg, device="cpu",
                       hierarchy=object())
+    h = run_async("fedavg", fed, async_cfg=cfg, device="cpu", hierarchy=2,
+                  fl=FLConfig(rounds=2, local_steps=1, batch_size=4,
+                              eval_every=1))
+    assert h.extra["hierarchy"]["d_max"] == 2
+    assert len(h.extra["hierarchy"]["comm_bits"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             run_async("fedavg", fed, async_cfg=cfg)

@@ -142,6 +142,28 @@ Phases (any failure raises and the script exits non-zero):
                 K = 5, on a row-local plan and on a drop_stragglers plan
                 (partial events full width): s/event, a row pass an
                 event;
+ 10e. mesh    — `MeshShardMap` on a one-rank NCCL group (started in this
+                process, no network) at phase 5's scenario: (a) ucfl_k4
+                and fedavg under gspmd, shard_map_streams and
+                shard_map_unicast on both engines, each bitwise phase 5's
+                HostVmap run (history, clock, params; a mix launch a
+                round), and for ucfl_k4 each schedule's fused s/round
+                (less a setup-only run) and a profiler trace of a
+                5-round chunk (busy share, the NCCL kernels' share, the
+                device copies' ms; the flat HostVmap run in turn with
+                them);
+                (b) ucfl_k4 with qsgd:4 and topk:0.1 through the codecs'
+                "jnp" backend, each bitwise the HostVmap run (top-k's
+                exact k-th magnitude against the bisection, the masks'
+                differing coordinates counted); (c) a
+                `ServeEngine(placement=mesh)` batch of 16 on a qsgd:4
+                store file labelled "jnp", bitwise the HostVmap batch;
+                (d) the async lockstep anchor on the mesh bitwise its
+                sync run, then K = 5 bitwise HostVmap's K = 5,
+                s/event.  Phase 4 also
+                holds a small mesh run on the card against the same run
+                over a gloo group on the CPU.  The group is torn down
+                before the last lines;
  11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -192,14 +214,15 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import (CheckpointCorruptError,  # noqa: E402
-                                    restore_train_state, save_train_state)
+                                    restore, restore_train_state, save,
+                                    save_train_state)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import StreamPlan, mix_pytree, stream_aggregate  # noqa: E402,E501
 from repro_torch.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data import FederatedData, scenario_label_shift  # noqa: E402
 from repro_torch.fl import (AsyncConfig, Channel, FLConfig,  # noqa: E402
-                            SYSTEMS, TorchDraws, UniformFraction,
-                            run_federated)
+                            MeshShardMap, SYSTEMS, TorchDraws,
+                            UniformFraction, run_federated)
 from repro_torch.fl import DeltaStore, ServeEngine, check_parity  # noqa: E402
 from repro_torch.fl.serve.store import refined_delta  # noqa: E402
 from repro_torch.fl.channel import (get_codec, stacked_ravel,  # noqa: E402
@@ -1290,6 +1313,48 @@ def hierarchy_agreement() -> None:
           f"{b.extra['hierarchy']['edge_ul_bits_total']}, max |Δparam| "
           f"{perr:.2e}, {outside} of {total} elements outside rtol 1e-3 / "
           f"atol 1e-4, max |Δacc| {acc_err:.4f})", flush=True)
+
+
+def mesh_agreement() -> None:
+    """shard_map_streams ucfl_k2 on the one-rank NCCL group on the card
+    against the same run over a one-rank gloo group on the CPU (same
+    init, same draws; the CPU on one thread): histories agree, params
+    within 1e-3, as `small_agreement` holds the HostVmap runs."""
+    import torch.distributed as dist
+    fed_cpu = scenario_label_shift(3, n=600, m=6, device="cpu")
+    fed_gpu = FederatedData(*(t.to("cuda") for t in fed_cpu))
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    fl = FLConfig(rounds=3, local_steps=3, batch_size=16, eval_every=1)
+    on_card = MeshShardMap(schedule="shard_map_streams")
+    gloo = dist.new_group(backend="gloo")
+    on_cpu = MeshShardMap(gloo, schedule="shard_map_streams", device="cpu")
+    runs = {}
+    for dev, fed, pl in (("cpu", fed_cpu, on_cpu), ("cuda", fed_gpu,
+                                                    on_card)):
+        runs[dev] = run_federated(
+            "ucfl_k2", fed, fl=fl, system=SYSTEMS["wireless_slow"],
+            model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+            draws=TorchDraws(11, "cpu"), keep_state=True, device=dev,
+            placement=pl)
+    a, b = runs["cpu"], runs["cuda"]
+    flip = 1.0 / (fed_cpu.m * fed_cpu.x_val.shape[1])
+    if a.comm != b.comm or a.time != b.time:
+        raise AssertionError("mesh: cuda and cpu runs disagree on comm/time")
+    acc_err = max(abs(x - y) for x, y in zip(a.mean_acc + a.worst_acc,
+                                             b.mean_acc + b.worst_acc))
+    if acc_err > 2 * flip + 1e-6:
+        raise AssertionError(f"mesh: accuracies differ by {acc_err}")
+    perr = 0.0
+    for k, v in a.final_params.items():
+        got = b.final_params[k].cpu()
+        perr = max(perr, float((got - v).abs().max()))
+        if not torch.allclose(got, v, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"mesh: final params {k} differ cuda vs "
+                                 f"cpu (max |Δ| {perr:.3e})")
+    print(f"  mesh ucfl_k2 shard_map_streams n=600 m=6: NCCL on the card "
+          f"agrees with gloo on the cpu (max |Δparam| {perr:.2e}, max "
+          f"|Δacc| {acc_err:.4f})", flush=True)
 
 
 def uplink_agreement() -> None:
@@ -2904,6 +2969,182 @@ def _hier_finite(label: str, h) -> None:
                              f"{h.mean_acc}")
 
 
+def _mesh_same(label: str, a, b, parts=("final_params",)) -> None:
+    """History line for line and ``parts`` bitwise, or raise."""
+    for field in ("rounds", "mean_acc", "worst_acc", "time", "comm",
+                  "comm_bits"):
+        if getattr(a, field) != getattr(b, field):
+            raise AssertionError(f"[mesh] {label}: {field} differs: "
+                                 f"{getattr(a, field)} != "
+                                 f"{getattr(b, field)}")
+    for part in parts:
+        for k, v in getattr(b, part).items():
+            if not torch.equal(getattr(a, part)[k].view(torch.int32),
+                               v.view(torch.int32)):
+                raise AssertionError(f"[mesh] {label}: {part} {k} not "
+                                     "bitwise")
+
+
+def mesh_path(fed, fl, hists, card: str) -> None:
+    """[mesh]: `MeshShardMap` on the one-rank NCCL group at [main]'s
+    scenario; see the module docstring (phase 10e)."""
+    from repro_torch.core import MIX_SCHEDULES
+    system, rounds, m = SYSTEMS["wireless_slow"], MAIN["rounds"], MAIN["m"]
+    kw = dict(fl=fl, system=system, seed=0, device="cuda")
+
+    def timed(placement=None, **extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated("ucfl_k4", fed, placement=placement, **{**kw, **extra})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # (a) every schedule on both engines, bitwise [main]'s HostVmap runs
+    for spec in ("ucfl_k4", "fedavg"):
+        for schedule in MIX_SCHEDULES:
+            runs = run_both(spec, fed, fl, system=system,
+                            placement=MeshShardMap(schedule=schedule))
+            for engine, h, launched, wall in runs:
+                _mesh_same(f"{spec} {schedule} {engine}", h, hists[spec])
+                want = {"mixing_aggregate": rounds,
+                        "gram_matrix": 1 if spec == "ucfl_k4" else 0}
+                got = {k: launched[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"[mesh] {spec} {schedule} "
+                                         f"{engine}: launches {launched}")
+            print(f"  (a) {spec} {schedule}: fused and eventful bitwise "
+                  f"[main]'s HostVmap run (history, clock, params); "
+                  f"launches {got} an engine; walls "
+                  f"{runs[0][3]:.3f} / {runs[1][3]:.3f} s incl. setup and "
+                  f"the first capture ({card})", flush=True)
+    # s/round and a traced chunk of each schedule, the flat HostVmap run
+    # first, in turns with them
+    for schedule in (None,) + MIX_SCHEDULES:
+        pl = None if schedule is None else MeshShardMap(schedule=schedule)
+        walls = [timed(pl) for _ in range(2)]
+        setup = timed(pl, fl=dataclasses.replace(fl, rounds=0))
+        line = (f"  (a) fused ucfl_k4 {schedule or 'HostVmap (flat)'}: "
+                f"{(walls[-1] - setup) / rounds:.5f} s/round less setup "
+                f"({walls[-1] / rounds:.5f} with it)")
+        got = chunk_trace("ucfl_k4", fed, fl, system, None, placement=pl)
+        if got is None:
+            line += "; trace: no device events, busy share not measured"
+        else:
+            wall, busy, parts, n_kernels, by_name = got
+            # the collectives' share is their NCCL kernels'; the device
+            # copies are printed beside them, and the flat run has its
+            # own, so a one-rank collective that runs no kernel shows
+            # only as copies above the flat run's
+            coll = sum(ms for name, ms in by_name.items()
+                       if "nccl" in name.lower())
+            copies = sum(ms for name, ms in by_name.items()
+                         if "memcpy" in name.lower())
+            line += (f"; a traced 5-round chunk busy {busy:.3f} of "
+                     f"{wall:.3f} ms ({busy / wall:.1%}), NCCL kernels "
+                     f"{coll:.4f} ms ({coll / busy:.3%} of busy), device "
+                     f"copies {copies:.4f} ms, mix {parts['mix']:.4f} ms, "
+                     f"{n_kernels} kernels")
+        print(line + f" ({card})", flush=True)
+
+    # (b) the codecs on the mesh's "jnp" backend
+    for codec in ("qsgd:4", "topk:0.1"):
+        ch = dict(channel=Channel(codec=codec), keep_state=True)
+        host = run_federated("ucfl_k4", fed, **kw, **ch)
+        mesh = run_federated("ucfl_k4", fed, **kw, **ch,
+                             placement=MeshShardMap(
+                                 schedule="shard_map_streams"))
+        if codec.startswith("qsgd"):
+            _mesh_same(f"ucfl_k4 {codec}", mesh, host,
+                       ("final_params", "final_residual"))
+            print(f"  (b) ucfl_k4 {codec} on the \"jnp\" backend: bitwise "
+                  f"the HostVmap run (history, params, residuals; "
+                  f"{card})", flush=True)
+            continue
+        # the exact k-th magnitude against the bisection threshold: the
+        # masks differ only where a row's cut falls between two floats
+        # the bisection cannot split, which this run's rows never do
+        # (0 differing coordinates in every run), so the runs are held
+        # bitwise
+        x = stacked_ravel(host.final_residual)
+        k = get_codec(codec).k(x.shape[1])
+        absx = x.abs()
+        exact = absx >= torch.topk(absx, k, dim=1).values[:, -1:]
+        bisect = absx >= ops.topk_threshold(absx, k=k)
+        differ = int((exact != bisect).sum())
+        _mesh_same(f"ucfl_k4 {codec}", mesh, host,
+                   ("final_params", "final_residual"))
+        print(f"  (b) ucfl_k4 {codec}: the exact k-th magnitude bitwise "
+              f"the HostVmap run's bisection (history, params, "
+              f"residuals); on the ({x.shape[0]}, {x.shape[1]}) final "
+              f"residual rows, k = {k}, the two masks differ on {differ} "
+              f"coordinates ({card})", flush=True)
+
+    # (c) a served batch of 16 on a store file labelled with the
+    # reference's "jnp" backend (the label its mesh runs write; both
+    # backends decode alike)
+    path = Path(__file__).resolve().parent / "build" / "mesh" / "jnp.msgpack"
+    DeltaStore.from_history(hists["ucfl_k4"], codec="qsgd:4",
+                            device="cuda").save(str(path))
+    tree = restore(str(path), device="cpu")
+    tree["backend"] = "jnp"
+    save(str(path), tree)
+    store = DeltaStore.load(str(path), device="cuda")
+    if store.backend != "jnp":
+        raise AssertionError("[mesh] serve: the store's label is lost")
+    users = np.arange(16)
+    xs = fed.x_val[torch.as_tensor(users % m, device=fed.x_val.device), 0]
+    mesh_eng = ServeEngine(store, serve_apply,
+                           placement=MeshShardMap(), max_batch=16)
+    host_eng = ServeEngine(store, serve_apply, max_batch=16)
+    n0 = ops.LAUNCHES["qsgd_dequantize"]
+    got = mesh_eng.serve(users, xs)
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["qsgd_dequantize"] - n0 != 1:
+        raise AssertionError("[mesh] serve: one QSGD stream launch a batch")
+    want = host_eng.serve(users, xs)
+    if not torch.equal(got, want):
+        raise AssertionError("[mesh] serve: the mesh batch is not the "
+                             "HostVmap batch")
+    check_parity(mesh_eng, users, xs)
+    print(f"  (c) ServeEngine(placement=mesh) on a \"jnp\" qsgd:4 store: a "
+          f"batch of 16 bitwise the HostVmap batch, check_parity ok, one "
+          f"stream launch ({card})", flush=True)
+
+    # (d) async on the mesh: the lockstep anchor, then K = 5
+    pl = MeshShardMap(schedule="shard_map_streams")
+    akw = dict(fl=fl, seed=0, keep_state=True, device="cuda", placement=pl)
+    sync = run_federated("ucfl_k4", fed, system=SYSTEMS["wired"], **akw)
+    anchor = run_federated("ucfl_k4", fed, system=SYSTEMS["wired"],
+                           async_cfg=AsyncConfig(buffer_k=m), **akw)
+    for field in ("rounds", "mean_acc", "worst_acc", "comm"):
+        if getattr(anchor, field) != getattr(sync, field):
+            raise AssertionError(f"[mesh] async anchor {field} differs")
+    for k, v in sync.final_params.items():
+        if not torch.equal(anchor.final_params[k].view(torch.int32),
+                           v.view(torch.int32)):
+            raise AssertionError(f"[mesh] async anchor params {k}")
+    cfg = AsyncConfig(buffer_k=5, max_staleness=3, staleness_discount=0.8)
+    out = {}
+    for label, placement in (("mesh", pl), ("HostVmap", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = run_federated("ucfl_k4", fed, fl=fl, system=system, seed=0,
+                          keep_state=True, device="cuda", async_cfg=cfg,
+                          placement=placement)
+        torch.cuda.synchronize()
+        out[label] = (h, time.perf_counter() - t0)
+    (hm, wm), (hh, wh) = out["mesh"], out["HostVmap"]
+    # the mesh updates all 20 rows and masks, HostVmap gathers the 5:
+    # the update's GEMMs batch other counts of rows, and on this card
+    # they read bitwise alike in every run, so they are held so
+    _mesh_same("async K=5", hm, hh)
+    print(f"  (d) async: the lockstep anchor (K={m}) bitwise the mesh sync "
+          f"run; K=5 {wm / rounds:.4f} s/event on the mesh (full-width "
+          f"cohort update) against {wh / rounds:.4f} on HostVmap (row "
+          f"gather), incl. setup; bitwise (history, clock, params; "
+          f"{card})", flush=True)
+
+
 def hierarchy_path(fed, fl, base, card: str) -> None:
     """[hierarchy]: (a) `HierarchyConfig(devices_per_user=1)` with ucfl_k4
     on both engines bitwise [main]'s flat ucfl_k4 (``base``: history,
@@ -3138,6 +3379,7 @@ def main() -> int:
         small_agreement()
         async_agreement()
         hierarchy_agreement()
+        mesh_agreement()
         uplink_agreement()
         channel_agreement()
         lm_agreement()
@@ -3220,6 +3462,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
+    print(f"[mesh] MeshShardMap on a one-rank NCCL group: [main]'s "
+          f"scenario under the three mixing schedules ({card})", flush=True)
+    ops.reset_launches()          # and from here on the mesh path's
+    t0 = time.perf_counter()
+    mesh_path(fed, fl, hists, card)
+    print(f"  [mesh] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
@@ -3236,8 +3487,12 @@ def main() -> int:
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel, faults, async, serve, paging, "
-                                 "hierarchy or lm path")
+                                 "hierarchy, mesh or lm path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    # the mesh's process group (NCCL, with its gloo subgroup) ends here
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

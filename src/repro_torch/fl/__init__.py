@@ -9,7 +9,7 @@ from repro_torch.fl.hierarchy import (EdgeAggregator, EdgeMeter, EdgeState,
                                       HierarchyConfig, get_edge_aggregator,
                                       register_edge_aggregator,
                                       resolve_hierarchy)
-from repro_torch.fl.placement import HostVmap, Placement
+from repro_torch.fl.placement import HostVmap, MeshShardMap, Placement
 from repro_torch.fl.population import (ClientStateStore, CohortSchedule,
                                        FixedCohort, PagingConfig,
                                        RandomCohorts, SequentialSweep,
@@ -34,7 +34,7 @@ __all__ = ["AsyncConfig", "available_strategies", "Channel", "check_parity",
            "FLConfig", "full_client_gradients", "FullParticipation",
            "get_codec", "get_edge_aggregator", "get_robust_aggregator",
            "get_strategy", "harmonic", "HierarchyConfig", "History",
-           "HostVmap", "LinkProfile", "MixingExtras",
+           "HostVmap", "LinkProfile", "MeshShardMap", "MixingExtras",
            "NonFiniteEvalWarning", "PagingConfig", "parse_fault_spec",
            "Placement", "RandomCohorts", "register",
            "register_edge_aggregator", "resolve_fault_plan",

@@ -20,7 +20,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Union
 
-from repro_torch.fl.channel.codecs import (CODECS, Adaptive, AdaptiveTopK,
+from repro_torch.fl.channel.codecs import (BACKENDS, CODECS, Adaptive,
+                                           AdaptiveTopK,
                                            BoundAdaptive, BoundAdaptiveTopK,
                                            Codec, Identity, QSGD, TopK,
                                            apply_uplink, get_codec,
@@ -78,7 +79,7 @@ def resolve_channel(channel: Union[str, Channel, None]
 
 __all__ = [
     "Adaptive", "AdaptiveTopK", "BoundAdaptive", "BoundAdaptiveTopK",
-    "CODECS", "Channel", "ChannelCost", "Codec", "Identity",
+    "BACKENDS", "CODECS", "Channel", "ChannelCost", "Codec", "Identity",
     "LINK_FAMILIES", "LinkProfile", "QSGD", "TopK", "apply_uplink",
     "dtype_bits", "get_codec", "get_link_profile", "leaf_bits",
     "register_codec", "resolve_channel", "round_downlink_time",

@@ -24,11 +24,15 @@ Registered codecs (spec grammar ``<family>[:<param>[:<param>]]``):
 
 `QSGD` and `TopK` run the channel kernels through `kernels.ops` (the
 hand-written CUDA kernels on the card, their plain versions on the CPU),
-as the reference's ``"pallas"`` backend does.  The bound adaptive codecs
-are plain torch on both devices, as the reference's are on both of its
-backends.  Not ported yet: the reference's ``"jnp"`` backend (exact
-``top_k`` masks, first-index ties), which belongs to the mesh placement
-(ROADMAP.md Queue 1 item 15).
+as the reference's ``"pallas"`` backend does.  The reference's other
+backend, ``"jnp"`` (`BACKENDS`; the mesh placement's), keeps its names
+here: only top-k's ``roundtrip`` differs on it, keeping ``|x| >= kth``
+with kth the exact k-th magnitude (``torch.topk``, the reference's
+``topk_mask_ref``) instead of the threshold kernel's bisection.  QSGD
+runs the same kernels on both (the reference states its jnp path is
+bitwise its kernel path), and the at-rest encode and decode are one
+path.  The bound adaptive codecs are plain torch on both devices,
+as the reference's are on both of its backends.
 
 At rest (the serving plane, `fl.serve`), a codec's payload is a dict of
 row-aligned tensors (every value (m, ...)), so a store can gather a
@@ -88,9 +92,10 @@ class Codec(abc.ABC):
         """Exact uplink bits for ONE client's payload of ``tree``'s size."""
 
     @abc.abstractmethod
-    def roundtrip(self, flat: torch.Tensor,
-                  noise: Optional[torch.Tensor]) -> torch.Tensor:
-        """decode(encode(flat)) per row; (m, D) f32 -> (m, D) f32."""
+    def roundtrip(self, flat: torch.Tensor, noise: Optional[torch.Tensor],
+                  *, backend: str = "pallas") -> torch.Tensor:
+        """decode(encode(flat)) per row; (m, D) f32 -> (m, D) f32, on the
+        codec ``backend`` (`BACKENDS`)."""
 
     # ---- at-rest format (the serving plane) -------------------------------
     # The default keeps the decoded dense values (identity, and any codec
@@ -137,6 +142,9 @@ class Codec(abc.ABC):
 
 
 CODECS: Dict[str, Type[Codec]] = {}
+# the codec implementations, by the reference's names: "pallas" the
+# kernels, "jnp" the mesh placement's (see the module docstring)
+BACKENDS = ("pallas", "jnp")
 
 
 def register_codec(cls: Type[Codec]) -> Type[Codec]:
@@ -155,7 +163,7 @@ class Identity(Codec):
     def payload_bits(self, tree: Any) -> int:
         return tree_bits(tree)
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         return flat
 
     def store_bound(self, payload, d):
@@ -184,7 +192,7 @@ class QSGD(Codec):
     def payload_bits(self, tree: Any) -> int:
         return tree_size(tree) * self.bits + 32     # + per-client scale
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         return ops.qsgd_roundtrip(flat, noise, bits=self.bits)
 
     def encode(self, flat, noise):
@@ -232,9 +240,15 @@ class TopK(Codec):
     def payload_bits(self, tree: Any) -> int:
         return self.k(tree_size(tree)) * (32 + 32)  # (value, index) pairs
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         absx = flat.abs()
-        thresh = ops.topk_threshold(absx, k=self.k(flat.shape[1]))
+        k = self.k(flat.shape[1])
+        if backend == "jnp":
+            # the exact k-th magnitude (the reference's `topk_mask_ref`,
+            # a `lax.top_k` outside any kernel); ties all kept
+            thresh = torch.topk(absx, k, dim=1).values[:, -1:]
+        else:
+            thresh = ops.topk_threshold(absx, k=k)
         return torch.where(absx >= thresh, flat, torch.zeros_like(flat))
 
     def encode(self, flat, noise):
@@ -306,7 +320,7 @@ class Adaptive(Codec):
                            "binds it in init_channel; call "
                            "bind_link(link, tree) first")
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         raise RuntimeError("adaptive codec is link-dependent; "
                            "bind_link(link, tree) first")
 
@@ -358,7 +372,7 @@ class BoundAdaptive(Codec):
                              f"asked for {m}")
         return tree_size(tree) * self.bits + 32
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         """The plain QSGD arithmetic with the level count a per-row (m, 1)
         column (the kernels take one scalar level count), a subnormal
         element, absmax, scale or 1/scale flushed to 0 as in
@@ -417,7 +431,7 @@ class AdaptiveTopK(Codec):
                            "engine binds it in init_channel; call "
                            "bind_link(link, tree) first")
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         raise RuntimeError("adaptive_topk codec is link-dependent; "
                            "bind_link(link, tree) first")
 
@@ -458,7 +472,7 @@ class BoundAdaptiveTopK(Codec):
                              f"asked for {m}")
         return self.ks * (32 + 32)
 
-    def roundtrip(self, flat, noise):
+    def roundtrip(self, flat, noise, *, backend="pallas"):
         """Per-row k-th-magnitude threshold from a descending sort (ties at
         the threshold all kept), plain torch: the kernel takes one k."""
         a = flat.abs()
@@ -511,13 +525,15 @@ def uplink_roundtrip(codec: Codec, stacked: Dict[str, torch.Tensor],
                      prev: Dict[str, torch.Tensor],
                      ef: Dict[str, torch.Tensor],
                      noise: Optional[torch.Tensor],
-                     mask: Optional[torch.Tensor]) -> Tuple[Any, Any]:
+                     mask: Optional[torch.Tensor], *,
+                     backend: str = "pallas") -> Tuple[Any, Any]:
     """The EF uplink algebra: transmit v = Δ + e, return
     ``(prev + decode(v), v − decode(v))`` with non-participant rows
     untouched.  ``noise`` (m, D) feeds the codec's stochastic rounding in
     the flat view's column order (sorted keys)."""
     v = {k: (stacked[k] - prev[k]) + ef[k] for k in stacked}
-    dec = stacked_unravel(codec.roundtrip(stacked_ravel(v), noise), v)
+    dec = stacked_unravel(codec.roundtrip(stacked_ravel(v), noise,
+                                          backend=backend), v)
     new_ef = {k: v[k] - dec[k] for k in v}
     # residuals ride in f32; the model stack keeps its own dtype
     new_stacked = {k: (p + dec[k]).to(p.dtype) for k, p in prev.items()}
@@ -531,15 +547,20 @@ def uplink_roundtrip(codec: Codec, stacked: Dict[str, torch.Tensor],
 
 def apply_uplink(codec: Codec, stacked: Any, prev: Any, ef: Any,
                  noise: Optional[torch.Tensor],
-                 mask: Optional[torch.Tensor] = None) -> Tuple[Any, Any]:
+                 mask: Optional[torch.Tensor] = None, *,
+                 backend: str = "pallas") -> Tuple[Any, Any]:
     """One uplink crossing with error feedback: ``stacked``/``prev`` are
     the post-/pre-update client stacks, ``ef`` the residual stack; returns
     the server-side models and the carried-forward residuals.  Rows where
     ``mask`` is False are untouched; an identity codec returns its inputs
-    unchanged."""
+    unchanged.  ``backend`` is the placement's `codec_backend`."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown codec backend {backend!r}; one of "
+                         f"{BACKENDS}")
     if codec.is_identity:
         return stacked, ef
-    return uplink_roundtrip(codec, stacked, prev, ef, noise, mask)
+    return uplink_roundtrip(codec, stacked, prev, ef, noise, mask,
+                            backend=backend)
 
 
 def zeros_like_stack(stacked: Dict[str, torch.Tensor]

@@ -225,16 +225,23 @@ def get_robust_aggregator(spec: Union[str, RobustAggregator, None]
                          f"got {spec!r}") from None
 
 
-def screen_and_defend(agg: RobustAggregator, stacked: Any, prev: Any
+def screen_and_defend(agg: RobustAggregator, stacked: Any, prev: Any,
+                      placement: Optional[Any] = None
                       ) -> Tuple[Any, torch.Tensor]:
     """The full defense pipeline on the server-side decoded stack:
     non-finite screen -> robust transform.  Returns ``(stacked',
     quarantine)``, ``quarantine`` the (m,) float32 survival row (1 kept,
-    0 quarantined) for `quarantine_reweight`."""
+    0 quarantined) for `quarantine_reweight`.  With a ``placement`` the
+    stacks are its rows: the (m, D) deltas are gathered first (the
+    robust rules read every client), and its rows of ``stacked'`` come
+    back."""
+    if placement is not None:
+        stacked, prev = placement.gather((stacked, prev))
     flat_prev = stacked_ravel(prev)
     delta = stacked_ravel(stacked) - flat_prev
     finite = torch.isfinite(delta).all(dim=1)
     keep = finite.to(torch.float32)
     delta = torch.where(finite[:, None], delta, torch.zeros_like(delta))
     delta, keep = agg.transform(delta, keep)
-    return stacked_unravel(flat_prev + delta, stacked), keep
+    out = stacked_unravel(flat_prev + delta, stacked)
+    return (out if placement is None else placement.rows(out)), keep

@@ -38,7 +38,8 @@ from __future__ import annotations
 import abc
 import functools
 import math
-from typing import Any, Callable, ClassVar, Dict, NamedTuple, Optional, Type
+from typing import (Any, Callable, ClassVar, Dict, NamedTuple, Optional,
+                    Tuple, Type)
 
 import numpy as np
 import torch
@@ -254,13 +255,19 @@ class FleetUpdate:
     docstring.  ``plan`` is the resolved `FleetPlan`, ``client_update``
     the per-row local-SGD step (`placement.host.ClientUpdate`),
     ``edge_hook`` a weight refiner (`Strategy.edge_weights`, passed only
-    when a strategy overrides it).  ``shortcut`` says whether the step is
-    the flat per-user step on squeezed views."""
+    when a strategy overrides it), ``backend`` the placement's codec
+    backend and ``users`` the [lo, hi) users whose rows the step sees (a
+    mesh rank's; the static straggler mask is cut to them).
+    ``shortcut`` says whether the step is the flat per-user step on
+    squeezed views."""
 
     def __init__(self, plan: Any, client_update: Callable,
-                 edge_hook: Optional[Callable] = None):
+                 edge_hook: Optional[Callable] = None, *,
+                 backend: str = "pallas",
+                 users: Optional[Tuple[int, int]] = None):
         self.plan = plan
         self.codec = plan.codec
+        self.backend = backend
         self.agg = plan.cfg.edge_aggregator
         self.edge_hook = edge_hook
         self._client_update = client_update
@@ -274,8 +281,11 @@ class FleetUpdate:
                 "(traceable=False)")
         # made once, on the run's device: a captured round copies nothing
         # from the host
-        self._keep = (None if plan.keep is None
-                      else torch.as_tensor(plan.keep, device=plan.device))
+        keep = plan.keep
+        if keep is not None and users is not None:
+            keep = keep[users[0]:users[1]]
+        self._keep = (None if keep is None
+                      else torch.as_tensor(keep, device=plan.device))
 
     def draw(self, draws: Any, rnd: int, x: torch.Tensor, n: torch.Tensor,
              *, row: int = 0, rows: Optional[int] = None) -> FleetDraws:
@@ -325,7 +335,8 @@ class FleetUpdate:
             ef = _merge(est.edge_ef)
             v = {k: delta[k] + ef[k] for k in delta}
             dec = stacked_unravel(
-                self.codec.roundtrip(stacked_ravel(v), fd.noise), v)
+                self.codec.roundtrip(stacked_ravel(v), fd.noise,
+                                     backend=self.backend), v)
             new_ef = (_split({k: v[k] - dec[k] for k in v}, m, d_max)
                       if self.plan.cfg.edge_error_feedback
                       else est.edge_ef)
@@ -366,7 +377,9 @@ class FleetUpdate:
 @functools.lru_cache(maxsize=16)
 def cached_fleet_update(loss_fn: Callable, local_steps: int, batch_size: int,
                         lr: float, momentum: float, state_dtype, plan: Any,
-                        edge_hook: Optional[Callable] = None):
+                        edge_hook: Optional[Callable] = None,
+                        backend: str = "pallas",
+                        users: Optional[Tuple[int, int]] = None):
     """(opt, fleet update step) memoized like `placement.host.
     cached_update`: the plan's hash holds the fleet's shape, the static
     keep mask, the bound edge codec and the device, so two runs over
@@ -378,4 +391,5 @@ def cached_fleet_update(loss_fn: Callable, local_steps: int, batch_size: int,
     opt = sgd(lr, momentum=momentum, state_dtype=state_dtype)
     client_update = ClientUpdate(loss_fn, opt,
                                  _UpdateConfig(local_steps, batch_size))
-    return opt, FleetUpdate(plan, client_update, edge_hook)
+    return opt, FleetUpdate(plan, client_update, edge_hook, backend=backend,
+                            users=users)

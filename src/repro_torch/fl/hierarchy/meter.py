@@ -207,14 +207,20 @@ def init_fleet_run(cfg: HierarchyConfig, placement: Any, loss_fn: Any,
     if (strategy is not None
             and type(strategy).edge_weights is not Strategy.edge_weights):
         edge_hook = strategy.edge_weights
+    stacked = placement.stack(params0, m)
+    # the users this placement holds (a mesh rank's shard): the step cuts
+    # the plan's static straggler mask to them
+    mine = placement.rows(torch.arange(m))
     opt, update_fn = cached_fleet_update(
         loss_fn, fl.local_steps, fl.batch_size, fl.lr, fl.momentum,
-        getattr(fl, "opt_state_dtype", None), plan, edge_hook)
-    stacked = placement.stack(params0, m)
+        getattr(fl, "opt_state_dtype", None), plan, edge_hook,
+        placement.codec_backend, (int(mine[0]), int(mine[-1]) + 1))
     d_max = plan.d_max
-    dev0 = {k: l[:, None].expand((m, d_max) + tuple(l.shape[1:]))
+    rows = len(mine)        # the users whose rows this placement holds
+    dev0 = {k: l[:, None].expand((rows, d_max) + tuple(l.shape[1:]))
             for k, l in stacked.items()}
-    dev_opt = _split(opt.init_stacked(_merge(dev0), m * d_max), m, d_max)
+    dev_opt = _split(opt.init_stacked(_merge(dev0), rows * d_max), rows,
+                     d_max)
     edge_ef = (None if plan.codec.is_identity else
                {k: torch.zeros(l.shape, dtype=torch.float32,
                                device=l.device) for k, l in dev0.items()})

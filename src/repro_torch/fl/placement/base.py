@@ -7,7 +7,10 @@ non-participants, run an async event's cohort update, pass the uplink
 through the channel codec, apply a mixing matrix or a `StreamPlan`, and
 evaluate the personalized models, move a paged cohort's rows between
 host and card (`stage`, `fetch`), and place a hierarchy run's
-device-partitioned data (`place_fleet`).
+device-partitioned data (`place_fleet`) or a stacked tree
+(`place_stack`).  `rows` and `gather` move between every client's rows
+and the rows this process holds: the identity on `HostVmap`, a rank's
+shard and an all-gather on `MeshShardMap`.
 Strategies route every mix through `RoundContext.mix` / `mix_plan`
 (eventful) or `TracedMix` (fused), which dispatch here.
 
@@ -70,6 +73,12 @@ class Placement(abc.ABC):
 
     name: ClassVar[str]
 
+    # the channel codecs' implementation on this backend: "pallas" (the
+    # name the reference's files give its kernel path) runs the QSGD and
+    # top-k threshold kernels, "jnp" the exact top-k mask of the
+    # reference's mesh path (QSGD is the same kernels on both)
+    codec_backend: ClassVar[str] = "pallas"
+
     @abc.abstractmethod
     def build_update(self, loss_fn: Callable, fl: Any) -> Tuple[Any, Callable]:
         """Returns ``(opt, update_fn)`` where ``update_fn(stacked, opt_state,
@@ -89,6 +98,44 @@ class Placement(abc.ABC):
     def place_data(self, fed: FederatedData) -> Tuple[Any, Any, Any]:
         """Place the stacked client train arrays ``(x, y, n)``."""
         return fed.x, fed.y, fed.n
+
+    def place_stack(self, tree: Any, m: int) -> Any:
+        """Place an already-stacked (m, ...) tree on this backend (the
+        serving plane's request batches and decoded stacks); `stack` is
+        its broadcast-from-one-model sibling.  Default: the identity."""
+        return tree
+
+    # ---- the client axis: which rows this process holds --------------------
+
+    def holds_clients(self, m: int) -> bool:
+        """Whether this process holds any of ``m`` clients' rows (a mesh
+        rank beyond the client axis holds none)."""
+        return True
+
+    def spans(self, m: int) -> bool:
+        """Whether ``m`` clients' rows cover every process of the run,
+        decided from what every process knows, without a collective (a
+        mesh: whether its group for m is the whole world).  Default:
+        True."""
+        return True
+
+    def share(self, value: Any) -> Any:
+        """A result every holding process computed alike (a run's
+        `History`, a served batch's output) on every process: a mesh rank
+        that held no clients receives rank 0's.  Default: the
+        identity."""
+        return value
+
+    def rows(self, tree: Any) -> Any:
+        """This process's rows of a tree of (m·c, ...) leaves, every
+        client's c rows together (a draw, a mask, the validation data).
+        Default: all of them."""
+        return tree
+
+    def gather(self, tree: Any) -> Any:
+        """Inverse of `rows`: every client's rows of a tree of this
+        process's rows.  Default: the identity."""
+        return tree
 
     def place_fleet(self, tree: Any, m: int, device: torch.device) -> Any:
         """Place device-partitioned (m, d_max, ...) fleet arrays (the
@@ -114,12 +161,16 @@ class Placement(abc.ABC):
         clients as a synchronous round draws them, where the reference
         takes the m per-client keys ``ckeys``, so a replayed run consumes
         the reference's ``ckeys[idx]`` exactly (a hierarchy run's
-        `FleetDraws` likewise).  Default: run every slot and mask (the
-        static-layout path); `HostVmap` gathers the k rows instead."""
-        m = x.shape[0]
+        `FleetDraws` likewise).  Default: run every slot of this
+        process's rows and mask (the static-layout path; the mask and the
+        draw are built for all m clients and cut by `rows`); `HostVmap`
+        gathers the k rows instead."""
+        m = leaves(batch_idx)[0].shape[0]
         mask = torch.zeros((m,), dtype=torch.bool, device=keep.device)
         mask[idx] = keep
-        upd, upd_opt = update_fn(stacked, opt_state, x, y, n, batch_idx)
+        mask = self.rows(mask)
+        upd, upd_opt = update_fn(stacked, opt_state, x, y, n,
+                                 self.rows(batch_idx))
         return (self.select(mask, upd, stacked),
                 self.select(mask, upd_opt, opt_state))
 
@@ -131,7 +182,8 @@ class Placement(abc.ABC):
         ef')``.  Rows where ``mask`` is False are untouched; an identity
         codec returns the inputs unchanged."""
         from repro_torch.fl.channel import apply_uplink
-        return apply_uplink(codec, stacked, prev, ef, noise, mask)
+        return apply_uplink(codec, stacked, prev, ef, noise, mask,
+                            backend=self.codec_backend)
 
     @abc.abstractmethod
     def mix(self, stacked: Any, w: torch.Tensor) -> Any:

@@ -48,6 +48,16 @@ replays the exact cohort sequence: resume is bitwise.
 buffer IS the page request; aggregation is cohort-local (exact in the
 lockstep K = m anchor, an approximation under partial buffers, where the
 resident async engine mixes over the full population stack).
+
+On `MeshShardMap` a cohort's state rows are staged and fetched by the
+placement: each rank stages its rows of the cohort (`Placement.stage`)
+and the chunk's rows come back all-gathered before the copy to the host,
+so every rank keeps the whole store.  A cohort's data page lands whole
+on every rank (its strategy setup reads every client, as the resident
+engine's does), and `Placement.place_data` takes the rank's rows.  The
+paged async engine's cohorts vary in size from event to event, so there
+every cohort must shard over every rank (`Placement.spans`); a cohort
+that does not is refused on every rank alike.
 """
 from __future__ import annotations
 
@@ -74,6 +84,8 @@ from repro_torch.fl.faults import (FaultMeter, get_robust_aggregator,
                                    screen_and_defend)
 from repro_torch.fl.placement import (Placement, resolve_placement,
                                       score_stats)
+from repro_torch.fl.placement.base import stack_params
+from repro_torch.fl.placement.copies import stage_tree
 from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.fl.population.schedule import (CohortSchedule,
                                                 RandomCohorts,
@@ -164,13 +176,12 @@ def _host_federated(fed: FederatedData) -> FederatedData:
     return FederatedData(*(t.cpu() for t in fed))
 
 
-def _template(placement: Placement, opt: Any, params0: Any,
-              lossy: bool) -> dict:
+def _template(opt: Any, params0: Any, lossy: bool) -> dict:
     """One client's state row (params, optimizer state, and the EF
     residual under a lossy channel) as numpy, the store's template: the
     resident engine's initial stack, row 0."""
-    one = placement.stack(params0, 1)
-    row = {"params": one, "opt": placement.init_opt(opt, one)}
+    one = stack_params(params0, 1)
+    row = {"params": one, "opt": opt.init_stacked(one, 1)}
     if lossy:
         row["ef"] = zeros_like_stack(one)
     return tree_map(lambda t: t[0].cpu().numpy(), row)
@@ -253,8 +264,9 @@ class _Pending(NamedTuple):
 
 def _stage_data(placement: Placement, fed: FederatedData, idx: np.ndarray,
                 dev: torch.device) -> FederatedData:
-    """The cohort's data page on ``dev``, ready on the current stream."""
-    return placement.stage(sub_federated(fed, idx), len(idx), dev).wait()
+    """The cohort's data page on ``dev``, ready on the current stream:
+    every client's rows (the setup reads them all)."""
+    return stage_tree(sub_federated(fed, idx), dev).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +326,9 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
     m_c = sched.cohort
     if m_c > n:
         raise ValueError(f"cohort {m_c} > population {n}")
+    if not placement.holds_clients(m_c):
+        # a mesh rank beyond the client axis: rank 0's History
+        return placement.share(None)
     fed = _host_federated(fed)
     draws = TorchDraws(seed, dev) if draws is None else draws
 
@@ -331,7 +346,7 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
                            params0=params0, seed=seed, draws=draws,
                            placement=placement, strategy=strategy)
     payload, link, model_bits, _, channel = init_channel(
-        channel, ctx_pop, placement.stack(params0, 1), system, m_c)
+        channel, ctx_pop, stack_params(params0, 1), system, m_c)
     lossy = channel is not None and not channel.codec.is_identity
     codec = channel.codec if lossy else None
     ef_flag = channel.error_feedback if lossy else True
@@ -341,13 +356,14 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
 
     # the full population's state rows on the host, one broadcast
     # template each
-    store = ClientStateStore.create(_template(placement, opt, params0, lossy),
+    store = ClientStateStore.create(_template(opt, params0, lossy),
                                     n, directory=paging.store_dir)
 
     # THE resident engine's superstep: same round function, same cache
     # entry (one captured chunk serves every cohort and population)
     round_fn = _build_traced_round(strategy, sampler, codec, ef_flag,
-                                   placement, update_fn, fault_plan=plan,
+                                   placement, update_fn, m_c,
+                                   fault_plan=plan,
                                    defense=defense, min_quorum=min_quorum)
     cache = _superstep_cache(placement, strategy, sampler, codec, ef_flag,
                              update_fn, acc_fn,
@@ -367,7 +383,7 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
             consts = (consts, torch.from_numpy(plan.byz_row(idx)).to(dev))
         return (state, consts, strategy.comm(state),
                 None if link is None else strategy.membership(state),
-                placement.place_data(sub), (sub.x_val, sub.y_val))
+                placement.place_data(sub), (sub.x_val, sub.y_val), sub.n)
 
     setups = _CohortSetups(build_setup)
     chunks = list(_eval_rounds(fl.rounds, fl.eval_every))
@@ -475,7 +491,8 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         if pending is not None and not _disjoint(pending.idx, idx):
             finalize(pending)   # overlapping rows: the scatter must land
             pending = None      # before this cohort's gather
-        state, consts, cost, assignment, data, eval_data = setups.get(idx)
+        (state, consts, cost, assignment, data, eval_data,
+         n_c) = setups.get(idx)
         if staged is not None and staged_for == idx.tobytes():
             rows = staged
         else:
@@ -486,7 +503,7 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
 
         length = nxt - rnd + 1
         cd = chunk_draws(draws, range(rnd, nxt + 1), step=update_fn,
-                         x=data[0], n=data[2], sampler=sampler, m=m_c,
+                         x=data[0], n=n_c, sampler=sampler, m=m_c,
                          noise_d=noise_d, device=dev,
                          fault_cfg=None if plan is None else plan.cfg,
                          fault_d=d)
@@ -505,7 +522,7 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         small = torch.cat([score_stats(accs)]
                           + [r.reshape(-1).to(torch.float32)
                              for r in (crashes, qs) if r is not None])
-        fetched = placement.fetch((out, small), dev)
+        fetched = placement.fetch((placement.gather(out), small), dev)
 
         # double buffer: finalize the PREVIOUS chunk (its copy has been
         # under way since its own replay) while this one runs, then stage
@@ -549,11 +566,23 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
         channel_extra(history, channel, link, model_bits, payload)
         if keep_state and lossy:
             history.final_residual = _final_rows(store, "ef")
-    return history
+    return placement.share(history)
 
 
 # ---------------------------------------------------------------------------
 # the paged buffered-async engine
+
+
+def _check_spans(placement: Placement, k: int) -> None:
+    """Refuse, on every process alike, a cohort of ``k`` that does not
+    shard over every process: an event's cohort varies in size, and a
+    process left without rows could neither go on nor return."""
+    if not placement.spans(k):
+        raise ValueError(
+            f"a cohort of {k} clients does not cover every process of "
+            f"{placement!r}: the paged async engine needs every event's "
+            "cohort sharded over all of them (on the mesh: buffer_k and "
+            "each event's cohort divisible by the world size)")
 
 
 def run_async_paged(algorithm: Union[str, Strategy, None] = None,
@@ -622,7 +651,7 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
                            params0=params0, seed=seed, draws=draws,
                            placement=placement, strategy=strategy)
     payload, link, model_bits, _, channel = init_channel(
-        channel, ctx_pop, placement.stack(params0, 1), system, n)
+        channel, ctx_pop, stack_params(params0, 1), system, n)
     lossy = channel is not None and not channel.codec.is_identity
     ul_bits_pc = per_client_uplink_bits(channel, ctx_pop, payload, n)
     d = sum(leaf.numel() for leaf in params0.values())
@@ -630,7 +659,7 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
     def _ul_bits(c: int):
         return payload if ul_bits_pc is None else int(ul_bits_pc[c])
 
-    store = ClientStateStore.create(_template(placement, opt, params0, lossy),
+    store = ClientStateStore.create(_template(opt, params0, lossy),
                                     n, directory=paging.store_dir)
 
     def build_setup(idx: np.ndarray):
@@ -674,6 +703,7 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
             break
         idx = np.sort(np.asarray(buffered, dtype=np.int64))
         k = idx.size
+        _check_spans(placement, k)
         entry = setups.get(idx)
         state, ctx, sub, (x_c, y_c, n_c) = entry
         age = (event - version[idx]).astype(np.int64)
@@ -681,11 +711,13 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
 
         rows = placement.stage(store.gather(idx), k, dev).wait()
         stacked, opt_state, ef = rows["params"], rows["opt"], rows.get("ef")
+        cut = placement.rows
 
-        batch_idx = update_fn.draw(draws, event, x_c, n_c)
+        # drawn for the cohort's k rows, cut to the placement's
+        batch_idx = update_fn.draw(draws, event, x_c, sub.n)
         prev, prev_opt = stacked, opt_state
         upd, upd_opt = update_fn(stacked, opt_state, x_c, y_c, n_c,
-                                 batch_idx)
+                                 cut(batch_idx))
         if fresh.all():
             mask = None
             stacked, opt_state = upd, upd_opt
@@ -693,24 +725,25 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
             # stale-dropped rows keep their server-known models (they
             # still re-download the mix below, as in the resident engine)
             mask = torch.from_numpy(fresh).to(dev)
-            stacked = placement.select(mask, upd, prev)
-            opt_state = placement.select(mask, upd_opt, prev_opt)
+            stacked = placement.select(cut(mask), upd, prev)
+            opt_state = placement.select(cut(mask), upd_opt, prev_opt)
 
         if plan is not None and plan.value_faults:
             # fault injection on the cohort stack; the adversary row is
             # the plan's, gathered at the cohort indices
             fd = round_fault_draws(draws, event, k, d, plan.cfg, dev)
             stacked = inject_values(
-                plan, torch.from_numpy(plan.byz_row(idx)).to(dev), stacked,
-                prev, fd, rows=mask)
+                plan, cut(torch.from_numpy(plan.byz_row(idx)).to(dev)),
+                stacked, prev, cut(fd), rows=cut(mask))
 
         if lossy:
             stacked, ef = channel_uplink(placement, channel, stacked, prev,
-                                         ef, draws, event, mask)
+                                         ef, draws, event, cut(mask), k)
 
         q = None
         if defense is not None:
-            stacked, q = screen_and_defend(defense, stacked, prev)
+            stacked, q = screen_and_defend(defense, stacked, prev,
+                                           placement)
 
         n_fresh = int(fresh.sum())
         quorum_ok = min_quorum is None or n_fresh >= min_quorum
@@ -775,7 +808,7 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
         out = {"params": stacked, "opt": opt_state}
         if lossy:
             out["ef"] = ef
-        store.scatter(idx, out)
+        store.scatter(idx, placement.gather(out))
 
         if event % fl.eval_every == 0 or event == fl.rounds - 1:
             # cohort-local eval (the resident engine's full-population

@@ -205,6 +205,9 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
     draws = TorchDraws(seed, dev) if draws is None else draws
 
     m = fed.m
+    if not placement.holds_clients(m):
+        # a mesh rank beyond the client axis: rank 0's History
+        return placement.share(None)
     k_buf = min(cfg.buffer_k, m)
     tau = np.inf if cfg.max_staleness is None else float(cfg.max_staleness)
 
@@ -214,13 +217,19 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
         draws, dev, faults=faults, hierarchy=hierarchy, system=system)
     x, _, n = data
+    n = placement.gather(n)     # the draws' counts: every client's
+    rows = placement.rows
     hplan = ctx.hierarchy_plan
     meter = None if hplan is None else EdgeMeter(hplan)
     # the fleet step bakes a static per-user straggler mask: row gathers
-    # would misalign it, so partial events take the base full-width path
-    full_width = hplan is not None and not hplan.row_local
-    cohort = (Placement.update_cohort if full_width
-              else type(placement).update_cohort)
+    # would misalign it, so partial events take the base full-width path,
+    # which is also the cohort update of a placement that does not
+    # override it (the mesh: every row runs, the cohort's rows masked in)
+    cohort = type(placement).update_cohort
+    full_width = ((hplan is not None and not hplan.row_local)
+                  or cohort is Placement.update_cohort)
+    if full_width:
+        cohort = Placement.update_cohort
     plan = ctx.fault_plan
     defense = get_robust_aggregator(robust_agg)
     robust_spec = "none" if defense is None else str(robust_agg)
@@ -294,7 +303,7 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
             # lockstep event (K=m, nothing stale): the sync engine's step
             mask = None
             stacked, opt_state = update_fn(stacked, opt_state, *data,
-                                           batch_idx)
+                                           rows(batch_idx))
         else:
             # only the fresh cohort's local work lands; in-flight clients
             # and stale-dropped updates stay at their server-known models
@@ -309,20 +318,21 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
             # the fresh cohort's TRANSMITTED updates are corrupted (arrival
             # crashes were already decided at the clock)
             fd = round_fault_draws(draws, event, m, d, plan.cfg, dev)
-            stacked = inject_values(plan, byz_row, stacked, prev, fd,
-                                    rows=mask)
+            stacked = inject_values(plan, rows(byz_row), stacked, prev,
+                                    rows(fd), rows=rows(mask))
 
         if lossy:
             # the fresh cohort's updates cross the codec; in-flight and
             # stale-dropped rows (mask False) transmit nothing and keep
             # their error-feedback residuals
             stacked, ef = channel_uplink(placement, channel, stacked, prev,
-                                         ef, draws, event, mask)
+                                         ef, draws, event, rows(mask), m)
 
         q = None
         if defense is not None:
             # screening + robust aggregation before mixing
-            stacked, q = screen_and_defend(defense, stacked, prev)
+            stacked, q = screen_and_defend(defense, stacked, prev,
+                                           placement)
 
         n_fresh = int(fresh_np.sum())
         quorum_ok = min_quorum is None or n_fresh >= min_quorum
@@ -341,8 +351,8 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
             if down_np.all():
                 stacked = mixed
             else:
-                stacked = placement.select(torch.from_numpy(down_np).to(dev),
-                                           mixed, stacked)
+                stacked = placement.select(
+                    rows(torch.from_numpy(down_np).to(dev)), mixed, stacked)
         else:
             # below quorum: the event is undone (no mix, no downlink, no
             # version bump); the buffered clients restart from their last
@@ -406,6 +416,8 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
             mean_acc, worst_acc = placement.evaluate(acc_fn, stacked, fed)
             record_eval(history, event, mean_acc, worst_acc, t_done)
 
+    if keep_state:
+        stacked, opt_state, ef = placement.gather((stacked, opt_state, ef))
     history = finalize_history(history, strategy, state, keep_state,
                                stacked, opt_state)
     history.extra["async"] = {"buffer_k": k_buf,
@@ -424,4 +436,4 @@ def run_async(algorithm: Union[str, Strategy, None] = None,
         channel_extra(history, channel, link, model_bits, payload)
         if keep_state:
             history.final_residual = ef
-    return history
+    return placement.share(history)

@@ -11,6 +11,9 @@ batch:
   2. ``forward(params, xs)``: one ``torch.func.vmap(apply_fn)`` over the
      batch, shared by `serve` and `check_parity`.
 
+``placement`` is where a batch runs: `HostVmap` (the default) on the
+store's device; `MeshShardMap` hands each rank its rows of the batch
+(`Placement.place_stack`), forwards them and all-gathers the outputs.
 No jit cache and no CUDA graph: every stage runs eagerly.  The
 micro-batcher (`submit`/`flush`) groups requests by the users' stream
 assignment so a batch's base gather touches few distinct base models,
@@ -39,6 +42,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.fl.channel import stacked_ravel
+from repro_torch.fl.placement import resolve_placement
 from repro_torch.fl.serve.store import DeltaStore
 
 
@@ -55,16 +59,16 @@ class ServeEngine:
 
     ``apply_fn(params, x)`` -> output for ONE user's params and ONE
     request payload; the engine vmaps it over the batch.  Batches run on
-    the store's device (the reference's host placement; its mesh
-    placement is ROADMAP.md Queue 1 item 15).
+    the store's device, on ``placement`` (`HostVmap` by default).
     """
 
     def __init__(self, store: DeltaStore, apply_fn: Callable, *,
-                 max_batch: int = 32):
+                 placement=None, max_batch: int = 32):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.store = store
         self.apply_fn = apply_fn
+        self.placement = resolve_placement(placement)
         self.max_batch = int(max_batch)
         self._forward = vmap(apply_fn)
         self._pending: List[Tuple[int, int, Any]] = []   # (ticket, user, x)
@@ -74,8 +78,9 @@ class ServeEngine:
     # ---- stage 1: batched gather + decode ----------------------------------
 
     def params_for(self, users: Sequence[int]) -> Dict[str, torch.Tensor]:
-        """Personalised params for ``users`` as a (B, ...) stacked dict:
-        gather, then decode only the B requested delta rows."""
+        """Personalised params for ``users`` as a (B, ...) stacked dict
+        (the placement's rows of it): gather, then decode only the B
+        requested delta rows."""
         store = self.store
         users_np = np.asarray(users, np.int64).ravel()
         # users and their base rows in one host-to-device copy
@@ -88,7 +93,8 @@ class ServeEngine:
         flat = store.apply_fix(base + store.codec.decode(enc, d=store.d),
                                store.fix_values.index_select(0, u),
                                store.fix_indices.index_select(0, u))
-        return store.unravel_batch(flat)
+        return self.placement.place_stack(store.unravel_batch(flat),
+                                          users_np.shape[0])
 
     # ---- stage 2: one vmapped forward per batch -----------------------------
 
@@ -103,9 +109,24 @@ class ServeEngine:
         return (xs.to(self.store.device) if isinstance(xs, torch.Tensor)
                 else torch.as_tensor(np.asarray(xs), device=self.store.device))
 
+    def run_batch(self, params: Dict[str, torch.Tensor], xs: Any,
+                  b: int) -> torch.Tensor:
+        """The forward of a batch of ``b`` whose params are already the
+        placement's rows: this process's rows of ``xs``, the vmapped
+        forward, every row's output gathered; a mesh rank that holds no
+        rows of the batch receives rank 0's output."""
+        pl = self.placement
+        if not pl.holds_clients(b):
+            return pl.share(None)
+        out = self.forward(params, pl.place_stack(self._place_xs(xs), b))
+        return pl.share(pl.gather(out))
+
     def serve(self, users: Sequence[int], xs: Any) -> torch.Tensor:
         """One batch end to end: params gather/decode + vmapped forward."""
-        return self.forward(self.params_for(users), self._place_xs(xs))
+        b = int(np.asarray(users).size)
+        if not self.placement.holds_clients(b):
+            return self.placement.share(None)
+        return self.run_batch(self.params_for(users), xs, b)
 
     # ---- micro-batcher -----------------------------------------------------
 
@@ -169,11 +190,15 @@ def check_parity(engine: ServeEngine, users: Sequence[int], xs: Any,
     and the outputs within `_PARITY_RTOL`.  Raises on divergence; returns
     max |served| as a liveness datum."""
     users_np = np.asarray(users, np.int64).ravel()
+    b = users_np.shape[0]
+    pl = engine.placement
     xs = engine._place_xs(xs)
     if served is None:
         served = engine.serve(users_np, xs)
     ref_flat = engine.store.params_flat(users_np)
-    direct = engine.forward(engine.store.unravel_batch(ref_flat), xs)
+    direct = engine.run_batch(
+        pl.place_stack(engine.store.unravel_batch(ref_flat), b)
+        if pl.holds_clients(b) else None, xs, b)
     served_np = (served.cpu().numpy() if isinstance(served, torch.Tensor)
                  else np.asarray(served))
     direct_np = direct.cpu().numpy()
@@ -182,7 +207,7 @@ def check_parity(engine: ServeEngine, users: Sequence[int], xs: Any,
         raise RuntimeError(
             "serving parity anchor violated: served output != direct "
             f"forward through reconstructed params ({why}; codec="
-            f"{engine.store.codec.spec}, placement=HostVmap)")
+            f"{engine.store.codec.spec}, placement={pl!r})")
 
     if served_np.shape != direct_np.shape:
         fail(f"shape {served_np.shape} != {direct_np.shape}")
@@ -194,7 +219,8 @@ def check_parity(engine: ServeEngine, users: Sequence[int], xs: Any,
             fail(f"identity codec must be bit-identical, max|diff|={bad:.3e}")
     elif not exact:
         # both decode paths inside the same float-reassociation envelope?
-        got = stacked_ravel(engine.params_for(users_np)).cpu().numpy()
+        got = stacked_ravel(pl.gather(engine.params_for(users_np)))
+        got = got.cpu().numpy()
         ref = ref_flat.cpu().numpy()
         # f32 ulps: one reassociated rounding moves a value by
         # spacing(max|row|) in f32 terms

@@ -27,9 +27,12 @@ Tensors live on the store's device (``"cuda"`` unless the caller asks
 for the CPU); ``assignment``, ``recon_err`` and ``template`` stay numpy,
 as in the reference.  The build runs on that device: the refinement's
 f32 adds and subtracts are correctly rounded there as in numpy, so the
-store's bits are the reference's.  The port runs the codecs' kernel
-path only, which the reference's files name ``backend: "pallas"``; a
-file of its ``"jnp"`` path is refused (ROADMAP.md Queue 1 item 15).
+store's bits are the reference's.  ``backend`` is the label of the
+file's codec backend: ``"pallas"`` (the codecs' kernel path, the label
+of every store the port builds) or ``"jnp"`` (the reference's mesh
+path).  The two encode and decode alike (`fl.channel.codecs`), so
+either package's file of either backend loads, and `save` writes the
+label back as it was loaded.
 
 `save`/`load` go through `repro_torch.checkpoint` with the reference's
 keys and types, so both packages write the same file for the same store.
@@ -45,16 +48,13 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.channel import get_codec, stacked_ravel, stacked_unravel
+from repro_torch.fl.channel.codecs import BACKENDS
 from repro_torch.fl.channel.payload import tree_bits
 
 _REFINE_ITERS = 8
 # float re-add slack on top of the codec's own bound: reconstruction does
 # two f32 roundings an element (encode-side subtract, decode-side add)
 _ULP_SLACK = 4.0
-
-
-# the reference's name for the codecs' kernel path, in every saved file
-_BACKEND = "pallas"
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -85,8 +85,13 @@ class DeltaStore:
 
     def __init__(self, *, base_flat, assignment, codec, payload, template,
                  recon_err, delta_bits, fix_values, fix_indices,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, backend: str = "pallas",
+                 device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown codec backend {backend!r}; one of "
+                             f"{BACKENDS}")
+        self.backend = backend
         tensor = lambda v, dt=None: torch.as_tensor(v, dtype=dt, device=dev)
         self.base_flat = tensor(base_flat, torch.float32)       # (k, D)
         self.assignment = np.asarray(assignment, np.int64)      # (m,)
@@ -296,7 +301,7 @@ class DeltaStore:
         checkpoint.save(path, {
             "version": 1,
             "codec": self.codec.spec,
-            "backend": _BACKEND,
+            "backend": self.backend,
             "seed": self.seed,
             "assignment": self.assignment,
             "base_flat": self.base_flat,
@@ -316,14 +321,6 @@ class DeltaStore:
         if t.get("version") != 1:
             raise ValueError(f"unknown DeltaStore version {t.get('version')}"
                              f" in {path}")
-        if t["backend"] == "jnp":
-            raise NotImplementedError(
-                f"{path} was saved by the reference's 'jnp' codec backend, "
-                "which is not ported yet: ROADMAP.md Queue 1 item 15 (mesh "
-                "placement)")
-        if t["backend"] != _BACKEND:
-            raise ValueError(f"unknown codec backend {t['backend']!r} in "
-                             f"{path}")
         host = lambda v: v.numpy()
         return cls(base_flat=t["base_flat"],
                    assignment=host(t["assignment"]),
@@ -333,7 +330,7 @@ class DeltaStore:
                    delta_bits=host(t["delta_bits"]),
                    fix_values=t["fix_values"],
                    fix_indices=t["fix_indices"],
-                   seed=int(t["seed"]), device=dev)
+                   seed=int(t["seed"]), backend=t["backend"], device=dev)
 
 
 def refined_delta(flat: torch.Tensor, base_rows: torch.Tensor

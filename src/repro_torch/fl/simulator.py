@@ -233,17 +233,17 @@ def per_client_uplink_bits(channel: Optional[Channel], ctx: RoundContext,
 
 def channel_uplink(placement: Placement, channel: Channel, stacked: Any,
                    prev: Any, ef: Any, draws: Any, rnd: int,
-                   mask: Optional[torch.Tensor]):
+                   mask: Optional[torch.Tensor], m: int):
     """One round's uplink crossing (lossy codecs only): the codec's noise
     comes from ``draws.codec_noise`` in the flat view's (m, D) layout (the
-    reference's ``uniform(fold_in(kround, 2), (m, D))``); residuals carry
-    forward only with error feedback on."""
+    reference's ``uniform(fold_in(kround, 2), (m, D))``), drawn for all
+    ``m`` clients and cut to the placement's rows (``mask`` is already
+    cut); residuals carry forward only with error feedback on."""
     noise = None
     if channel.codec.needs_noise:
-        m = next(iter(stacked.values())).shape[0]
         d = sum(leaf[0].numel() for leaf in stacked.values())
-        noise = draws.codec_noise(rnd, (m, d)).to(
-            next(iter(stacked.values())).device)
+        noise = placement.rows(draws.codec_noise(rnd, (m, d)).to(
+            next(iter(stacked.values())).device))
     stacked, new_ef = placement.uplink(channel.codec, stacked, prev, ef,
                                        noise, mask)
     return stacked, (new_ef if channel.error_feedback else ef)
@@ -357,7 +357,8 @@ def finalize_history(history: History, strategy: Strategy, state: Any,
                      keep_state: bool, stacked: Any, opt_state: Any
                      ) -> History:
     """Run epilogue: typed extras, the legacy extra dict, and the optional
-    final device-resident state."""
+    final device-resident state (every client's rows: the caller gathers
+    a mesh rank's)."""
     history.extras = strategy.extras(state)
     history.extra["comm_per_round"] = list(history.comm)
     if history.extras is not None:
@@ -449,7 +450,8 @@ def _superstep_cache(placement: Placement, strategy: Strategy,
 
 def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
                         codec, error_feedback: bool, placement: Placement,
-                        update_fn: Callable, fault_plan: Optional[Any] = None,
+                        update_fn: Callable, m: int,
+                        fault_plan: Optional[Any] = None,
                         defense: Optional[Any] = None,
                         min_quorum: Optional[int] = None) -> Callable:
     """The fused round (local update → sampler select → fault injection →
@@ -473,8 +475,14 @@ def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
     picks, so the round has one shape whatever the count.  ``crash`` and
     ``quarantine`` are the round's (m,) rows, or None where the axis is
     off.  It reads nothing back to the host: on the card it runs inside
-    a captured CUDA graph."""
+    a captured CUDA graph.
+
+    The draws hold every one of the ``m`` clients' rows, and the
+    placement's `rows` cuts them to the stack's (a mesh rank's shard; all
+    of them on `HostVmap`); the sampler and crash rows stay whole for the
+    quorum count and the host's books."""
     tmix = TracedMix(placement)
+    rows = placement.rows
     lossy = codec is not None and not codec.is_identity
     faulted = fault_plan is not None
 
@@ -483,23 +491,23 @@ def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
             consts, byz_row = consts
         stacked, opt_state, ef = carry
         idx, mask, noise, fd = draw
-        m = data[0].shape[0]
         prev, prev_opt = stacked, opt_state
-        stacked, opt_state = update_fn(stacked, opt_state, *data, idx)
+        stacked, opt_state = update_fn(stacked, opt_state, *data, rows(idx))
         if sampler is not None:
-            stacked = placement.select(mask, stacked, prev)
-            opt_state = placement.select(mask, opt_state, prev_opt)
+            stacked = placement.select(rows(mask), stacked, prev)
+            opt_state = placement.select(rows(mask), opt_state, prev_opt)
         crash = None
         if faulted:
             if fault_plan.value_faults:
-                stacked = inject_values(fault_plan, byz_row, stacked, prev,
-                                        fd, rows=mask)
+                stacked = inject_values(fault_plan, rows(byz_row), stacked,
+                                        prev, rows(fd), rows=rows(mask))
             crash = crash_mask(fault_plan, fd)
             if crash is not None:
                 # a crashed client never reports: row rollback, exactly a
                 # sampler no-show
-                stacked = placement.select(~crash, stacked, prev)
-                opt_state = placement.select(~crash, opt_state, prev_opt)
+                stacked = placement.select(~rows(crash), stacked, prev)
+                opt_state = placement.select(~rows(crash), opt_state,
+                                             prev_opt)
         part = mask
         if crash is not None:
             part = ~crash if part is None else part & ~crash
@@ -508,11 +516,12 @@ def _build_traced_round(strategy: Strategy, sampler: Optional[ClientSampler],
         clients = stacked if min_quorum is not None else None
         if lossy:
             stacked, new_ef = placement.uplink(codec, stacked, prev, ef,
-                                               noise, part)
+                                               rows(noise), rows(part))
             ef = new_ef if error_feedback else ef
         q = None
         if defense is not None:
-            stacked, q = screen_and_defend(defense, stacked, prev)
+            stacked, q = screen_and_defend(defense, stacked, prev,
+                                           placement)
             tmix.quarantine = q
         stacked = strategy.aggregate_traced(consts, stacked, prev, tmix)
         tmix.quarantine = None
@@ -562,6 +571,7 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
         draws, device, faults=faults, hierarchy=hierarchy, system=system)
     x, _, n = data
+    n = placement.gather(n)     # the draws' counts: every client's
     meter = (None if ctx.hierarchy_plan is None
              else EdgeMeter(ctx.hierarchy_plan))
     plan = ctx.fault_plan
@@ -582,7 +592,7 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
         # the static adversary row rides as an input of the chunk
         consts = (consts, torch.from_numpy(plan.byz_row()).to(x.device))
     round_fn = _build_traced_round(strategy, sampler, codec, ef_flag,
-                                   placement, update_fn, fault_plan=plan,
+                                   placement, update_fn, m, fault_plan=plan,
                                    defense=defense, min_quorum=min_quorum)
     cache = _superstep_cache(placement, strategy, sampler, codec, ef_flag,
                              update_fn, acc_fn,
@@ -650,7 +660,7 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
     if keep_state:
         # on the card the carry is the chunks' static buffers, which the
         # next run of this configuration overwrites
-        carry = tree_map(torch.clone, carry)
+        carry = placement.gather(tree_map(torch.clone, carry))
     stacked, opt_state, ef = carry
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
@@ -780,26 +790,30 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     channel = resolve_channel(channel)
     lossy = channel is not None and not channel.codec.is_identity
     draws = TorchDraws(seed, dev) if draws is None else draws
+    if not placement.holds_clients(fed.m):
+        # a mesh rank beyond the client axis: rank 0's History
+        return placement.share(None)
     if superstep is None or superstep:
         ok, why = superstep_support(strategy, sampler, hierarchy=hierarchy)
         if not ok and superstep:
             raise ValueError(f"superstep=True but this run cannot fuse: "
                              f"{why}")
         if ok:
-            return _run_superstep(strategy, fed, sampler=sampler, fl=fl,
-                                  model_init=model_init, loss_fn=loss_fn,
-                                  acc_fn=acc_fn, system=system,
-                                  placement=placement, channel=channel,
-                                  keep_state=keep_state, seed=seed,
-                                  draws=draws, device=dev, faults=faults,
-                                  robust_agg=robust_agg,
-                                  min_quorum=min_quorum, hierarchy=hierarchy)
+            return placement.share(_run_superstep(
+                strategy, fed, sampler=sampler, fl=fl, model_init=model_init,
+                loss_fn=loss_fn, acc_fn=acc_fn, system=system,
+                placement=placement, channel=channel, keep_state=keep_state,
+                seed=seed, draws=draws, device=dev, faults=faults,
+                robust_agg=robust_agg, min_quorum=min_quorum,
+                hierarchy=hierarchy))
     m = fed.m
     defense = get_robust_aggregator(robust_agg)
     update_fn, stacked, opt_state, data, ctx, state = init_run(
         strategy, fed, fl, model_init, loss_fn, acc_fn, placement, seed,
         draws, dev, faults=faults, hierarchy=hierarchy, system=system)
     x, _, n = data
+    n = placement.gather(n)     # the draws' counts: every client's
+    rows = placement.rows
     meter = (None if ctx.hierarchy_plan is None
              else EdgeMeter(ctx.hierarchy_plan))
     plan = ctx.fault_plan
@@ -817,30 +831,33 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
     history = History()
     t_accum = 0.0
     for rnd in range(fl.rounds):
+        # every draw is taken for all m clients, then cut to the rows
+        # this placement holds (all of them on HostVmap)
         idx = update_fn.draw(draws, rnd, x, n)
         # the update is functional: prev and prev_opt stay intact
         prev, prev_opt = stacked, opt_state
-        stacked, opt_state = update_fn(stacked, opt_state, *data, idx)
+        stacked, opt_state = update_fn(stacked, opt_state, *data, rows(idx))
         mask_np = mask = None
         if sampler is not None:
             cpu_mask = sampler.sample(rnd, m, draws)
             if cpu_mask is not None:
                 # non-participants keep their pre-round model and optimizer
                 mask_np, mask = cpu_mask.numpy(), cpu_mask.to(dev)
-                stacked = placement.select(mask, stacked, prev)
-                opt_state = placement.select(mask, opt_state, prev_opt)
+                stacked = placement.select(rows(mask), stacked, prev)
+                opt_state = placement.select(rows(mask), opt_state, prev_opt)
         crash = None
         if plan is not None:
             # value faults corrupt what the row transmits; a crash rolls
             # the row back like a no-show
             fd = round_fault_draws(draws, rnd, m, d, plan.cfg, dev)
             if plan.value_faults:
-                stacked = inject_values(plan, byz_row, stacked, prev, fd,
-                                        rows=mask)
+                stacked = inject_values(plan, rows(byz_row), stacked, prev,
+                                        rows(fd), rows=rows(mask))
             crash = crash_mask(plan, fd)
             if crash is not None:
-                stacked = placement.select(~crash, stacked, prev)
-                opt_state = placement.select(~crash, opt_state, prev_opt)
+                stacked = placement.select(~rows(crash), stacked, prev)
+                opt_state = placement.select(~rows(crash), opt_state,
+                                             prev_opt)
         part = mask
         if crash is not None:
             part = ~crash if part is None else part & ~crash
@@ -850,11 +867,12 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
         if lossy:
             # the server receives the codec's decode(encode(Δ + residual))
             stacked, ef = channel_uplink(placement, channel, stacked, prev,
-                                         ef, draws, rnd, part)
+                                         ef, draws, rnd, rows(part), m)
         q = None
         if defense is not None:
             # screening + robust aggregation, before the strategy's mix
-            stacked, q = screen_and_defend(defense, stacked, prev)
+            stacked, q = screen_and_defend(defense, stacked, prev,
+                                           placement)
         eff_np = mask_np if crash is None else part.cpu().numpy()
         n_eff = m if eff_np is None else int(eff_np.sum())
         ok = min_quorum is None or n_eff >= min_quorum
@@ -883,6 +901,8 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
             mean_acc, worst_acc = placement.evaluate(acc_fn, stacked, fed)
             record_eval(history, rnd, mean_acc, worst_acc, t_accum)
 
+    if keep_state:
+        stacked, opt_state, ef = placement.gather((stacked, opt_state, ef))
     history = finalize_history(history, strategy, state, keep_state, stacked,
                                opt_state)
     if meter is not None:
@@ -893,4 +913,4 @@ def run_federated(algorithm: Union[str, Strategy, None] = None,
         channel_extra(history, channel, link, model_bits, payload)
         if keep_state:
             history.final_residual = ef
-    return history
+    return placement.share(history)

@@ -126,6 +126,16 @@ class RoundContext:
     def m(self) -> int:
         return self.fed.m
 
+    def gather(self, tree: Any) -> Any:
+        """Every client's rows of a tree of the placement's rows (a mesh
+        rank's shard; the identity on `HostVmap`): what a strategy reads
+        whole goes through here."""
+        return self.placement.gather(tree)
+
+    def rows(self, tree: Any) -> Any:
+        """The placement's rows of an every-client (m, ...) tree."""
+        return self.placement.rows(tree)
+
     def reweighted(self, w: torch.Tensor) -> torch.Tensor:
         """``w`` through the strategy's `reweight` (the staleness discount;
         the identity on synchronous rounds), then with the quarantined
@@ -166,6 +176,14 @@ class TracedMix:
     def __init__(self, placement: Any):
         self.placement = placement
         self.quarantine: Optional[torch.Tensor] = None
+
+    def gather(self, tree: Any) -> Any:
+        """`RoundContext.gather` inside a fused round."""
+        return self.placement.gather(tree)
+
+    def rows(self, tree: Any) -> Any:
+        """`RoundContext.rows` inside a fused round."""
+        return self.placement.rows(tree)
 
     def _reweighted(self, w: torch.Tensor) -> torch.Tensor:
         if self.quarantine is None:

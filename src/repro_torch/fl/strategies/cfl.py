@@ -38,7 +38,9 @@ class CFL(Strategy):
     def aggregate(self, clusters: np.ndarray, stacked, prev,
                   ctx: RoundContext):
         fl = ctx.fl
-        deltas = stacked_ravel({k: stacked[k] - prev[k] for k in stacked})
+        # the cluster statistics read every client's delta
+        deltas = ctx.gather(stacked_ravel(
+            {k: stacked[k] - prev[k] for k in stacked}))
         deltas = deltas.cpu().numpy()
         norms = np.linalg.norm(deltas, axis=1)
         # non-participants were rolled back to their pre-round params, so

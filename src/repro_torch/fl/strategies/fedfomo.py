@@ -116,9 +116,11 @@ class FedFOMO(Strategy):
                          m=ctx.fed.m, candidates=n_cand)
 
     def aggregate(self, state: FomoState, stacked, prev, ctx):
-        wmat, keep = fomo_weights(ctx.loss_fn, stacked, prev, state.x_val,
-                                  state.y_val, state.n_cand)
-        return _add_residual(ctx.mix(stacked, wmat), prev, keep), state
+        # every client's candidates: the whole stack, gathered
+        wmat, keep = fomo_weights(ctx.loss_fn, *ctx.gather((stacked, prev)),
+                                  state.x_val, state.y_val, state.n_cand)
+        return (_add_residual(ctx.mix(stacked, wmat), prev, ctx.rows(keep)),
+                state)
 
     def traced_state(self, state: FomoState):
         # the validation sets the weighting evaluates on, and the top-M
@@ -127,9 +129,10 @@ class FedFOMO(Strategy):
 
     def aggregate_traced(self, arrays, stacked, prev, tmix):
         x_val, y_val, n_cand = arrays
-        wmat, keep = fomo_weights(self._loss_fn, stacked, prev, x_val,
+        wmat, keep = fomo_weights(self._loss_fn,
+                                  *tmix.gather((stacked, prev)), x_val,
                                   y_val, n_cand)
-        return _add_residual(tmix.mix(stacked, wmat), prev, keep)
+        return _add_residual(tmix.mix(stacked, wmat), prev, tmix.rows(keep))
 
     def comm(self, state: FomoState) -> CommCost:
         return CommCost(0, state.m * state.candidates)

@@ -15,10 +15,11 @@ Caches are in the compute dtype.
 ``--federated`` refuses: the reference's ``--federated`` trains and
 serves an LM population (`launch/train.py`'s ``_lm_fns`` and
 ``lm_federated_data``), which is LM training, ROADMAP.md Queue 1 item
-16b (its ``--placement mesh``, item 15).  Its other flags come with item
+16b.  Its other flags, ``--placement mesh`` among them, come with item
 16b.  The personalised serving plane itself is ported
-(`repro_torch.fl.serve`: `DeltaStore`, `ServeEngine`) and serves LeNet
-populations from `run_federated(keep_state=True)`.
+(`repro_torch.fl.serve`: `DeltaStore`, `ServeEngine`, on `HostVmap` or
+`MeshShardMap`) and serves LeNet populations from
+`run_federated(keep_state=True)`.
 """
 from __future__ import annotations
 
@@ -105,9 +106,10 @@ def federated_main():
     raise NotImplementedError(
         "--federated trains and serves a federated LM population (the "
         "reference's launch/train.py _lm_fns, lm_federated_data): LM "
-        "training is not ported yet, ROADMAP.md Queue 1 item 16b (its "
-        "--placement mesh is item 15).  The serving plane itself is "
-        "repro_torch.fl.serve (DeltaStore, ServeEngine) over "
+        "training is not ported yet, ROADMAP.md Queue 1 item 16b, with "
+        "its other flags (--placement mesh among them).  The serving "
+        "plane itself is repro_torch.fl.serve (DeltaStore, ServeEngine, "
+        "placement=HostVmap or MeshShardMap) over "
         "run_federated(keep_state=True).")
 
 

@@ -529,6 +529,125 @@ def test_uplink_roundtrip_matches_reference_bitwise(stacks, spec, masked):
                                       ef["fc1_w"][1])
 
 
+@pytest.mark.parametrize("spec", ["qsgd:4", "qsgd:8", "topk:0.25",
+                                  "topk:0.05", "adaptive", "adaptive_topk"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_uplink_roundtrip_jnp_backend_matches_reference(stacks, spec,
+                                                        masked):
+    """The mesh placement's codec backend: the reference's ``"jnp"``
+    crossing, bitwise (top-k keeps |x| >= the exact k-th magnitude)."""
+    params, prev, stacked, ef = stacks
+    key = jax.random.PRNGKey(13)
+    mask = np.array([True, True, False, True]) if masked else None
+    jcodec, codec = jch.get_codec(spec), ch.get_codec(spec)
+    if spec.startswith("adaptive"):
+        jcodec = jcodec.bind_link(jlink.get_link_profile(
+            "tiered:4", J_SYSTEMS["wired"], jch.tree_bits(params), M),
+            params)
+        codec = codec.bind_link(link.get_link_profile(
+            "tiered:4", SYSTEMS["wired"], jch.tree_bits(params), M),
+            tree_from_numpy(params, "cpu"))
+    want_s, want_e = jch.apply_uplink(
+        jcodec, *({k: jnp.asarray(v) for k, v in t.items()}
+                  for t in (stacked, prev, ef)),
+        key, None if mask is None else jnp.asarray(mask), backend="jnp")
+    d = jch.tree_size(params)
+    noise = _t(np.asarray(jax.random.uniform(key, (M, d), jnp.float32)))
+    got_s, got_e = ch.apply_uplink(
+        codec, *(tree_from_numpy(t, "cpu") for t in (stacked, prev, ef)),
+        noise if codec.needs_noise else None,
+        None if mask is None else torch.from_numpy(mask), backend="jnp")
+    if not codec.needs_noise:
+        for k in params:
+            _same(got_s[k], want_s[k])
+            _same(got_e[k], want_e[k])
+    else:
+        # the reference's jnp crossing is one XLA fusion, which contracts
+        # prev + level·scale (and v − level·scale) into FMAs where its
+        # kernel path (and the port's, on both backends) rounds the
+        # product first: values one rounding apart, levels equal
+        for k in params:
+            np.testing.assert_allclose(got_s[k].numpy(), want_s[k],
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+            np.testing.assert_allclose(got_e[k].numpy(), want_e[k],
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        # the port's two backends are one path, bitwise
+        pal_s, pal_e = ch.apply_uplink(
+            codec, *(tree_from_numpy(t, "cpu") for t in (stacked, prev, ef)),
+            noise, None if mask is None else torch.from_numpy(mask))
+        for k in params:
+            assert torch.equal(pal_s[k], got_s[k])
+            assert torch.equal(pal_e[k], got_e[k])
+    with pytest.raises(ValueError, match="backend"):
+        ch.apply_uplink(codec, got_s, got_s, got_e, noise, backend="xla")
+
+
+def _planted_rows(d=64):
+    """Rows that stress the exact top-k mask: ties at the cut, NaN among
+    finite values, all NaN, all zero, ±inf, signed zeros, one value."""
+    rng = np.random.default_rng(4)
+    rows = [rng.standard_normal(d)]
+    tie = rng.standard_normal(d)
+    tie[::3] = 0.75                      # a run of ties across the cut
+    tie[1::7] = -0.75
+    rows.append(tie)
+    nan = rng.standard_normal(d)
+    nan[[2, 9, 40]] = np.nan
+    rows.append(nan)
+    rows.append(np.full(d, np.nan))
+    rows.append(np.zeros(d))
+    inf = rng.standard_normal(d)
+    inf[[5, 6]] = [np.inf, -np.inf]
+    rows.append(inf)
+    sz = np.zeros(d)
+    sz[::2] = -0.0
+    sz[10] = 3.0
+    rows.append(sz)
+    rows.append(np.full(d, -2.5))        # every coordinate tied
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 21, 63, 64])
+def test_topk_exact_mask_on_planted_rows(k):
+    """The ``"jnp"`` top-k against the reference's `topk_mask_ref`
+    (`jax.lax.top_k`'s k-th magnitude) bitwise, on ties, NaN rows and
+    zero rows; encode keeps the first-index ties of ``lax.top_k``."""
+    x = _planted_rows()
+    codec = ch.get_codec(f"topk:{k / x.shape[1]}")
+    assert codec.k(x.shape[1]) == k
+    want = np.asarray(jnp.where(jref.topk_mask_ref(jnp.asarray(x), k),
+                                jnp.asarray(x), 0.0))
+    got = codec.roundtrip(_t(x), None, backend="jnp")
+    _same(got, want)
+    jenc = jch.get_codec(f"topk:{k / x.shape[1]}").encode(
+        jnp.asarray(x), None, backend="jnp")
+    enc = codec.encode(_t(x), None)
+    fin = np.isfinite(x).all(1)         # lax.top_k orders NaN by its own rule
+    np.testing.assert_array_equal(enc["indices"].numpy()[fin],
+                                  np.asarray(jenc["indices"])[fin])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_bitwise_across_backends(bits):
+    """QSGD runs the same kernels on both backends: roundtrip, encode and
+    decode bitwise each other and the reference's ``"jnp"`` path."""
+    x = _planted_rows(300)
+    x = np.where(np.isfinite(x), x, 1.0).astype(np.float32)
+    u = np.random.default_rng(9).uniform(size=x.shape).astype(np.float32)
+    codec, jcodec = ch.get_codec(f"qsgd:{bits}"), jch.get_codec(
+        f"qsgd:{bits}")
+    outs = {b: codec.roundtrip(_t(x), _t(u), backend=b)
+            for b in ch.BACKENDS}
+    _same(outs["jnp"], outs["pallas"].numpy())
+    _same(outs["jnp"], jref.qsgd_roundtrip_ref(jnp.asarray(x),
+                                               jnp.asarray(u), bits))
+    enc = codec.encode(_t(x), _t(u))
+    _same(codec.decode(enc), outs["pallas"].numpy())
+    jenc = {"levels": jnp.asarray(enc["levels"].numpy()),
+            "absmax": jnp.asarray(enc["absmax"].numpy())}
+    _same(codec.decode(enc), jcodec.decode(jenc, backend="jnp"))
+
+
 def test_topk_residual_conservation_and_identity_noop(stacks):
     _, prev, stacked, ef = stacks
     s, p, e = (tree_from_numpy(t, "cpu") for t in (stacked, prev, ef))

@@ -25,9 +25,11 @@ from repro.fl.comm import SYSTEMS as J_SYSTEMS
 from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.data import scenario_label_shift
-from repro_torch.fl import (FLConfig, SYSTEMS, TorchDraws, run_federated)
+from repro_torch.fl import (FLConfig, MeshShardMap, SYSTEMS, TorchDraws,
+                            run_federated)
 from repro_torch.fl.draws import FaultDraws
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as serve_cli
 
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
@@ -239,6 +241,16 @@ def test_entry_points_refuse_what_this_slice_lacks():
         assert h.comm == [(streams, 0)] and np.isfinite(h.mean_acc).all()
     with pytest.raises(ValueError, match="unknown strategy"):
         run_federated("nope", fed, device="cpu")
+    # the mesh placement (ROADMAP item 15) is ported: it runs, and it
+    # refuses what the reference refuses
+    h = run_federated("fedavg", fed, fl=fl, device="cpu",
+                      placement=MeshShardMap(device="cpu"))
+    assert h.comm == [(1, 0)] and np.isfinite(h.mean_acc).all()
+    with pytest.raises(ValueError, match="unknown mixing schedule"):
+        MeshShardMap(schedule="ring", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16b") as err:
+        serve_cli.main(["--federated", "--device", "cpu"])
+    assert "item 15" not in str(err.value)
 
 
 def test_port_imports_no_jax():

@@ -1043,7 +1043,7 @@ def _ss_chunk_inputs(length):
         5, draws, torch.device("cuda"))
     ef = {k: torch.zeros_like(v) for k, v in stacked.items()}
     round_fn = _build_traced_round(strategy, sampler, codec, True,
-                                   placement, update_fn)
+                                   placement, update_fn, fed.m)
     d = sum(v[0].numel() for v in stacked.values())
     cd = chunk_draws(draws, range(length), step=update_fn, x=x, n=n,
                      sampler=sampler, m=fed.m, noise_d=d, device=x.device)
@@ -1809,3 +1809,118 @@ def test_hierarchy_device_rows_through_the_channel_kernels(bits):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["qsgd_roundtrip"] - n0["qsgd_roundtrip"] == 1
     assert ops.LAUNCHES["topk_threshold"] - n0["topk_threshold"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the mesh placement on a one-rank NCCL group
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _end_process_group():
+    """The mesh tests' process group ends with the module."""
+    yield
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _nccl_and_gloo():
+    """The process's default group (a one-rank NCCL group the mesh starts
+    in-process) and a gloo group over the same rank, for the CPU side."""
+    import torch.distributed as dist
+    from repro_torch.fl import MeshShardMap
+    MeshShardMap()
+    assert dist.get_backend() == "nccl"
+    global _GLOO
+    if "_GLOO" not in globals():
+        _GLOO = dist.new_group(backend="gloo")
+    return _GLOO
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["full", "plan"])
+@pytest.mark.parametrize("schedule", ["gspmd", "shard_map_streams",
+                                      "shard_map_unicast"])
+def test_mesh_schedules_nccl_against_gloo(schedule, kind):
+    """Each schedule on the one-rank NCCL group (the mix through the
+    Y = W Θ kernel, one launch) against the same schedule over gloo on
+    the CPU (the plain version), at f32 1e-5; and bitwise the card's host
+    mix."""
+    _require_cuda()
+    from repro_torch.core import (StreamPlan, mix_schedule, stream_aggregate,
+                                  user_centric_aggregate)
+    gloo = _nccl_and_gloo()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stack = {"a": torch.randn((20, 6, 1, 5, 5), generator=gen,
+                              device="cuda"),
+             "b": torch.randn((20, 47571 - 150), generator=gen,
+                              device="cuda")}
+    w = torch.rand((20, 20), generator=gen, device="cuda")
+    w = w / w.sum(1, keepdim=True)
+    asn = torch.randint(0, 4, (20,), generator=gen, device="cuda")
+    args = (w, None) if kind == "full" else (w[:4], asn)
+    n0 = ops.LAUNCHES["mixing_aggregate"]
+    got = mix_schedule(None, stack, *args, schedule=schedule)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mixing_aggregate"] - n0 == 1
+    cpu = mix_schedule(gloo, {k: v.cpu() for k, v in stack.items()},
+                       *(None if a is None else a.cpu() for a in args),
+                       schedule=schedule)
+    host = (user_centric_aggregate(stack, w) if kind == "full" else
+            stream_aggregate(stack, StreamPlan(w[:4], asn, None)))
+    for k in stack:
+        torch.testing.assert_close(got[k].cpu(), cpu[k], rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(_bits(got[k]), _bits(host[k])), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["gspmd", "shard_map_streams",
+                                      "shard_map_unicast"])
+def test_mesh_run_on_card_is_the_host_run(schedule):
+    """ucfl_k4 + qsgd:8 at full width on the one-rank NCCL mesh: the
+    fused run (its collectives captured in the chunk's CUDA graph) and
+    the eventful run bitwise the `HostVmap` run on the card, with its
+    launches; and the gloo CPU mesh run of a small scenario agrees with
+    the card's at [agree]'s tolerances."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.data import FederatedData, scenario_label_shift
+    from repro_torch.fl import (Channel, FLConfig, MeshShardMap, TorchDraws,
+                                run_federated)
+    from repro_torch.models import lenet
+    gloo = _nccl_and_gloo()
+    fed = _ss_fed()
+    fl = FLConfig(rounds=4, local_steps=2, batch_size=32, eval_every=2)
+    kw = dict(fl=fl, keep_state=True, channel=Channel(codec="qsgd:8"))
+    host = run_federated("ucfl_k4", fed, **kw)
+    for superstep in (None, False):
+        n0 = dict(ops.LAUNCHES)
+        h = run_federated("ucfl_k4", fed, superstep=superstep,
+                          placement=MeshShardMap(schedule=schedule), **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["mixing_aggregate"] - n0["mixing_aggregate"] \
+            == fl.rounds
+        assert (h.mean_acc, h.time, h.comm_bits) == (host.mean_acc,
+                                                     host.time,
+                                                     host.comm_bits)
+        for k, v in host.final_params.items():
+            assert torch.equal(_bits(h.final_params[k]), _bits(v)), k
+    small = scenario_label_shift(3, n=600, m=6, device="cpu")
+    p0 = lenet.init_params(torch.Generator().manual_seed(5),
+                           lenet.LeNetConfig(), device="cpu")
+    fl2 = FLConfig(rounds=2, local_steps=2, batch_size=16, eval_every=1)
+    runs = {}
+    for dev, f, pl in (
+            ("cpu", small, MeshShardMap(gloo, schedule=schedule,
+                                        device="cpu")),
+            ("cuda", FederatedData(*(t.cuda() for t in small)),
+             MeshShardMap(schedule=schedule))):
+        runs[dev] = run_federated(
+            "ucfl_k2", f, fl=fl2, placement=pl, keep_state=True,
+            model_init=lambda gen: {k: v.to(dev) for k, v in p0.items()},
+            draws=TorchDraws(11, "cpu"), device=dev)
+    assert runs["cpu"].comm == runs["cuda"].comm
+    for k, v in runs["cpu"].final_params.items():
+        torch.testing.assert_close(runs["cuda"].final_params[k].cpu(), v,
+                                   rtol=1e-3, atol=1e-4)

@@ -60,8 +60,9 @@ from repro.fl.strategies.fedavg import FedAvg as JFedAvg
 from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.fl import (SYSTEMS, AsyncConfig, Channel, FLConfig,
-                            HierarchyConfig, PagingConfig, UniformFraction,
-                            run_async, run_federated, superstep_support)
+                            HierarchyConfig, MeshShardMap, PagingConfig,
+                            UniformFraction, run_async, run_federated,
+                            superstep_support)
 from repro_torch.fl import hierarchy as th
 from repro_torch.fl.placement.graphs import leaves
 from repro_torch.fl.strategies import FedAvg, get_strategy
@@ -338,6 +339,38 @@ def test_flat_parity_traceable(spec, runs, case):
     assert_tree_bitwise(h1.final_params, h0.final_params)
     assert h1.extra["hierarchy"]["d_max"] == 1
     assert_matches_reference(h1, runs.ref(f"{spec}-FLAT"), case)
+
+
+def _mesh():
+    return MeshShardMap(schedule="shard_map_streams", device="cpu")
+
+
+@pytest.mark.parametrize("spec", TRACEABLE)
+def test_flat_parity_traceable_mesh(spec, runs, case):
+    """The mesh half of the reference's `test_flat_parity_traceable` (one
+    rank): the degenerate hierarchy is the flat mesh run, and both are
+    the `HostVmap` runs, bitwise."""
+    h0 = runs.port(f"{spec}-flat", placement=_mesh())
+    h1 = runs.port(f"{spec}-FLAT", placement=_mesh())
+    assert_history_equal(h1, h0)
+    assert_tree_bitwise(h1.final_params, h0.final_params)
+    assert h1.extra["hierarchy"]["d_max"] == 1
+    host = runs.port(f"{spec}-FLAT")
+    assert_history_equal(h1, host)
+    assert_tree_bitwise(h1.final_params, host.final_params)
+
+
+def test_two_level_host_mesh_agree(runs, case):
+    """The two-level qsgd:4 edge run on the mesh: its edge codec runs the
+    mesh's ``"jnp"`` backend, which for qsgd is the kernels' path, so the
+    mesh run is the `HostVmap` run bitwise (the reference asserts atol
+    1e-5), and it holds against the reference at the edge tolerances."""
+    h_m = runs.port("two", placement=_mesh())
+    h_h = runs.port("two")
+    assert_history_equal(h_m, h_h)
+    assert_tree_bitwise(h_m.final_params, h_h.final_params)
+    assert_tree_bitwise(h_m.final_opt_state, h_h.final_opt_state)
+    assert_matches_reference(h_m, runs.ref("two"), case, levels=True)
 
 
 def test_flat_parity_eventful_cfl(runs, case):

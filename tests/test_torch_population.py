@@ -33,6 +33,7 @@ from repro.fl import AsyncConfig as JAsyncConfig
 from repro.fl import Channel as JChannel
 from repro.fl import FixedCohort as JFixedCohort
 from repro.fl import FLConfig as JFLConfig
+from repro.fl import MeshShardMap as JMeshShardMap
 from repro.fl import PagingConfig as JPagingConfig
 from repro.fl import RandomCohorts as JRandomCohorts
 from repro.fl import SequentialSweep as JSequentialSweep
@@ -45,7 +46,8 @@ from repro_torch.checkpoint import latest_paged_checkpoint
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.data import FederatedData, scenario_label_shift
 from repro_torch.fl import (SYSTEMS, AsyncConfig, Channel, ClientStateStore,
-                            FixedCohort, FLConfig, PagingConfig,
+                            FixedCohort, FLConfig, HostVmap, MeshShardMap,
+                            PagingConfig,
                             RandomCohorts, SequentialSweep, TorchDraws,
                             UniformFraction, run_async, run_federated,
                             sub_federated)
@@ -308,6 +310,68 @@ def test_paged_sampler_and_faults_match_reference(name, kw, case):
 
 # ---------------------------------------------------------------------------
 # the port's own anchors
+
+
+@pytest.mark.parametrize("codec", [None, "qsgd:4"], ids=["raw", "qsgd4"])
+def test_paged_mesh_matches_resident(codec, case):
+    """The mesh placement (one rank) pages a cohort through its `stage`
+    and gathered copy back: a paged `FixedCohort` run is bitwise the
+    resident mesh run on the sub-population and the paged `HostVmap`
+    run (the reference's `test_paged_matches_resident`, mesh half)."""
+    _, params0, fed = case
+    common = dict(fl=FL, model_init=_port_init(params0), keep_state=True,
+                  system=SYSTEMS["wired"], device="cpu",
+                  channel=None if codec is None else Channel(codec=codec))
+    mesh = lambda: MeshShardMap(schedule="shard_map_streams", device="cpu")
+    res = run_federated("ucfl_k2", sub_federated(fed, IDX), superstep=True,
+                        placement=mesh(), **common)
+    pag = run_federated("ucfl_k2", fed, placement=mesh(),
+                        paging=PagingConfig(schedule=FixedCohort(IDX)),
+                        **common)
+    host = run_federated("ucfl_k2", fed, placement=HostVmap(),
+                         paging=PagingConfig(schedule=FixedCohort(IDX)),
+                         **common)
+    _same_history(pag, res)
+    _same_tree(_rows(pag.final_params, IDX), res.final_params)
+    _same_history(pag, host)
+    _same_tree(pag.final_params, host.final_params)
+
+
+def test_paged_mesh_matches_reference(case):
+    """Paged ucfl_k2 + qsgd:4 over the sweep on the mesh placement against
+    the reference's paged mesh run, fed the same draws."""
+    jfed, params0, fed = case
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = j_run("ucfl_k2", jfed, fl=JFLConfig(**FL_KW),
+                     model_init=lambda k: jax.tree_util.tree_map(
+                         jnp.asarray, params0),
+                     system=J_SYSTEMS["wireless_slow"], keep_state=True,
+                     seed=SEED, channel=JChannel(codec="qsgd:4"),
+                     placement=JMeshShardMap(schedule="shard_map_streams"),
+                     paging=JPagingConfig(**J_SCHEDULES["sweep"]()))
+    got = run_federated(
+        "ucfl_k2", fed, fl=FL, model_init=_port_init(params0),
+        system=SYSTEMS["wireless_slow"], keep_state=True, seed=SEED,
+        channel=Channel(codec="qsgd:4"),
+        placement=MeshShardMap(schedule="shard_map_streams", device="cpu"),
+        paging=PagingConfig(**SCHEDULES["sweep"]()),
+        draws=ReplayDraws(SEED, FL_KW["rounds"]), device="cpu")
+    _matches_reference(got, want, fed)
+
+
+def test_async_paged_mesh_is_the_host_run(case):
+    """`run_async_paged` on the mesh placement (one rank) is bitwise the
+    `HostVmap` paged async run, at a partial buffer (K = 3 of 8)."""
+    _, params0, fed = case
+    runs = [run_federated(
+        "ucfl_k2", fed, fl=FL, model_init=_port_init(params0),
+        system=SYSTEMS["wireless_slow"], keep_state=True, device="cpu",
+        async_cfg=AsyncConfig(buffer_k=3), placement=placement,
+        paging=PagingConfig(schedule=FixedCohort(np.arange(M))))
+        for placement in (MeshShardMap(device="cpu"), HostVmap())]
+    _same_history(*runs)
+    _same_tree(*(r.final_params for r in runs))
 
 
 @pytest.mark.parametrize("spec,kw", [

@@ -24,6 +24,7 @@ from repro.data.federated import scenario_label_shift as j_label_shift
 from repro.fl import AsyncConfig as JAsyncConfig
 from repro.fl import Channel as JChannel
 from repro.fl import FLConfig as JFLConfig
+from repro.fl import MeshShardMap as JMeshShardMap
 from repro.fl import SystemModel as JSystemModel
 from repro.fl import VirtualClock as JVirtualClock
 from repro.fl import run_federated as j_run
@@ -35,7 +36,7 @@ from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.data import scenario_label_shift
 from repro_torch.fl import (AsyncConfig, Channel, FLConfig, HostVmap,
-                            Placement, SystemModel, UniformFraction,
+                            MeshShardMap, Placement, SystemModel, UniformFraction,
                             VirtualClock, run_async, run_federated)
 from repro_torch.fl.channel.link import get_link_profile
 from repro_torch.fl.strategies import (STRATEGIES, staleness_factors,
@@ -318,6 +319,48 @@ def test_buffered_run_matches_reference(name, buffered_runs, case):
     for k, v in want.final_params.items():
         np.testing.assert_allclose(gp[k], np.asarray(v), rtol=1e-4,
                                    atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("schedule,codec", [("gspmd", None),
+                                            ("shard_map_streams", "qsgd:4")])
+def test_async_on_the_mesh_matches_reference(schedule, codec, case):
+    """`run_async` on the mesh placement (one rank; the base full-width
+    cohort update, its mask cut to the rank's rows) against the
+    reference's mesh async run (`test_runtime.py`'s `test_mesh_async_smoke`
+    configuration, buffer_k 2 of 4) fed the same draws; and against the
+    port's own `HostVmap` run (its row-gathered cohort update) at the same
+    tolerances."""
+    jfed, params0, fed = case
+    acfg = dict(buffer_k=2, max_staleness=3.0, staleness_discount=0.8)
+    want = j_run("ucfl_k2", jfed, fl=JFLConfig(**FL_KW),
+                 model_init=lambda k: jax.tree_util.tree_map(jnp.asarray,
+                                                             params0),
+                 system=J_STRAGGLER, async_cfg=JAsyncConfig(**acfg),
+                 keep_state=True, seed=SEED,
+                 placement=JMeshShardMap(schedule=schedule),
+                 channel=None if codec is None else JChannel(codec=codec))
+    runs = [run_federated(
+        "ucfl_k2", fed, fl=FL,
+        model_init=lambda gen: tree_from_numpy(params0, "cpu"),
+        system=STRAGGLER, async_cfg=AsyncConfig(**acfg), keep_state=True,
+        seed=SEED, placement=placement,
+        draws=ReplayDraws(SEED, FL_KW["rounds"]), device="cpu",
+        channel=None if codec is None else Channel(codec=codec))
+        for placement in (MeshShardMap(schedule=schedule, device="cpu"),
+                          HostVmap())]
+    flip = 1.0 / (M * fed.x_val.shape[1])
+    for got in runs:
+        assert got.time == want.time
+        assert [tuple(c) for c in got.comm] == [tuple(c)
+                                                for c in want.comm]
+        np.testing.assert_allclose(got.mean_acc, want.mean_acc, rtol=0,
+                                   atol=flip + 1e-6)
+        np.testing.assert_allclose(got.worst_acc, want.worst_acc, rtol=0,
+                                   atol=flip + 1e-6)
+        gp = tree_to_numpy(got.final_params)
+        for k, v in want.final_params.items():
+            np.testing.assert_allclose(gp[k], np.asarray(v), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
 
 
 def test_buffered_runs_cover_drops_cohorts_and_early_end(buffered_runs):

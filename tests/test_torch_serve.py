@@ -32,8 +32,8 @@ from repro.models import lenet as jlenet
 import repro_torch.core as C
 from repro_torch import checkpoint
 from repro_torch.data import scenario_label_shift
-from repro_torch.fl import (DeltaStore, FLConfig, ServeEngine, StoreBits,
-                            check_parity, run_federated)
+from repro_torch.fl import (DeltaStore, FLConfig, MeshShardMap, ServeEngine,
+                            StoreBits, check_parity, run_federated)
 from repro_torch.fl.channel import get_codec, stacked_ravel
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lenet
@@ -236,19 +236,46 @@ def _tree(stack):
     return {k: _t(v) for k, v in stack.items()}
 
 
+@pytest.mark.parametrize("codec", CODECS)
+def test_jnp_store_file_from_the_reference(tmp_path, stacks, codec):
+    """A store the reference built and saved on its ``"jnp"`` backend
+    loads in the port; its payload and decode are the reference's
+    bitwise, and its reconstruction within one rounding (the reference
+    fuses base + level·scale into an FMA on that backend)."""
+    full = stacks[0]
+    want = JDeltaStore.build(full, assignment=GROUPS, codec=codec,
+                             seed=SEED, backend="jnp")
+    path = str(tmp_path / "jnp.msgpack")
+    want.save(path)
+    got = DeltaStore.load(path, device="cpu")
+    assert got.backend == "jnp" and got.codec.spec == want.codec.spec
+    for name, v in want.payload.items():
+        _same(got.payload[name], v)
+    _same(got.codec.decode(got.payload, d=got.d),
+          want.codec.decode(want.payload, backend="jnp", d=want.d))
+    np.testing.assert_allclose(got.params_flat().numpy(),
+                               np.asarray(want.params_flat()), rtol=1e-6,
+                               atol=1e-7)
+    mine = str(tmp_path / "mine.msgpack")
+    got.save(mine)
+    assert checkpoint.restore(mine, device="cpu")["backend"] == "jnp"
+
+
 def test_store_refusals(tmp_path, stacks, stores):
     full = stacks[0]
-    # a file of the reference's "jnp" codec path waits for item 15
+    # a file of the reference's "jnp" codec path (the mesh placement's)
+    # loads; an unknown backend is refused
     path = str(tmp_path / "s.msgpack")
     stores["identity", "coarse"][0].save(path)
     tree = checkpoint.restore(path, device="cpu")
     assert tree["backend"] == "pallas"
-    for backend, err, why in (("jnp", NotImplementedError, "item 15"),
-                              ("triton", ValueError, "unknown codec")):
-        tree["backend"] = backend
-        checkpoint.save(path, tree)
-        with pytest.raises(err, match=why):
-            DeltaStore.load(path, device="cpu")
+    tree["backend"] = "jnp"
+    checkpoint.save(path, tree)
+    assert DeltaStore.load(path, device="cpu").backend == "jnp"
+    tree["backend"] = "triton"
+    checkpoint.save(path, tree)
+    with pytest.raises(ValueError, match="unknown codec backend"):
+        DeltaStore.load(path, device="cpu")
     with pytest.raises(ValueError, match="assignment must be"):
         DeltaStore.build(full, assignment=[0, 1], device="cpu")
     if not torch.cuda.is_available():
@@ -269,6 +296,28 @@ def port_runs():
                                            device="cpu", **kw)
     return {spec: run(spec, keep_state=True)
             for spec in ("ucfl_k2", "fedavg", "local")}, run
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_serve_parity_mesh(port_runs, codec):
+    """`ServeEngine(placement=MeshShardMap(...))` on the store of a mesh
+    run (one rank): `check_parity` holds, and the batch is the `HostVmap`
+    batch bitwise (the reference's `test_serve_parity_mesh`)."""
+    _, run = port_runs
+    mesh = MeshShardMap(schedule="shard_map_streams", device="cpu")
+    h = run("ucfl_k2", keep_state=True, placement=mesh)
+    store = DeltaStore.from_history(h, codec=codec, device="cpu")
+    eng = ServeEngine(store, apply_one, placement=mesh, max_batch=4)
+    fed = scenario_label_shift(0, n=240, m=4, device="cpu")
+    users = [1, 3, 0, 2]
+    xs = fed.x_val[users, 0]
+    check_parity(eng, users, xs)
+    host = ServeEngine(store, apply_one, max_batch=4)
+    assert torch.equal(eng.serve(users, xs), host.serve(users, xs))
+    for u, x in zip(users, xs):
+        eng.submit(u, x)
+    out = eng.flush()
+    assert len(out) == 4 and eng.last_stats["batches"] == 1
 
 
 def test_from_history_assignments(port_runs):

@@ -28,8 +28,9 @@ from repro.models import lenet as jlenet
 from repro_torch.convert import fed_from_numpy, tree_from_numpy, tree_to_numpy
 from repro_torch.data import scenario_label_shift
 from repro_torch.fl import (SYSTEMS, Channel, FLConfig, FullParticipation,
-                            UniformFraction, available_strategies,
-                            get_strategy, run_federated, superstep_support)
+                            MeshShardMap, UniformFraction,
+                            available_strategies, get_strategy,
+                            run_federated, superstep_support)
 from repro_torch.fl import simulator as sim
 from repro_torch.fl.strategies import ClientSampler, FedAvg
 from repro_torch.models import lenet
@@ -105,6 +106,32 @@ def test_fused_equals_eventful_bitwise(spec, sampled, codec, fed):
     assert len(h_ss.comm) == FL.rounds
     if codec is not None:
         assert len(h_ss.comm_bits) == FL.rounds
+
+
+@pytest.mark.parametrize("schedule,sampled,codec", [
+    ("gspmd", False, None), ("gspmd", True, "qsgd:4"),
+    ("shard_map_streams", False, "topk:0.1"),
+    ("shard_map_streams", True, "qsgd:4"),
+    ("shard_map_unicast", False, "qsgd:4"), ("shard_map_unicast", True,
+                                             None)])
+def test_fused_equals_eventful_on_the_mesh(schedule, sampled, codec, fed):
+    """The mesh placement (one rank): fused = eventful bitwise for
+    ucfl_k2, and both bitwise the `HostVmap` run, the codec on the mesh's
+    ``"jnp"`` backend (the reference's `test_superstep_bit_parity` and
+    `test_superstep_parity_sampler_codec`, mesh half)."""
+    kw = dict(sampler=UniformFraction(0.5) if sampled else None,
+              channel=None if codec is None else Channel(codec=codec,
+                                                         link="tiered:4"))
+    mesh = MeshShardMap(schedule=schedule, device="cpu")
+    h_ss, h_ev = _both("ucfl_k2", fed, placement=mesh, **kw)
+    _assert_same_run(h_ss, h_ev)
+    host, _ = _both("ucfl_k2", fed, **kw)
+    if codec != "topk:0.1":
+        _assert_same_run(h_ss, host)
+    else:       # the exact k-th magnitude against the bisection cutoff
+        for k, v in host.final_params.items():
+            np.testing.assert_allclose(h_ss.final_params[k].numpy(),
+                                       v.numpy(), rtol=1e-4, atol=1e-5)
 
 
 def test_full_participation_sampler_equals_no_sampler(fed):

@@ -185,11 +185,38 @@ Phases (any failure raises and the script exits non-zero):
                 decode kernel and none on the CUDA-core kernel, and a
                 torch.profiler trace of one prefill (device time by
                 flash / GEMM / other).
+ 12. train    — federated LM training (`launch.train`, the reference's
+                scanned layout as the engine's flat-key view) and the
+                scenario generators: (a) `launch.train.main` at the
+                lm-100m preset (8 layers, d_model 512, d_ff 2,048, vocab
+                32,000), 4 clients, ucfl_k2, 3 rounds, pool 16 x 256
+                tokens, batch 4, on the host placement, the default mesh,
+                qsgd:8 over tiered:4, topk:0.1, async K = 2, a cohort of
+                2, fleets of 2 devices, crash:0.2 + median: each run's
+                final CE, s/round and launches; (d) the three scenarios
+                drawn on the card at their default sizes (shapes, groups,
+                the padding rule, the covariate rotations, one label
+                permutation a group), then ucfl_k4 for 5 fused rounds on
+                cifar_concept_shift (LeNet-5 at 32x32x3); (b), run
+                right after phase 2 in a child process of this script
+                (``--train-published``) that has the card to itself (its
+                ~50 GB do not fit beside a second context and what the
+                earlier phases hold), stablelm-3b at its published
+                widths, depth 2 (0.416 B bf16 params),
+                ucfl_k2 over 4 clients of pool 8 x 256 tokens: setup s,
+                fused = eventful bitwise, s/round, peak MiB, launches (3
+                mixes, 1 Gram a run; 3 QSGD row passes with qsgd:8), a
+                profiler trace of a 5-round chunk, its capture inside
+                (busy share), then the
+                mix of the clients' bf16 leaves, G + Δ and one qsgd:8
+                crossing of a (4, 0.416 B) f32 matrix against their plain
+                versions, timed beside their byte bounds.
 Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at two smoke configs, a buffered-async run on
+the card against the CPU at two smoke configs, `launch.train.main` at
+cpu-small (host-drawn data and params, losses within rtol 1e-4), a buffered-async run on
 the card against the CPU, without a channel and with qsgd:8, and a
 two-level run (qsgd:8 edge codec) on the card against the CPU.
 The last lines are the kernels JSON, the card line, and
@@ -1724,18 +1751,23 @@ def lm_c_path(card: str) -> dict:
     return out
 
 
-def run_both(spec, fed, fl, engines=("fused", "eventful"), **kw):
+def run_both(spec, fed, fl, engines=("fused", "eventful"), between=None,
+             **kw):
     """``run_federated`` fused (the default: captured CUDA graphs) and then
     eventful (``superstep=False``), ``keep_state=True``: the two histories
     must be equal line for line (rounds, accuracies, clock, comm,
     comm_bits, the fault ledger and cluster assignment where the run has
     them) and the final params and residuals bitwise.  Returns
     ``[(engine, History, launches, wall s), ...]``, fused first;
-    ``engines=("eventful",)`` runs the eventful loop alone."""
+    ``engines=("eventful",)`` runs the eventful loop alone.
+    ``between(History)``, if given, runs on each History before the next
+    run starts."""
     out = []
     for engine, superstep in (("fused", None), ("eventful", False)):
         if engine not in engines:
             continue
+        if out and between is not None:
+            between(out[-1][1])
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
         h = run_federated(spec, fed, fl=fl, seed=0, keep_state=True,
@@ -3337,6 +3369,449 @@ def hierarchy_path(fed, fl, base, card: str) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: federated LM training (launch/train.py), the scenarios
+
+# (a) the CLI at the reference's deliverable-scale preset (lm-100m: the
+# stablelm-3b family at 8 layers, d_model 512, d_ff 2,048, vocab 32,000)
+TRAIN_A = ["--preset", "lm-100m", "--clients", "4", "--algorithm", "ucfl_k2",
+           "--steps", "3", "--eval-every", "1", "--pool", "16", "--seq",
+           "256", "--batch", "4", "--device", "cuda"]
+TRAIN_A_RUNS = (
+    ("host", ["--placement", "host"]),
+    ("mesh", []),
+    ("qsgd:8 tiered:4", ["--codec", "qsgd:8", "--link-profile", "tiered:4"]),
+    ("topk:0.1", ["--codec", "topk:0.1"]),
+    ("async K=2", ["--async", "--buffer-k", "2"]),
+    ("cohort 2", ["--cohort", "2"]),
+    ("devices 2", ["--devices-per-user", "2"]),
+    ("crash + median", ["--faults", "crash:0.2", "--robust-agg", "median"]),
+)
+# (b) stablelm-3b at its published widths (src/repro_torch/configs/
+# stablelm_3b.py: d_model 2,560, 32 heads of 80, rotary on a quarter of
+# each head, d_ff 6,912, vocab 50,304, untied, LayerNorm, bf16), random
+# weights from a seed, depth cut to 2 (0.416 B params)
+TRAIN_B = dict(arch="stablelm-3b", m=4, pool=8, seq=256, batch=2, rounds=3,
+               seed=0, reduced={"n_layers": "32 -> 2"})
+# (c) cuda against cpu: the same main at cpu-small
+TRAIN_C = ["--preset", "cpu-small", "--placement", "host", "--clients", "4",
+           "--steps", "2", "--eval-every", "1", "--pool", "8", "--seq", "32",
+           "--batch", "2", "--algorithm", "ucfl_k2"]
+TRAIN_C_RTOL = 1e-4
+
+
+def _free_graphs() -> None:
+    """Drop the captured supersteps (the engine keeps each
+    configuration's CUDA graphs and their memory pools for its next call)
+    and return the freed blocks: at LM widths a few configurations' pools
+    fill the card."""
+    import gc
+    from repro_torch.fl import simulator
+    simulator._SUPERSTEP_FNS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cli(argv) -> tuple:
+    """``launch.train.main(argv)`` with its printout kept: (its return,
+    -CE of the last eval, the printout, wall s)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        loss = train_cli.main(argv)
+    torch.cuda.synchronize()
+    return loss, buf.getvalue(), time.perf_counter() - t0
+
+
+def _rounds_of(text: str) -> list:
+    """The (round, loss/mean, loss/worst, t_sys) lines of main's printout."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("round "):
+            parts = ln.split()
+            out.append((int(parts[1]), float(parts[2].split("=")[1]),
+                        float(parts[3].split("=")[1]),
+                        float(parts[4].split("=")[1])))
+    return out
+
+
+def train_agreement() -> None:
+    """`launch.train.main` at cpu-small on the card and on the CPU: the
+    data and the initial params are drawn on the host from the seed, so
+    both start from the same bits; losses within rtol 1e-4, clock and
+    downlink lines equal."""
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runs[dev] = _cli(TRAIN_C + ["--device", dev])
+    (la, ta, _), (lb, tb, _) = runs["cpu"], runs["cuda"]
+    ra, rb = _rounds_of(ta), _rounds_of(tb)
+    if len(ra) != 2 or [r[::3] for r in ra] != [r[::3] for r in rb]:
+        raise AssertionError(f"train: rounds or clock differ: {ra} {rb}")
+    down = [[ln for ln in t.splitlines() if ln.startswith("downlink")]
+            for t in (ta, tb)]
+    if down[0] != down[1]:
+        raise AssertionError(f"train: downlink lines differ: {down}")
+    err = abs(la - lb) / abs(la)
+    if err > TRAIN_C_RTOL or any(abs(x[i] - y[i]) > 2e-4 for x, y in
+                                 zip(ra, rb) for i in (1, 2)):
+        raise AssertionError(f"train: losses differ cuda vs cpu: {la} vs "
+                             f"{lb} ({ra} vs {rb})")
+    print(f"  launch.train.main cpu-small ucfl_k2 m=4, 2 rounds: cuda agrees "
+          f"with cpu (final CE {lb:.6f} vs {la:.6f}, rel {err:.1e}; clock "
+          f"and downlink equal)", flush=True)
+
+
+def train_cli_runs(card: str) -> None:
+    """(a): `launch.train.main` at lm-100m through each flag family."""
+    for label, extra in TRAIN_A_RUNS:
+        _free_graphs()
+        before = dict(ops.LAUNCHES)
+        loss, text, wall = _cli(TRAIN_A + extra)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                    if ops.LAUNCHES[k] != before[k]}
+        rounds = _rounds_of(text)
+        params = [ln for ln in text.splitlines()
+                  if ln.startswith("params/model")]
+        if not math.isfinite(loss) or len(rounds) != 3:
+            raise AssertionError(f"[train] (a) {label}: loss {loss}, "
+                                 f"rounds {rounds}")
+        if launched.get("mixing_aggregate", 0) < 1:
+            raise AssertionError(f"[train] (a) {label}: no mix launched "
+                                 f"({launched})")
+        if "qsgd" in label and launched.get("qsgd_roundtrip", 0) != 3:
+            raise AssertionError(f"[train] (a) {label}: {launched}")
+        print(f"  (a) {label:16s} final CE {loss:.4f}  per round "
+              f"{[r[1] for r in rounds]}  {wall / 3:.3f} s/round incl. "
+              f"setup  {params[0] if params else ''}  launches {launched}",
+              flush=True)
+
+
+def _lm_row(name, ms, plain_ms, b, by, err, extra=""):
+    print(f"  (b) {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {b:.4f} ms ({by}){extra}  max|err| {err:.2e}", flush=True)
+
+
+def train_kernels(gen, leaves, d_total: int) -> None:
+    """Rows 1, 2 and 3–5 at (b)'s shapes against their plain versions,
+    timed beside their byte bounds: the mix of the clients' bf16 leaves,
+    G + Δ of a (m, D) f32 gradient matrix, one qsgd:8 crossing of it."""
+    m = TRAIN_B["m"]
+    w = rand_rows(gen, m, m)
+    thetas = [t.reshape(m, -1) for t in leaves]
+    got = ops.mixing_aggregate_leaves(w, thetas)
+    err = max(check_close("mixing_aggregate [train]", y,
+                          ref.mixing_aggregate_ref(w, t), TOL[t.dtype],
+                          TOL[t.dtype]) for y, t in zip(got, thetas))
+    del got
+    nbytes = sum(2 * t.numel() * t.element_size() for t in thetas)
+    b, by = bound_ms(nbytes + 4 * m * m, 2.0 * m * d_total * m,
+                     BF16_FLOP_PER_S)
+    lib = time_ms(lambda: [torch.matmul(w.to(t.dtype), t)
+                           for t in thetas], 5)
+    _lm_row(f"mixing_aggregate {len(thetas)} {str(thetas[0].dtype)[6:]} "
+            f"leaves k=m={m} ΣD={d_total}", time_ms(
+                lambda: ops.mixing_aggregate_leaves(w, thetas), 10),
+            time_ms(lambda: [ref.mixing_aggregate_ref(w, t) for t in thetas],
+                    5), b, by, err,
+            f"  library (per-leaf matmul) {lib:.4f} ms")
+    g = torch.randn((m, d_total), generator=gen, device="cuda")
+    delta = ops.pairwise_sqdist(g)
+    gram = ops.gram_matrix(g)
+    same("pairwise_sqdist [train]", delta, ref.sqdist_from_gram(gram))
+    # each f32 sum runs over 416 M terms in its own order, so the kernel
+    # and the plain version are held against a float64 G: the kernel's
+    # error at most twice the plain version's (or 1e-6 of max |G|)
+    g64 = g.double()
+    want = g64 @ g64.T
+    del g64
+    plain = ref.gram_ref(g)
+    for label, got, pl in (("G", gram, plain),
+                           ("Δ", delta, ref.sqdist_from_gram(plain))):
+        w64 = want if label == "G" else ref.sqdist_from_gram(want)
+        e_k = float((got.double() - w64).abs().max())
+        e_p = float((pl.double() - w64).abs().max())
+        if e_k > max(2 * e_p, 1e-6 * float(w64.abs().max())):
+            raise AssertionError(f"gram_matrix [train] {label}: kernel "
+                                 f"error {e_k:.3e} against float64, the "
+                                 f"plain version's {e_p:.3e}")
+        print(f"  (b) gram_matrix {label} against float64: kernel max|err| "
+              f"{e_k:.3e}, plain {e_p:.3e} (max |{label}| "
+              f"{float(w64.abs().max()):.3e})", flush=True)
+        if label == "G":
+            err = e_k
+    del plain
+    b, by = bound_ms(4.0 * (m * d_total + 2 * m * m),
+                     m * (m + 1.0) * d_total)
+    _lm_row(f"gram_matrix G + Δ m={m} D={d_total}",
+            time_ms(lambda: ops.pairwise_sqdist(g), 10),
+            time_ms(lambda: ref.sqdist_from_gram(ref.gram_ref(g)), 5), b,
+            by, err, "  library (g gᵀ) "
+            f"{time_ms(lambda: torch.matmul(g, g.T), 5):.4f} ms")
+    u = torch.rand((m, d_total), generator=gen, device="cuda")
+    rt = qsgd.qsgd_roundtrip_cuda(g, u, 8)
+    torch.cuda.synchronize()
+    if not torch.equal(rt, ref.qsgd_roundtrip_ref(g, u, 8)):
+        raise AssertionError("qsgd_roundtrip [train]: kernel not bitwise "
+                             "equal to its plain version")
+    del rt
+    b, by = bound_ms(3 * 4.0 * m * d_total, 0.0)
+    _lm_row(f"qsgd_roundtrip (rows 3–5) ({m}, {d_total}) bits=8",
+            time_ms(lambda: qsgd.qsgd_roundtrip_cuda(g, u, 8), 10),
+            time_ms(lambda: ref.qsgd_roundtrip_ref(g, u, 8), 3), b, by, 0.0,
+            "  (bitwise)")
+
+
+def train_published(card: str) -> dict:
+    """(b): stablelm-3b at its published widths, depth 2, through
+    `run_federated` on LM clients: ucfl_k2 fused and eventful (bitwise
+    equal), then qsgd:8 fused; setup s, s/round, peak MiB, launches, a
+    traced 5-round chunk's busy share.  Returns the launches of the
+    runs."""
+    from repro_torch.launch.steps import init_model_params
+    from repro_torch.launch.train import lm_federated_data, lm_fns
+    from repro_torch.models.scan import flat_params
+    tb = TRAIN_B
+    cfg = dataclasses.replace(get_config(tb["arch"]), n_layers=2)
+    m, rounds = tb["m"], tb["rounds"]
+    fed = lm_federated_data(tb["seed"], m, pool=tb["pool"], n_val=4,
+                            seq=tb["seq"], vocab=cfg.vocab_size,
+                            device="cuda")
+    loss_fn, acc_fn = lm_fns(cfg)
+
+    def init(gen):
+        return flat_params(init_model_params(
+            torch.Generator(device="cuda").manual_seed(tb["seed"]), cfg))
+
+    p0 = init(None)
+    n_params, n_leaves = sum(v.numel() for v in p0.values()), len(p0)
+    del p0
+    print(f"  (b) {cfg.name} published widths (d_model {cfg.d_model}, "
+          f"{cfg.attn.n_heads} heads of {cfg.attn.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {str(cfg.pdtype)[6:]}), "
+          f"depth {cfg.n_layers}: {n_params / 1e9:.3f} B params, "
+          f"{n_leaves} leaves; m={m} pool {tb['pool']} x {tb['seq']} "
+          f"tokens, batch {tb['batch']}", flush=True)
+    fl = FLConfig(rounds=rounds, local_steps=1, batch_size=tb["batch"],
+                  eval_every=1, momentum=0.9, opt_state_dtype="param")
+    kw = dict(model_init=init, loss_fn=loss_fn, acc_fn=acc_fn,
+              system=SYSTEMS["wireless_slow"])
+    mib = 2 ** 20
+    setup_only = dataclasses.replace(fl, rounds=0)
+    # the first run pays the context's and cuBLAS's start; the second is
+    # timed
+    run_federated("ucfl_k2", fed, fl=setup_only, device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_federated("ucfl_k2", fed, fl=setup_only, device="cuda", **kw)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    print(f"  (b) setup-only run (UCFL's gradients, Δ, W, streams): "
+          f"{setup:.3f} s, peak {torch.cuda.max_memory_allocated() / mib:.0f}"
+          f" MiB", flush=True)
+    def between(h):
+        # the eventful run's setup beside the fused run's graphs and
+        # optimizer state does not fit: only the params are compared
+        h.final_opt_state = None
+        _free_graphs()
+
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    runs = run_both("ucfl_k2", fed, fl, between=between, **kw)
+    peak = torch.cuda.max_memory_allocated() / mib
+    for engine, h, launched, wall in runs:
+        if launched["mixing_aggregate"] != rounds or \
+                launched["gram_matrix"] != 1:
+            raise AssertionError(f"[train] (b) {engine}: {launched}")
+        if not all(math.isfinite(a) for a in h.mean_acc):
+            raise AssertionError(f"[train] (b) {engine}: {h.mean_acc}")
+        print(f"  (b) ucfl_k2 {engine:8s} CE {[-a for a in h.mean_acc]}  "
+              f"{wall:.3f} s ({(wall - setup) / rounds:.4f} s/round less "
+              f"setup)  launches { {k: v for k, v in launched.items() if v} }",
+              flush=True)
+    print(f"  (b) peak device memory of the two runs {peak:.0f} MiB",
+          flush=True)
+    del runs, h
+    _free_graphs()
+    torch.cuda.reset_peak_memory_stats()
+    (engine, h, launched, wall), = run_both(
+        "ucfl_k2", fed, fl, engines=("fused",),
+        channel=Channel(codec="qsgd:8"), **kw)
+    if launched["qsgd_roundtrip"] != rounds:
+        raise AssertionError(f"[train] (b) qsgd:8: {launched}")
+    print(f"  (b) ucfl_k2 + qsgd:8 fused CE {[-a for a in h.mean_acc]}  "
+          f"{wall:.3f} s ({(wall - setup) / rounds:.4f} s/round less setup)"
+          f"  peak {torch.cuda.max_memory_allocated() / mib:.0f} MiB  "
+          f"launches { {k: v for k, v in launched.items() if v} }",
+          flush=True)
+    del h
+    _free_graphs()
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    # the graphs are captured inside the window (a warm second run's
+    # setup does not fit beside two LM rounds' graph pools): it holds the
+    # capture's warm-up round and eval beside the 5 replayed rounds
+    tr = chunk_trace("ucfl_k2", fed, dataclasses.replace(fl, eval_every=5),
+                     SYSTEMS["wireless_slow"], None, model_init=init,
+                     loss_fn=loss_fn, acc_fn=acc_fn)
+    if tr is None:
+        print("  (b) traced chunk: the trace holds no device events",
+              flush=True)
+    else:
+        wall_ms, busy_ms, parts, n_k, _ = tr
+        print(f"  (b) traced 5-round fused chunk, its capture included: "
+              f"wall {wall_ms:.1f} ms, "
+              f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} "
+              f"%), {n_k} kernels; local update {parts['local update']:.1f}"
+              f" ms, mix {parts['mix']:.2f} ms, eval {parts['eval']:.1f} ms",
+              flush=True)
+    _free_graphs()
+    # the rows at these shapes: the clients' stacked bf16 leaves (the
+    # initial params, m copies), a (m, ΣD) f32 matrix
+    p0 = init(None)
+    leaves = [p0[k][None].expand((m,) + tuple(p0[k].shape)).contiguous()
+              for k in sorted(p0)]
+    del p0
+    train_kernels(torch.Generator(device="cuda").manual_seed(28), leaves,
+                  n_params)
+    return launches
+
+
+TRAIN_B_MARK = "[train] (b) launches: "
+
+
+def train_published_isolated() -> dict:
+    """(b) in a process of its own (this script with
+    ``--train-published``), its lines passed through, started before this
+    process holds a CUDA context: its runs take ~50 GB of the card, and a
+    second context with the earlier phases' leftovers beside them leaves
+    too little (measured: out of memory by ~2 GB).  Returns the child's
+    launch counts."""
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-published"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    launches = None
+    for line in proc.stdout:
+        if line.startswith(TRAIN_B_MARK):
+            launches = json.loads(line[len(TRAIN_B_MARK):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or launches is None:
+        raise AssertionError(f"[train] (b) failed (exit {proc.returncode})")
+    return launches
+
+
+def _train_published_child() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = train_published(card_line())
+    print(TRAIN_B_MARK + json.dumps(launches), flush=True)
+    return 0
+
+
+def scenarios_path(card: str) -> None:
+    """(d): the three scenarios drawn on the card at their default sizes
+    (shapes, groups, the padding rule, the rotations, one permutation a
+    group), then ucfl_k4 for 5 fused rounds on cifar_concept_shift with
+    LeNet-5 at 32x32x3."""
+    from repro_torch.data import SCENARIOS, rotate_images
+    feds = {}
+    for name, fn in SCENARIOS.items():
+        t0 = time.perf_counter()
+        fed = fn(0, device="cuda")
+        torch.cuda.synchronize()
+        m, n_max = fed.y.shape
+        hw = (32, 32, 3) if name.startswith("cifar") else (28, 28, 1)
+        if tuple(fed.x.shape) != (m, n_max) + hw or \
+                fed.x_val.shape[:2] != fed.y_val.shape:
+            raise AssertionError(f"{name}: shapes {tuple(fed.x.shape)}")
+        for i in range(m):          # padded slots repeat the valid samples
+            ni = int(fed.n[i])
+            reps = -(-n_max // ni)
+            if not torch.equal(fed.y[i], fed.y[i, :ni].repeat(reps)[:n_max]):
+                raise AssertionError(f"{name}: client {i} padding")
+        groups = sorted(set(fed.group.tolist()))
+        feds[name] = fed
+        print(f"  (d) {name}: x {tuple(fed.x.shape)}, x_val "
+              f"{tuple(fed.x_val.shape)}, groups {groups}, n "
+              f"{int(fed.n.min())}..{int(fed.n.max())}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cov, base = feds["emnist_covariate_shift"], SCENARIOS[
+        "emnist_label_shift"](0, n=20000, m=40, seed=1, device="cuda")
+    for i in range(cov.m):
+        if not torch.equal(cov.x[i], rotate_images(base.x[i], i % 4)):
+            raise AssertionError(f"covariate shift: client {i} not its "
+                                 "label-shift images turned")
+    # images that name their own index: one label permutation a group
+    n = 10000
+    idx = torch.arange(n, dtype=torch.float32, device="cuda")
+    y = torch.randint(0, 10, (n,), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    con = SCENARIOS["cifar_concept_shift"](data={
+        "x": idx[:, None, None, None].expand(n, 2, 2, 3), "y": y},
+        device="cuda")
+    perms = {}
+    for i in range(con.m):
+        src = y[con.x[i, :, 0, 0, 0].long()].tolist()
+        g = int(con.group[i])
+        for a, b in zip(src, con.y[i].tolist()):
+            if perms.setdefault((g, a), b) != b:
+                raise AssertionError("concept shift: a label maps two ways "
+                                     "within a group")
+    maps = {g: tuple(perms.get((g, c)) for c in range(10)) for g in range(4)}
+    if len(set(maps.values())) != 4 or any(
+            sorted(p) != list(range(10)) for p in maps.values()):
+        raise AssertionError(f"concept shift permutations {maps}")
+    print("  (d) covariate shift: every client its label-shift images "
+          "turned by group; concept shift: one permutation a group, four "
+          "distinct", flush=True)
+    fed = feds["cifar_concept_shift"]
+    fl = FLConfig(rounds=5, local_steps=MAIN["local_steps"],
+                  batch_size=MAIN["batch_size"], eval_every=5)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    h = run_federated("ucfl_k4", fed, fl=fl, system=SYSTEMS["wireless_slow"],
+                      device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]}
+    if launched.get("mixing_aggregate") != 5 or \
+            launched.get("gram_matrix") != 1:
+        raise AssertionError(f"concept shift ucfl_k4: {launched}")
+    if not all(math.isfinite(a) for a in h.mean_acc):
+        raise AssertionError(f"concept shift ucfl_k4: {h.mean_acc}")
+    print(f"  (d) ucfl_k4 on cifar_concept_shift (LeNet-5 32x32x3, m="
+          f"{fed.m}), 5 fused rounds: mean_acc {h.mean_acc}, "
+          f"{wall / 5:.4f} s/round incl. setup, launches {launched}",
+          flush=True)
+
+
+def train_path(card: str, b_launches: dict) -> dict:
+    """Phase 12 but (b), which ran first (``b_launches`` its runs'
+    launches); returns the launches of the phase's runs (the kernel
+    checks at (b)'s shapes excluded)."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _free_graphs()
+    train_cli_runs(card)
+    print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    scenarios_path(card)
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
+    print(f"  (d) {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in b_launches.items():
+        launches[name] += n
+    print(f"  (b) ran first, in a process of its own (above, after "
+          f"[build]): launches {b_launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3359,6 +3834,14 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"    {ln.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # [train] (b) needs ~50 GB of the card: a child process runs it now,
+    # before this process creates its own CUDA context
+    print(f"[train] (b) stablelm-3b at its published widths, depth 2, in a "
+          f"process of its own ({card})", flush=True)
+    t0 = time.perf_counter()
+    b_launches = train_published_isolated()
+    print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[kernels] kernel vs plain version on the card "
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
@@ -3383,6 +3866,7 @@ def main() -> int:
         uplink_agreement()
         channel_agreement()
         lm_agreement()
+        train_agreement()
     finally:
         torch.set_num_threads(threads)
 
@@ -3476,6 +3960,14 @@ def main() -> int:
     # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
     # one configuration each: their rows count that configuration's run
     by_arch = lm_c_path(card)
+    print(f"[train] federated LM training through launch/train.py, the "
+          f"scenario generators ({card})", flush=True)
+    t0 = time.perf_counter()
+    train_launches = train_path(card, b_launches)
+    print(f"  [train] launches {train_launches}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in train_launches.items():
+        launches[name] += n
     for r in rows:
         counts = by_arch[r["phase"]] if "phase" in r else launches
         r["launches"] = sum(counts[c] for c in
@@ -3505,4 +3997,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--train-published"]:
+        sys.exit(_train_published_child())
     sys.exit(main())

@@ -236,22 +236,25 @@ class Placement(abc.ABC):
 
     def build_round(self, round_fn: Callable, *, length: int,
                     eval_fn: Callable, inputs: Tuple,
-                    cache: Dict) -> Callable:
+                    cache: Dict, donate: bool = False) -> Callable:
         """``length`` consecutive rounds of ``round_fn(carry, data, consts,
         draw) -> (carry', outs)`` and ``eval_fn(carry'[0], eval_data)``,
         as ``fn(carry, data, consts, draws, eval_data) -> (carry', scores,
         outs)``, the rounds' ``outs`` stacked (`graphs.stack_rows`).
         On the card a `CapturedChunk` (its carry, data and consts buffers
         shared, through ``cache``, with the other chunk lengths of these
-        shapes); on the CPU the same rounds run eagerly."""
+        shapes); on the CPU the same rounds run eagerly.  ``donate``: the
+        caller reads this call's carry and draws no more (see
+        `run_supersteps`)."""
         carry, data, consts, draws, eval_data = inputs
         if leaves(draws)[0].device.type == "cuda":
             key = ("statics", tree_spec((carry, data, consts, eval_data)))
             statics = cache.get(key)
             if statics is None:
                 statics = cache[key] = StaticInputs(carry, data, consts,
-                                                    eval_data)
-            return CapturedChunk(round_fn, eval_fn, length, statics, inputs)
+                                                    eval_data, donate)
+            return CapturedChunk(round_fn, eval_fn, length, statics, inputs,
+                                 donate)
 
         def chunk(carry, data, consts, draws, eval_data):
             rows = []
@@ -266,20 +269,23 @@ class Placement(abc.ABC):
     def run_supersteps(self, round_fn: Callable, carry: Any, data: Any,
                        consts: Any, length: int, *, cache: Dict,
                        eval_fn: Callable, eval_data: Any,
-                       draws: Any) -> Tuple[Any, torch.Tensor, Tuple]:
+                       draws: Any, donate: bool = False
+                       ) -> Tuple[Any, torch.Tensor, Tuple]:
         """Run ``length`` fused rounds and the chunk-end eval, building
         (and caching in ``cache``, by length and input shapes) the chunk
         on first use.  ``draws`` holds the chunk's per-round draws stacked
         (length, ...).  Returns ``(carry', scores, outs)``; on the card
         all are the chunk's static buffers, overwritten by its next
-        replay."""
+        replay.  ``donate=True`` says the caller reads ``carry`` and
+        ``draws`` no more: a chunk built on this call may take them as
+        its static buffers instead of copying them."""
         inputs = (carry, data, consts, draws, eval_data)
         key = (length, tree_spec(inputs))
         fn = cache.get(key)
         if fn is None:
             fn = cache[key] = self.build_round(
                 round_fn, length=length, eval_fn=eval_fn, inputs=inputs,
-                cache=cache)
+                cache=cache, donate=donate)
         return fn(*inputs)
 
     def cache_key(self) -> Tuple:

@@ -27,8 +27,12 @@ boundaries.
 * Before the capture, one round and the eval run on a side stream (the
   warm-up of PyTorch's CUDA-graph notes): the kernels are built, their
   attributes set and cuBLAS's workspaces made there, never under
+  capture, and its freed memory goes back to the card before the
   capture.  Its launches are not counted; the capture's counts are set
   aside and each replay adds them (`kernels.ops.launches_set_aside`).
+* A run that reads its carry and draws no more donates them
+  (``donate``): the first capture takes them as its static buffers
+  instead of copying them.
 * A host sync inside the round (``.item()``, a host copy, a CPU tensor
   fed to the card) makes the capture raise.  Nothing falls back to an
   eager run.
@@ -105,15 +109,29 @@ def stack_rows(outs: List[Tuple]) -> Tuple:
                  for rows in zip(*outs))
 
 
+def adoptable(tree: Any) -> bool:
+    """Whether a donated tree's tensors can serve as static buffers
+    themselves: each contiguous, no two sharing storage."""
+    ts = leaves(tree)
+    ptrs = {t.untyped_storage().data_ptr() for t in ts}
+    return len(ptrs) == len(ts) and all(t.is_contiguous() for t in ts)
+
+
 class StaticInputs:
     """The static buffers of a chunk's carry, data, consts and eval data:
     fresh tensors of the example's shapes, shared by every captured chunk
-    whose inputs have them."""
+    whose inputs have them.  A donated carry (the caller reads it no
+    more) becomes the carry's buffers itself where `adoptable`, as the
+    reference's jitted superstep donates its carry: at LM widths a second
+    copy of the clients' params, optimizer state and residuals does not
+    fit beside the round."""
 
-    def __init__(self, carry: Any, data: Any, consts: Any, eval_data: Any):
+    def __init__(self, carry: Any, data: Any, consts: Any, eval_data: Any,
+                 donated: bool = False):
         empty = lambda t: torch.empty_like(
             t, memory_format=torch.contiguous_format)
-        self.carry = tree_map(empty, carry)
+        self.carry = (carry if donated and adoptable(carry)
+                      else tree_map(empty, carry))
         self.data = tree_map(empty, data)
         self.consts = tree_map(empty, consts)
         self.eval_data = tree_map(empty, eval_data)
@@ -134,17 +152,21 @@ class CapturedChunk:
     scores``, captured as one CUDA graph on first use; see the module
     docstring.
     ``capture_s`` is the wall time of the warm-up and the capture,
-    ``launches`` the kernel counts one replay adds."""
+    ``launches`` the kernel counts one replay adds.  ``donate``: the
+    caller reads the first call's draws no more, and they become the
+    draws' static buffers where `adoptable`."""
 
     def __init__(self, round_fn: Callable, eval_fn: Callable, length: int,
-                 statics: StaticInputs, inputs: Tuple):
+                 statics: StaticInputs, inputs: Tuple,
+                 donate: bool = False):
         carry, data, consts, draws, eval_data = inputs
         # the graph reads tensors the functions hold (a bound codec's
         # constants): they live as long as it does
         self.round_fn, self.eval_fn = round_fn, eval_fn
         self.statics = statics
         self.length = int(length)
-        self.draws = tree_map(torch.empty_like, draws)
+        self.draws = (draws if donate and adoptable(draws)
+                      else tree_map(torch.empty_like, draws))
         statics.load(carry, data, consts, eval_data)
         copy_into(self.draws, draws)
         st = statics
@@ -157,6 +179,10 @@ class CapturedChunk:
             eval_fn(warm[0], st.eval_data)
             del warm
         torch.cuda.current_stream().wait_stream(side)
+        # the warm-up's freed blocks go back to the card: the capture
+        # allocates from its own pool, which cannot reuse them
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         self.graph = torch.cuda.CUDAGraph()
         with ops.launches_set_aside() as self.launches:
             with torch.cuda.graph(self.graph):

@@ -26,9 +26,10 @@ this process (`dist.HashStore`, no network): NCCL on ``cuda``, gloo on
 ``cpu``.  A running group is used as it is, and its backend must fit the
 device (``ValueError`` otherwise; nothing switches backend).  With no
 explicit group the client axis is the reference's auto rule: the
-largest divisor d of m that is ≤ the world size, rebuilt when m
-changes; ranks ≥ d hold no clients and receive rank 0's `History`
-(`share`).
+largest divisor d of m that is ≤ the world size, rebound when m
+changes (the groups of every size are built once, when the placement
+first sees the world); ranks ≥ d hold no clients and receive rank 0's
+`History` (`share`), or, at a paged async event, the event's rows.
 
 The channel codecs run their ``"jnp"`` backend here (`codec_backend`),
 as the reference's do: QSGD bitwise the kernels' path, top-k with the
@@ -54,6 +55,27 @@ from repro_torch.fl.placement.graphs import tree_map
 from repro_torch.fl.placement.host import cached_update, reduce_scores
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# the auto rule's groups of each running world: {world group: {d: the
+# group of ranks 0..d-1 (None for the world itself)}}
+_AUTO_GROUPS: Dict[Any, Dict[int, Any]] = {}
+
+
+def _auto_groups() -> Dict[int, Any]:
+    """The groups of ranks 0..d-1 for every d up to the world size, built
+    once per world by every rank in the same order, the first time a
+    placement sees it.  `dist.new_group` is a call of every rank of the
+    world, so building them all up front lets a rank that holds no
+    clients at one event (a paged async cohort) skip that event's work
+    instead of joining a group's construction."""
+    world_group = dist.group.WORLD
+    groups = _AUTO_GROUPS.get(world_group)
+    if groups is None:
+        world = dist.get_world_size()
+        groups = {d: (None if d == world else
+                      dist.new_group(ranks=list(range(d))))
+                  for d in range(1, world + 1)}
+        _AUTO_GROUPS[world_group] = groups
+    return groups
 
 
 class MeshShardMap(Placement):
@@ -80,7 +102,6 @@ class MeshShardMap(Placement):
                 f"device={str(self.device)!r} (needs {backend!r})")
         self._auto = group is None
         self.group = group
-        self._groups: Dict[int, Any] = {}
         self._m: Optional[int] = None
         self._rank = self._size = self._ranks = None
 
@@ -95,10 +116,7 @@ class MeshShardMap(Placement):
         if self._auto:
             world = dist.get_world_size()
             d = max(k for k in range(1, min(world, m) + 1) if m % k == 0)
-            if d not in self._groups:
-                self._groups[d] = (None if d == world else
-                                   dist.new_group(ranks=list(range(d))))
-            self.group, ranks = self._groups[d], list(range(d))
+            self.group, ranks = _auto_groups()[d], list(range(d))
         else:
             ranks = dist.get_process_group_ranks(self.group)
         size = len(ranks)

@@ -55,9 +55,13 @@ and the chunk's rows come back all-gathered before the copy to the host,
 so every rank keeps the whole store.  A cohort's data page lands whole
 on every rank (its strategy setup reads every client, as the resident
 engine's does), and `Placement.place_data` takes the rank's rows.  The
-paged async engine's cohorts vary in size from event to event, so there
-every cohort must shard over every rank (`Placement.spans`); a cohort
-that does not is refused on every rank alike.
+paged async engine's cohorts vary in size from event to event: an
+event's cohort of k runs on the mesh's auto group for k (the largest
+divisor of k up to the world size), and where that group is not the
+whole world (`Placement.spans`), the ranks beyond it run the event's
+setup and take its draws, skip its work and receive its rows, strategy
+state and scores from rank 0 (`Placement.share`), as the reference's
+single controller reshards.
 """
 from __future__ import annotations
 
@@ -573,16 +577,90 @@ def run_paged(algorithm: Union[str, Strategy, None] = None,
 # the paged buffered-async engine
 
 
-def _check_spans(placement: Placement, k: int) -> None:
-    """Refuse, on every process alike, a cohort of ``k`` that does not
-    shard over every process: an event's cohort varies in size, and a
-    process left without rows could neither go on nor return."""
-    if not placement.spans(k):
-        raise ValueError(
-            f"a cohort of {k} clients does not cover every process of "
-            f"{placement!r}: the paged async engine needs every event's "
-            "cohort sharded over all of them (on the mesh: buffer_k and "
-            "each event's cohort divisible by the world size)")
+def _share_event(placement: Placement, result: Any,
+                 dev: torch.device) -> Any:
+    """An event's result on every process: the processes that held the
+    cohort computed it alike, the others receive rank 0's
+    (`Placement.share`), its tensors crossing on the host."""
+    def move(tree, to):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(to)
+        if isinstance(tree, dict):
+            return {k: move(v, to) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            kids = [move(v, to) for v in tree]
+            return (type(tree)(*kids) if hasattr(tree, "_fields")
+                    else type(tree)(kids))
+        return tree
+
+    cpu = torch.device("cpu")
+    return move(placement.share(move(result, cpu)), dev)
+
+
+def _async_paged_event(placement: Placement, update_fn: Callable,
+                       strategy: Strategy, store: ClientStateStore,
+                       idx: np.ndarray, placed: Any,
+                       batch_idx: torch.Tensor, fresh: np.ndarray,
+                       age: np.ndarray, plan: Any, fd: Any,
+                       channel: Optional[Channel], lossy: bool, draws: Any,
+                       event: int, defense: Any, quorum_ok: bool,
+                       ctx: RoundContext, state: Any, sub: FederatedData,
+                       acc_fn: Optional[Callable], dev: torch.device):
+    """One paged async event on a process that holds the cohort's rows:
+    stage, update, inject, uplink, defend, aggregate.  Returns ``(rows
+    to scatter (every cohort row), strategy state, quarantine row or
+    None, (mean, worst) scores or None)``, the scores only with
+    ``acc_fn`` (an eval event)."""
+    k = idx.size
+    x_c, y_c, n_c = placed
+    rows = placement.stage(store.gather(idx), k, dev).wait()
+    stacked, opt_state, ef = rows["params"], rows["opt"], rows.get("ef")
+    cut = placement.rows
+    prev, prev_opt = stacked, opt_state
+    upd, upd_opt = update_fn(stacked, opt_state, x_c, y_c, n_c,
+                             cut(batch_idx))
+    if fresh.all():
+        mask = None
+        stacked, opt_state = upd, upd_opt
+    else:
+        # stale-dropped rows keep their server-known models (they still
+        # re-download the mix, as in the resident engine)
+        mask = torch.from_numpy(fresh).to(dev)
+        stacked = placement.select(cut(mask), upd, prev)
+        opt_state = placement.select(cut(mask), upd_opt, prev_opt)
+    if fd is not None:
+        # fault injection on the cohort stack; the adversary row is the
+        # plan's, gathered at the cohort indices
+        stacked = inject_values(
+            plan, cut(torch.from_numpy(plan.byz_row(idx)).to(dev)),
+            stacked, prev, cut(fd), rows=cut(mask))
+    if lossy:
+        stacked, ef = channel_uplink(placement, channel, stacked, prev, ef,
+                                     draws, event, cut(mask), k)
+    q = None
+    if defense is not None:
+        stacked, q = screen_and_defend(defense, stacked, prev, placement)
+    if quorum_ok:
+        ctx.rnd, ctx.participation = event, mask
+        ctx.staleness = (torch.from_numpy(age.astype(np.float32)).to(dev)
+                         if age.any() else None)
+        ctx.quarantine = q
+        stacked, state = strategy.aggregate(state, stacked, prev, ctx)
+        ctx.quarantine = None
+    else:
+        # below quorum: the event is undone; the cohort's rows stay at
+        # their pre-event state and the uploads are wasted
+        stacked, opt_state = prev, prev_opt
+    out = {"params": stacked, "opt": opt_state}
+    if lossy:
+        out["ef"] = ef
+    scores = None
+    if acc_fn is not None:
+        # cohort-local eval (the resident engine's full-population eval
+        # in the lockstep anchor)
+        scores = placement.evaluate(acc_fn, stacked, sub)
+    return (placement.gather(out), state,
+            None if q is None else q.cpu().numpy(), scores)
 
 
 def run_async_paged(algorithm: Union[str, Strategy, None] = None,
@@ -663,6 +741,8 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
                                     n, directory=paging.store_dir)
 
     def build_setup(idx: np.ndarray):
+        # every process runs the setup (it is local, and it takes the
+        # k-means draw); only a process holding the cohort places data
         sub = _stage_data(placement, fed, idx, dev)
         ctx = RoundContext(fed=sub, fl=fl, loss_fn=loss_fn, acc_fn=acc_fn,
                            params0=params0, seed=seed, draws=draws,
@@ -670,7 +750,10 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
         ctx.staleness_discount = cfg.staleness_discount
         ctx.staleness_schedule = cfg.staleness_schedule
         ctx.staleness_alpha = cfg.staleness_alpha
-        return [strategy.setup(ctx), ctx, sub, placement.place_data(sub)]
+        st = strategy.setup(ctx)
+        placed = (placement.place_data(sub)
+                  if placement.holds_clients(idx.size) else None)
+        return [st, ctx, sub, placed]
 
     setups = _CohortSetups(build_setup)
 
@@ -703,62 +786,34 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
             break
         idx = np.sort(np.asarray(buffered, dtype=np.int64))
         k = idx.size
-        _check_spans(placement, k)
+        holds = placement.holds_clients(k)
         entry = setups.get(idx)
-        state, ctx, sub, (x_c, y_c, n_c) = entry
+        state, ctx, sub, placed = entry
         age = (event - version[idx]).astype(np.int64)
         fresh = age <= tau
-
-        rows = placement.stage(store.gather(idx), k, dev).wait()
-        stacked, opt_state, ef = rows["params"], rows["opt"], rows.get("ef")
-        cut = placement.rows
-
-        # drawn for the cohort's k rows, cut to the placement's
-        batch_idx = update_fn.draw(draws, event, x_c, sub.n)
-        prev, prev_opt = stacked, opt_state
-        upd, upd_opt = update_fn(stacked, opt_state, x_c, y_c, n_c,
-                                 cut(batch_idx))
-        if fresh.all():
-            mask = None
-            stacked, opt_state = upd, upd_opt
-        else:
-            # stale-dropped rows keep their server-known models (they
-            # still re-download the mix below, as in the resident engine)
-            mask = torch.from_numpy(fresh).to(dev)
-            stacked = placement.select(cut(mask), upd, prev)
-            opt_state = placement.select(cut(mask), upd_opt, prev_opt)
-
-        if plan is not None and plan.value_faults:
-            # fault injection on the cohort stack; the adversary row is
-            # the plan's, gathered at the cohort indices
-            fd = round_fault_draws(draws, event, k, d, plan.cfg, dev)
-            stacked = inject_values(
-                plan, cut(torch.from_numpy(plan.byz_row(idx)).to(dev)),
-                stacked, prev, cut(fd), rows=cut(mask))
-
-        if lossy:
-            stacked, ef = channel_uplink(placement, channel, stacked, prev,
-                                         ef, draws, event, cut(mask), k)
-
-        q = None
-        if defense is not None:
-            stacked, q = screen_and_defend(defense, stacked, prev,
-                                           placement)
-
         n_fresh = int(fresh.sum())
         quorum_ok = min_quorum is None or n_fresh >= min_quorum
-        if quorum_ok:
-            ctx.rnd, ctx.participation = event, mask
-            ctx.staleness = (torch.from_numpy(age.astype(np.float32)).to(dev)
-                             if age.any() else None)
-            ctx.quarantine = q
-            stacked, state = strategy.aggregate(state, stacked, prev, ctx)
-            ctx.quarantine = None
-            entry[0] = state
-        else:
-            # below quorum: the event is undone; the cohort's rows stay
-            # at their pre-event state and the uploads are wasted
-            stacked, opt_state = prev, prev_opt
+        is_eval = event % fl.eval_every == 0 or event == fl.rounds - 1
+        # drawn for the cohort's k rows, on every process alike
+        batch_idx = update_fn.draw(draws, event, sub.x, sub.n)
+        fd = None
+        if plan is not None and plan.value_faults:
+            fd = round_fault_draws(draws, event, k, d, plan.cfg, dev)
+        result = None
+        if holds:
+            result = _async_paged_event(
+                placement, update_fn, strategy, store, idx, placed,
+                batch_idx, fresh, age, plan, fd, channel, lossy, draws,
+                event, defense, quorum_ok, ctx, state, sub,
+                acc_fn if is_eval else None, dev)
+        elif lossy and channel.codec.needs_noise:
+            # a process without rows takes the uplink's draw all the same
+            draws.codec_noise(event, (k, d))
+        if not placement.spans(k):
+            # the processes beyond the cohort's group receive its result
+            result = _share_event(placement, result, dev)
+        out, state, qrow, scores = result
+        entry[0] = state
 
         # every cohort row is a buffered client: all of them download the
         # new mix and restart.  The cohort-local strategy already reports
@@ -798,23 +853,15 @@ def run_async_paged(algorithm: Union[str, Strategy, None] = None,
             if quorum_ok:
                 version[c] = event + 1
         if fmeter is not None:
-            qrow = None if q is None else q.cpu().numpy()
             qbits = 0
             if channel is not None and qrow is not None and quorum_ok:
                 qbits = int(np.sum(qrow <= 0)) * payload
             fmeter.charge(None, qrow, quorum_ok,
                           ul_total if channel is not None else 0, qbits)
 
-        out = {"params": stacked, "opt": opt_state}
-        if lossy:
-            out["ef"] = ef
-        store.scatter(idx, placement.gather(out))
-
-        if event % fl.eval_every == 0 or event == fl.rounds - 1:
-            # cohort-local eval (the resident engine's full-population
-            # eval in the lockstep anchor)
-            mean_acc, worst_acc = placement.evaluate(acc_fn, stacked, sub)
-            record_eval(history, event, mean_acc, worst_acc, t_done)
+        store.scatter(idx, out)
+        if is_eval:
+            record_eval(history, event, *scores, t_done)
 
     if state is None:
         raise ValueError("fl.rounds must be >= 1 for the async runtime")

@@ -617,10 +617,12 @@ def _run_superstep(strategy: Strategy, fed: FederatedData, *,
                          device=x.device,
                          fault_cfg=None if plan is None else plan.cfg,
                          fault_d=d)
+        # the run reads neither its carry nor the chunk's draws again: a
+        # chunk built here takes them as its static buffers
         carry, accs, (crashes, qs) = placement.run_supersteps(
             round_fn, carry, data, consts, length, cache=cache,
             eval_fn=eval_fn, eval_data=(fed.x_val, fed.y_val),
-            draws=(cd.slots, cd.mask, cd.noise, cd.faults))
+            draws=(cd.slots, cd.mask, cd.noise, cd.faults), donate=True)
         # the chunk's one copy to the host: the scores' mean and min, and
         # the rounds' crash and quarantine rows
         parts = [score_stats(accs)] + [r.reshape(-1).to(torch.float32)

@@ -12,14 +12,15 @@ the decode rate and a sample, as the reference does.  `generate` also
 takes injected params and tokens, so a test can hand it the reference's.
 Caches are in the compute dtype.
 
-``--federated`` refuses: the reference's ``--federated`` trains and
-serves an LM population (`launch/train.py`'s ``_lm_fns`` and
-``lm_federated_data``), which is LM training, ROADMAP.md Queue 1 item
-16b.  Its other flags, ``--placement mesh`` among them, come with item
-16b.  The personalised serving plane itself is ported
-(`repro_torch.fl.serve`: `DeltaStore`, `ServeEngine`, on `HostVmap` or
-`MeshShardMap`) and serves LeNet populations from
-`run_federated(keep_state=True)`.
+``--federated`` refuses: the reference's ``--federated`` trains an LM
+population and serves it, each user decoding with its own model under
+``vmap``.  The training half is ported (`repro_torch.launch.train`:
+``lm_federated_data``, ``lm_fns``, `run_federated` over the flat-key
+view), and so is the personalised serving plane (`repro_torch.fl.serve`:
+`DeltaStore`, `ServeEngine`, on `HostVmap` or `MeshShardMap`, serving
+LeNet populations); the per-user LM decode is not, because the flash
+kernels' ctypes calls do not run under `torch.func.vmap` (ROADMAP.md
+Queue 1 item 16b, with the flag's other options).
 """
 from __future__ import annotations
 
@@ -104,13 +105,14 @@ def smoke_main(args) -> torch.Tensor:
 def federated_main():
     """The reference's train-then-serve LM population: not ported."""
     raise NotImplementedError(
-        "--federated trains and serves a federated LM population (the "
-        "reference's launch/train.py _lm_fns, lm_federated_data): LM "
-        "training is not ported yet, ROADMAP.md Queue 1 item 16b, with "
-        "its other flags (--placement mesh among them).  The serving "
-        "plane itself is repro_torch.fl.serve (DeltaStore, ServeEngine, "
-        "placement=HostVmap or MeshShardMap) over "
-        "run_federated(keep_state=True).")
+        "--federated trains and serves a federated LM population: its "
+        "training is ported (python -m repro_torch.launch.train, "
+        "lm_federated_data, lm_fns), but its per-user decode under vmap "
+        "is not, since the flash kernels' ctypes calls do not run under "
+        "torch.func.vmap: ROADMAP.md Queue 1 item 16b, with the flag's "
+        "other options.  The serving plane itself is repro_torch.fl.serve "
+        "(DeltaStore, ServeEngine, placement=HostVmap or MeshShardMap) "
+        "over run_federated(keep_state=True).")
 
 
 def main(argv=None):
@@ -123,8 +125,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--federated", action="store_true",
-                   help="the reference's federated LM serving: not ported "
-                        "yet (ROADMAP.md Queue 1 item 16b)")
+                   help="the reference's federated LM serving: its "
+                        "training is launch.train; the per-user decode is "
+                        "not ported yet (ROADMAP.md Queue 1 item 16b)")
     args = p.parse_args(argv)
     if args.federated:
         return federated_main()

@@ -9,10 +9,10 @@ Sequences advance in lockstep, so a call takes the host-side position of
 its first token, ``start``, instead of a (B, S) position array: the
 reference's positions are ``start + arange(S)`` for every row.  Knowing it
 on the host picks the keys without a device sync, and every attention
-product goes through `kernels.ops.flash_attention`, whose contract is that
-k holds contiguous positions 0..Sk−1 and q the last Sq of them:
+product with a cache goes through `kernels.ops.flash_attention`, whose
+contract is that k holds contiguous positions 0..Sk−1 and q the last Sq
+of them:
 
-- no cache: the in-flight keys;
 - S > C (a prefill longer than a sliding-window ring): the in-flight
   keys, as the reference does (`attention.py:257-264`); the ring keeps
   the tail;
@@ -26,21 +26,32 @@ k holds contiguous positions 0..Sk−1 and q the last Sq of them:
   own order) is exact with no copy.  A ring longer than its window is
   rolled into chronological order first.
 
+With no cache (training, and the full-sequence forward) attention is the
+reference's own jnp path instead, `_sdpa_chunked` (causal, window,
+softcap, GQA; q in chunks of ``Q_CHUNK``), written here in plain
+differentiable torch ops that `torch.func.vmap` and `grad` take: the
+reference trains through it, not through its flash kernel, and neither
+flash kernel has a backward.
+
 MLA, cross-attention, prefix-LM masks and sequence-parallel decode are
 not ported here; they raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_apply, dense_init
+from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
+                                       softcap)
 
 LATER = "not ported yet: ROADMAP.md Queue 1 item 16b (LM path: the rest)"
+NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
@@ -94,6 +105,74 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the no-cache path: masks and plain attention
+
+
+def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+              kind: str = "causal", window: Optional[int] = None,
+              prefix_len: int = 0) -> torch.Tensor:
+    """(..., Sq, Sk) f32 additive bias from absolute positions: 0 where a
+    query may see a key, ``NEG_INF`` elsewhere.  kind: causal | full;
+    ``window`` keeps k > q − window; ``prefix_len`` makes the first
+    positions bidirectional; k_pos == −1 marks an empty slot."""
+    q = q_pos[..., :, None].to(torch.int32)
+    k = k_pos[..., None, :].to(torch.int32)
+    valid = k >= 0
+    if kind == "causal":
+        ok = k <= q
+        if prefix_len:
+            ok = ok | (k < prefix_len)
+        valid = valid & ok
+    if window is not None:
+        valid = valid & (k > q - window)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_INF))
+
+
+def _sdpa(q, k, v, bias, cap, cdtype, *, scale=None):
+    """q (B, Sq, H, hd), k and v (B, Sk, Kh, hd') with H % Kh == 0, bias
+    (B, Sq, Sk).  Logits in f32 (the reference's
+    ``preferred_element_type``), the probabilities in ``cdtype``."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    scale = (1.0 / math.sqrt(hd)) if scale is None else scale
+    qg = q.reshape(b, sq, kh, h // kh, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    logits = logits + bias[:, None, None, :, :]
+    probs = torch.softmax(logits, dim=-1).to(cdtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(cdtype))
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+# q-chunked attention: live logits O(chunk · Sk) instead of O(Sq · Sk)
+Q_CHUNK = 1024
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, kind: str, window, prefix_len,
+                  cap, cdtype, scale=None, chunk: int = Q_CHUNK):
+    """`_sdpa` with the masks built per q-chunk from positions.  q (B, Sq,
+    H, hd); k, v (B, Sk, Kh, hd'); q_pos (B, Sq); k_pos (B, Sk).  The last
+    chunk is padded at position 0 and cropped, as in the reference."""
+    b, sq = q.shape[:2]
+    if sq <= chunk:
+        bias = mask_bias(q_pos, k_pos, kind=kind, window=window,
+                         prefix_len=prefix_len)
+        return _sdpa(q, k, v, bias, cap, cdtype, scale=scale)
+    pad = (-sq) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad))
+    outs = []
+    for c in range(q.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        bias = mask_bias(q_pos[:, sl], k_pos, kind=kind, window=window,
+                         prefix_len=prefix_len)
+        outs.append(_sdpa(q[:, sl], k, v, bias, cap, cdtype, scale=scale))
+    return torch.cat(outs, dim=1)[:, :sq]
 
 
 def _cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -152,7 +231,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
               prefix_len: int = 0,
               kv_input: Optional[torch.Tensor] = None):
     """Causal self-attention of x (B, S, d) at positions start..start+S−1.
-    Returns (out (B, S, d), cache) with the cache updated in place."""
+    Returns (out (B, S, d), cache) with the cache updated in place; with
+    no cache, the plain `_sdpa_chunked` path (module docstring)."""
     a, cd = cfg.attn, cfg.cdtype
     _dense_only(cfg)
     if kv_input is not None:
@@ -170,9 +250,15 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
         positions = torch.arange(start, start + s, device=x.device)
         q = apply_rope(q, positions, a.rope_theta, a.rope_fraction)
         k = apply_rope(k, positions, a.rope_theta, a.rope_fraction)
-    if cache is not None:
-        _cache_update(cache, k, v, start)
-        k, v = _keys(cache, k, v, start, window)
+    if cache is None:
+        pos = torch.arange(start, start + s, device=x.device).expand(b, s)
+        out = _sdpa_chunked(q, k, v, pos, pos, kind="causal", window=window,
+                            prefix_len=0, cap=a.attn_logit_softcap,
+                            cdtype=cd)
+        out = out.reshape(b, s, out.shape[2] * out.shape[3])
+        return dense_apply(params["wo"], out, cd), None
+    _cache_update(cache, k, v, start)
+    k, v = _keys(cache, k, v, start, window)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2).to(cd),
                               v.transpose(1, 2).to(cd),
                               causal=True, window=window,

@@ -6,6 +6,7 @@ loop form (the reference's `models/scan.py` is numerically the loop's;
 
     params          = init_params(gen, cfg, device=...)
     logits, aux     = forward(params, cfg, batch)
+    loss, metrics   = loss_fn(params, cfg, batch)
     caches          = make_caches(cfg, batch, cache_len, dtype, device=...)
     logits, caches  = prefill(params, cfg, batch, caches)
     logits, caches  = decode_step(params, cfg, token, caches, pos)
@@ -14,12 +15,20 @@ Params are the reference's dict: ``embed`` (V, d), ``layers`` (a list of
 ``norm1``/``attn``/``norm2``/``mlp`` dicts), ``final_norm`` and, untied,
 ``lm_head`` (d, V).  MoE, SSM, hybrid, vlm and audio raise, as does the
 reference's ``long_context`` serving mode (ROADMAP.md Queue 1 item 16b).
+
+The training path (`forward_hidden`, `chunked_ce`, `loss_fn`) runs no
+cache, so its attention is the plain `attention._sdpa_chunked` and every
+op is differentiable under `torch.func.vmap(grad(...))`; its f32 vocab
+products upcast their inputs (the reference's ``preferred_element_type``
+as an f32 GEMM), since ``torch.mm(..., out_dtype=)`` has neither a
+batching rule nor a CPU kernel.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
@@ -112,12 +121,14 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     return x
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
     """x (.., d) @ w (d, V) with an f32 result from compute-dtype inputs
-    (the reference's ``preferred_element_type=float32``)."""
+    (the reference's ``preferred_element_type=float32``); ``train``
+    upcasts the inputs (differentiable, vmappable)."""
     if x.dtype == torch.float32:
         return x @ w.float()
-    if x.is_cuda:
+    if x.is_cuda and not train:
         lead = x.shape[:-1]
         out = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
                        out_dtype=torch.float32)
@@ -125,30 +136,85 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor,
+             train: bool = False) -> torch.Tensor:
     cd = cfg.cdtype
     x = norm_apply(cfg.norm, params["final_norm"], x, cd)
     if cfg.tie_embeddings:
-        logits = _matmul_f32(x, params["embed"].T)
+        logits = _matmul_f32(x, params["embed"].T, train)
     else:
         logits = dense_apply(params["lm_head"], x, torch.float32)
     return softcap(logits, cfg.final_logit_softcap)
+
+
+# sequence-chunked cross entropy: the full (B, S, V) logits are never
+# live at once
+CE_CHUNK = 512
+
+
+def chunked_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
+               targets: torch.Tensor, *, chunk: int = CE_CHUNK
+               ) -> torch.Tensor:
+    """Mean next-token CE.  hidden (B, S, d) before the final norm;
+    targets (B, S), already shifted.  The sequence runs in chunks of
+    ``chunk`` (the last padded, its padded positions masked), each
+    chunk's vocab product and log-softmax in f32."""
+    b, s = hidden.shape[:2]
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(hidden.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = _unembed(params, cfg, hidden[:, sl], train=True)
+        lps = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(lps, -1, targets[:, sl, None].long())[..., 0]
+        pos = c * chunk + torch.arange(chunk, device=hidden.device)
+        nll = torch.where(pos[None, :] < s, nll, torch.zeros_like(nll))
+        total = total + nll.sum()
+    return total / (b * s)
 
 
 # ---------------------------------------------------------------------------
 # entry points
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (no cache).  Returns (logits f32, aux), aux
-    a zero (the dense family has no auxiliary loss)."""
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack's forward (no cache) up to, not including, the final norm
+    and unembed.  Returns (hidden, aux), aux a zero (the dense family has
+    no auxiliary loss)."""
     _dense_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     for i, lp in enumerate(params["layers"]):
         x, _ = _block_apply(lp, cfg, i, x, 0)
-    return (_unembed(params, cfg, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (no cache).  Returns (logits f32, aux)."""
+    x, aux = forward_hidden(params, cfg, batch)
+    return _unembed(params, cfg, x), aux
+
+
+def _ce_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token CE over the text positions of ``hidden``."""
+    n_text = tokens.shape[1]
+    h = hidden[:, -n_text:][:, :-1]
+    return chunked_ce(params, cfg, h, tokens[:, 1:])
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ aux).  Returns (loss, {"ce", "aux",
+    "loss"})."""
+    hidden, aux = forward_hidden(params, cfg, batch)
+    ce = _ce_from_hidden(params, cfg, hidden, batch["tokens"])
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -1924,3 +1924,134 @@ def test_mesh_run_on_card_is_the_host_run(schedule):
     for k, v in runs["cpu"].final_params.items():
         torch.testing.assert_close(runs["cuda"].final_params[k].cpu(), v,
                                    rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# federated LM training (launch/train.py) and the scenarios on the card
+
+
+def _lm_case(m=4):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import init_model_params
+    from repro_torch.launch.train import lm_federated_data, lm_fns
+    from repro_torch.models.scan import flat_params
+    cfg = get_smoke_config("stablelm-3b")
+    fed = lm_federated_data(0, m, pool=8, n_val=4, seq=32,
+                            vocab=cfg.vocab_size, device="cpu")
+    p0 = flat_params(init_model_params(torch.Generator().manual_seed(1),
+                                       cfg))
+    return cfg, fed, p0, lm_fns(cfg)
+
+
+@pytest.mark.gpu
+def test_lm_loss_and_grad_on_card_match_cpu():
+    """The scanned LM loss and its gradient (`vmap(grad)` over 3 clients,
+    as the engine takes it) on the card against the CPU, f32 with TF32
+    off, at rtol 1e-4 / atol 1e-6."""
+    _require_cuda()
+    from torch.func import grad, vmap
+    cfg, fed, p0, (loss_fn, _) = _lm_case()
+    stacked = {k: v[None].expand((3,) + v.shape).clone()
+               for k, v in p0.items()}
+    batch = {"x": fed.x[:3, :2]}
+    vg = vmap(grad(loss_fn, has_aux=True))
+    want, wm = vg(stacked, batch)
+    got, gm = vg({k: v.cuda() for k, v in stacked.items()},
+                 {"x": batch["x"].cuda()})
+    torch.testing.assert_close(gm["loss"].cpu(), wm["loss"], rtol=1e-4,
+                               atol=0)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "qsgd:8"])
+def test_lm_run_fused_equals_eventful_on_card(codec):
+    """ucfl_k2 on LM clients on the card: the fused run (the LM's local
+    update captured in a CUDA graph) bitwise the eventful run, one mix a
+    round and one Gram a run through the kernels (and a row pass a round
+    with qsgd:8)."""
+    _require_cuda()
+    from repro_torch.fl import Channel, FLConfig, run_federated
+    from repro_torch.data import FederatedData
+    cfg, fed, p0, (loss_fn, acc_fn) = _lm_case()
+    fed = FederatedData(*(t.cuda() for t in fed))
+    fl = FLConfig(rounds=3, local_steps=2, batch_size=2, eval_every=2,
+                  opt_state_dtype="param")
+    kw = dict(fl=fl, keep_state=True, loss_fn=loss_fn, acc_fn=acc_fn,
+              model_init=lambda gen: {k: v.cuda() for k, v in p0.items()},
+              channel=None if codec is None else Channel(codec=codec))
+    runs = []
+    for superstep in (None, False):
+        n0 = dict(ops.LAUNCHES)
+        h = run_federated("ucfl_k2", fed, superstep=superstep, **kw)
+        torch.cuda.synchronize()
+        got = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+        assert got["mixing_aggregate"] == 3 and got["gram_matrix"] == 1
+        assert got["qsgd_roundtrip"] == (3 if codec else 0)
+        runs.append(h)
+    a, b = runs
+    assert (a.mean_acc, a.time, a.comm) == (b.mean_acc, b.time, b.comm)
+    for k, v in a.final_params.items():
+        assert torch.equal(_bits(v), _bits(b.final_params[k])), k
+
+
+@pytest.mark.gpu
+def test_lm_train_cli_on_card_agrees_with_cpu(capsys):
+    """`launch.train.main` at cpu-small on the card and on the CPU: the
+    same host-drawn data and params, the final CE within rtol 1e-4."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import train
+    argv = ["--placement", "host", "--clients", "4", "--steps", "2",
+            "--eval-every", "1", "--pool", "8", "--seq", "32", "--batch",
+            "2"]
+    cpu = train.main(argv + ["--device", "cpu"])
+    card = train.main(argv + ["--device", "cuda"])
+    assert card == pytest.approx(cpu, rel=1e-4)
+    assert "params/model: 2.4M" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_lm_bf16_leaves_mix_on_card():
+    """The mix of an LM's bf16 leaves (more than one launch's worth of
+    leaves, the widest 50,304 x 256) against the plain version, and
+    bitwise against one-leaf calls."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    widths = [50304 * 256, 7, 2560, 256 * 6912] + [513] * 36
+    thetas = [torch.randn((4, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for d in widths]
+    w = torch.rand((4, 4), generator=gen, device="cuda")
+    w = w / w.sum(1, keepdim=True)
+    n0 = ops.LAUNCHES["mixing_aggregate"]
+    got = ops.mixing_aggregate_leaves(w, thetas)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mixing_aggregate"] - n0 == -(-len(thetas) // 32)
+    for y, t in zip(got, thetas):
+        torch.testing.assert_close(y.float(),
+                                   ref.mixing_aggregate_ref(w, t).float(),
+                                   rtol=2e-2, atol=2e-2)
+        assert torch.equal(y.view(torch.int16),
+                           ops.mixing_aggregate(w, t).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["emnist_label_shift",
+                                  "emnist_covariate_shift",
+                                  "cifar_concept_shift"])
+def test_scenarios_on_card_equal_cpu_on_given_data(name):
+    """Each scenario on the card from the same base arrays as on the CPU:
+    the same `FederatedData`, bitwise."""
+    _require_cuda()
+    from repro_torch.data import SCENARIOS, synthetic_cifar, synthetic_emnist
+    syn = synthetic_cifar if name.startswith("cifar") else synthetic_emnist
+    base = syn(torch.Generator().manual_seed(2), 800)
+    kw = dict(n=800, m=8)
+    cpu = SCENARIOS[name](data=base, device="cpu", **kw)
+    card = SCENARIOS[name](data={k: v.cuda() for k, v in base.items()},
+                           device="cuda", **kw)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())

@@ -22,8 +22,8 @@ group; the reference is one controller over a device mesh.  Here:
   `test_torch_engine`'s tolerances, with qsgd's level flips allowed as
   in `test_torch_hierarchy`); served batches on a qsgd:4 store file
   against the reference's mesh `ServeEngine` at atol 1e-5; and the paged
-  async engine's refusal of a cohort that does not cover every rank,
-  raised on every rank;
+  async engine on cohorts of 3, which leave ranks without rows (at the
+  first event and mid-run), against the reference's run;
 * every registered strategy on the mesh (gspmd) at 4 ranks;
 * the errors (a group that does not divide m, an unknown schedule), one
   placement reused across m = 20 then 5 on 4 ranks (the auto group shrinks
@@ -61,10 +61,15 @@ JOBS = {"channel": "shard_map_streams", "faults": "gspmd",
         "async": "shard_map_streams", "paged": "shard_map_unicast",
         "apaged": "gspmd", "hier": "shard_map_streams"}
 M8 = 8
+# the paged async engine on cohorts that leave ranks without rows: K = 3
+# of 8 at every event, and K = 4 whose arrivals fall to 3 mid-run
+# (crashes without retries: events of 4, then 3, then the run ends)
+UNEVEN = {"apaged3": "gspmd", "apaged_crash": "shard_map_streams"}
+ALL_JOBS = {**JOBS, **UNEVEN}
 # the reference's runs of the jobs, split over two processes of about
 # the same time
-REF_PARTS = {"a": ("channel", "async", "apaged"),
-             "b": ("paged", "faults", "hier")}
+REF_PARTS = {"a": ("channel", "async", "apaged", "apaged3"),
+             "b": ("paged", "faults", "hier", "apaged_crash")}
 TWO_LEVEL = dict(devices_per_user="ragged:2-4", edge_codec="qsgd:4",
                  edge_link="tiered:4", edge_latency=0.5)
 SERVE_USERS = ([1, 3, 0, 2, 2, 0, 3, 1], [2, 0, 1, 3, 0, 2])
@@ -91,6 +96,12 @@ def _job_kwargs(name, fl, ref=False):
     if name == "apaged":
         return dict(async_cfg=fl.AsyncConfig(buffer_k=4),
                     paging=fl.PagingConfig(cohort=4))
+    if name == "apaged3":
+        return dict(async_cfg=fl.AsyncConfig(buffer_k=3),
+                    paging=fl.PagingConfig(cohort=3))
+    if name == "apaged_crash":
+        return dict(async_cfg=fl.AsyncConfig(buffer_k=4, max_retries=0),
+                    paging=fl.PagingConfig(cohort=4), faults="crash:0.5")
     assert name == "hier"       # two-level, a qsgd:4 edge codec
     return dict(hierarchy=fl.HierarchyConfig(**TWO_LEVEL),
                 **(dict(superstep=False) if ref else {}))
@@ -221,7 +232,7 @@ def _worker(rank, world, port, path, out_path):
                 placement=mesh(sched), device="cpu")
             out[("run", spec, sched)] = _history(h)
     # the other engines and layers, on the reference's draws
-    for name, sched in JOBS.items():
+    for name, sched in ALL_JOBS.items():
         out[("job", name)] = _history(_port_job(
             name, feds, p0, mesh(sched), TapeDraws(tape=inp["tapes"][name])))
     # a served batch (one that every rank holds, one of 6 that leaves the
@@ -233,23 +244,6 @@ def _worker(rank, world, port, path, out_path):
         xs = fed.x_val[users, 0]
         check_parity(eng, users, xs)
         out[("serve", len(users))] = eng.serve(users, xs).numpy()
-    # the paged async engine refuses, on every rank, a cohort that does
-    # not shard over every rank: at the first event (K = 3), and at the
-    # event whose arrivals fall to 3 (crashes without retries, seed 0:
-    # events of 4, 4, then 3 clients)
-    from repro_torch.fl import AsyncConfig, PagingConfig
-    out["refused"] = []
-    for k, faults in ((3, None), (4, "crash:0.5")):
-        try:
-            run_federated("fedavg", feds[M8], fl=FLConfig(**dict(
-                              FL_KW, rounds=6, eval_every=6)),
-                          model_init=init, system=SYSTEMS["wireless_slow"],
-                          async_cfg=AsyncConfig(buffer_k=k, max_retries=0),
-                          paging=PagingConfig(cohort=k), faults=faults,
-                          placement=mesh(), device="cpu", seed=0)
-            out["refused"].append(None)
-        except ValueError as e:
-            out["refused"].append(str(e))
     # an explicit group that does not divide m
     try:
         mesh(group=dist.group.WORLD).stack(p0, world + 1)
@@ -414,7 +408,7 @@ def host_runs(case, case8):
         tape = TapeDraws(inner=ReplayDraws(SEED, FL_KW["rounds"]))
         out[spec] = (_port_run(fed, params0, spec, HostVmap(), tape),
                      tape.tape)
-    for name in JOBS:
+    for name in ALL_JOBS:
         tape = TapeDraws(inner=ReplayDraws(
             SEED, FL_KW["rounds"], sampler_keys=name == "channel"))
         out[name] = (_port_job(name, feds, params0, HostVmap(), tape),
@@ -654,24 +648,10 @@ def test_reference_at_four_devices(ranks):
                                    atol=1e-5, err_msg=k)
 
 
-# the jobs whose uplink or edge codec is qsgd: a value one rounding off
-# may cross a level (the FMA of the reference's jnp crossing, the rows a
-# rank's GEMMs batch), so their params allow level flips as
-# test_torch_hierarchy's edge runs do
-LEVELS = ("channel", "async", "paged", "hier")
-
-
-@pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("name", list(JOBS))
-def test_mesh_engines_ranks_match_reference(ranks, world, name):
-    """2 and 4 ranks: the eventful engine with a sampler and qsgd:4, a
-    faulted run, async K = 2 of 4, a paged and a paged async run, a
-    two-level qsgd:4 hierarchy run, each against the reference's mesh
-    run: rounds, comm, comm bits, the clock and the extras equal, the
-    accuracies within atol 2e-2, the params at test_torch_engine's
-    tolerances (level flips allowed under qsgd: at most 0.1 % of
-    elements outside them, none past 1e-2); every rank the same
-    History."""
+def _match_job(ranks, world, name):
+    """Every rank's History of job ``name`` against the reference's
+    one-device mesh run (`test_mesh_engines_ranks_match_reference`'s
+    tolerances), and every rank the same."""
     want = ranks[2][name]
     got = [r[("job", name)] for r in ranks[0][world]]
     g = got[0]
@@ -700,6 +680,27 @@ def test_mesh_engines_ranks_match_reference(ranks, world, name):
                                           g["params"][k])
 
 
+# the jobs whose uplink or edge codec is qsgd: a value one rounding off
+# may cross a level (the FMA of the reference's jnp crossing, the rows a
+# rank's GEMMs batch), so their params allow level flips as
+# test_torch_hierarchy's edge runs do
+LEVELS = ("channel", "async", "paged", "hier")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(JOBS))
+def test_mesh_engines_ranks_match_reference(ranks, world, name):
+    """2 and 4 ranks: the eventful engine with a sampler and qsgd:4, a
+    faulted run, async K = 2 of 4, a paged and a paged async run, a
+    two-level qsgd:4 hierarchy run, each against the reference's mesh
+    run: rounds, comm, comm bits, the clock and the extras equal, the
+    accuracies within atol 2e-2, the params at test_torch_engine's
+    tolerances (level flips allowed under qsgd: at most 0.1 % of
+    elements outside them, none past 1e-2); every rank the same
+    History."""
+    _match_job(ranks, world, name)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_serve_ranks_match_reference(case, spawned, ranks, world):
     """A served batch of 8 (every rank holds rows) and of 6 (at 4 ranks
@@ -722,15 +723,25 @@ def test_serve_ranks_match_reference(case, spawned, ranks, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_async_paged_refuses_on_every_rank(ranks, world):
-    """A paged async cohort that does not shard over every rank is
-    refused by every rank alike, at the first event (K = 3) and at the event
-    whose arrivals fall to 3: no rank is left waiting for the others."""
-    for r in range(world):
-        got = ranks[0][world][r]["refused"]
-        assert len(got) == 2 and all(
-            e is not None and "a cohort of 3 clients does not cover" in e
-            for e in got), (r, got)
+def test_async_paged_uneven_cohorts_match_reference(ranks, host_runs,
+                                                    world):
+    """A paged async cohort that does not shard over every rank runs on
+    the auto group for its size, the other ranks receiving the event's
+    rows: K = 3 at every event and a crash-shrunk cohort of 3 mid-run,
+    every rank against the reference's single-controller run at the
+    other jobs' tolerances, and every rank the same History.  At 2 ranks
+    a cohort of 3 runs on rank 0 alone, bitwise the port's one-process
+    run."""
+    for name in UNEVEN:
+        _match_job(ranks, world, name)
+    if world == 2:
+        host = host_runs["apaged3"][0]
+        for r in range(world):
+            got = ranks[0][world][r][("job", "apaged3")]
+            assert got["mean_acc"] == list(host.mean_acc)
+            for k, v in host.final_params.items():
+                np.testing.assert_array_equal(got["params"][k], v.numpy(),
+                                              err_msg=f"rank {r} {k}")
 
 
 def _reference_jobs(path, part):
@@ -744,7 +755,7 @@ def _reference_jobs(path, part):
             for n, key in ((4, "fed"), (M8, "fed8"))}
     out = {}
     for name in REF_PARTS[part]:
-        sched = JOBS[name]
+        sched = ALL_JOBS[name]
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             h = j_run(

@@ -26,8 +26,10 @@ Phases (any failure raises and the script exits non-zero):
                 plain version and one PyTorch library call with CUDA
                 events, beside the byte/FLOP bound; the tensor-core flash
                 kernel at every head_dim it takes (64, 80, 128 and 256
-                on ragged shapes, 128 at [lm] (a)'s prefill, 256 and 80
-                at [lm] (c)'s);
+                on ragged shapes, 128 at [lm] (a)'s prefill, 256, 80 and
+                128 at [lm] (c)'s); the flash op under `torch.func.vmap`
+                (the per-user decode's call) bitwise the per-user calls,
+                one launch for all the users;
   4. agree    — a small label-shift run on the card against the same run
                 on the CPU (same init, same draws; the CPU side on one
                 intra-op thread, so its bits repeat); one uplink crossing
@@ -119,7 +121,8 @@ Phases (any failure raises and the script exits non-zero):
                 time and how much of it lies under kernels); (c) random
                 overlapping cohorts of a 40-client population, prefetch
                 on and off bitwise; (d) the sweep's peak device memory
-                at 200 and 1,000 clients within 1 MiB; (e) a memmap-store
+                (requested bytes) at 200 and 1,000 clients within 1 MiB;
+                (e) a memmap-store
                 run preempted and resumed bitwise, then resumed past a
                 corrupt newest snapshot (a warning, the one before);
                 (f) the async lockstep anchor (20 clients, K = 20)
@@ -178,13 +181,16 @@ Phases (any failure raises and the script exits non-zero):
                 kernel), where one fresh prefill of prompt + generated
                 tokens must reproduce the last decode step's logits;
                 (c) bf16 serving of gemma-2b (hd 256, MQA; B 2, prompt
-                8,160, cache 8,192) and stablelm-3b (hd 80, MHA; B 2,
-                prompt 4,064, cache 4,096) at their full widths, depth
-                cut to 2, 32 greedy tokens each: timed, with exactly 2
+                8,160, cache 8,192), stablelm-3b (hd 80, MHA; B 2,
+                prompt 4,064, cache 4,096) and olmoe-1b-7b (hd 128 with
+                qk_norm, 64 experts of 1,024, top 8; B 2, prompt 4,064,
+                cache 4,096) at their full widths, depth cut to 2, 32
+                greedy tokens each: timed, peak MiB, with exactly 2
                 prefill launches on the tensor-core kernel, 62 on the
                 decode kernel and none on the CUDA-core kernel, and a
                 torch.profiler trace of one prefill (device time by
-                flash / GEMM / other).
+                flash / GEMM / other; olmoe's by flash / the MoE
+                einsums / the other GEMMs / the rest).
  12. train    — federated LM training (`launch.train`, the reference's
                 scanned layout as the engine's flat-key view) and the
                 scenario generators: (a) `launch.train.main` at the
@@ -192,7 +198,8 @@ Phases (any failure raises and the script exits non-zero):
                 32,000), 4 clients, ucfl_k2, 3 rounds, pool 16 x 256
                 tokens, batch 4, on the host placement, the default mesh,
                 qsgd:8 over tiered:4, topk:0.1, async K = 2, a cohort of
-                2, fleets of 2 devices, crash:0.2 + median: each run's
+                2, fleets of 2 devices, crash:0.2 + median, and
+                olmoe-1b-7b (the MoE family) on the host: each run's
                 final CE, s/round and launches; (d) the three scenarios
                 drawn on the card at their default sizes (shapes, groups,
                 the padding rule, the covariate rotations, one label
@@ -208,14 +215,25 @@ Phases (any failure raises and the script exits non-zero):
                 mixes, 1 Gram a run; 3 QSGD row passes with qsgd:8), a
                 profiler trace of a 5-round chunk, its capture inside
                 (busy share), then the
-                mix of the clients' bf16 leaves, G + Δ and one qsgd:8
-                crossing of a (4, 0.416 B) f32 matrix against their plain
-                versions, timed beside their byte bounds.
+                mix of the clients' bf16 leaves, G + Δ, one qsgd:8
+                crossing, a qsgd:4 encode and a decode of a (4, 0.416 B)
+                f32 matrix against their plain versions, timed beside
+                their byte bounds; (e), in the same process, the trained
+                population served per user (`launch.serve`'s
+                `build_decode_one` under the `ServeEngine`'s vmap):
+                identity and qsgd:4 `DeltaStore`s, each built (s, peak
+                MiB), 3 flushes of 8 requests at max_batch 4 (prompt 32,
+                16 tokens; the first warms up), `check_parity` after
+                every flush: req/s, batch p50/max, peak MiB, launches;
+                a batch's gather, prefill and decode steps timed apart
+                (prefill ms, decode tok/s) and a batch traced.
 Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at two smoke configs, `launch.train.main` at
+the card against the CPU at three smoke configs (olmoe's the MoE
+family), `launch.serve.main --federated` at its smallest flags (the same
+served tokens), `launch.train.main` at
 cpu-small (host-drawn data and params, losses within rtol 1e-4), a buffered-async run on
 the card against the CPU, without a channel and with qsgd:8, and a
 two-level run (qsgd:8 edge codec) on the card against the CPU.
@@ -262,7 +280,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels import quantize as qsgd  # noqa: E402
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
     row_path, topk_threshold_cuda)
-from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import (build_decode_one,  # noqa: E402
+                                      generate, user_prompts)
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -278,10 +297,10 @@ MAIN = dict(n=10000, m=20, rounds=20, local_steps=10, batch_size=64,
 LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
           cache_len=4640, seed=0,
           reduced={"n_layers": "46 -> 2 (one local, one global layer)"})
-# [lm] (c): the other two served configurations (src/repro_torch/configs/)
-# at their full published widths, bf16, random weights from a seed; the
-# prompt fills the cache but for the generated tokens.  The widths are
-# gemma-2b's from the Gemma report (arXiv:2403.08295, Table 1) and
+# [lm] (c): the other three served configurations (src/repro_torch/
+# configs/) at their full published widths, bf16, random weights from a
+# seed; the prompt fills the cache but for the generated tokens.  The
+# widths are gemma-2b's from the Gemma report (arXiv:2403.08295, Table 1),
 # stablelm-3b's from stabilityai/stablelm-3b-4e1t's model card and config
 # (d_model 2,560, 32 heads of 80, d_ff 6,912, vocab 50,304, rotary on a
 # quarter of each head, LayerNorm, 4,096 context)
@@ -290,6 +309,21 @@ LM_C = (
          seed=0, reduced={"n_layers": "18 -> 2"}),
     dict(arch="stablelm-3b", batch=2, prompt=4064, tokens=32,
          cache_len=4096, seed=0, reduced={"n_layers": "32 -> 2"}),
+    # OLMoE-1B-7B (arXiv:2409.02060): d_model 2,048, 16 heads of 128 with
+    # qk_norm, 64 experts of 1,024, top 8, vocab 50,304, untied, RMSNorm
+    dict(arch="olmoe-1b-7b", batch=2, prompt=4064, tokens=32,
+         cache_len=4096, seed=0, reduced={"n_layers": "16 -> 2"}),
+)
+# [kernels]: the flash op under vmap, (name, users, (H, Kh, Sq, Sk, hd),
+# dtype): [train] (e)'s served prefill and decode step (stablelm-3b, one
+# user a batch row), olmoe's prefill head dim, and a decode over a long
+# cache, where one user's split count is not the batch's
+FLASH_VMAP = (
+    ("served prefill (7a)", 4, (32, 32, 32, 32, 80), torch.bfloat16),
+    ("served decode (7c)", 4, (32, 32, 1, 48, 80), torch.bfloat16),
+    ("prefill hd 128 (7a)", 2, (16, 16, 1024, 1024, 128), torch.bfloat16),
+    ("decode over 4,096 keys (7c)", 4, (16, 16, 1, 4096, 128),
+     torch.bfloat16),
 )
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # test_kernels.py
 # flash inputs' scaled logits q·k/√hd: N(0, 0.25²), far inside the
@@ -838,11 +872,11 @@ def row_rel_err(got, want) -> float:
 
 
 def flash_close(name, got, want) -> tuple:
-    """check_close at FLASH_TOL, and each output row's error within the
-    same tolerance relative to the row's norm (a near-uniform softmax
-    gives entries smaller than the atol, which alone would pass them).
-    Returns (max |err|, max row-relative error)."""
-    tol = FLASH_TOL[want.dtype]
+    """check_close at FLASH_TOL of got's dtype, and each output row's
+    error within the same tolerance relative to the row's norm (a
+    near-uniform softmax gives entries smaller than the atol, which alone
+    would pass them).  Returns (max |err|, max row-relative error)."""
+    tol = FLASH_TOL[got.dtype]
     err = check_close(name, got, want, tol, tol)
     rel = row_rel_err(got, want)
     if not rel <= tol:
@@ -863,12 +897,53 @@ def flash_planted_fault(name, q, k, v, kw, want) -> None:
     passes neither flash_close's elementwise nor its row-relative test."""
     bad = route_kernel(q)(q, k, v, **dict(kw, softcap=None))
     torch.cuda.synchronize()
-    tol = FLASH_TOL[want.dtype]
+    tol = FLASH_TOL[q.dtype]
     d = (bad.float() - want.float()).abs()
     if bool(torch.all(d <= tol + tol * want.float().abs())) or \
             row_rel_err(bad, want) <= tol:
         raise AssertionError(f"{name}: the kernel without its softcap "
                              "passes the check; the inputs cannot tell")
+
+
+def attention_f64(q, k, v, causal, window=None, softcap=None):
+    """Attention computed in float64 throughout: the yardstick of the f32
+    ragged checks, since the plain version's own f32 rounding of large
+    logits (q·k summed over up to 256 products) exceeds the f32
+    tolerance now and then; rows with no valid key 0."""
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, kh, h // kh, sq, hd)
+    lg = torch.einsum("bkgqh,bksh->bkgqs", qg, k.double()) / hd ** 0.5
+    if softcap:
+        lg = softcap * torch.tanh(lg / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window:
+        valid &= k_pos > q_pos - window
+    p = torch.softmax(lg.masked_fill(~valid, -1e300), -1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", p, v.double())
+    return out.masked_fill(~valid.any(-1)[:, None], 0.0).reshape(
+        b, h, sq, hd)
+
+
+def ragged_yardstick(q, k, v, kw, tally: dict):
+    """What a ragged check holds a flash call to: the plain version in
+    bf16; in f32, attention in float64 at the same f32 tolerance, the
+    plain version counted in ``tally`` (inputs, and those where the plain
+    version itself lies outside that tolerance of float64)."""
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    if q.dtype != torch.float32:
+        return plain
+    exact = attention_f64(q, k, v, **kw)
+    tol = FLASH_TOL[torch.float32]
+    d = (plain.double() - exact).abs()
+    tally["inputs"] += 1
+    tally["plain outside"] += int(bool((d > tol + tol * exact.abs()).any())
+                                  or row_rel_err(plain, exact) > tol)
+    return exact
 
 
 def check_flash(gen) -> list:
@@ -882,15 +957,18 @@ def check_flash(gen) -> list:
     route's own wrapper (the decode kernel bitwise equal to the op's
     call).  The same at [lm] (c)'s prefill shapes (gemma-2b: B 2, H 8,
     Kh 1, S 8,160, hd 256; stablelm-3b: B 2, H 32, Kh 32, S 4,064, hd 80;
-    causal, slices of the serving cache) in bf16, without a softcap
-    (neither config has one) at both logit scales and with softcap 50 at
-    the capped one.  Then the tensor-core kernel on ragged
+    olmoe-1b-7b: B 2, H 16, Kh 16, S 4,064, hd 128; causal, slices of the
+    serving cache) in bf16, without a softcap (none of them has one) at
+    both logit scales and with softcap 50 at the capped one.  Then the
+    tensor-core kernel on ragged
     bf16 shapes (hd 64/80/128/256, GQA group 1/2/8, Sq < Sk, windows
     1/63/4,096,
     softcap on and off, non-causal), the op on ragged shapes at hd
     40/64/80/136/256 in both dtypes, and the decode kernel on ragged decode
     shapes (hd 64/80/128/256, G 1/2/8, Sq 1/3/16, Sk 1/70/4,609, 1, 2 and
-    Sk splits), each at both logit scales.  Timed at the [lm] shapes in
+    Sk splits), each at both logit scales; the f32 ragged calls against
+    attention in float64 (`ragged_yardstick`), the bf16 ones against the
+    plain version.  Timed at the [lm] shapes in
     bf16, the main path's dtype, and at the global prefill in f32 too:
     the kernel each route takes, its plain version and SDPA, and the
     CUDA-core kernel at the same shape (the other routes' "before"); in
@@ -1093,6 +1171,7 @@ def check_flash(gen) -> list:
           f"softcaps, non-causal with softcap 50: {n_checks} checks within "
           f"tolerance, {n_faults} without the softcap fail it", flush=True)
     n_faults = 0
+    tally = {"inputs": 0, "plain outside": 0}
     for hd in (40, 64, 80, 136, 256):
         for group in (1, 2, 8):
             for dt in (torch.float32, torch.bfloat16):
@@ -1113,7 +1192,7 @@ def check_flash(gen) -> list:
                             tag = (f"flash_attention hd={hd} G={group} "
                                    f"Sq={sq} Sk={sk} logit sd {std:g} {kw} "
                                    f"{dt}")
-                            want = ref.flash_attention_ref(q, k, v, **kw)
+                            want = ragged_yardstick(q, k, v, kw, tally)
                             flash_close(tag, ops.flash_attention(q, k, v,
                                                                  **kw), want)
                             flash_close(tag + " (CUDA-core kernel)",
@@ -1128,10 +1207,14 @@ def check_flash(gen) -> list:
           "CUDA-core kernel; non-causal, causal + window 48 + softcap 30 "
           f"and causal at logit sd {LOGIT_STD:g}, non-causal + softcap 50 "
           f"and causal + window 48 + softcap 30 at logit sd "
-          f"{CAP_LOGIT_STD:g}: all within tolerance, {n_faults} without "
-          "the softcap fail it", flush=True)
+          f"{CAP_LOGIT_STD:g}: all within tolerance (bf16 of the plain "
+          f"version, f32 of float64 attention), {n_faults} without the "
+          f"softcap fail it; the f32 plain version itself lies outside "
+          f"the f32 tolerance of float64 on {tally['plain outside']} of "
+          f"{tally['inputs']} f32 inputs", flush=True)
     n_dec = ops.LAUNCHES["flash_attention_decode"]
     n_checks = n_ops = n_faults = 0
+    tally = {"inputs": 0, "plain outside": 0}
     for hd in (64, 80, 128, 256):
         for group in (1, 2, 8):
             for dt in (torch.float32, torch.bfloat16):
@@ -1156,7 +1239,7 @@ def check_flash(gen) -> list:
                                 tag = (f"flash_decode hd={hd} G={group} "
                                        f"Sq={sq} Sk={sk} logit sd {std:g} "
                                        f"{kw} {dt}")
-                                want = ref.flash_attention_ref(q, k, v, **kw)
+                                want = ragged_yardstick(q, k, v, kw, tally)
                                 flash_close(tag, ops.flash_attention(
                                     q, k, v, **kw), want)
                                 n_ops += 1
@@ -1184,13 +1267,58 @@ def check_flash(gen) -> list:
           f"non-causal and causal + window 48 + softcap 30, through the op "
           f"and at 1, 2 and Sk splits; logit sd {CAP_LOGIT_STD:g} (Sk > 1): "
           f"non-causal + softcap 30 and causal + window 48 + softcap 30: "
-          f"{n_ops + n_checks} checks within tolerance, {n_faults} without "
-          "the softcap fail it", flush=True)
+          f"{n_ops + n_checks} checks within tolerance (bf16 of the plain "
+          f"version, f32 of float64 attention), {n_faults} without the "
+          f"softcap fail it; the f32 plain version itself lies outside the "
+          f"f32 tolerance of float64 on {tally['plain outside']} of "
+          f"{tally['inputs']} f32 inputs", flush=True)
     order = ("flash_attention_decode", "flash_attention_tc",
              "flash_attention") + tuple(
         f"flash_attention_tc_hd{get_config(c['arch']).attn.head_dim}"
         for c in LM_C)
     return [rows[r] for r in order]
+
+
+def check_flash_vmap(gen) -> None:
+    """The flash op under `torch.func.vmap` (the per-user decode's call:
+    each user's rows a batch row, with that user's own keys) at
+    FLASH_VMAP's shapes: one launch for all the users, bitwise the
+    per-user calls (the decode kernel's split count is one user's); its
+    ms beside the per-user calls' sum.  These launches are the check's,
+    not a path's."""
+    from torch.func import vmap
+    for name, u, (h, kh, sq, sk, hd), dt in FLASH_VMAP:
+        q, k, v = (t.unsqueeze(1) for t in flash_inputs(
+            gen, u, h, kh, sq, sk, hd, dt))
+        kw = dict(causal=True)
+        fn = vmap(lambda a, b, c: ops.flash_attention(a, b, c, **kw))
+        with ops.launches_set_aside() as made:
+            got = fn(q, k, v)
+            torch.cuda.synchronize()
+        counter = ops.FLASH_COUNTERS[flash_route(dt, sq, hd)]
+        if made != {counter: 1}:
+            raise AssertionError(f"flash vmap {name}: launches {made}, want "
+                                 f"{{{counter!r}: 1}}")
+        with ops.launches_set_aside():
+            for i in range(u):
+                one = ops.flash_attention(q[i], k[i], v[i], **kw)
+                if not torch.equal(got[i], one):
+                    raise AssertionError(f"flash vmap {name}: user {i} "
+                                         "differs from its own call")
+            ms = time_ms(lambda: fn(q, k, v))
+            each = time_ms(lambda: [ops.flash_attention(q[i], k[i], v[i],
+                                                        **kw)
+                                    for i in range(u)])
+        splits = ""
+        if sq <= 16:
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            splits = (f", decode splits {decode_splits(1, kh, sk, n_sm)} "
+                      f"(a user's) where {u} rows would take "
+                      f"{decode_splits(u, kh, sk, n_sm)}")
+        print(f"  flash_attention under vmap, {name}: {u} users x (H={h} "
+              f"Kh={kh} Sq={sq} Sk={sk} hd={hd}) {str(dt)[6:]}: one "
+              f"{counter} launch, bitwise the per-user calls{splits}; "
+              f"{ms:.4f} ms against {each:.4f} for {u} calls", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1459,10 +1587,11 @@ def lm_agreement() -> None:
     """The LM serving path on the card against the CPU, same params and
     prompt: gemma2-27b's smoke config (GQA group 1, window 64: a 96-token
     prompt takes the S > C prefill, and the local ring wraps on every
-    decode step) and gemma-2b's (group 4, head_dim 64); prefill plus 8
-    decode steps, per-step logits within 1e-4 (f32, TF32 off) and equal
+    decode step), gemma-2b's (group 4, head_dim 64) and olmoe-1b-7b's (4
+    experts, top 2, qk_norm: a MoE layer a block); prefill plus 8 decode
+    steps, per-step logits within 1e-4 (f32, TF32 off) and equal
     tokens."""
-    for arch in ("gemma2-27b", "gemma-2b"):
+    for arch in ("gemma2-27b", "gemma-2b", "olmoe-1b-7b"):
         cfg = get_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(3), cfg,
                                device="cpu")
@@ -1492,6 +1621,53 @@ def lm_agreement() -> None:
               f"{launched} flash launches)", flush=True)
 
 
+# [agree]: `launch.serve --federated` at its smallest flags
+FED_SMALL = ["--federated", "--arch", "stablelm-3b", "--rounds", "1",
+             "--clients", "2", "--pool", "5", "--requests", "3", "--tokens",
+             "3", "--prompt-len", "8", "--max-batch", "2"]
+
+
+def federated_agreement() -> None:
+    """`launch.serve.main --federated` on the card and on the CPU (the
+    data, params, draws and prompts drawn on the host): the same served
+    tokens, the parity anchor on both, the per-user decode's flash
+    launches one a layer a step for each batch."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_cli
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        buf = io.StringIO()
+        before = sum(ops.LAUNCHES[c] for c in ops.FLASH_COUNTERS.values())
+        with contextlib.redirect_stdout(buf):
+            outs[dev] = serve_cli.main(FED_SMALL + ["--device", dev])
+        launched = sum(ops.LAUNCHES[c] for c in ops.FLASH_COUNTERS.values()
+                       ) - before
+        if "parity anchor OK" not in buf.getvalue():
+            raise AssertionError(f"--federated {dev}: {buf.getvalue()}")
+    if len(outs["cuda"]) != 3 or any(
+            not np.array_equal(a, b) for a, b in zip(outs["cpu"],
+                                                     outs["cuda"])):
+        raise AssertionError(f"--federated: served tokens differ cuda vs "
+                             f"cpu: {outs}")
+    print(f"  launch.serve --federated (stablelm-3b cpu-small, 2 clients, 3 "
+          f"requests of 3 tokens at max_batch 2): cuda serves the cpu's "
+          f"tokens {[o.tolist() for o in outs['cuda']]}, parity anchor on "
+          f"both; {launched} flash launches on the card", flush=True)
+
+
+def kernel_kind(name: str) -> str:
+    """flash (the three flash kernels), GEMM (cuBLAS's and CUTLASS's
+    matrix products) or other, by a device kernel's name."""
+    n = name.lower()
+    if "decode_partials" in n or "decode_merge" in n or "flash" in n:
+        return "flash"
+    if any(w in n for w in ("gemm", "gemv", "xmma", "nvjet", "cutlass",
+                            "cublas", "splitk")):
+        return "GEMM"
+    return "other"
+
+
 def device_split(prof):
     """From a torch.profiler trace: (device-busy µs, the union of kernel
     spans; µs by flash / GEMM (cuBLAS) / other; µs by kernel name; the
@@ -1504,14 +1680,8 @@ def device_split(prof):
     by_name = {}
     spans = []
     for e in kernels:
-        n = e.name.lower()
         us = e.time_range.end - e.time_range.start
-        cat = ("flash" if "decode_partials" in n or "decode_merge" in n or
-               "flash" in n else
-               "GEMM" if any(w in n for w in ("gemm", "gemv", "xmma", "nvjet",
-                                               "cutlass", "cublas",
-                                               "splitk")) else "other")
-        split[cat] += us
+        split[kernel_kind(e.name)] += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         spans.append((e.time_range.start, e.time_range.end))
     spans.sort()
@@ -1526,6 +1696,24 @@ def device_split(prof):
     return busy, split, by_name, len(kernels)
 
 
+def einsum_split(prof) -> dict:
+    """Device µs by kind (as `device_split` sorts them) of the kernels
+    launched under an ``aten::einsum`` op: on the serving path only
+    `models/moe.py` calls einsum (its dispatch, expert and combine
+    products, with their layout copies), so these are the MoE einsums'."""
+    out = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        p = e
+        while p is not None and p.name != "aten::einsum":
+            p = p.cpu_parent
+        if p is not None:
+            for k in e.kernels:
+                out[kernel_kind(k.name)] += k.duration
+    return out
+
+
 def _leaves(tree):
     """The tensors of a nested dict / list of parameters."""
     if isinstance(tree, torch.Tensor):
@@ -1535,12 +1723,15 @@ def _leaves(tree):
 
 
 def profile_decode(params, cfg, prompt, clen: int, card: str,
-                   step_ms: float, steps: int = 8) -> None:
+                   step_ms: float, steps: int = 8, label: str = "(a)"
+                   ) -> None:
     """One torch.profiler trace of ``steps`` decode steps after a prefill:
     the device-busy time a step, split into flash attention, GEMM (cuBLAS)
-    and other kernels, and the device's idle share of ``step_ms``, the
-    step's wall in the timed run without the profiler (the wall under the
-    profiler, which slows the host, is printed beside it)."""
+    and other kernels (a MoE config's einsums apart), and the device's
+    idle share of ``step_ms``, the step's wall in the timed run without
+    the profiler (the wall under the profiler, which slows the host, is
+    printed beside it).  Its launches are not counted."""
+    counts = dict(ops.LAUNCHES)
     b, plen = prompt.shape
     caches = T.make_caches(cfg, b, clen, cfg.cdtype, device="cuda")
     logits, caches = T.prefill(params, cfg, {"tokens": prompt}, caches)
@@ -1559,20 +1750,27 @@ def profile_decode(params, cfg, prompt, clen: int, card: str,
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ops.LAUNCHES.update(counts)
     split = device_split(prof)
     if split is None:
-        print(f"  (a) profiler: no device events in the trace; device "
+        print(f"  {label} profiler: no device events in the trace; device "
               f"split and idle share not measured ({card})", flush=True)
         return
     busy, split, by_name, n_kernels = split
     busy_ms = busy / 1e3 / steps
-    print(f"  (a) profiler, {steps} decode steps ({card}): device busy "
+    moe = ""
+    if cfg.moe:
+        ein = einsum_split(prof)
+        moe = (f" (the MoE einsums {sum(ein.values()) / 1e3 / steps:.3f} "
+               "ms of it)")
+    print(f"  {label} profiler, {steps} decode steps ({card}): device busy "
           f"{busy_ms:.3f} ms a step: flash {split['flash'] / 1e3 / steps:.3f}"
           f" ms, GEMM {split['GEMM'] / 1e3 / steps:.3f} ms, other "
-          f"{split['other'] / 1e3 / steps:.3f} ms; {n_kernels / steps:.0f}"
-          f" kernels a step; device idle {1 - busy_ms / step_ms:.1%} of the "
-          f"timed step ({step_ms:.3f} ms); under the profiler the step's "
-          f"wall is {wall * 1e3 / steps:.3f} ms", flush=True)
+          f"{split['other'] / 1e3 / steps:.3f} ms{moe}; "
+          f"{n_kernels / steps:.0f} kernels a step; device idle "
+          f"{1 - busy_ms / step_ms:.1%} of the timed step ({step_ms:.3f} "
+          f"ms); under the profiler the step's wall is "
+          f"{wall * 1e3 / steps:.3f} ms", flush=True)
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
         print(f"      {us / 1e3 / steps:8.4f} ms a step  {name[:110]}",
               flush=True)
@@ -1686,11 +1884,13 @@ def lm_c_path(card: str) -> dict:
                                generator=torch.Generator(device="cuda")
                                .manual_seed(c["seed"] + 1))
         n_params = sum(t.numel() for t in _leaves(params))
+        moe_w = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_expert} top "
+                 f"{cfg.moe.top_k}, qk_norm {a.qk_norm}" if cfg.moe else "")
         print(f"[lm] (c) {cfg.name} d_model {cfg.d_model}, H {a.n_heads}, Kh "
-              f"{a.n_kv_heads}, hd {a.head_dim}, d_ff {cfg.d_ff}, vocab "
-              f"{cfg.vocab_size}, {cfg.activation}, {cfg.norm}; reduced "
-              f"{c['reduced']}; {n_params / 1e9:.3f} B params; B {b}, prompt "
-              f"{plen}, {n} tokens, cache {clen} ({card})", flush=True)
+              f"{a.n_kv_heads}, hd {a.head_dim}, d_ff {cfg.d_ff}{moe_w}, "
+              f"vocab {cfg.vocab_size}, {cfg.activation}, {cfg.norm}; "
+              f"reduced {c['reduced']}; {n_params / 1e9:.3f} B params; B {b}, "
+              f"prompt {plen}, {n} tokens, cache {clen} ({card})", flush=True)
         # warm-up at the full prompt: the timed prefill finds the caching
         # allocator's blocks and cuBLAS's choices for its shapes in place,
         # as a serving process does after its first request
@@ -1714,12 +1914,13 @@ def lm_c_path(card: str) -> dict:
             raise AssertionError(f"[lm] (c) {cfg.name}: non-finite logits")
         steps = n - 1
         prefill_ms = res.prefill_s * 1e3
+        step_ms = res.decode_s * 1e3 / steps
         print(f"  (c) {cfg.name} bf16: prefill {prefill_ms:.2f} ms ({b}x"
               f"{plen} tokens); decode {res.decode_s * 1e3 / steps:.3f} "
               f"ms/token-step, {steps * b / res.decode_s:.1f} tok/s ({steps} "
               f"steps x{b}); flash launches {launches}; peak memory "
-              f"{peak / 2**30:.2f} GiB; sample {res.tokens[0, :12].tolist()}",
-              flush=True)
+              f"{peak / 2**30:.2f} GiB ({peak / 2**20:.0f} MiB); sample "
+              f"{res.tokens[0, :12].tolist()}", flush=True)
         del res
         out[c["arch"]] = launches
         # one prefill under the profiler: where its device time goes
@@ -1739,13 +1940,30 @@ def lm_c_path(card: str) -> dict:
                   "split not measured", flush=True)
         else:
             busy, split, by_name, n_kernels = split
+            moe_line = ""
+            if cfg.moe:
+                # the MoE einsums' kernels (GEMMs and their layout
+                # copies) apart from the other GEMMs and the rest
+                ein = einsum_split(prof)
+                rest = split["other"] - ein["other"]
+                moe_line = (f"; split four ways: flash "
+                            f"{split['flash'] / 1e3:.3f} ms, the MoE einsums "
+                            f"{sum(ein.values()) / 1e3:.3f} ms (GEMMs "
+                            f"{ein['GEMM'] / 1e3:.3f}), the other GEMMs "
+                            f"{(split['GEMM'] - ein['GEMM']) / 1e3:.3f} ms, "
+                            f"the rest {rest / 1e3:.3f} ms")
             print(f"  (c) {cfg.name} profiler, one prefill: device busy "
                   f"{busy / 1e3:.3f} ms: flash {split['flash'] / 1e3:.3f} "
                   f"ms, GEMM {split['GEMM'] / 1e3:.3f} ms, other "
-                  f"{split['other'] / 1e3:.3f} ms; {n_kernels} kernels",
-                  flush=True)
+                  f"{split['other'] / 1e3:.3f} ms{moe_line}; {n_kernels} "
+                  "kernels", flush=True)
             for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
                 print(f"      {us / 1e3:8.4f} ms  {name[:110]}", flush=True)
+        if cfg.moe:
+            # where a MoE decode step's wall goes: its kernels a step
+            # against the device's busy time
+            profile_decode(params, cfg, prompt, clen, card, step_ms,
+                           label=f"(c) {cfg.name}")
         del params, prompt
         torch.cuda.empty_cache()
     return out
@@ -2760,7 +2978,8 @@ def paging_path(card: str) -> None:
     1,000 clients, prefetch on and off bitwise, s/superstep, and a
     profiler trace of three supersteps; (c) overlapping random cohorts
     (population 40) bitwise prefetch off; (d) peak device memory of the
-    sweep at populations 200 and 1,000 within 1 MiB; (e) a memmap-store
+    sweep at populations 200 and 1,000 within 1 MiB (the requested bytes,
+    the allocated ones printed beside); (e) a memmap-store
     run preempted and resumed bitwise, then past a corrupt newest
     snapshot; (f) the async lockstep anchor bitwise the resident
     `run_async`, then K = 5 over the 1,000 clients.  Each run's launches
@@ -2881,27 +3100,33 @@ def paging_path(card: str) -> None:
           f"s/superstep ({card})", flush=True)
     del runs, f40
 
-    # (d) device memory follows the cohort, not the population
+    # (d) device memory follows the cohort, not the population: the peak
+    # of the bytes the run's tensors asked for.  The allocator's
+    # allocated bytes add the unsplit tail of whichever cached block a
+    # request lands in (up to 1 MiB a large request), which follows the
+    # blocks earlier phases left behind, not the run: printed beside it
     peaks = {}
     for n_pop in (cfg["small"], fed.m):
         f = pop(n_pop)
         torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
+        base = torch.cuda.memory_stats()["requested_bytes.all.current"]
         torch.cuda.reset_peak_memory_stats()
         h, wall, _ = run(f, paging=PagingConfig(cohort=m_c))
-        peaks[n_pop] = (torch.cuda.max_memory_allocated(), base,
-                        h.extra["paging"]["store_bytes"], wall)
-    (p_s, b_s, s_s, w_s), (p_l, b_l, s_l, w_l) = peaks.values()
+        peaks[n_pop] = (torch.cuda.memory_stats()["requested_bytes.all.peak"],
+                        base, h.extra["paging"]["store_bytes"], wall,
+                        torch.cuda.max_memory_allocated())
+    (p_s, b_s, s_s, w_s, a_s), (p_l, b_l, s_l, w_l, a_l) = peaks.values()
     if abs(p_s - p_l) > MIB:
         raise AssertionError(f"[paging] (d) peak device memory {p_s} at "
                              f"{cfg['small']} clients, {p_l} at {fed.m}")
-    print(f"  (d) peak device memory of the sweep: {p_s / MIB:.2f} MiB at "
-          f"{cfg['small']} clients ({(p_s - b_s) / MIB:.2f} over the "
-          f"{b_s / MIB:.2f} MiB already held; store {s_s / 1e6:.1f} MB), "
-          f"{p_l / MIB:.2f} MiB at {fed.m} ({(p_l - b_l) / MIB:.2f} over; "
-          f"store {s_l / 1e6:.1f} MB): within "
-          f"{abs(p_s - p_l) / MIB:.3f} MiB; {w_l / rounds:.4f} s/superstep "
-          f"without keep_state ({card})", flush=True)
+    print(f"  (d) peak device memory of the sweep (requested bytes): "
+          f"{p_s / MIB:.2f} MiB at {cfg['small']} clients "
+          f"({(p_s - b_s) / MIB:.2f} over the {b_s / MIB:.2f} MiB already "
+          f"held; store {s_s / 1e6:.1f} MB), {p_l / MIB:.2f} MiB at {fed.m} "
+          f"({(p_l - b_l) / MIB:.2f} over; store {s_l / 1e6:.1f} MB): "
+          f"within {abs(p_s - p_l) / MIB:.3f} MiB (allocated bytes "
+          f"{a_s / MIB:.2f} and {a_l / MIB:.2f} MiB); {w_l / rounds:.4f} "
+          f"s/superstep without keep_state ({card})", flush=True)
 
     # (e) preempt and resume, memmap store, TorchDraws
     root = Path(__file__).resolve().parent / "build" / "paging"
@@ -3386,6 +3611,9 @@ TRAIN_A_RUNS = (
     ("cohort 2", ["--cohort", "2"]),
     ("devices 2", ["--devices-per-user", "2"]),
     ("crash + median", ["--faults", "crash:0.2", "--robust-agg", "median"]),
+    # the MoE family at the same preset (olmoe-1b-7b cut as lm-100m cuts
+    # it: 8 layers, d_model 512, 4 experts of 1,024, top 2)
+    ("olmoe-1b-7b", ["--arch", "olmoe-1b-7b", "--placement", "host"]),
 )
 # (b) stablelm-3b at its published widths (src/repro_torch/configs/
 # stablelm_3b.py: d_model 2,560, 32 heads of 80, rotary on a quarter of
@@ -3393,6 +3621,10 @@ TRAIN_A_RUNS = (
 # weights from a seed, depth cut to 2 (0.416 B params)
 TRAIN_B = dict(arch="stablelm-3b", m=4, pool=8, seq=256, batch=2, rounds=3,
                seed=0, reduced={"n_layers": "32 -> 2"})
+# (e) per-user serving of (b)'s trained population: a store of each codec,
+# 8 requests over the 4 users, prompt 32, 16 greedy tokens, batches of 4
+TRAIN_E = dict(codecs=("identity", "qsgd:4"), requests=8, max_batch=4,
+               prompt=32, tokens=16, flushes=3, seed=0)
 # (c) cuda against cpu: the same main at cpu-small
 TRAIN_C = ["--preset", "cpu-small", "--placement", "host", "--clients", "4",
            "--steps", "2", "--eval-every", "1", "--pool", "8", "--seq", "32",
@@ -3562,14 +3794,45 @@ def train_kernels(gen, leaves, d_total: int) -> None:
             time_ms(lambda: qsgd.qsgd_roundtrip_cuda(g, u, 8), 10),
             time_ms(lambda: ref.qsgd_roundtrip_ref(g, u, 8), 3), b, by, 0.0,
             "  (bitwise)")
+    # (e)'s qsgd:4 store at these shapes: its build's encode (rows 3+4,
+    # the row pass: x and the noise in, the levels and absmax out) and a
+    # decode of its rows (row 5, the stream: levels and absmax in, f32
+    # out), each bitwise its plain version
+    lv, am = qsgd.qsgd_encode_cuda(g, u, 4)
+    torch.cuda.synchronize()
+    want_lv, want_am = ref.qsgd_quantize_ref(g, u, 4)
+    if not (torch.equal(lv, want_lv) and torch.equal(am, want_am)):
+        raise AssertionError("qsgd_quantize [train]: kernel not bitwise "
+                             "equal to its plain version")
+    del want_lv, want_am
+    b, by = bound_ms(4.0 * m * (3 * d_total + 1), 0.0)
+    _lm_row(f"qsgd_quantize (rows 3+4) ({m}, {d_total}) bits=4",
+            time_ms(lambda: qsgd.qsgd_encode_cuda(g, u, 4), 10),
+            time_ms(lambda: ref.qsgd_quantize_ref(g, u, 4), 3), b, by, 0.0,
+            "  (bitwise)")
+    del g, u
+    dq = qsgd.qsgd_dequantize_cuda(lv, am, 4)
+    torch.cuda.synchronize()
+    if not torch.equal(dq, ref.qsgd_dequantize_ref(lv, am, 4)):
+        raise AssertionError("qsgd_dequantize [train]: kernel not bitwise "
+                             "equal to its plain version")
+    del dq
+    b, by = bound_ms(4.0 * m * (2 * d_total + 1), 0.0)
+    scale = am * ref.qsgd_levels(4)[1].to(am.device)
+    _lm_row(f"qsgd_dequantize (row 5) ({m}, {d_total}) bits=4",
+            time_ms(lambda: qsgd.qsgd_dequantize_cuda(lv, am, 4), 10),
+            time_ms(lambda: ref.qsgd_dequantize_ref(lv, am, 4), 3), b, by,
+            0.0, "  (bitwise)  library (torch.mul(levels, scale)) "
+            f"{time_ms(lambda: torch.mul(lv, scale), 5):.4f} ms")
 
 
 def train_published(card: str) -> dict:
     """(b): stablelm-3b at its published widths, depth 2, through
     `run_federated` on LM clients: ucfl_k2 fused and eventful (bitwise
-    equal), then qsgd:8 fused; setup s, s/round, peak MiB, launches, a
-    traced 5-round chunk's busy share.  Returns the launches of the
-    runs."""
+    equal), (e) its trained population served per user (`train_serve`),
+    then qsgd:8 fused; setup s, s/round, peak MiB, launches, a traced
+    5-round chunk's busy share.  Returns the launches of the runs and of
+    (e)."""
     from repro_torch.launch.steps import init_model_params
     from repro_torch.launch.train import lm_federated_data, lm_fns
     from repro_torch.models.scan import flat_params
@@ -3634,7 +3897,16 @@ def train_published(card: str) -> dict:
               flush=True)
     print(f"  (b) peak device memory of the two runs {peak:.0f} MiB",
           flush=True)
+    # (e): the trained population (the eventful run's; its params are the
+    # fused run's bitwise) served per user, its optimizer state dropped
+    keep = runs[-1][1]
+    keep.final_opt_state = None
     del runs, h
+    _free_graphs()
+    t0 = time.perf_counter()
+    train_serve(keep, cfg)
+    print(f"  (e) {time.perf_counter() - t0:.1f} s", flush=True)
+    del keep
     _free_graphs()
     torch.cuda.reset_peak_memory_stats()
     (engine, h, launched, wall), = run_both(
@@ -3677,6 +3949,138 @@ def train_published(card: str) -> dict:
     train_kernels(torch.Generator(device="cuda").manual_seed(28), leaves,
                   n_params)
     return launches
+
+
+def train_serve(h, cfg) -> None:
+    """(e): (b)'s trained population served per user
+    (`launch.serve.build_decode_one` under the `ServeEngine`'s vmap): an
+    identity and a qsgd:4 `DeltaStore` of its final params, each built
+    (timed, its peak), then TRAIN_E's flushes (the first warms up):
+    req/s and batch p50/max over the later ones, `check_parity` after
+    every flush, a user's requests served the same tokens, and the
+    phase's launches (row 5 a served qsgd batch and a full decode, rows
+    3+4 a qsgd build, the flash op one a layer a step for each batch);
+    then a batch's stages timed apart (the gather and decode of its rows,
+    the prefill, the decode steps: prefill ms, tok/s) and a batch under
+    the profiler (device busy against its wall)."""
+    te = TRAIN_E
+    m = next(iter(h.final_params.values())).shape[0]
+    users = [i % m for i in range(te["requests"])]
+    prompts = user_prompts(te["seed"], users, te["prompt"], cfg.vocab_size)
+    probe = sorted(set(users))[:te["max_batch"]]
+    decode = build_decode_one(cfg, te["prompt"], te["tokens"],
+                              te["prompt"] + te["tokens"])
+    mib = 2 ** 20
+    for codec in te["codecs"]:
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        store = DeltaStore.from_history(h, codec=codec, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() / mib
+        engine = ServeEngine(store, decode, max_batch=te["max_batch"])
+        torch.cuda.reset_peak_memory_stats()
+        walls, lat = [], []
+        for f in range(te["flushes"]):
+            for u in users:
+                engine.submit(u, prompts[u])
+            t0 = time.perf_counter()
+            outs = engine.flush()
+            wall = time.perf_counter() - t0
+            check_parity(engine, probe,
+                         torch.stack([prompts[u] for u in probe]))
+            if f:
+                walls.append(wall)
+                lat += engine.last_stats["latency_s"]
+            for i, u in enumerate(users):
+                o = outs[i]
+                if o.shape != (te["tokens"],) or not (
+                        (o >= 0) & (o < cfg.vocab_size)).all() or \
+                        not np.array_equal(o, outs[users.index(u)]):
+                    raise AssertionError(f"[train] (e) {codec}: user {u} "
+                                         f"served {o}")
+        serve_peak = torch.cuda.max_memory_allocated() / mib
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                    if ops.LAUNCHES[k] != before[k]}
+        flash = sum(launched.get(c, 0) for c in ops.FLASH_COUNTERS.values())
+        # a batch's prefill and its tokens-1 decode steps, one launch a
+        # layer each; check_parity serves the probe twice a flush
+        batches = te["flushes"] * (-(-len(users) // te["max_batch"]) + 2)
+        if flash != batches * te["tokens"] * cfg.n_layers or (
+                codec != "identity" and (launched.get("qsgd_quantize") != 1
+                                         or not launched.get(
+                                             "qsgd_dequantize"))):
+            raise AssertionError(f"[train] (e) {codec}: launches {launched}")
+        n_req = len(users) * len(walls)
+        print(f"  (e) {codec} store of (b)'s {m} users: {store.summary()}; "
+              f"build {build_s:.3f} s (peak {build_peak:.0f} MiB); "
+              f"{n_req} requests in {len(walls)} timed flushes: "
+              f"{n_req / sum(walls):.2f} req/s, batch p50 "
+              f"{statistics.median(lat) * 1e3:.1f} ms, max "
+              f"{max(lat) * 1e3:.1f} ms; serving peak {serve_peak:.0f} MiB;"
+              f" check_parity after every flush; launches {launched}; "
+              f"user 0: {outs[0][:8].tolist()}", flush=True)
+        # a batch's stages timed apart (their launches not counted): the
+        # gather and decode of its rows, the vmapped prefill alone (the
+        # decode with 1 token), the whole decode; the steps are the rest
+        xs = torch.stack([prompts[u] for u in probe])
+        prefill = torch.func.vmap(build_decode_one(
+            cfg, te["prompt"], 1, te["prompt"] + te["tokens"]))
+        with ops.launches_set_aside(), torch.no_grad():
+            stage = {"gather": [], "prefill": [], "whole": []}
+            for _ in range(3):
+                t0 = time.perf_counter()
+                params = engine.params_for(probe)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                prefill(params, xs.cuda())
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                engine.forward(params, xs.cuda())
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                stage["gather"].append(t1 - t0)
+                stage["prefill"].append(t2 - t1)
+                stage["whole"].append(t3 - t2)
+                del params
+        med = {k: statistics.median(v) for k, v in stage.items()}
+        steps = te["tokens"] - 1
+        step_s = (med["whole"] - med["prefill"]) / steps
+        print(f"  (e) {codec} a batch of {len(probe)} apart (median of 3): "
+              f"gather + decode of its rows {med['gather'] * 1e3:.1f} ms, "
+              f"prefill ({te['prompt']} tokens a user) "
+              f"{med['prefill'] * 1e3:.1f} ms, decode "
+              f"{step_s * 1e3:.2f} ms a step, "
+              f"{len(probe) / step_s:.1f} tok/s", flush=True)
+        # one batch under the profiler (its launches not counted): the
+        # device's busy share of a served batch's wall
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with ops.launches_set_aside(), \
+                torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            engine.serve(probe, xs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        split = device_split(prof)
+        if split is None:
+            print(f"  (e) {codec} profiler: no device events; busy share "
+                  "not measured", flush=True)
+        else:
+            busy, split, by_name, n_kernels = split
+            print(f"  (e) {codec} profiler, one batch of {len(probe)}: wall "
+                  f"{wall * 1e3:.1f} ms (untraced p50 "
+                  f"{statistics.median(lat) * 1e3:.1f}), device busy "
+                  f"{busy / 1e3:.1f} ms: flash {split['flash'] / 1e3:.2f}, "
+                  f"GEMM {split['GEMM'] / 1e3:.1f}, other "
+                  f"{split['other'] / 1e3:.1f} ms; {n_kernels} kernels",
+                  flush=True)
+            for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:5]:
+                print(f"      {us / 1e3:8.3f} ms  {name[:110]}", flush=True)
+        del store, engine
+        torch.cuda.empty_cache()
 
 
 TRAIN_B_MARK = "[train] (b) launches: "
@@ -3848,6 +4252,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_mixing(gen), check_gram(gen)] + \
         check_channel_kernels(gen) + check_flash(gen)
+    check_flash_vmap(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)
 
@@ -3866,6 +4271,7 @@ def main() -> int:
         uplink_agreement()
         channel_agreement()
         lm_agreement()
+        federated_agreement()
         train_agreement()
     finally:
         torch.set_num_threads(threads)

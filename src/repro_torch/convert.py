@@ -2,7 +2,8 @@
 
 The reference hands its ``params0``, stacked params, optimizer state,
 scenario arrays and LM params (either layout for serving; the scanned
-one, with its optimizer state, as the training engine's flat-key view)
+one, with its optimizer state, as the training engine's flat-key view,
+MoE layers' leaves among them)
 over as numpy (``np.asarray`` of its arrays; a bf16 leaf arrives as
 ``ml_dtypes.bfloat16``); these helpers turn them into the port's tensors
 and back.  Nothing here imports JAX: the
@@ -107,7 +108,7 @@ def lm_view_from_numpy(tree: Dict[str, Any], device: DeviceLike = "cuda"
 def lm_view_to_numpy(flat: Dict[str, torch.Tensor],
                      cfg: ModelConfig) -> Dict[str, Any]:
     """Inverse of `lm_view_from_numpy`: the reference's scanned tree."""
-    return nest_params(tree_to_numpy(flat), cfg)
+    return nest_params(tree_to_numpy(flat))
 
 
 def lm_opt_state_from_numpy(state: Dict[str, Any],

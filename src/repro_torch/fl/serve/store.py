@@ -24,15 +24,20 @@ so its size rides the same exact bit accounting as the uplink
     (`Codec.store_bound`) plus 4 ulp of re-add slack; no fixup.
 
 Tensors live on the store's device (``"cuda"`` unless the caller asks
-for the CPU); ``assignment``, ``recon_err`` and ``template`` stay numpy,
-as in the reference.  The build runs on that device: the refinement's
-f32 adds and subtracts are correctly rounded there as in numpy, so the
-store's bits are the reference's.  ``backend`` is the label of the
-file's codec backend: ``"pallas"`` (the codecs' kernel path, the label
-of every store the port builds) or ``"jnp"`` (the reference's mesh
-path).  The two encode and decode alike (`fl.channel.codecs`), so
-either package's file of either backend loads, and `save` writes the
-label back as it was loaded.
+for the CPU); ``assignment``, ``recon_err`` and ``template`` stay on the
+host, numpy as in the reference (a bf16 template leaf, which numpy
+lacks, is a CPU tensor of zeros).  An LM store's template is the
+engine's flat-key view of the reference's scanned layout
+(`models.scan.flat_params`); its file holds it re-nested
+(`models.scan.nest_params`), as the reference's does.  The build runs
+on that device: the refinement's f32 adds and subtracts are correctly
+rounded there as in numpy, so the store's bits are the reference's.
+``backend`` is the label of the file's codec backend: ``"pallas"`` (the
+codecs' kernel path) or ``"jnp"`` (the reference's mesh path); `build`
+takes it as the reference does, the placement's ``codec_backend``.  The
+two encode and decode alike (`fl.channel.codecs`), so either package's
+file of either backend loads, and `save` writes the label back as it
+was loaded.
 
 `save`/`load` go through `repro_torch.checkpoint` with the reference's
 keys and types, so both packages write the same file for the same store.
@@ -50,6 +55,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.channel import get_codec, stacked_ravel, stacked_unravel
 from repro_torch.fl.channel.codecs import BACKENDS
 from repro_torch.fl.channel.payload import tree_bits
+from repro_torch.models.scan import flat_params, nest_params
 
 _REFINE_ITERS = 8
 # float re-add slack on top of the codec's own bound: reconstruction does
@@ -57,8 +63,18 @@ _REFINE_ITERS = 8
 _ULP_SLACK = 4.0
 
 
-def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
     return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def _host_zeros(shape, dtype: torch.dtype):
+    """A template leaf: numpy zeros, or a CPU tensor where numpy has no
+    such dtype (bf16)."""
+    if dtype == torch.bfloat16:
+        return torch.zeros(shape, dtype=dtype)
+    return torch.zeros(shape, dtype=dtype).numpy()
 
 
 @dataclass(frozen=True)
@@ -187,6 +203,7 @@ class DeltaStore:
     @classmethod
     def from_history(cls, history, *, codec="identity", assignment=None,
                      link=None, seed: int = 0, noise: Optional[Any] = None,
+                     backend: str = "pallas",
                      device: DeviceLike = "cuda") -> "DeltaStore":
         """Ingest a `run_federated(keep_state=True)` History.  The base
         assignment: explicit ``assignment``, else the strategy's extras
@@ -204,12 +221,12 @@ class DeltaStore:
                 assignment = getattr(ex, "clusters", None)
         return cls.build(history.final_params, assignment=assignment,
                          codec=codec, link=link, seed=seed, noise=noise,
-                         device=device)
+                         backend=backend, device=device)
 
     @classmethod
     def build(cls, final_params: Dict[str, Any], *, assignment=None,
               codec="identity", link=None, seed: int = 0,
-              noise: Optional[Any] = None,
+              noise: Optional[Any] = None, backend: str = "pallas",
               device: DeviceLike = "cuda") -> "DeltaStore":
         """The store of ``final_params`` (an (m, ...) stacked dict of
         tensors or arrays), built on ``device``.  A codec that reads
@@ -221,8 +238,7 @@ class DeltaStore:
                   for k, v in final_params.items()}
         flat = stacked_ravel(params)
         m, d = flat.shape
-        template = {k: np.zeros(tuple(v.shape[1:]),
-                                v[:0].cpu().numpy().dtype)
+        template = {k: _host_zeros(tuple(v.shape[1:]), v.dtype)
                     for k, v in params.items()}
         if link is not None:
             codec = codec.bind_link(link, template)
@@ -275,8 +291,7 @@ class DeltaStore:
             fix_values, fix_indices = _sparse_rows(lo)
             recon = cls.apply_fix(recon, fix_values, fix_indices)
 
-        recon_err = (recon.double() - flat.double()).abs().amax(dim=1)
-        recon_err = recon_err.cpu().numpy()
+        recon_err = _row_max_abs_diff(recon, flat)
 
         bound = codec.store_bound(payload, d)
         if bound is not None:
@@ -293,7 +308,7 @@ class DeltaStore:
                    payload=payload, template=template, recon_err=recon_err,
                    delta_bits=codec.per_client_bits(template, m),
                    fix_values=fix_values, fix_indices=fix_indices,
-                   seed=seed, device=dev)
+                   seed=seed, backend=backend, device=dev)
 
     # ---- persistence (repro_torch.checkpoint msgpack) ----------------------
 
@@ -306,7 +321,7 @@ class DeltaStore:
             "assignment": self.assignment,
             "base_flat": self.base_flat,
             "payload": dict(self.payload),
-            "template": self.template,
+            "template": nest_params(self.template),
             "recon_err": self.recon_err,
             "delta_bits": self._delta_bits_raw,
             "fix_values": self.fix_values,
@@ -322,10 +337,12 @@ class DeltaStore:
             raise ValueError(f"unknown DeltaStore version {t.get('version')}"
                              f" in {path}")
         host = lambda v: v.numpy()
+        template = {k: v if v.dtype == torch.bfloat16 else host(v)
+                    for k, v in flat_params(t["template"]).items()}
         return cls(base_flat=t["base_flat"],
                    assignment=host(t["assignment"]),
                    codec=t["codec"], payload=t["payload"],
-                   template={k: host(v) for k, v in t["template"].items()},
+                   template=template,
                    recon_err=host(t["recon_err"]),
                    delta_bits=host(t["delta_bits"]),
                    fix_values=t["fix_values"],
@@ -345,6 +362,16 @@ def refined_delta(flat: torch.Tensor, base_rows: torch.Tensor
             break
         delta = delta + (flat - r)
     return delta
+
+
+def _row_max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Per-row max |a − b| of two (m, D) f32 tensors, exact in float64,
+    over blocks of rows of at most 2^26 elements: at an LM's D the float64
+    copies of the whole (m, D) would take 6× its f32 bytes at once."""
+    step = max(1, (1 << 26) // max(a.shape[1], 1))
+    return torch.cat([
+        (a[i:i + step].double() - b[i:i + step].double()).abs().amax(dim=1)
+        for i in range(0, a.shape[0], step)]).cpu().numpy()
 
 
 def _sparse_rows(lo: torch.Tensor):

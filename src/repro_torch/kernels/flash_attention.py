@@ -69,7 +69,7 @@ def decode_splits(b: int, kh: int, sk: int, n_sm: int) -> int:
     return max(1, min(want, -(-sk // DECODE_MIN_KEYS)))
 
 
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _n_sm:
@@ -145,7 +145,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     extra = ()
     if name == "flash_decode":
         if n_split is None:
-            n_split = decode_splits(b, kh, sk, _sm_count(q.device))
+            n_split = decode_splits(b, kh, sk, sm_count(q.device))
         if int(n_split) < 1:
             raise ValueError(f"n_split must be >= 1, got {n_split}")
         ws = torch.empty((b, h, sq, int(n_split), hd + 2),

@@ -29,6 +29,16 @@ count a call, though it makes two launches, the partials and the
 merge), ``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
 ``flash_attention`` (the CUDA-core kernel, the other prefills).
 
+Flash attention is a registered operator, ``repro_torch::flash_attention``
+(`torch.library`: a CPU implementation, the plain version, and a CUDA one,
+`flash_route`'s kernel), so that it runs under `torch.func.vmap`: its
+batching rule folds the vmapped dimension into the kernel's batch
+dimension and launches once for every user of a served batch (one count),
+each user's rows with that user's own keys.  It is defined with
+`torch.library.Library` rather than `torch.library.custom_op`, whose
+Python wrapper costs each call several times the dispatcher's own host
+time, and a decode step calls it once a layer.
+
 A CUDA graph launches its kernels on replay without calling the
 wrappers, so its capture takes the counts it made out of ``LAUNCHES``
 (`launches_set_aside`) and every replay adds them back (`add_launches`):
@@ -42,10 +52,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (decode_splits,
+                                                 flash_attention_cuda,
                                                  flash_attention_tc_cuda,
                                                  flash_decode_cuda,
-                                                 flash_route)
+                                                 flash_route, sm_count)
 from repro_torch.kernels.mixing_aggregate import (
     N_MAX, mixing_aggregate_leaves_cuda)
 from repro_torch.kernels.pairwise_sqdist import gram_sqdist_cuda
@@ -203,15 +214,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     taken as they are on CUDA; the output has q's dtype (and layout).  On
     CUDA, `flash_route` picks the kernel: decode steps (Sq <= 16) on the
     split-key decode kernel, bf16 prefill (head_dim 64, 80, 128 or 256)
-    on the tensor cores, the other prefills on the CUDA cores."""
-    if not _on_cuda(q, "flash_attention"):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
-    kernel, counter = FLASH_KERNELS[flash_route(q.dtype, q.shape[2],
-                                                q.shape[3])]
-    out = kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+    on the tensor cores, the other prefills on the CUDA cores.  Under
+    `torch.func.vmap` one call serves the whole vmapped batch (module
+    docstring), bitwise the per-user calls."""
+    return _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _flash_cpu(q, k, v, *, causal=True, window=None, softcap=None,
+               decode_rows=None):
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+
+
+def _flash_cuda(q, k, v, *, causal=True, window=None, softcap=None,
+                decode_rows=None):
+    """``decode_rows``: the batch rows the decode kernel's split count is
+    chosen for (default B): a vmapped call's are one user's, so each
+    user's rows are summed as that user's own call sums them."""
+    route = flash_route(q.dtype, q.shape[2], q.shape[3])
+    kernel, counter = FLASH_KERNELS[route]
+    kw = {}
+    if route == "decode" and decode_rows is not None:
+        kw["n_split"] = decode_splits(decode_rows, k.shape[1], k.shape[2],
+                                      sm_count(q.device))
+    out = kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                 **kw)
     LAUNCHES[counter] += 1
     return out
+
+
+def _fold(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """The vmapped dim ``dim`` of ``x`` (None: unbatched, so broadcast)
+    moved to the front and folded into the batch dim: a view where the
+    strides allow (the model's activations and caches)."""
+    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.flatten(0, 1)
+
+
+def _flash_vmap(info, in_dims, q, k, v, *, causal=True, window=None,
+                softcap=None, decode_rows=None):
+    """The batching rule: (n, B, ...) inputs run as one (n·B, ...) call."""
+    n = info.batch_size
+    q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims))
+    if decode_rows is None:
+        decode_rows = q.shape[0] // n
+    out = _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap,
+                    decode_rows=decode_rows)
+    return out.unflatten(0, (n, -1)), 0
+
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, *, "
+            "bool causal=True, int? window=None, float? softcap=None, "
+            "int? decode_rows=None) -> Tensor")
+_LIB.impl("flash_attention", _flash_cpu, "CPU")
+_LIB.impl("flash_attention", _flash_cuda, "CUDA")
+torch.library.register_vmap("repro_torch::flash_attention", _flash_vmap,
+                            lib=_LIB)
+_FLASH_OP = torch.ops.repro_torch.flash_attention.default
 
 
 __all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "add_launches",

@@ -68,9 +68,9 @@ def lm_fns(cfg: ModelConfig):
     """(loss_fn, acc_fn) of the engine over the flat-key view: the token
     batch rides in the ``x`` slot; the score is −CE (higher is better)."""
     lm_loss = _loss_fn(cfg, remat=False)
-    loss_fn = lambda p_, b: lm_loss(nest_params(p_, cfg),  # noqa: E731
+    loss_fn = lambda p_, b: lm_loss(nest_params(p_),  # noqa: E731
                                     {"tokens": b["x"]})
-    acc_fn = lambda p_, b: -lm_loss(nest_params(p_, cfg),  # noqa: E731
+    acc_fn = lambda p_, b: -lm_loss(nest_params(p_),  # noqa: E731
                                     {"tokens": b["x"]})[0]
     return loss_fn, acc_fn
 
@@ -84,7 +84,9 @@ def _lm_fns(arch: str, preset: str):
     return (cfg, *lm_fns(cfg))
 
 
-def _client_gen(key: int, *parts: int) -> torch.Generator:
+def host_generator(key: int, *parts: int) -> torch.Generator:
+    """A CPU generator seeded by (``key``, ``parts``): one independent
+    stream per draw site, the same bits whatever the run's device."""
     seed = np.random.SeedSequence([int(key), *parts]).generate_state(
         1, np.uint64)[0] >> np.uint64(1)
     return torch.Generator().manual_seed(int(seed))
@@ -104,9 +106,9 @@ def lm_federated_data(key: int, m: int, *, pool: int, n_val: int, seq: int,
     xs, xv = [], []
     for i in range(m):
         g = int(groups[i])
-        xs.append(synthetic_lm_tokens(_client_gen(key, g, i), pool, seq,
+        xs.append(synthetic_lm_tokens(host_generator(key, g, i), pool, seq,
                                       vocab))
-        xv.append(synthetic_lm_tokens(_client_gen(key, g, i, 999), n_val,
+        xv.append(synthetic_lm_tokens(host_generator(key, g, i, 999), n_val,
                                       seq, vocab))
     zeros = lambda n: torch.zeros((m, n), dtype=torch.int64)  # noqa: E731
     return FederatedData(
@@ -134,8 +136,8 @@ def save_checkpoint(path: str, step: int, history, cfg: ModelConfig,
     as the reference's on the same values)."""
     opt = dict(history.final_opt_state)
     if opt.get("mu") is not None:
-        opt["mu"] = nest_params(opt["mu"], cfg)
-    save_train_state(path, step, nest_params(history.final_params, cfg),
+        opt["mu"] = nest_params(opt["mu"])
+    save_train_state(path, step, nest_params(history.final_params),
                      opt, extra={"arch": cfg.name, "algorithm": spec})
 
 

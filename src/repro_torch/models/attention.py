@@ -3,7 +3,8 @@
 Counterpart of `repro/models/attention.py` for the dense decoder.  Every
 layer's cache is a ring of ``C`` slots with an absolute-position array
 (``pos``, -1 empty), as in the reference, and ``slot = pos % C``.  The
-cache tensors are updated in place (the reference returns new arrays).
+cache tensors are updated in place (the reference returns new arrays),
+but for a ring's first write under `torch.func.vmap` (`_cache_update`).
 
 Sequences advance in lockstep, so a call takes the host-side position of
 its first token, ``start``, instead of a (B, S) position array: the
@@ -48,7 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
-                                       softcap)
+                                       softcap, vmapped)
 
 LATER = "not ported yet: ROADMAP.md Queue 1 item 16b (LM path: the rest)"
 NEG_INF = -1e30
@@ -184,16 +185,29 @@ def _cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     for the decode writes that follow.  Otherwise the S slots from
     start % C must not run past the ring's end: a ring wraps only in
     one-token steps (the reference's lockstep serving design).
+
+    Under `torch.func.vmap` with a ring made inside the vmapped function
+    (the per-user decode), the ring carries no batch dim and cannot take
+    the users' keys in place: that first write (the prefill's) builds new
+    k and v rings out of place, which carry the batch dim, so the decode
+    steps after it write in place again.  The positions are the same for
+    every user and stay in place.
     """
     c = cache.pos.shape[1]
     s = k_new.shape[1]
     dev = cache.pos.device
+    fresh = vmapped(k_new) and not vmapped(cache.k)
     if s > c:
         first = start + s - c
         shift = first % c                   # slot of the oldest survivor
         pos = torch.arange(first, start + s, dtype=torch.int32, device=dev)
-        for buf, new in ((cache.k, k_new[:, -c:]), (cache.v, v_new[:, -c:]),
-                         (cache.pos, pos.expand(cache.pos.shape[0], c))):
+        news = (k_new[:, -c:], v_new[:, -c:],
+                pos.expand(cache.pos.shape[0], c))
+        if fresh:
+            cache.pos.copy_(news[2].roll(shift, 1))
+            return KVCache(news[0].roll(shift, 1), news[1].roll(shift, 1),
+                           cache.pos)
+        for buf, new in zip(cache, news):
             buf[:, shift:] = new[:, :c - shift]
             buf[:, :shift] = new[:, c - shift:]
         return cache
@@ -201,10 +215,14 @@ def _cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     if slot + s > c:
         raise ValueError(f"{s} positions from {start} wrap a ring of {c} "
                          "slots; only one-token steps may wrap")
-    cache.k[:, slot:slot + s] = k_new
-    cache.v[:, slot:slot + s] = v_new
     cache.pos[:, slot:slot + s] = torch.arange(start, start + s,
                                                dtype=torch.int32, device=dev)
+    if fresh:
+        return KVCache(*(torch.slice_scatter(buf, new, 1, slot, slot + s)
+                         for buf, new in ((cache.k, k_new),
+                                          (cache.v, v_new))), cache.pos)
+    cache.k[:, slot:slot + s] = k_new
+    cache.v[:, slot:slot + s] = v_new
     return cache
 
 
@@ -257,7 +275,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
                             cdtype=cd)
         out = out.reshape(b, s, out.shape[2] * out.shape[3])
         return dense_apply(params["wo"], out, cd), None
-    _cache_update(cache, k, v, start)
+    cache = _cache_update(cache, k, v, start)
     k, v = _keys(cache, k, v, start, window)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2).to(cd),
                               v.transpose(1, 2).to(cd),

@@ -18,12 +18,20 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def vmapped(t: torch.Tensor) -> bool:
+    """Whether ``t`` carries a `torch.func.vmap` batch dim (a functorch
+    batched tensor): a write into a tensor made inside the vmapped
+    function, which carries none, must then go out of place."""
+    return torch._C._functorch.is_batchedtensor(t)
+
+
 # ---------------------------------------------------------------------------
 # initializers
 
 
-def _normal(gen: torch.Generator, shape, dtype, stddev: float,
-            device: DeviceLike) -> torch.Tensor:
+def normal_init(gen: torch.Generator, shape, dtype, stddev: float,
+                device: DeviceLike) -> torch.Tensor:
+    """N(0, stddev²) of ``shape`` drawn in f32, stored in ``dtype``."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=resolve_device(device))
     return x.mul_(stddev).to(dtype)
@@ -34,7 +42,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out, dtype, *,
                ) -> torch.Tensor:
     """Fan-in scaled normal; ``d_out`` may be a tuple (fused heads)."""
     shape = (d_in,) + (tuple(d_out) if isinstance(d_out, tuple) else (d_out,))
-    return _normal(gen, shape, dtype, scale / math.sqrt(d_in), device)
+    return normal_init(gen, shape, dtype, scale / math.sqrt(d_in), device)
 
 
 def dense_apply(w: torch.Tensor, x: torch.Tensor, cdtype) -> torch.Tensor:
@@ -113,7 +121,7 @@ def mlp_apply(params, x: torch.Tensor, act: str, cdtype) -> torch.Tensor:
 
 def embedding_init(gen: torch.Generator, vocab: int, dim: int, dtype,
                    device: DeviceLike = "cuda") -> torch.Tensor:
-    return _normal(gen, (vocab, dim), dtype, 1.0 / math.sqrt(dim), device)
+    return normal_init(gen, (vocab, dim), dtype, 1.0 / math.sqrt(dim), device)
 
 
 def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor,

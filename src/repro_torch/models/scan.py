@@ -23,13 +23,14 @@ coordinate with the reference's; `nest_params` re-nests it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (_block_apply, _ce_from_hidden,
-                                            _dense_family, _embed_inputs)
+                                            _embed_inputs, add_aux,
+                                            check_family)
 
 ITEM_18 = "not ported yet: ROADMAP.md Queue 1 item 18"
 
@@ -99,18 +100,21 @@ def forward_hidden(params: Dict[str, Any], cfg: ModelConfig,
     and unembed."""
     if remat:
         raise NotImplementedError(f"remat is {ITEM_18}")
-    _dense_family(cfg)
+    check_family(cfg)
     n_pre, period, groups = layer_grouping(cfg)
     x = _embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.get("prefix_layers", [])):
-        x, _ = _block_apply(lp, cfg, i, x, 0)
+        x, aux, _ = _block_apply(lp, cfg, i, x, 0)
+        aux_total = add_aux(aux_total, aux)
     slots = params["scan_layers"]
     for g in range(groups):
         for j in range(period):
             # the slot's representative index, as the scan body's
-            x, _ = _block_apply(_map(lambda leaf: leaf[g], slots[j]), cfg,
-                                n_pre + j, x, 0)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux, _ = _block_apply(_map(lambda leaf: leaf[g], slots[j]),
+                                     cfg, n_pre + j, x, 0)
+            aux_total = add_aux(aux_total, aux)
+    return x, aux_total
 
 
 def loss_fn(params: Dict[str, Any], cfg: ModelConfig,
@@ -163,13 +167,14 @@ def _nest(flat: Dict[str, Any]) -> Any:
     return seqs(root)
 
 
-def nest_params(flat: Dict[str, Any],
-                cfg: Optional[ModelConfig] = None) -> Any:
-    """Inverse of `flat_params`.  With ``cfg``, the scanned layout's
-    containers as the reference has them: ``prefix_layers`` a list (empty
-    when it has no layer, so no key), ``scan_layers`` a tuple."""
+def nest_params(flat: Dict[str, Any]) -> Any:
+    """Inverse of `flat_params`.  A tree that holds ``scan_layers`` gets
+    the scanned layout's containers as the reference has them:
+    ``prefix_layers`` a list (empty when it has no layer, so no key),
+    ``scan_layers`` a tuple.  A flat dict of plain keys comes back as it
+    is."""
     tree = _nest(flat)
-    if cfg is not None:
+    if "scan_layers" in tree:
         tree.setdefault("prefix_layers", [])
         tree["scan_layers"] = tuple(tree["scan_layers"])
     return tree

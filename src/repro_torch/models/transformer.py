@@ -1,6 +1,7 @@
-"""Dense decoder stack: init, caches, forward, prefill and decode.
+"""Decoder stack of the dense and MoE families: init, caches, forward,
+prefill and decode.
 
-Counterpart of `repro/models/transformer.py` for the dense family, in its
+Counterpart of `repro/models/transformer.py` for those families, in its
 loop form (the reference's `models/scan.py` is numerically the loop's;
 `convert.lm_params_from_numpy` unstacks its params):
 
@@ -12,9 +13,13 @@ loop form (the reference's `models/scan.py` is numerically the loop's;
     logits, caches  = decode_step(params, cfg, token, caches, pos)
 
 Params are the reference's dict: ``embed`` (V, d), ``layers`` (a list of
-``norm1``/``attn``/``norm2``/``mlp`` dicts), ``final_norm`` and, untied,
-``lm_head`` (d, V).  MoE, SSM, hybrid, vlm and audio raise, as does the
-reference's ``long_context`` serving mode (ROADMAP.md Queue 1 item 16b).
+``norm1``/``attn``/``norm2`` dicts with an ``mlp``, or a ``moe``
+(`models/moe.py`) on a MoE layer: a MoE config's first
+``n_dense_layers`` keep an ``mlp`` of ``dense_d_ff``), ``final_norm``
+and, untied, ``lm_head`` (d, V).  A MoE layer's aux loss is summed into
+`forward`'s and `loss_fn`'s aux.  MLA (the deepseek-v3 config), SSM,
+hybrid, vlm and audio raise, as does the reference's ``long_context``
+serving mode (ROADMAP.md Queue 1 item 16b).
 
 The training path (`forward_hidden`, `chunked_ce`, `loss_fn`) runs no
 cache, so its attention is the plain `attention._sdpa_chunked` and every
@@ -25,7 +30,7 @@ batching rule nor a CPU kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,12 +42,17 @@ from repro_torch.models.attention import (LATER, KVCache, attn_init,
 from repro_torch.models.layers import (dense_apply, dense_init,
                                        embedding_init, embedding_lookup,
                                        mlp_apply, mlp_init, norm_apply,
-                                       norm_init, softcap)
+                                       norm_init, softcap, vmapped)
+from repro_torch.models.moe import moe_apply, moe_init
 
 
-def _dense_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for what this stack does not run yet (ROADMAP item 16b)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family} family is {LATER}")
+    if cfg.attn.mla is not None:
+        raise NotImplementedError(f"MLA attention (the deepseek-v3 config) "
+                                  f"is {LATER}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.pos_embedding} positions are {LATER}")
 
@@ -51,27 +61,30 @@ def _dense_family(cfg: ModelConfig) -> None:
 # init
 
 
-def _layer_init(gen: torch.Generator, cfg: ModelConfig,
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
                 device: DeviceLike) -> Dict[str, Any]:
-    return {
-        "norm1": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
-        "norm2": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
-        "attn": attn_init(gen, cfg, device=device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                        cfg.pdtype, device),
-    }
+    p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
+         "norm2": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
+         "attn": attn_init(gen, cfg, device=device)}
+    if cfg.is_moe_layer(i):
+        p["moe"] = moe_init(gen, cfg, device)
+    else:                       # a MoE config's dense-first layers
+        d_ff = cfg.moe.dense_d_ff if cfg.moe is not None else cfg.d_ff
+        p["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.gated_mlp,
+                            cfg.pdtype, device)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Random params in ``cfg.pdtype`` from ``gen`` (a generator on
     ``device``): embedding, then each layer, then the untied head."""
-    _dense_family(cfg)
+    check_family(cfg)
     p: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype,
                                 device),
-        "layers": [_layer_init(gen, cfg, device)
-                   for _ in range(cfg.n_layers)],
+        "layers": [_layer_init(gen, cfg, i, device)
+                   for i in range(cfg.n_layers)],
         "final_norm": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
     }
     if not cfg.tie_embeddings:
@@ -88,7 +101,7 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
                 device: DeviceLike = "cuda") -> List[KVCache]:
     """One ring per layer; a windowed layer's ring is min(cache_len,
     window) long."""
-    _dense_family(cfg)
+    check_family(cfg)
     caches = []
     for i in range(cfg.n_layers):
         w = cfg.attn_window(i)
@@ -98,16 +111,27 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
 
 
 def _block_apply(params, cfg: ModelConfig, i: int, x: torch.Tensor,
-                 start: int, *, cache=None) -> Tuple[torch.Tensor, Any]:
-    """Pre-norm residual block.  Returns (x, cache); the reference's MoE
-    aux loss has no dense counterpart."""
+                 start: int, *, cache=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
+    """Pre-norm residual block.  Returns (x, aux, cache): aux the MoE
+    layer's load-balance loss, None on a dense layer (the reference's
+    zero)."""
     cd = cfg.cdtype
     h = norm_apply(cfg.norm, params["norm1"], x, cd)
     y, cache = attention(params["attn"], cfg, h, start, cache=cache,
                          window=cfg.attn_window(i))
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x, cd)
-    return x + mlp_apply(params["mlp"], h, cfg.activation, cd), cache
+    if "moe" in params:
+        y, aux = moe_apply(params["moe"], cfg, h)
+        return x + y, aux, cache
+    return x + mlp_apply(params["mlp"], h, cfg.activation, cd), None, cache
+
+
+def add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """The running aux plus a block's (None adds the reference's 0)."""
+    return total if aux is None else total + aux
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -124,11 +148,12 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
     """x (.., d) @ w (d, V) with an f32 result from compute-dtype inputs
-    (the reference's ``preferred_element_type=float32``); ``train``
-    upcasts the inputs (differentiable, vmappable)."""
+    (the reference's ``preferred_element_type=float32``); ``train``, or
+    an ``x`` under vmap, upcasts the inputs (differentiable, vmappable:
+    ``torch.mm(..., out_dtype=)`` has no batching rule)."""
     if x.dtype == torch.float32:
         return x @ w.float()
-    if x.is_cuda and not train:
+    if x.is_cuda and not train and not vmapped(x):
         lead = x.shape[:-1]
         out = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
                        out_dtype=torch.float32)
@@ -183,13 +208,15 @@ def chunked_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
 def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack's forward (no cache) up to, not including, the final norm
-    and unembed.  Returns (hidden, aux), aux a zero (the dense family has
-    no auxiliary loss)."""
-    _dense_family(cfg)
+    and unembed.  Returns (hidden, aux), aux the MoE layers' summed
+    load-balance loss (a zero in the dense family)."""
+    check_family(cfg)
     x = _embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block_apply(lp, cfg, i, x, 0)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux, _ = _block_apply(lp, cfg, i, x, 0)
+        aux_total = add_aux(aux_total, aux)
+    return x, aux_total
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -221,10 +248,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             caches: List[KVCache]):
     """Run a prompt from position 0, filling the caches in place.  Returns
     (last-position logits (B, 1, V) f32, caches)."""
-    _dense_family(cfg)
+    check_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     for i, lp in enumerate(params["layers"]):
-        x, caches[i] = _block_apply(lp, cfg, i, x, 0, cache=caches[i])
+        x, _, caches[i] = _block_apply(lp, cfg, i, x, 0, cache=caches[i])
     return _unembed(params, cfg, x[:, -1:]), caches
 
 
@@ -244,9 +271,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token (B, 1); pos the lockstep position (an int,
     or a (B,) tensor of equal entries).  Returns (logits (B, 1, V) f32,
     caches)."""
-    _dense_family(cfg)
+    check_family(cfg)
     p = lockstep_position(pos)
     x = _embed_inputs(params, cfg, {"tokens": token})
     for i, lp in enumerate(params["layers"]):
-        x, caches[i] = _block_apply(lp, cfg, i, x, p, cache=caches[i])
+        x, _, caches[i] = _block_apply(lp, cfg, i, x, p, cache=caches[i])
     return _unembed(params, cfg, x), caches

@@ -2055,3 +2055,77 @@ def test_scenarios_on_card_equal_cpu_on_given_data(name):
                            device="cuda", **kw)
     for a, b in zip(cpu, card):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,sq,sk,hd", [
+    (torch.bfloat16, 32, 32, 80),        # 7a, a served prefill
+    (torch.bfloat16, 300, 300, 128),     # 7a, ragged tiles
+    (torch.bfloat16, 1, 48, 80),         # 7c, a served decode step
+    (torch.float32, 1, 4096, 128),       # 7c, one user's split count
+    (torch.float32, 40, 40, 64)])        # 7b
+def test_vmapped_flash_op_bitwise_per_user_on_card(dtype, sq, sk, hd):
+    """`ops.flash_attention` under `torch.func.vmap` (4 users, each a batch
+    row with its own keys, as the per-user decode gives them): one launch
+    for the batch, bitwise the 4 per-user calls (the decode kernel's
+    split count is one user's)."""
+    _require_cuda()
+    from torch.func import vmap
+    gen = torch.Generator(device="cuda").manual_seed(sq + hd)
+    u, h, kh = 4, 8, 4
+    q = torch.randn((u, 1, sq, h, hd), generator=gen, device="cuda").to(
+        dtype).transpose(2, 3)
+    k = torch.randn((u, 1, sk, kh, hd), generator=gen, device="cuda").to(
+        dtype).transpose(2, 3)
+    v = torch.randn_like(k)
+    kw = dict(window=None if sq > 1 else 1000, softcap=50.0)
+    counter = ops.FLASH_COUNTERS[flash_route(dtype, sq, hd)]
+    n0 = ops.LAUNCHES[counter]
+    got = vmap(lambda a, b, c: ops.flash_attention(a, b, c, **kw))(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[counter] == n0 + 1
+    for i in range(u):
+        one = ops.flash_attention(q[i], k[i], v[i], **kw)
+        assert torch.equal(got[i], one), i
+
+
+@pytest.mark.gpu
+def test_olmoe_decode_on_card_agrees_with_cpu():
+    """olmoe's smoke config (4 experts, top 2, qk_norm) through
+    `generate` on the card against the CPU: f32, TF32 off, logits within
+    1e-4 of each step's and the tokens equal."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import tree_from_numpy, tree_to_numpy
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("olmoe-1b-7b")
+    params = T.init_params(torch.Generator().manual_seed(3), cfg,
+                           device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(4))
+    a = generate(params, cfg, prompt, 6, 64, return_logits=True)
+    b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
+                 prompt.cuda(), 6, 64, return_logits=True)
+    for x, y in zip(a.logits, b.logits):
+        torch.testing.assert_close(y.cpu(), x, rtol=1e-4, atol=1e-4)
+    assert torch.equal(a.tokens, b.tokens.cpu())
+
+
+@pytest.mark.gpu
+def test_federated_serve_cli_on_card_agrees_with_cpu(capsys):
+    """`launch.serve.main --federated` at its smallest flags on the card
+    and on the CPU (host-drawn data, params, draws and prompts): the
+    same served tokens, the parity anchor on both."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import serve
+    argv = ["--federated", "--arch", "stablelm-3b", "--rounds", "1",
+            "--clients", "2", "--pool", "5", "--requests", "3", "--tokens",
+            "3", "--prompt-len", "8", "--max-batch", "2"]
+    cpu = serve.main(argv + ["--device", "cpu"])
+    card = serve.main(argv + ["--device", "cuda"])
+    for a, b in zip(cpu, card):
+        np.testing.assert_array_equal(a, b)
+    assert capsys.readouterr().out.count("parity anchor OK") == 2

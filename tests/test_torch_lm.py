@@ -65,8 +65,8 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_refuses_other_families():
-    for arch in ("olmoe-1b-7b", "mamba2-780m", "whisper-tiny",
-                 "paligemma-3b", "deepseek-v3-671b"):
+    for arch in ("mamba2-780m", "zamba2-2.7b", "nemotron-4-340b",
+                 "whisper-tiny", "paligemma-3b", "deepseek-v3-671b"):
         with pytest.raises(NotImplementedError, match="item 16b"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
@@ -182,10 +182,15 @@ def test_attention_refuses_what_this_slice_lacks():
     c = attention.init_cache(pcfg, 1, 8, torch.float32, "cpu")
     with pytest.raises(ValueError, match="wrap"):
         attention.attention(p, pcfg, x, 6, cache=c)
-    moe = configs.get_smoke_config("gemma2-27b")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        T.init_params(gen, dataclasses.replace(moe, family="moe"),
-                      device="cpu")
+    # the MoE family runs (tests/test_torch_moe.py); MLA, the
+    # deepseek-v3 config's attention, does not
+    mla_moe = dataclasses.replace(configs.get_smoke_config("olmoe-1b-7b"),
+                                  attn=mla.attn)
+    for fn in (lambda c: T.init_params(gen, c, device="cpu"),
+               lambda c: T.make_caches(c, 1, 8, torch.float32,
+                                       device="cpu")):
+        with pytest.raises(NotImplementedError, match="MLA.*item 16b"):
+            fn(mla_moe)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,11 @@ Phases (any failure raises and the script exits non-zero):
                 events, beside the byte/FLOP bound; the tensor-core flash
                 kernel at every head_dim it takes (64, 80, 128 and 256
                 on ragged shapes, 128 at [lm] (a)'s prefill, 256, 80 and
-                128 at [lm] (c)'s); the flash op under `torch.func.vmap`
+                128 at [lm] (c)'s); the three flash kernels at a value
+                head dim apart from the query's (dk 24 / dv 16 and 192 /
+                128 on ragged shapes, then MLA's prefill and decode step
+                at its published heads, timed beside their bounds and
+                SDPA, its backend named); the flash op under `torch.func.vmap`
                 (the per-user decode's call) bitwise the per-user calls,
                 one launch for all the users;
   4. agree    — a small label-shift run on the card against the same run
@@ -190,7 +194,16 @@ Phases (any failure raises and the script exits non-zero):
                 decode kernel and none on the CUDA-core kernel, and a
                 torch.profiler trace of one prefill (device time by
                 flash / GEMM / other; olmoe's by flash / the MoE
-                einsums / the other GEMMs / the rest).
+                einsums / the other GEMMs / the rest); and
+                deepseek-v3-671b (MLA: q_lora 1,536, kv_lora 512, dk
+                192, dv 128; 256 experts of 2,048 top 8 and a shared
+                one; B 2, prompt 4,064, cache 4,096) at depth 61 -> 4
+                (three dense-first layers, one MoE layer; 15.11 B
+                params): 4 tensor-core, 124 decode and 0 CUDA-core
+                launches, the latent rings' bytes beside the expanded
+                K/V's, the same traces.  Before (c), one MLA layer at
+                published widths: its flash path against its no-cache
+                plain path, the absorbed path against the naive one.
  12. train    — federated LM training (`launch.train`, the reference's
                 scanned layout as the engine's flat-key view) and the
                 scenario generators: (a) `launch.train.main` at the
@@ -199,7 +212,8 @@ Phases (any failure raises and the script exits non-zero):
                 tokens, batch 4, on the host placement, the default mesh,
                 qsgd:8 over tiered:4, topk:0.1, async K = 2, a cohort of
                 2, fleets of 2 devices, crash:0.2 + median, and
-                olmoe-1b-7b (the MoE family) on the host: each run's
+                olmoe-1b-7b and deepseek-v3-671b (the MoE family, MLA)
+                on the host: each run's
                 final CE, s/round and launches; (d) the three scenarios
                 drawn on the card at their default sizes (shapes, groups,
                 the padding rule, the covariate rotations, one label
@@ -231,9 +245,10 @@ Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at three smoke configs (olmoe's the MoE
-family), `launch.serve.main --federated` at its smallest flags (the same
-served tokens), `launch.train.main` at
+the card against the CPU at four smoke configs (olmoe's the MoE
+family, deepseek's MLA), `launch.serve.main --federated` at its smallest
+flags on stablelm-3b and deepseek-v3-671b (the same served tokens),
+`launch.train.main` at
 cpu-small (host-drawn data and params, losses within rtol 1e-4), a buffered-async run on
 the card against the CPU, without a channel and with qsgd:8, and a
 two-level run (qsgd:8 edge codec) on the card against the CPU.
@@ -306,14 +321,30 @@ LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
 # quarter of each head, LayerNorm, 4,096 context)
 LM_C = (
     dict(arch="gemma-2b", batch=2, prompt=8160, tokens=32, cache_len=8192,
-         seed=0, reduced={"n_layers": "18 -> 2"}),
+         seed=0, n_layers=2, reduced={"n_layers": "18 -> 2"}),
     dict(arch="stablelm-3b", batch=2, prompt=4064, tokens=32,
-         cache_len=4096, seed=0, reduced={"n_layers": "32 -> 2"}),
+         cache_len=4096, seed=0, n_layers=2,
+         reduced={"n_layers": "32 -> 2"}),
     # OLMoE-1B-7B (arXiv:2409.02060): d_model 2,048, 16 heads of 128 with
     # qk_norm, 64 experts of 1,024, top 8, vocab 50,304, untied, RMSNorm
     dict(arch="olmoe-1b-7b", batch=2, prompt=4064, tokens=32,
-         cache_len=4096, seed=0, reduced={"n_layers": "16 -> 2"}),
+         cache_len=4096, seed=0, n_layers=2,
+         reduced={"n_layers": "16 -> 2"}),
+    # DeepSeek-V3-671B (arXiv:2412.19437): d_model 7,168, 128 heads of MLA
+    # (q_lora 1,536, kv_lora 512, qk_nope 128, rope 64, v 128), 256
+    # routed experts of 2,048, top 8, one shared, 3 dense-first layers of
+    # d_ff 18,432, vocab 129,280, untied, RMSNorm; depth 4 keeps the
+    # three dense-first layers and one MoE layer (15.11 B params)
+    dict(arch="deepseek-v3-671b", batch=2, prompt=4064, tokens=32,
+         cache_len=4096, seed=0, n_layers=4,
+         reduced={"n_layers": "61 -> 4"}),
 )
+# [lm]: one MLA layer of deepseek-v3-671b at its published widths, bf16:
+# B 1, a 1,024-token prefill into a latent ring of 1,040, then a decode
+# step; its flash path against its no-cache plain path, and the absorbed
+# path against the naive one, at bf16's 3e-2
+MLA_CHECK = dict(arch="deepseek-v3-671b", batch=1, prompt=1024,
+                 cache_len=1040, seed=0)
 # [kernels]: the flash op under vmap, (name, users, (H, Kh, Sq, Sk, hd),
 # dtype): [train] (e)'s served prefill and decode step (stablelm-3b, one
 # user a batch row), olmoe's prefill head dim, and a decode over a long
@@ -827,28 +858,35 @@ def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
 
 
 def flash_inputs(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None,
-                 logit_std=LOGIT_STD):
+                 logit_std=LOGIT_STD, dv=None):
     """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
     first Sk slots of a (B, C, Kh, hd) cache, transposed (strided views,
-    as on the main path).  q and k have variance ``logit_std``, so the
-    scaled logits q·k/√hd have standard deviation ``logit_std``."""
+    as on the main path); v of head dim ``dv`` where given (default hd).
+    q and k have variance ``logit_std``, so the scaled logits q·k/√hd
+    have standard deviation ``logit_std``."""
     c = sk if cache_len is None else cache_len
     a = math.sqrt(logit_std)
     q = torch.randn((b, sq, h, hd), generator=gen, device="cuda") * a
     k = torch.randn((b, c, kh, hd), generator=gen, device="cuda") * a
-    v = torch.randn((b, c, kh, hd), generator=gen, device="cuda")
+    v = torch.randn((b, c, kh, hd if dv is None else dv), generator=gen,
+                    device="cuda")
     return (q.to(dtype).transpose(1, 2), k[:, :sk].to(dtype).transpose(1, 2),
             v[:, :sk].to(dtype).transpose(1, 2))
 
 
-def flash_bound(q, k, kw):
+def flash_bound(q, k, kw, v=None):
     """(bound ms, what bounds it, FLOP) of one call: each input read and
-    the output written once; 4·hd FLOP per kept pair at the inputs'
-    peak (bf16 tensor cores, or f32 outside them)."""
+    the output written once; 2·(dk + dv) FLOP per kept pair (4·hd where
+    v is k's width) at the inputs' peak (bf16 tensor cores, or f32
+    outside them)."""
     b, h, sq, hd = q.shape
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4.0 * hd * b * h * attn_pairs(sq, k.shape[2], kw["causal"],
-                                          kw.get("window"))
+    dv = hd if v is None else v.shape[3]
+    n_v = k.numel() if v is None else v.numel()
+    n_bytes = (q.numel() + k.numel() + n_v + q.numel() // hd * dv) * \
+        q.element_size()
+    flops = 2.0 * (hd + dv) * b * h * attn_pairs(sq, k.shape[2],
+                                                 kw["causal"],
+                                                 kw.get("window"))
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return (*bound_ms(n_bytes, flops, peak), flops)
 
@@ -885,17 +923,18 @@ def flash_close(name, got, want) -> tuple:
     return err, rel
 
 
-def route_kernel(q):
-    """The wrapper of the kernel `flash_route` sends q to (no count)."""
-    return ops.FLASH_KERNELS[flash_route(q.dtype, q.shape[2],
-                                         q.shape[3])][0]
+def route_kernel(q, v):
+    """The wrapper of the kernel `flash_route` sends (q, v) to (no
+    count)."""
+    return ops.FLASH_KERNELS[flash_route(q.dtype, q.shape[2], q.shape[3],
+                                         v.shape[3])][0]
 
 
 def flash_planted_fault(name, q, k, v, kw, want) -> None:
     """The check must be able to fail: on logits past the cap, the route's
     kernel run without its softcap against the plain version with it
     passes neither flash_close's elementwise nor its row-relative test."""
-    bad = route_kernel(q)(q, k, v, **dict(kw, softcap=None))
+    bad = route_kernel(q, v)(q, k, v, **dict(kw, softcap=None))
     torch.cuda.synchronize()
     tol = FLASH_TOL[q.dtype]
     d = (bad.float() - want.float()).abs()
@@ -926,7 +965,7 @@ def attention_f64(q, k, v, causal, window=None, softcap=None):
     p = torch.softmax(lg.masked_fill(~valid, -1e300), -1)
     out = torch.einsum("bkgqs,bksh->bkgqh", p, v.double())
     return out.masked_fill(~valid.any(-1)[:, None], 0.0).reshape(
-        b, h, sq, hd)
+        b, h, sq, v.shape[3])
 
 
 def ragged_yardstick(q, k, v, kw, tally: dict):
@@ -1008,6 +1047,8 @@ def check_flash(gen) -> list:
     ]
     for c in LM_C:
         ac = get_config(c["arch"]).attn
+        if ac.mla is not None:         # MLA's pair: `check_flash_mla`
+            continue
         cases.append((
             f"{c['arch']} prefill", (c["batch"], ac.n_heads, ac.n_kv_heads,
                                      c["prompt"], c["prompt"], ac.head_dim),
@@ -1041,7 +1082,7 @@ def check_flash(gen) -> list:
                     f"hd={shape[5]} {str(dt)[6:]:8s} logit sd {std:4g} "
                     f"softcap {kw.get('softcap')} route {route:9s} "
                     f"max|err| {err:.2e} row-rel {rel:.2e}")
-            own = route_kernel(q)(q, k, v, **kw)
+            own = route_kernel(q, v)(q, k, v, **kw)
             if route in ("decode", "cuda_core"):
                 if not torch.equal(got, own):
                     raise AssertionError(f"flash {route} {name} {dt}: two "
@@ -1275,7 +1316,7 @@ def check_flash(gen) -> list:
     order = ("flash_attention_decode", "flash_attention_tc",
              "flash_attention") + tuple(
         f"flash_attention_tc_hd{get_config(c['arch']).attn.head_dim}"
-        for c in LM_C)
+        for c in LM_C if get_config(c["arch"]).attn.mla is None)
     return [rows[r] for r in order]
 
 
@@ -1319,6 +1360,215 @@ def check_flash_vmap(gen) -> None:
               f"Kh={kh} Sq={sq} Sk={sk} hd={hd}) {str(dt)[6:]}: one "
               f"{counter} launch, bitwise the per-user calls{splits}; "
               f"{ms:.4f} ms against {each:.4f} for {u} calls", flush=True)
+
+
+def sdpa_backend_ms(q, k, v, causal: bool) -> tuple:
+    """One SDPA call on contiguous copies of the same inputs, as
+    `sdpa_ms`, at a value head dim apart from the query's: (ms, the
+    backend that ran, named from its device kernels in a profiler trace),
+    or (None, why) where SDPA refuses the shape."""
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
+                                              enable_gqa=True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"refused ({str(e).splitlines()[0][:100]})"
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name.lower() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if any("fmha_cutlass" in n or "efficient" in n for n in names):
+        backend = "efficient (CUTLASS fmha)"
+    elif any("cudnn" in n for n in names):
+        backend = "cuDNN"
+    elif any("flash" in n for n in names):
+        backend = "flash"
+    elif names:
+        backend = "math (unfused products and softmax)"
+    else:
+        backend = "not traced"
+    return time_ms(call, iters=10), backend
+
+
+def mla_flash_inputs(gen, b, h, sq, sk, dk, dv, dtype, logit_std=LOGIT_STD):
+    """MLA's naive-path operands as `_mla_attention` hands them over: q
+    (B, Sq, H, dk) and k (B, Sk, H, dk) transposed, v the tail of the
+    (B, Sk, H, nope + dv) expansion (nope = dk − 64, rope 64), transposed;
+    Kh = H."""
+    a = math.sqrt(logit_std)
+    q = torch.randn((b, sq, h, dk), generator=gen, device="cuda") * a
+    k = torch.randn((b, sk, h, dk), generator=gen, device="cuda") * a
+    kv = torch.randn((b, sk, h, dk - 64 + dv), generator=gen,
+                     device="cuda")
+    return (q.to(dtype).transpose(1, 2), k.to(dtype).transpose(1, 2),
+            kv.to(dtype)[..., dk - 64:].transpose(1, 2))
+
+
+def check_flash_mla(gen) -> list:
+    """The three flash kernels at a value head dim dv apart from the
+    query/key head dim dk (MLA's naive path): on ragged shapes at dk 24 /
+    dv 16 (the smoke config's) and dk 192 / dv 128 (the published pair),
+    f32 and bf16, Kh = H and GQA group 4, Sq 1/3/16 (decode) and
+    17/77/130/96 (prefill, 96 over 40 keys), both logit scales, through
+    the op (each on its route) and on every kernel that takes the shape
+    (the CUDA-core kernel always, the decode kernel at 1, 2 and Sk
+    splits, the tensor-core kernel at (192, 128) in bf16); f32 against
+    float64 attention, bf16 against the plain version; past the softcap
+    each route's kernel also fails without it.  Then MLA's two full
+    shapes at its published heads (B 2, H = Kh = 128, dk 192, dv 128,
+    bf16): the prefill of 4,064 on the tensor cores (held on the first 16
+    heads at full S, where the plain version's f32 logits take 2 GB;
+    timed at all 128, the plain version head-chunked by 16) and a decode
+    step over 4,096 keys, each timed beside its bound and SDPA (its
+    backend named).  Returns the two JSON rows, counted in [lm] (c)'s
+    deepseek run."""
+    n0 = dict(ops.LAUNCHES)
+    n_ops = n_checks = n_faults = 0
+    tally = {"inputs": 0, "plain outside": 0}
+    for dk, dv in ((24, 16), (192, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            for h, kh in ((4, 4), (8, 2)):
+                for sq, sk in ((1, 70), (3, 333), (16, 40), (17, 300),
+                               (77, 77), (130, 130), (96, 40)):
+                    for std, kws in (
+                            (LOGIT_STD, (dict(causal=False),
+                                         dict(causal=True),
+                                         dict(causal=True, window=48,
+                                              softcap=30.0))),
+                            (CAP_LOGIT_STD, (dict(causal=True,
+                                                  softcap=50.0),))):
+                        q, k, v = flash_inputs(gen, 2, h, kh, sq, sk, dk,
+                                               dt, cache_len=sk + 5,
+                                               logit_std=std, dv=dv)
+                        route = flash_route(dt, sq, dk, dv)
+                        for kw in kws:
+                            tag = (f"flash dk={dk} dv={dv} H={h} Kh={kh} "
+                                   f"Sq={sq} Sk={sk} logit sd {std:g} "
+                                   f"{kw} {dt}")
+                            want = ragged_yardstick(q, k, v, kw, tally)
+                            got = ops.flash_attention(q, k, v, **kw)
+                            if got.shape != (2, h, sq, dv):
+                                raise AssertionError(f"{tag}: shape "
+                                                     f"{tuple(got.shape)}")
+                            flash_close(tag, got, want)
+                            n_ops += 1
+                            flash_close(tag + " (CUDA-core kernel)",
+                                        flash_attention_cuda(q, k, v, **kw),
+                                        want)
+                            n_checks += 1
+                            if route == "decode":
+                                for ns in (1, 2, sk):
+                                    flash_close(f"{tag} n_split={ns}",
+                                                flash_decode_cuda(
+                                                    q, k, v, n_split=ns,
+                                                    **kw), want)
+                                    n_checks += 1
+                            if route == "tc":
+                                flash_close(tag + " (tensor-core kernel)",
+                                            flash_attention_tc_cuda(
+                                                q, k, v, **kw), want)
+                                n_checks += 1
+                            if std == CAP_LOGIT_STD:
+                                flash_planted_fault(tag, q, k, v, kw, want)
+                                n_faults += 1
+    made = sum(ops.LAUNCHES[c] - n0[c] for c in ops.FLASH_COUNTERS.values())
+    direct = ops.LAUNCHES["flash_attention"] - n0["flash_attention"]
+    print(f"  flash_attention dv != dk ragged: (dk, dv) (24, 16) and (192, "
+          f"128) x f32/bf16 x (H, Kh) (4, 4), (8, 2) x (Sq, Sk) (1, 70), "
+          f"(3, 333), (16, 40), (17, 300), (77, 77), (130, 130), (96, 40); "
+          f"logit sd {LOGIT_STD:g}: non-causal, causal, causal + window "
+          f"48 + softcap 30; logit sd {CAP_LOGIT_STD:g}: causal + softcap "
+          f"50: {n_ops} op calls ({made} counted launches, {direct} of "
+          f"them on the CUDA-core kernel's counter) and {n_checks} direct "
+          f"kernel calls within tolerance (bf16 of the plain version, f32 "
+          f"of float64 attention), {n_faults} without the softcap fail "
+          f"it; the f32 plain version itself lies outside the f32 "
+          f"tolerance of float64 on {tally['plain outside']} of "
+          f"{tally['inputs']} f32 inputs", flush=True)
+
+    c = next(c for c in LM_C if get_config(c["arch"]).attn.mla is not None)
+    cfg = get_config(c["arch"])
+    m, hh = cfg.attn.mla, cfg.attn.n_heads
+    dk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    b, sp, clen = c["batch"], c["prompt"], c["cache_len"]
+    rows = []
+    for label, sq, sk, counter, name in (
+            ("prefill (7a)", sp, sp, "flash_attention_tc",
+             f"flash_attention_tc_dk{dk}_dv{dv}"),
+            ("decode step (7c)", 1, clen, "flash_attention_decode",
+             f"flash_attention_decode_dk{dk}_dv{dv}")):
+        kw = dict(causal=True)
+        q, k, v = mla_flash_inputs(gen, b, hh, sq, sk, dk, dv,
+                                   torch.bfloat16)
+        route = flash_route(q.dtype, sq, dk, dv)
+        if ops.FLASH_COUNTERS[route] != counter:
+            raise AssertionError(f"MLA {label}: route {route}")
+        held = 16 if sq > 1 else hh         # heads held to the plain version
+        errs = []
+        for std, kws in ((LOGIT_STD, (kw,)),
+                         (CAP_LOGIT_STD, (kw, dict(kw, softcap=50.0)))):
+            qc, kc, vc = (t[:, :held] for t in mla_flash_inputs(
+                gen, b, held, sq, sk, dk, dv, torch.bfloat16,
+                logit_std=std)) if std != LOGIT_STD else \
+                (q[:, :held], k[:, :held], v[:, :held])
+            for kwc in kws:
+                tag = f"MLA {label} H={held} logit sd {std:g} {kwc}"
+                want = ref.flash_attention_ref(qc, kc, vc, **kwc)
+                err, _ = flash_close(tag, ops.flash_attention(qc, kc, vc,
+                                                              **kwc), want)
+                errs.append(err)
+                flash_close(tag + " (own wrapper)",
+                            route_kernel(qc, vc)(qc, kc, vc, **kwc), want)
+                flash_close(tag + " (CUDA-core kernel)",
+                            flash_attention_cuda(qc, kc, vc, **kwc), want)
+                if "softcap" in kwc:
+                    flash_planted_fault(tag, qc, kc, vc, kwc, want)
+                del want
+            del qc, kc, vc
+        bnd, by, flops = flash_bound(q, k, kw, v)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        chunks = range(0, hh, held)
+        plain = time_ms(lambda: [ref.flash_attention_ref(
+            q[:, i:i + held], k[:, i:i + held], v[:, i:i + held], **kw)
+            for i in chunks], iters=3)
+        lib, backend = sdpa_backend_ms(q, k, v, causal=sq > 1)
+        line = (f"  flash_attention MLA {label}: B={b} H=Kh={hh} Sq={sq} "
+                f"Sk={sk} dk={dk} dv={dv} bf16 route {route}: max|err| "
+                f"{max(errs):.2e} on {held} heads (both logit scales, "
+                f"softcap 50 with its planted fault); kernel {ms:.4f} ms  "
+                f"plain {plain:.4f} ms ({len(chunks)} chunks of {held} "
+                f"heads)  bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
+                f"{bnd / ms:.1%} of it)  SDPA ")
+        line += (f"{lib:.4f} ms (backend: {backend})" if lib is not None
+                 else f"not timed: {backend}")
+        if sq == 1:
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            ns = decode_splits(b, hh, sk, n_sm)
+            line += f"  ({ns} splits; at " + ", ".join(
+                f"{n}: {time_ms(lambda: flash_decode_cuda(q, k, v, n_split=n, **kw)):.4f} ms"
+                for n in (2, 4, 8)) + ")"
+        else:
+            line += (f"  CUDA-core kernel "
+                     f"{time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=3):.4f}"
+                     " ms")
+        print(line, flush=True)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/" +
+            {"tc": "flash_attention_tc.cu",
+             "decode": "flash_decode.cu"}[route],
+            replaces="src/repro/kernels/flash_attention.py:118",
+            counter=counter, max_abs_err=max(errs), ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=lib, phase=c["arch"]))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1588,10 +1838,13 @@ def lm_agreement() -> None:
     prompt: gemma2-27b's smoke config (GQA group 1, window 64: a 96-token
     prompt takes the S > C prefill, and the local ring wraps on every
     decode step), gemma-2b's (group 4, head_dim 64) and olmoe-1b-7b's (4
-    experts, top 2, qk_norm: a MoE layer a block); prefill plus 8 decode
-    steps, per-step logits within 1e-4 (f32, TF32 off) and equal
+    experts, top 2, qk_norm: a MoE layer a block) and deepseek-v3-671b's
+    (MLA at dk 24 / dv 16, its prefill on the CUDA-core kernel; a
+    dense-first layer and a MoE layer with a shared expert); prefill plus
+    8 decode steps, per-step logits within 1e-4 (f32, TF32 off) and equal
     tokens."""
-    for arch in ("gemma2-27b", "gemma-2b", "olmoe-1b-7b"):
+    for arch in ("gemma2-27b", "gemma-2b", "olmoe-1b-7b",
+                 "deepseek-v3-671b"):
         cfg = get_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(3), cfg,
                                device="cpu")
@@ -1615,16 +1868,22 @@ def lm_agreement() -> None:
                                      f"vs cpu by {float(d.max()):.3e}")
         if not torch.equal(a.tokens, b.tokens.cpu()):
             raise AssertionError(f"{arch}: tokens differ cuda vs cpu")
+        m = cfg.attn.mla
+        dims = (f"hd={cfg.attn.head_dim}" if m is None else
+                f"MLA dk={m.qk_nope_head_dim + m.qk_rope_head_dim} "
+                f"dv={m.v_head_dim}")
         print(f"  {cfg.name} (H={cfg.attn.n_heads} Kh={cfg.attn.n_kv_heads} "
-              f"hd={cfg.attn.head_dim}) prompt 96, 8 decode steps: cuda "
+              f"{dims}) prompt 96, 8 decode steps: cuda "
               f"agrees with cpu (max |Δlogit| {err:.2e}, tokens equal, "
               f"{launched} flash launches)", flush=True)
 
 
-# [agree]: `launch.serve --federated` at its smallest flags
-FED_SMALL = ["--federated", "--arch", "stablelm-3b", "--rounds", "1",
-             "--clients", "2", "--pool", "5", "--requests", "3", "--tokens",
-             "3", "--prompt-len", "8", "--max-batch", "2"]
+# [agree]: `launch.serve --federated` at its smallest flags, on a dense
+# config and on deepseek's (MLA under the per-user vmap)
+FED_SMALL = ["--federated", "--rounds", "1", "--clients", "2", "--pool",
+             "5", "--requests", "3", "--tokens", "3", "--prompt-len", "8",
+             "--max-batch", "2"]
+FED_ARCHS = ("stablelm-3b", "deepseek-v3-671b")
 
 
 def federated_agreement() -> None:
@@ -1635,25 +1894,29 @@ def federated_agreement() -> None:
     import contextlib
     import io
     from repro_torch.launch import serve as serve_cli
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        buf = io.StringIO()
-        before = sum(ops.LAUNCHES[c] for c in ops.FLASH_COUNTERS.values())
-        with contextlib.redirect_stdout(buf):
-            outs[dev] = serve_cli.main(FED_SMALL + ["--device", dev])
-        launched = sum(ops.LAUNCHES[c] for c in ops.FLASH_COUNTERS.values()
-                       ) - before
-        if "parity anchor OK" not in buf.getvalue():
-            raise AssertionError(f"--federated {dev}: {buf.getvalue()}")
-    if len(outs["cuda"]) != 3 or any(
-            not np.array_equal(a, b) for a, b in zip(outs["cpu"],
-                                                     outs["cuda"])):
-        raise AssertionError(f"--federated: served tokens differ cuda vs "
-                             f"cpu: {outs}")
-    print(f"  launch.serve --federated (stablelm-3b cpu-small, 2 clients, 3 "
-          f"requests of 3 tokens at max_batch 2): cuda serves the cpu's "
-          f"tokens {[o.tolist() for o in outs['cuda']]}, parity anchor on "
-          f"both; {launched} flash launches on the card", flush=True)
+    for arch in FED_ARCHS:
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            buf = io.StringIO()
+            before = dict(ops.LAUNCHES)
+            with contextlib.redirect_stdout(buf):
+                outs[dev] = serve_cli.main(FED_SMALL + ["--arch", arch,
+                                                        "--device", dev])
+            launched = {c: ops.LAUNCHES[c] - before[c]
+                        for c in ops.FLASH_COUNTERS.values()
+                        if ops.LAUNCHES[c] != before[c]}
+            if "parity anchor OK" not in buf.getvalue():
+                raise AssertionError(f"--federated {arch} {dev}: "
+                                     f"{buf.getvalue()}")
+        if len(outs["cuda"]) != 3 or any(
+                not np.array_equal(a, b) for a, b in zip(outs["cpu"],
+                                                         outs["cuda"])):
+            raise AssertionError(f"--federated {arch}: served tokens differ "
+                                 f"cuda vs cpu: {outs}")
+        print(f"  launch.serve --federated ({arch} cpu-small, 2 clients, 3 "
+              f"requests of 3 tokens at max_batch 2): cuda serves the cpu's "
+              f"tokens {[o.tolist() for o in outs['cuda']]}, parity anchor "
+              f"on both; flash launches on the card {launched}", flush=True)
 
 
 def kernel_kind(name: str) -> str:
@@ -1863,6 +2126,64 @@ def lm_path(card: str) -> dict:
     return {k: launches[k] + launches_b[k] for k in counters}
 
 
+def mla_layer_check(card: str) -> None:
+    """One MLA layer of deepseek-v3-671b at its published widths in bf16
+    (MLA_CHECK): a prefill into a latent ring on the naive path (its
+    product on the tensor-core kernel at dk 192 / dv 128) against the
+    layer's no-cache plain path (`_sdpa_chunked`), and the absorbed path
+    (plain einsums in the latent space) against the naive one, on the
+    prefill and on one decode step (the decode kernel), each at bf16's
+    3e-2, elementwise and per output row.  Its launches are the check's,
+    not a path's."""
+    from repro_torch.models import attention as A
+    c = MLA_CHECK
+    cfg = get_config(c["arch"])
+    absorbed = dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, mla_absorb=True))
+    b, s, clen = c["batch"], c["prompt"], c["cache_len"]
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    params = A.attn_init(gen, cfg, device="cuda")
+    x = torch.randn((b, s + 1, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.cdtype)
+    tol = FLASH_TOL[torch.bfloat16]
+
+    def held(tag, got, want):
+        err = check_close(tag, got, want, tol, tol)
+        rel = row_rel_err(got, want)
+        if not rel <= tol:
+            raise AssertionError(f"{tag}: row-relative error {rel:.3e}")
+        return err, rel
+
+    with ops.launches_set_aside() as made:
+        outs = {}
+        for label, cf in (("naive", cfg), ("absorbed", absorbed)):
+            cache = A.init_cache(cf, b, clen, cf.cdtype, "cuda")
+            pre, cache = A.attention(params, cf, x[:, :s], 0, cache=cache)
+            dec, cache = A.attention(params, cf, x[:, s:], s, cache=cache)
+            outs[label] = (pre, dec)
+        plain, _ = A.attention(params, cfg, x[:, :s], 0)
+        torch.cuda.synchronize()
+    want = {"flash_attention_tc": 1, "flash_attention_decode": 1}
+    if made != want:
+        raise AssertionError(f"[lm] MLA check: launches {made}, want {want}")
+    e1 = held("MLA prefill: flash path vs no-cache plain path",
+              outs["naive"][0], plain)
+    e2 = held("MLA prefill: absorbed vs naive", outs["absorbed"][0],
+              outs["naive"][0])
+    e3 = held("MLA decode step: absorbed vs naive", outs["absorbed"][1],
+              outs["naive"][1])
+    print(f"[lm] MLA layer of {cfg.name} at published widths, bf16, B {b}, "
+          f"prefill {s} into a latent ring of {clen}, then a decode step "
+          f"({card}): the flash path (tensor-core kernel, dk 192 / dv "
+          f"128) against the no-cache plain path max|err| {e1[0]:.2e} "
+          f"row-rel {e1[1]:.2e}; absorbed against naive: prefill "
+          f"{e2[0]:.2e} / {e2[1]:.2e}, decode step (decode kernel) "
+          f"{e3[0]:.2e} / {e3[1]:.2e}; tolerance {tol}; launches {made}",
+          flush=True)
+    del params, x, outs, plain
+    torch.cuda.empty_cache()
+
+
 def lm_c_path(card: str) -> dict:
     """[lm] (c): bf16 `generate` of each LM_C configuration at its full
     width, depth 2, after a warm-up at the full prompt: prefill ms, decode
@@ -1874,8 +2195,14 @@ def lm_c_path(card: str) -> dict:
     counters = tuple(ops.FLASH_COUNTERS.values())
     out = {}
     for c in LM_C:
-        cfg = dataclasses.replace(get_config(c["arch"]), n_layers=2)
+        cfg = dataclasses.replace(get_config(c["arch"]),
+                                  n_layers=c["n_layers"])
         a = cfg.attn
+        if a.mla is not None:
+            # 30 GB of bf16 params, drawn a tensor at a time in f32 (one
+            # expert tensor: 15 GB): return what the earlier phases'
+            # captured graphs hold first
+            _free_graphs()
         b, plen, n, clen = c["batch"], c["prompt"], c["tokens"], \
             c["cache_len"]
         gen = torch.Generator(device="cuda").manual_seed(c["seed"])
@@ -1886,6 +2213,15 @@ def lm_c_path(card: str) -> dict:
         n_params = sum(t.numel() for t in _leaves(params))
         moe_w = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_expert} top "
                  f"{cfg.moe.top_k}, qk_norm {a.qk_norm}" if cfg.moe else "")
+        if cfg.moe and cfg.moe.n_shared_experts:
+            moe_w += (f", {cfg.moe.n_shared_experts} shared, "
+                      f"{cfg.moe.n_dense_layers} dense-first layers of d_ff "
+                      f"{cfg.moe.dense_d_ff}")
+        if a.mla is not None:
+            moe_w += (f", MLA q_lora {a.mla.q_lora_rank}, kv_lora "
+                      f"{a.mla.kv_lora_rank}, qk_nope "
+                      f"{a.mla.qk_nope_head_dim}, rope "
+                      f"{a.mla.qk_rope_head_dim}, v {a.mla.v_head_dim}")
         print(f"[lm] (c) {cfg.name} d_model {cfg.d_model}, H {a.n_heads}, Kh "
               f"{a.n_kv_heads}, hd {a.head_dim}, d_ff {cfg.d_ff}{moe_w}, "
               f"vocab {cfg.vocab_size}, {cfg.activation}, {cfg.norm}; "
@@ -1921,6 +2257,20 @@ def lm_c_path(card: str) -> dict:
               f"steps x{b}); flash launches {launches}; peak memory "
               f"{peak / 2**30:.2f} GiB ({peak / 2**20:.0f} MiB); sample "
               f"{res.tokens[0, :12].tolist()}", flush=True)
+        if a.mla is not None:
+            m, el = a.mla, torch.finfo(cfg.cdtype).bits // 8
+            latent = cfg.n_layers * b * clen * (
+                m.kv_lora_rank + m.qk_rope_head_dim) * el
+            expanded = cfg.n_layers * b * clen * a.n_heads * (
+                m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * el
+            print(f"  (c) {cfg.name} cache: the latent rings (c_kv "
+                  f"{m.kv_lora_rank} + k_rope {m.qk_rope_head_dim} a slot) "
+                  f"hold {latent / 2**20:.1f} MiB over {cfg.n_layers} "
+                  f"layers x B {b} x {clen} slots, where the expanded K "
+                  f"({m.qk_nope_head_dim + m.qk_rope_head_dim}) and V "
+                  f"({m.v_head_dim}) of {a.n_heads} heads would take "
+                  f"{expanded / 2**20:.1f} MiB ({expanded / latent:.1f}x)",
+                  flush=True)
         del res
         out[c["arch"]] = launches
         # one prefill under the profiler: where its device time goes
@@ -3614,6 +3964,11 @@ TRAIN_A_RUNS = (
     # the MoE family at the same preset (olmoe-1b-7b cut as lm-100m cuts
     # it: 8 layers, d_model 512, 4 experts of 1,024, top 2)
     ("olmoe-1b-7b", ["--arch", "olmoe-1b-7b", "--placement", "host"]),
+    # deepseek-v3-671b cut the same way (MLA at dk 24 / dv 16, one
+    # dense-first layer, 4 experts of 1,024 top 2 plus a shared one; the
+    # "pod" client axis: no momentum)
+    ("deepseek-v3-671b", ["--arch", "deepseek-v3-671b", "--placement",
+                          "host"]),
 )
 # (b) stablelm-3b at its published widths (src/repro_torch/configs/
 # stablelm_3b.py: d_model 2,560, 32 heads of 80, rotary on a quarter of
@@ -4251,7 +4606,7 @@ def main() -> int:
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_mixing(gen), check_gram(gen)] + \
-        check_channel_kernels(gen) + check_flash(gen)
+        check_channel_kernels(gen) + check_flash(gen) + check_flash_mla(gen)
     check_flash_vmap(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)
@@ -4363,8 +4718,10 @@ def main() -> int:
         launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
-    # the tensor-core kernel's hd 256 and hd 80 instances run in [lm] (c),
-    # one configuration each: their rows count that configuration's run
+    mla_layer_check(card)
+    # the tensor-core kernel's hd 256, hd 80 and (192, 128) instances run
+    # in [lm] (c), one configuration each: their rows count that
+    # configuration's run
     by_arch = lm_c_path(card)
     print(f"[train] federated LM training through launch/train.py, the "
           f"scenario generators ({card})", flush=True)

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the LM path.
 
 Counterpart of `repro/configs/registry.py` for the configs the port
-runs (the dense family and olmoe-1b-7b's MoE).  The reference's other
+runs (the dense family, and the MoE family: olmoe-1b-7b, and
+deepseek-v3-671b with MLA).  The reference's other
 architectures are known here and raise `NotImplementedError` naming the
 ROADMAP item that ports them; an unknown id raises `KeyError`, as in
 the reference.
@@ -17,10 +18,10 @@ _MODULES = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 # the reference's other architectures, by family
 NOT_PORTED = {
-    "deepseek-v3-671b": "moe (MLA)",
     "mamba2-780m": "ssm", "zamba2-2.7b": "hybrid",
     "nemotron-4-340b": "dense at 340B (relu2, sharded serving)",
     "whisper-tiny": "audio", "paligemma-3b": "vlm",

@@ -8,7 +8,9 @@
 // when k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
 // online softmax with the reference's guards for fully masked rows (m_safe,
 // alpha) and its denominator clamped at 1e-30.  Query head h reads KV head
-// h / (H / Kh); K and V are never broadcast.  Inputs f32 or bf16, all
+// h / (H / Kh); K and V are never broadcast.  q and k have head dim dk, v
+// and the output their own head dim dv (MLA: dk = qk_nope + rope, dv =
+// v_head_dim; the scale is the caller's, 1/√dk).  Inputs f32 or bf16, all
 // arithmetic f32 (the tensor cores' TF32 cannot hold f32's 2e-5), output in
 // q's dtype.
 //
@@ -38,12 +40,16 @@
 //   - O += P V: the same thread owns the same 8 rows × 8 output columns
 //     (16-byte chunks t and t + TPR), reading float4s of P along keys and
 //     of V along hd.
-// Geometry (Geom below): hd ≤ 64: 128 rows × 64 keys; ≤ 128: 64 × 64;
-// ≤ 256: 32 × 32.  Shared memory: Q (BQ × HDM), two slots (BK × HDM) and
-// P (BQ × BK), f32, unpadded: 96, 112 and 100 KB, so two blocks fit an SM
+// Geometry (Geom below), by HDM, max(dk, dv) padded to 64, 128 or 256:
+// HDM 64: 128 rows × 64 keys; 128: 64 × 64; 256: 32 × 32.  Q and K tiles
+// hold dk of HDM columns, V tiles dv (the rest zero-filled: a padded V
+// column adds 0 to an output column that is never stored); the output
+// register tile spans HDM columns, and columns past dv are not stored.
+// Shared memory: Q (BQ × HDM), two slots (BK × HDM) and P (BQ × BK), f32,
+// unpadded: 96, 112 and 100 KB, so two blocks fit an SM
 // (8 warps; 254 registers a thread, no spills).  The slots are a ring that
 // alternates K and V: V_j loads during S_j, and K_{j+1} during P_j V_j,
-// through cp.async (16 bytes, zero-filled past Sk and past hd; a thread
+// through cp.async (16 bytes, zero-filled past Sk and past dk or dv; a thread
 // copies one fixed chunk of every (NT / C)-th row) for f32; bf16 is
 // converted to f32 on its way to shared memory through registers
 // (synchronous; no config serves bf16 on this kernel).  Two barriers a
@@ -81,7 +87,7 @@ struct Params {
   const void* v;
   void* o;
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
-  int B, H, Kh, Sq, Sk, hd, group;
+  int B, H, Kh, Sq, Sk, hd, dv, group;  // hd: dk, of q and k
   int causal, window;  // window 0: none
   float scale, softcap;  // softcap 0: none
 };
@@ -271,7 +277,7 @@ __global__ void __launch_bounds__(Tile<HDM>::NT, 2)
     cp_async_wait_all();
     __syncthreads();  // K_j (and Q) landed; P_{j-1} V_{j-1} is done
     Io<T>::template tile<HDM, BK, SWM, NH, NT>(Vs, vb, p.vs[2], kt, p.Sk,
-                                               p.hd);
+                                               p.dv);
     cp_async_commit();
 
     if (live) {
@@ -418,7 +424,7 @@ __global__ void __launch_bounds__(Tile<HDM>::NT, 2)
 #pragma unroll
     for (int cc = 0; cc < 2; ++cc) {
       const int col = 4 * (t + TPR * cc);
-      if (col < p.hd)
+      if (col < p.dv)
         Io<T>::store4(ob + row * p.os[2] + col,
                       make_float4(acc[r][4 * cc] / denom,
                                   acc[r][4 * cc + 1] / denom,
@@ -448,21 +454,23 @@ int launch(const Params& p, cudaStream_t s) {
 
 template <typename T>
 int launch_hd(const Params& p, cudaStream_t s) {
-  if (p.hd <= 64) return launch<T, 64>(p, s);
-  if (p.hd <= 128) return launch<T, 128>(p, s);
+  const int d = max(p.hd, p.dv);
+  if (d <= 64) return launch<T, 64>(p, s);
+  if (d <= 128) return launch<T, 128>(p, s);
   return launch<T, 256>(p, s);
 }
 
 }  // namespace
 
-// q (B, H, Sq, hd), k and v (B, Kh, Sk, hd), o like q, as element strides
-// of (b, h, s) in `strides` (q, k, v, o; 12 values) with unit stride on hd.
-// dtype 0: f32, 1: bf16.  hd % 8 == 0, hd <= 256; window 0 and softcap 0
-// mean none.  Returns the cudaError_t of the attribute calls or the launch.
+// q (B, H, Sq, hd), k (B, Kh, Sk, hd), v (B, Kh, Sk, dv), o (B, H, Sq,
+// dv), as element strides of (b, h, s) in `strides` (q, k, v, o; 12
+// values) with unit stride on the head dim.  dtype 0: f32, 1: bf16.  hd
+// and dv multiples of 8 up to 256; window 0 and softcap 0 mean none.
+// Returns the cudaError_t of the attribute calls or the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int B, int H,
-                                     int Kh, int Sq, int Sk, int hd,
+                                     int Kh, int Sq, int Sk, int hd, int dv,
                                      int causal, int window, float scale,
                                      float softcap, int dtype, void* stream) {
   Params p;
@@ -473,13 +481,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     p.vs[e] = strides[6 + e];
     p.os[e] = strides[9 + e];
   }
-  p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd;
-  p.group = H / Kh;
+  p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd; p.dv = dv;
   p.causal = causal; p.window = window;
   p.scale = scale; p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd % 8 != 0 || hd < 8 || hd > 256 || Kh < 1 || H % Kh != 0)
+  if (hd % 8 != 0 || hd < 8 || hd > 256 || dv % 8 != 0 || dv < 8 ||
+      dv > 256 || Kh < 1 || H % Kh != 0)
     return (int)cudaErrorInvalidValue;
+  p.group = H / Kh;
   return dtype == 0 ? launch_hd<float>(p, s)
                     : launch_hd<__nv_bfloat16>(p, s);
 }

@@ -1,12 +1,16 @@
 // Flash attention on Hopper's tensor cores (sm_90a): bf16 prefill.
 //
-// Replaces, for bf16 inputs with Sq > 16 and head_dim 64, 80, 128 or 256,
-// the Pallas TPU kernel src/repro/kernels/flash_attention.py, function
-// `flash_attention` (:90, pallas_call :118, body `_kernel` :30): every bf16
-// prefill of the served configs (hd 128 gemma2-27b, hd 256 gemma-2b, hd 80
-// stablelm-3b).  Decode steps (Sq <= 16) take flash_decode.cu; f32 prefill
-// and bf16 at other head_dims take the CUDA-core kernel in
-// flash_attention.cu.  It computes what `_kernel` computes:
+// Replaces, for bf16 inputs with Sq > 16 and head dims (dk, dv) of (64, 64),
+// (80, 80), (128, 128), (256, 256) or (192, 128), the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py, function `flash_attention` (:90,
+// pallas_call :118, body `_kernel` :30): every bf16 prefill of the served
+// configs (hd 128 gemma2-27b and olmoe-1b-7b, hd 256 gemma-2b, hd 80
+// stablelm-3b, and MLA's naive path in deepseek-v3-671b, whose queries and
+// keys are 192 wide, qk_nope 128 + rope 64, and its values 128; the Pallas
+// kernel takes dk == dv only, so the reference runs that product in jnp).
+// Decode steps (Sq <= 16) take flash_decode.cu; f32 prefill and bf16 at
+// other head dims take the CUDA-core kernel in flash_attention.cu.  It
+// computes what `_kernel` computes:
 // out = softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query
 // head), q aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
 // k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
@@ -21,8 +25,8 @@
 // SFU; relative error about 2^-11) and exp is `ex2.approx` on the scores
 // pre-multiplied by log2(e).  Both stay inside the bf16 tolerance (3e-2).
 //
-// Bound on this card: operations.  A causal prefill does 4·hd FLOP per
-// (query, key) pair the mask keeps; at the serving path's global-layer
+// Bound on this card: operations.  A causal prefill does 2·(dk + dv) FLOP
+// per (query, key) pair the mask keeps; at the serving path's global-layer
 // prefill (B 2, H 32, Kh 16, S 4,608, hd 128, bf16) that is 3.48e11 FLOP,
 // 0.35 ms at the 989 TFLOP/s bf16 tensor-core peak, against 0.23 GB of
 // inputs and output (0.07 ms at 3.35 TB/s).  Besides the products, every
@@ -41,12 +45,14 @@
 // barrier and was slower (hd 128).  Every tile sits in the 128-byte swizzle
 // that the `wgmma` descriptors name: a 64-element bf16 row chunk is one
 // 128-byte line, 8 lines make a 1,024-byte atom in which 16-byte unit u of
-// line r is stored at unit u ^ (r % 8); a row spans ceil(hd / 64) such
-// chunks, stored one after the other (chunk-major).  At hd 80 the second
+// line r is stored at unit u ^ (r % 8); a row spans ceil(d / 64) such
+// chunks, stored one after the other (chunk-major), d the tile's head dim:
+// dk for the Q and K tiles, dv for the V tiles (an instance <DK, DV> sizes
+// each by its own).  At hd 80 the second
 // chunk holds only units 0 and 1 of each line (elements 64-79); units 2-7
 // are never written nor read, so every tile is sized by the padded width.
 //   S = Q·Kᵀ: `wgmma.mma_async.m64n{kBK}k16` with A (Q) and B (K) both
-//     read from shared memory K-major (hd contiguous), hd/16 k-steps, each
+//     read from shared memory K-major (dk contiguous), dk/16 k-steps, each
 //     advancing the start address 32 bytes inside the swizzle atom and
 //     every 4th moving to the next chunk (hd 80: step 4 at offset 0 of
 //     chunk 1, which reads just its units 0 and 1).
@@ -58,17 +64,20 @@
 //     are skipped, which is exact (a fully masked tile leaves m, l and O
 //     unchanged).  O is rescaled only when a row max of the warp moved.
 //   O += P·V: the S fragment, packed pairwise to bf16x2, is already the
-//     A-from-registers fragment of `wgmma ... m64nHDk16` (RS form); V
-//     (key, hd) is B read MN-major with the transpose bit, its 64-element
-//     hd chunks LBO = kBK keys × 128 bytes apart, 8-key groups SBO = 1,024
+//     A-from-registers fragment of `wgmma ... m64n{DV}k16` (RS form); V
+//     (key, dv) is B read MN-major with the transpose bit, its 64-element
+//     dv chunks LBO = kBK keys × 128 bytes apart, 8-key groups SBO = 1,024
 //     bytes apart.  At hd 80 it is `m64n64k16` on chunk 0 and `m64n16k16`
 //     on chunk 1 (whose fragment continues the first's), so no product
 //     reads past a tile's live units.
 // Registers and shared memory (`-Xptxas -v` prints the registers): O is
-// hd / 2 f32 a thread, S kBK / 2.  At hd 256, O alone is 128 registers, so
+// dv / 2 f32 a thread, S kBK / 2.  At hd 256, O alone is 128 registers, so
 // the K/V tiles shrink to 32 keys (S 16 registers): Q 32 KB + a 64 KB ring
 // = 97 KB, still two blocks an SM as at hd 64 (41 KB), 80 and 128 (81 KB
-// each, the hd 80 rows padded to 128 elements).
+// each, the hd 80 rows padded to 128 elements).  At (dk 192, dv 128), Q
+// 24 KB + a ring of two 24 KB K and 16 KB V tiles + 1 KB of slack = 105 KB:
+// two blocks an SM, with hd 128's registers (O 64, S 32).  Zero-padding V
+// to 192 instead would do 1.5x the P·V products and write a wider output.
 // Keys past Sk and Q rows past Sq are zero-filled by the copy's src-size 0
 // form (0 × NaN would be NaN); such keys are masked and such rows are not
 // stored.  Under a causal mask the heaviest (last) Q tiles launch first.
@@ -86,13 +95,17 @@ constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the tile geometry of the instance for head_dim HD
-template <int HD>
+// a row of head dim D in whole 64-element chunks
+template <int D>
+__host__ __device__ constexpr int pad64() { return (D + 63) / 64 * 64; }
+
+// the tile geometry of the instance for head dims DK (q, k) and DV (v)
+template <int DK, int DV>
 struct Geom {
-  static constexpr int kBK = HD == 256 ? 32 : 64;      // keys per K/V tile
-  static constexpr int kPad = (HD + 63) / 64 * 64;     // row, in whole chunks
-  static constexpr uint32_t kQBytes = kBQ * kPad * 2;  // the Q tile
-  static constexpr uint32_t kTBytes = kBK * kPad * 2;  // one K or V tile
+  static constexpr int kBK = DK == 256 || DV == 256 ? 32 : 64;  // keys a tile
+  static constexpr uint32_t kQBytes = kBQ * pad64<DK>() * 2;  // the Q tile
+  static constexpr uint32_t kKBytes = kBK * pad64<DK>() * 2;  // one K tile
+  static constexpr uint32_t kVBytes = kBK * pad64<DV>() * 2;  // one V tile
 };
 
 struct Params {
@@ -266,46 +279,64 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ROWS rows of HD bf16 from `g` (row stride `stride` elements), rows from
 // `n_valid` on zero-filled, into the swizzled chunk-major tile at `dst`.
-// A row has kPad / 8 16-byte unit slots (whole 128-byte lines); thread tid
-// copies slot tid % (kPad / 8) of rows tid / (kPad / 8) + i · kStep, and
+// A row has pad64(HD) / 8 16-byte unit slots (whole 128-byte lines);
+// thread tid copies slot tid % slots of rows tid / slots + i · kStep, and
 // slots past the row's HD / 8 units (hd 80: 10-15) are padding, never
 // copied.  At hd 64, 80 and 128 kStep is a multiple of 8, so a thread's
-// swizzle is the same in every row it copies.
+// swizzle is the same in every row it copies.  At hd 192 (24 slots, which
+// do not divide 128 threads) the threads walk the tile's units in turn.
 template <int ROWS, int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* g,
                                           long long stride, int n_valid,
                                           int tid) {
-  constexpr int kSlots = Geom<HD>::kPad / 8;
-  constexpr int kStep = kThreads / kSlots;
-  static_assert(kThreads % kSlots == 0 && ROWS % kStep == 0, "tile split");
-  const int row = tid / kSlots, u = tid % kSlots;
-  if (u >= HD / 8) return;
-  const uint32_t d0 = dst + (u >> 3) * (ROWS * 128) + row * 128;
-  const __nv_bfloat16* g0 = g + row * stride + u * 8;
+  constexpr int kSlots = pad64<HD>() / 8;
+  if constexpr (kThreads % kSlots != 0) {
+    static_assert(HD / 8 == kSlots && ROWS * kSlots % kThreads == 0,
+                  "whole rows of live units");
 #pragma unroll
-  for (int i = 0; i < ROWS / kStep; ++i) {
-    const int r = row + i * kStep;
-    const int sw = ((u & 7) ^ ((kStep % 8 == 0 ? row : r) & 7)) << 4;
-    const bool ok = r < n_valid;
-    cp_async16(d0 + i * kStep * 128 + sw, ok ? g0 + i * kStep * stride : g,
-               ok ? 16 : 0);
+    for (int i = 0; i < ROWS * kSlots / kThreads; ++i) {
+      const int idx = tid + i * kThreads, r = idx / kSlots;
+      const int u = idx - r * kSlots;
+      const bool ok = r < n_valid;
+      cp_async16(dst + (u >> 3) * (ROWS * 128) + r * 128 +
+                     (((u & 7) ^ (r & 7)) << 4),
+                 ok ? g + r * stride + u * 8 : g, ok ? 16 : 0);
+    }
+  } else {
+    constexpr int kStep = kThreads / kSlots;
+    static_assert(ROWS % kStep == 0, "tile split");
+    const int row = tid / kSlots, u = tid % kSlots;
+    if (u >= HD / 8) return;
+    const uint32_t d0 = dst + (u >> 3) * (ROWS * 128) + row * 128;
+    const __nv_bfloat16* g0 = g + row * stride + u * 8;
+#pragma unroll
+    for (int i = 0; i < ROWS / kStep; ++i) {
+      const int r = row + i * kStep;
+      const int sw = ((u & 7) ^ ((kStep % 8 == 0 ? row : r) & 7)) << 4;
+      const bool ok = r < n_valid;
+      cp_async16(d0 + i * kStep * 128 + sw,
+                 ok ? g0 + i * kStep * stride : g, ok ? 16 : 0);
+    }
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
+  using G = Geom<DK, DV>;
   // 1 KB of slack to align the tiles to the 1,024-byte swizzle atom
-  return 1024 + (size_t)Geom<HD>::kQBytes + kStages * 2 * Geom<HD>::kTBytes;
+  return 1024 + (size_t)G::kQBytes + kStages * (G::kKBytes + G::kVBytes);
 }
 
 // CAPPED: a logit softcap is given (the scores go through tanh)
-template <int HD, bool CAPPED>
+template <int DK, int DV, bool CAPPED>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_tc_kernel(const Params p) {
-  constexpr int kBK = Geom<HD>::kBK;
-  constexpr uint32_t kQBytes = Geom<HD>::kQBytes, kTBytes = Geom<HD>::kTBytes;
-  constexpr int kNO = HD / 2;   // O accumulator floats a thread
+  using G = Geom<DK, DV>;
+  constexpr int kBK = G::kBK;
+  constexpr uint32_t kQBytes = G::kQBytes, kKBytes = G::kKBytes;
+  constexpr uint32_t kStage = G::kKBytes + G::kVBytes;  // one K + V tile
+  constexpr int kNO = DV / 2;   // O accumulator floats a thread
   constexpr int kNS = kBK / 2;  // S accumulator floats a thread
   extern __shared__ uint8_t smem[];
   const uint32_t s_q = (smem_addr(smem) + 1023u) & ~1023u;
@@ -337,12 +368,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto load_kv = [&](int tile) {
     const int kt = k_begin + tile * kBK, st = tile % kStages;
-    const uint32_t s_k = s_q + kQBytes + st * 2 * kTBytes;
-    load_tile<kBK, HD>(s_k, kb + kt * p.ks[2], p.ks[2], p.Sk - kt, tid);
-    load_tile<kBK, HD>(s_k + kTBytes, vb + kt * p.vs[2], p.vs[2], p.Sk - kt,
+    const uint32_t s_k = s_q + kQBytes + st * kStage;
+    load_tile<kBK, DK>(s_k, kb + kt * p.ks[2], p.ks[2], p.Sk - kt, tid);
+    load_tile<kBK, DV>(s_k + kKBytes, vb + kt * p.vs[2], p.vs[2], p.Sk - kt,
                        tid);
   };
-  load_tile<kBQ, HD>(s_q, qb + q0 * p.qs[2], p.qs[2], p.Sq - q0, tid);
+  load_tile<kBQ, DK>(s_q, qb + q0 * p.qs[2], p.qs[2], p.Sq - q0, tid);
   cp_async_commit();
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
@@ -375,9 +406,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
 
     const int kt = k_begin + t * kBK;
-    const uint32_t s_k = s_q + kQBytes + (t % kStages) * 2 * kTBytes;
+    const uint32_t s_k = s_q + kQBytes + (t % kStages) * kStage;
 
-    // S = Q·Kᵀ over hd / 16 k-steps; a k-step is 32 bytes inside the
+    // S = Q·Kᵀ over dk / 16 k-steps; a k-step is 32 bytes inside the
     // swizzle atom, and every 4th one moves to the next 64-element chunk
     float s[kNS];
 #pragma unroll
@@ -385,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const uint64_t dk = make_desc(s_k, 16, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
+    for (int ks = 0; ks < DK / 16; ++ks)
       mma_ss<kBK>(s,
                   dq + (((ks >> 2) * (kBQ * 128) + (ks & 3) * 32) >> 4),
                   dk + (((ks >> 2) * (kBK * 128) + (ks & 3) * 32) >> 4),
@@ -448,17 +479,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // O += P·V over kBK / 16 k-steps of 16 keys (16 rows of 128 bytes
     // each); at hd 80 columns 64-79 are a second product on chunk 1
-    const uint64_t dv = make_desc(s_k + kTBytes, kBK * 128, 1024);
+    const uint64_t dv = make_desc(s_k + kKBytes, kBK * 128, 1024);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t dvk = dv + ((kk * 16 * 128) >> 4);
-      if constexpr (HD == 80) {
+      if constexpr (DV == 80) {
         mma_rs<64>(o, pa[kk], dvk);
         mma_rs<16, 32>(o, pa[kk], dvk + ((kBK * 128) >> 4));
       } else {
-        mma_rs<HD>(o, pa[kk], dvk);
+        mma_rs<DV>(o, pa[kk], dvk);
       }
     }
     wgmma_commit();
@@ -480,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row >= p.Sq) continue;
     __nv_bfloat16* orow = ob + row * p.os[2] + 2 * c4;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const __nv_bfloat162 v2 = __floats2bfloat162_rn(
           o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = v2;
@@ -488,38 +519,40 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD, bool CAPPED>
+template <int DK, int DV, bool CAPPED>
 int launch(const Params& p, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_tc_kernel<DK, DV, CAPPED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)p.H,
                   (unsigned)p.B);
-  flash_tc_kernel<HD, CAPPED><<<grid, kThreads, smem, s>>>(p);
+  flash_tc_kernel<DK, DV, CAPPED><<<grid, kThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_capped(const Params& p, cudaStream_t s) {
-  return p.softcap > 0.f ? launch<HD, true>(p, s) : launch<HD, false>(p, s);
+  return p.softcap > 0.f ? launch<DK, DV, true>(p, s)
+                         : launch<DK, DV, false>(p, s);
 }
 
 }  // namespace
 
 // The signature of repro_flash_attention (flash_attention.cu): q (B, H,
-// Sq, hd), k and v (B, Kh, Sk, hd), o like q, as element strides of
-// (b, h, s) in `strides` (q, k, v, o; 12 values) with unit stride on hd
-// and 16-byte aligned rows; window 0 and softcap 0 mean none.  Takes
-// dtype 1 (bf16) and hd 64, 80, 128 or 256 only.  Returns the cudaError_t
-// of the attribute call or the launch.
+// Sq, hd), k (B, Kh, Sk, hd), v (B, Kh, Sk, dv), o (B, H, Sq, dv), as
+// element strides of (b, h, s) in `strides` (q, k, v, o; 12 values) with
+// unit stride on the head dim and 16-byte aligned rows; window 0 and
+// softcap 0 mean none.  Takes dtype 1 (bf16) and (hd, dv) of (64, 64),
+// (80, 80), (128, 128), (256, 256) or (192, 128) only.  Returns the
+// cudaError_t of the attribute call or the launch.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* strides, int B,
                                         int H, int Kh, int Sq, int Sk, int hd,
-                                        int causal, int window, float scale,
-                                        float softcap, int dtype,
+                                        int dv, int causal, int window,
+                                        float scale, float softcap, int dtype,
                                         void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -536,11 +569,13 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
   if (dtype != 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64: return launch_capped<64>(p, s);
-    case 80: return launch_capped<80>(p, s);
-    case 128: return launch_capped<128>(p, s);
-    case 256: return launch_capped<256>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (hd == dv) switch (hd) {
+      case 64: return launch_capped<64, 64>(p, s);
+      case 80: return launch_capped<80, 80>(p, s);
+      case 128: return launch_capped<128, 128>(p, s);
+      case 256: return launch_capped<256, 256>(p, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  if (hd == 192 && dv == 128) return launch_capped<192, 128>(p, s);
+  return (int)cudaErrorInvalidValue;
 }

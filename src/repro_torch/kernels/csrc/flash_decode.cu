@@ -10,11 +10,14 @@
 // aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
 // k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, the
 // m_safe / alpha guards, the denominator clamped at 1e-30, so a row with no
-// valid key comes out 0; query head h reads KV head h / (H / Kh).  Inputs
-// f32 or bf16, all arithmetic f32, output in q's dtype and layout.
+// valid key comes out 0; query head h reads KV head h / (H / Kh).  q and k
+// have head dim dk (`hd` below), v and the output their own head dim dv
+// (MLA's naive decode: dk 192, dv 128; the scale is the caller's, 1/√dk).
+// Inputs f32 or bf16, all arithmetic f32, output in q's dtype and layout.
 //
 // Bound on this card: bytes.  A decode step reads every K and V row of the
-// band once (2·hd elements a key) and does 4·hd FLOP per (query, key)
+// band once (dk + dv elements a key) and does 2·(dk + dv) FLOP per
+// (query, key)
 // pair: at the serving path's global layer (B 2, H 32, Kh 16, Sq 1,
 // Sk 4,609, hd 128, bf16) 75.5 MB, 0.023 ms at 3.35 TB/s, against 7.6e7
 // FLOP.  What reaches the bound is memory-level parallelism: many blocks,
@@ -45,12 +48,14 @@
 //     shared memory (f32), over the unrolled head_dim in two FMA chains.
 //     The row's max and sum over the tile are xor shuffles across the
 //     warp, with the online softmax's guards.  P·V: thread t owns 4
-//     output columns (t mod hd/4) of the rows
-//     t / (hd/4), that + 128/(hd/4), ...; V rows are read as one
+//     output columns (t mod dv/4) of the rows
+//     t / (dv/4), that + 128/(dv/4), ...; V rows are read as one
 //     contiguous line by the warp.  Scores and P·V run on the f32 CUDA
 //     cores: at G·Sq = 2 rows the tensor cores would be idle.
-//     Each block writes (acc[hd], m, l), unnormalised, per packed row to
-//     the workspace (B, H, Sq, n_split, hd + 2) f32.
+//     Each block writes (acc[dv], m, l), unnormalised, per packed row to
+//     the workspace (B, H, Sq, n_split, dv + 2) f32.  The shared-memory
+//     rows are sized by two buckets (64, 128 or 256): K's and Q's by
+//     max(dk, dv), V's by dv.
 //   Pass 2, the merge.  Grid (Sq, H, B), 64 threads of 4 columns each.
 //     m* = max_s m_s; w_s = 0 if m_s <= NEG_INF else exp(m_s − m*_safe);
 //     out = Σ_s w_s·acc_s / max(Σ_s w_s·l_s, 1e-30), in split order.
@@ -68,7 +73,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;               // keys per tile: one per lane
-constexpr int kMergeThreads = 64;     // 4 output columns each: hd <= 256
+constexpr int kMergeThreads = 64;     // 4 output columns each: dv <= 256
 constexpr int kRingBytes = 48 * 1024;   // budget of the K/V ring
 constexpr float kNegInf = -1e30f;     // NEG_INF of the TPU kernel
 
@@ -77,9 +82,9 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  float* ws;                             // (B, H, Sq, n_split, hd + 2)
+  float* ws;                             // (B, H, Sq, n_split, dv + 2)
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
-  int B, H, Kh, Sq, Sk, hd, group, n_split, chunk;
+  int B, H, Kh, Sq, Sk, hd, dv, group, n_split, chunk;  // hd: dk
   int causal, window;    // window 0: none
   float scale, softcap;  // softcap 0: none
 };
@@ -149,19 +154,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Shared-memory layout and work split of one instance (HDM: the head_dim
-// bucket, 64/128/256; RMAX: packed rows a block holds).
-template <typename T, int HDM, int RMAX>
+// Shared-memory layout and work split of one instance (HDM: the bucket of
+// Q and K rows, 64/128/256; DVM: that of V rows and the output; RMAX:
+// packed rows a block holds).
+template <typename T, int HDM, int DVM, int RMAX>
 struct Cfg {
   static constexpr int KROW = HDM * (int)sizeof(T) + 16;  // padded K row
-  static constexpr int VROW = HDM * (int)sizeof(T);
+  static constexpr int VROW = DVM * (int)sizeof(T);
   static constexpr int STAGE = kBK * (KROW + VROW);
   static constexpr int NS = 4 * STAGE <= kRingBytes ? 4
                             : 3 * STAGE <= kRingBytes ? 3 : 2;
   static constexpr size_t SMEM =
       (size_t)NS * STAGE + sizeof(float) * (RMAX * HDM + RMAX * kBK + RMAX);
   static constexpr int RPW = RMAX / kWarps;        // score rows per warp
-  static constexpr int CG = HDM / 4;               // 4-column groups
+  static constexpr int CG = DVM / 4;               // 4-column groups
   static constexpr int NRG = kThreads / CG;        // row groups in P·V
   static constexpr int RPT = (RMAX + NRG - 1) / NRG;  // P·V rows a thread
 };
@@ -170,12 +176,12 @@ struct Cfg {
 __device__ __forceinline__ long long ws_row(const Params& p, int b, int h,
                                             int i, int split) {
   return ((((long long)b * p.H + h) * p.Sq + i) * p.n_split + split) *
-         (p.hd + 2);
+         (p.dv + 2);
 }
 
-template <typename T, int HDM, int RMAX>
+template <typename T, int HDM, int DVM, int RMAX>
 __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
-  using C = Cfg<T, HDM, RMAX>;
+  using C = Cfg<T, HDM, DVM, RMAX>;
   extern __shared__ float4 smem4[];
   unsigned char* Kr = reinterpret_cast<unsigned char*>(smem4);
   unsigned char* Vr = Kr + C::NS * kBK * C::KROW;
@@ -221,19 +227,23 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
       static_cast<const T*>(p.v) + b * p.vs[0] + kh * p.vs[1]);
   const long long kstep = p.ks[2] * (long long)sizeof(T);
   const long long vstep = p.vs[2] * (long long)sizeof(T);
-  const int cpr = hd * (int)sizeof(T) / 16;  // 16-byte units per key row
+  // 16-byte units per K row and per V row, and the larger of the two
+  const int cpr = hd * (int)sizeof(T) / 16;
+  const int cprv = p.dv * (int)sizeof(T) / 16, cmax = max(cpr, cprv);
   auto load_tile = [&](int t) {
     unsigned char* kd = Kr + (t % C::NS) * kBK * C::KROW;
     unsigned char* vd = Vr + (t % C::NS) * kBK * C::VROW;
     const int k0 = lo + t * kBK;
-    for (int idx = tid; idx < kBK * cpr; idx += kThreads) {
-      const int row = idx / cpr, u = idx - row * cpr;
+    for (int idx = tid; idx < kBK * cmax; idx += kThreads) {
+      const int row = idx / cmax, u = idx - row * cmax;
       const bool ok = k0 + row < hi;
       const long long key = ok ? k0 + row : lo;  // a valid address when not
-      cp_async16(kd + row * C::KROW + u * 16, kb + key * kstep + u * 16,
-                 ok ? 16 : 0);
-      cp_async16(vd + row * C::VROW + u * 16, vb + key * vstep + u * 16,
-                 ok ? 16 : 0);
+      if (u < cpr)
+        cp_async16(kd + row * C::KROW + u * 16, kb + key * kstep + u * 16,
+                   ok ? 16 : 0);
+      if (u < cprv)
+        cp_async16(vd + row * C::VROW + u * 16, vb + key * vstep + u * 16,
+                   ok ? 16 : 0);
     }
   };
 #pragma unroll
@@ -249,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
     l_r[ii] = 0.f;
   }
   const int cg = tid % C::CG, rg = tid / C::CG;
-  const bool col_live = cg * 4 < hd;
+  const bool col_live = cg * 4 < p.dv;
   float4 acc[C::RPT];
 #pragma unroll
   for (int ii = 0; ii < C::RPT; ++ii) acc[ii] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -363,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
     if (r < nr && lane == 0) {
       float* w = p.ws + ws_row(p, b, kh * p.group + pr / p.Sq, pr % p.Sq,
                                split);
-      *reinterpret_cast<float2*>(w + hd) = make_float2(m_r[ii], l_r[ii]);
+      *reinterpret_cast<float2*>(w + p.dv) = make_float2(m_r[ii], l_r[ii]);
     }
   }
   if (col_live) {
@@ -383,19 +393,19 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads) decode_merge(const Params p) {
   const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int col = threadIdx.x * 4, stride = p.hd + 2;
-  if (col >= p.hd) return;
+  const int col = threadIdx.x * 4, stride = p.dv + 2;
+  if (col >= p.dv) return;
   const float* w = p.ws + ws_row(p, b, h, i, 0);
   float m = kNegInf;
-  for (int s = 0; s < p.n_split; ++s) m = fmaxf(m, w[s * stride + p.hd]);
+  for (int s = 0; s < p.n_split; ++s) m = fmaxf(m, w[s * stride + p.dv]);
   const float m_safe = m <= kNegInf ? 0.f : m;
   float l = 0.f;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s = 0; s < p.n_split; ++s) {
     const float* ws = w + (long long)s * stride;
-    const float ms = ws[p.hd];
+    const float ms = ws[p.dv];
     const float wt = ms <= kNegInf ? 0.f : expf(ms - m_safe);
-    l = fmaf(wt, ws[p.hd + 1], l);
+    l = fmaf(wt, ws[p.dv + 1], l);
     const float2 a0 = reinterpret_cast<const float2*>(ws + col)[0];
     const float2 a1 = reinterpret_cast<const float2*>(ws + col)[1];
     a.x = fmaf(wt, a0.x, a.x);
@@ -410,18 +420,18 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge(const Params p) {
                             a.w / denom));
 }
 
-template <typename T, int HDM, int RMAX>
+template <typename T, int HDM, int DVM, int RMAX>
 int launch(const Params& p, cudaStream_t s) {
-  using C = Cfg<T, HDM, RMAX>;
+  using C = Cfg<T, HDM, DVM, RMAX>;
   if (C::SMEM > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_partials<T, HDM, RMAX>,
+        decode_partials<T, HDM, DVM, RMAX>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return (int)err;
   }
   const int groups = (p.group * p.Sq + RMAX - 1) / RMAX;
   if ((long long)p.Kh * groups > 65535) return (int)cudaErrorInvalidValue;
-  decode_partials<T, HDM, RMAX>
+  decode_partials<T, HDM, DVM, RMAX>
       <<<dim3((unsigned)p.n_split, (unsigned)(p.Kh * groups), (unsigned)p.B),
          kThreads, C::SMEM, s>>>(p);
   const cudaError_t err = cudaGetLastError();
@@ -431,33 +441,46 @@ int launch(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HDM>
+template <typename T, int HDM, int DVM>
 int launch_rows(const Params& p, cudaStream_t s) {
-  return p.group * p.Sq <= 4 ? launch<T, HDM, 4>(p, s)
-                             : launch<T, HDM, 16>(p, s);
+  return p.group * p.Sq <= 4 ? launch<T, HDM, DVM, 4>(p, s)
+                             : launch<T, HDM, DVM, 16>(p, s);
+}
+
+// V's bucket by dv; Q's and K's by max(dk, dv), so DVM <= HDM (six pairs)
+template <typename T, int HDM>
+int launch_dv(const Params& p, cudaStream_t s) {
+  if (p.dv <= 64) return launch_rows<T, HDM, 64>(p, s);
+  if constexpr (HDM >= 128) {
+    if (p.dv <= 128) return launch_rows<T, HDM, 128>(p, s);
+  }
+  if constexpr (HDM == 256) return launch_rows<T, HDM, 256>(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch_hd(const Params& p, cudaStream_t s) {
-  if (p.hd <= 64) return launch_rows<T, 64>(p, s);
-  if (p.hd <= 128) return launch_rows<T, 128>(p, s);
-  return launch_rows<T, 256>(p, s);
+  const int d = max(p.hd, p.dv);
+  if (d <= 64) return launch_dv<T, 64>(p, s);
+  if (d <= 128) return launch_dv<T, 128>(p, s);
+  return launch_dv<T, 256>(p, s);
 }
 
 }  // namespace
 
 // As repro_flash_attention (flash_attention.cu), for 1 <= Sq <= 16, plus
-// the workspace `ws` (B, H, Sq, n_split, hd + 2) f32, contiguous, that the
+// the workspace `ws` (B, H, Sq, n_split, dv + 2) f32, contiguous, that the
 // caller allocates, and the number of key splits `n_split` >= 1.  Two
 // launches on `stream`: the partials, then the merge.  Returns the
 // cudaError_t of the attribute call or of a launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   void* o, const long long* strides, int B,
                                   int H, int Kh, int Sq, int Sk, int hd,
-                                  int causal, int window, float scale,
+                                  int dv, int causal, int window, float scale,
                                   float softcap, int dtype, void* stream,
                                   float* ws, int n_split) {
-  if (hd % 8 != 0 || hd < 8 || hd > 256 || Kh < 1 || H % Kh != 0 ||
+  if (hd % 8 != 0 || hd < 8 || hd > 256 || dv % 8 != 0 || dv < 8 ||
+      dv > 256 || Kh < 1 || H % Kh != 0 ||
       Sq < 1 || Sq > 16 || Sk < 1 || n_split < 1 || B < 1 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -469,7 +492,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
     p.vs[e] = strides[6 + e];
     p.os[e] = strides[9 + e];
   }
-  p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd;
+  p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd; p.dv = dv;
   p.group = H / Kh;
   p.n_split = n_split;
   p.chunk = (Sk + n_split - 1) / n_split;

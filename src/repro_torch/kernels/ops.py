@@ -208,13 +208,16 @@ def topk_threshold(absx: torch.Tensor, *, k: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
-    """Attention of q (B, H, Sq, hd) over k, v (B, Kh, Sk, hd), q aligned
-    to the end of k, GQA by h // (H / Kh); causal, sliding window
-    (k_pos > q_pos − window) and tanh logit softcap.  Strided views are
-    taken as they are on CUDA; the output has q's dtype (and layout).  On
-    CUDA, `flash_route` picks the kernel: decode steps (Sq <= 16) on the
-    split-key decode kernel, bf16 prefill (head_dim 64, 80, 128 or 256)
-    on the tensor cores, the other prefills on the CUDA cores.  Under
+    """Attention of q (B, H, Sq, dk) over k (B, Kh, Sk, dk) and v (B, Kh,
+    Sk, dv) -> (B, H, Sq, dv), the logits scaled by 1/√dk, q aligned to
+    the end of k, GQA by h // (H / Kh); causal, sliding window
+    (k_pos > q_pos − window) and tanh logit softcap.  The value head dim
+    dv may differ from dk (MLA's naive path: dk 192, dv 128).  Strided
+    views are taken as they are on CUDA; the output has q's dtype (and
+    layout).  On CUDA, `flash_route` picks the kernel on (dk, dv):
+    decode steps (Sq <= 16) on the split-key decode kernel, bf16 prefill
+    at (64, 64), (80, 80), (128, 128), (256, 256) or (192, 128) on the
+    tensor cores, the other prefills on the CUDA cores.  Under
     `torch.func.vmap` one call serves the whole vmapped batch (module
     docstring), bitwise the per-user calls."""
     return _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -231,7 +234,7 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     """``decode_rows``: the batch rows the decode kernel's split count is
     chosen for (default B): a vmapped call's are one user's, so each
     user's rows are summed as that user's own call sums them."""
-    route = flash_route(q.dtype, q.shape[2], q.shape[3])
+    route = flash_route(q.dtype, q.shape[2], q.shape[3], v.shape[3])
     kernel, counter = FLASH_KERNELS[route]
     kw = {}
     if route == "decode" and decode_rows is not None:
@@ -253,7 +256,8 @@ def _fold(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
 
 def _flash_vmap(info, in_dims, q, k, v, *, causal=True, window=None,
                 softcap=None, decode_rows=None):
-    """The batching rule: (n, B, ...) inputs run as one (n·B, ...) call."""
+    """The batching rule: (n, B, ...) inputs run as one (n·B, ...) call
+    (v's own head dim dv rides along: only the leading dims fold)."""
     n = info.batch_size
     q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims))
     if decode_rows is None:

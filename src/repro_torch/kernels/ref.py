@@ -196,19 +196,20 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None) -> torch.Tensor:
-    """Plain SDPA: q (B, H, Sq, hd), k and v (B, Kh, Sk, hd), GQA group
-    G = H / Kh, q aligned to the end of k; f32 logits and softmax, output
-    in q's dtype.  A query row with no valid key (causal with Sq > Sk:
-    the first Sq − Sk rows) comes out 0, as the Pallas kernel's guards
-    give it.  The (B, Kh, G, Sq, Sk) logits are materialised, once."""
-    b, h, sq, hd = q.shape
+    """Plain SDPA: q (B, H, Sq, dk), k (B, Kh, Sk, dk) and v (B, Kh, Sk,
+    dv), GQA group G = H / Kh, q aligned to the end of k; logits scaled by
+    1/√dk, f32 logits and softmax, output (B, H, Sq, dv) in q's dtype.  A
+    query row with no valid key (causal with Sq > Sk: the first Sq − Sk
+    rows) comes out 0, as the Pallas kernel's guards give it.  The (B, Kh,
+    G, Sq, Sk) logits are materialised, once."""
+    b, h, sq = q.shape[:3]
     logits, valid = _logits(q, k, causal, window, softcap)
     logits.masked_fill_(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
     out.masked_fill_(~valid.any(-1)[:, None], 0.0)
-    return out.reshape(b, h, sq, hd).to(q.dtype)
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -221,10 +222,12 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     range the row max m (NEG_INF when nothing is valid), l = Σ p and
     acc = Σ p·v with p = exp(s − m_safe) on valid keys; then the merge
     w_s = exp(m_s − m*_safe) (0 for a masked range), out = Σ w_s·acc_s /
-    max(Σ w_s·l_s, 1e-30).  A row with no valid key comes out 0."""
+    max(Σ w_s·l_s, 1e-30).  A row with no valid key comes out 0.  v may
+    have its own head dim dv, as in `flash_attention_ref`."""
     if int(n_split) < 1:
         raise ValueError(f"n_split must be >= 1, got {n_split}")
-    b, h, sq, hd = q.shape
+    b, h, sq = q.shape[:3]
+    dv = v.shape[-1]
     kh, sk = k.shape[1], k.shape[2]
     chunk = -(-sk // n_split)
     pad = n_split * chunk - sk
@@ -241,10 +244,10 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     torch.zeros_like(s))
     l_s = p.sum(-1)
     acc = torch.einsum("bkgqnc,bkncd->bkgqnd", p,
-                       vf.reshape(b, kh, n_split, chunk, hd))
+                       vf.reshape(b, kh, n_split, chunk, dv))
     m_star = m.amax(-1, keepdim=True)
     m_star = torch.where(m_star <= NEG_INF, torch.zeros_like(m_star), m_star)
     w = torch.where(m <= NEG_INF, torch.zeros_like(m), torch.exp(m - m_star))
     l = (w * l_s).sum(-1)
     out = (w[..., None] * acc).sum(-2) / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, h, sq, hd).to(q.dtype)
+    return out.reshape(b, h, sq, dv).to(q.dtype)

@@ -1,6 +1,7 @@
-"""Self-attention with GQA, logit softcap, sliding windows and ring caches.
+"""Self-attention: GQA, MLA (DeepSeek), logit softcap, sliding windows and
+ring caches.
 
-Counterpart of `repro/models/attention.py` for the dense decoder.  Every
+Counterpart of `repro/models/attention.py` for the decoder stack.  Every
 layer's cache is a ring of ``C`` slots with an absolute-position array
 (``pos``, -1 empty), as in the reference, and ``slot = pos % C``.  The
 cache tensors are updated in place (the reference returns new arrays),
@@ -34,8 +35,28 @@ differentiable torch ops that `torch.func.vmap` and `grad` take: the
 reference trains through it, not through its flash kernel, and neither
 flash kernel has a backward.
 
-MLA, cross-attention, prefix-LM masks and sequence-parallel decode are
-not ported here; they raise, naming their ROADMAP item.
+MLA (`_mla_attention`, the deepseek-v3 config) caches the compressed
+latent, as the reference does: the ring's k holds c_kv (B, C,
+kv_lora_rank) and its v the shared rope key (B, C, qk_rope_head_dim).
+Its two paths are the reference's:
+
+- naive (``mla_absorb=False``, the config's default and the reference's
+  paper-faithful path): the live latent prefix that `_keys` picks is
+  expanded by ``wkv_b`` into per-head keys [k_nope, k_rope] (dk =
+  qk_nope + rope, 192 at published widths) and values (dv = v_head_dim,
+  128), and attended by one `kernels.ops.flash_attention` call, whose
+  kernels take dv apart from dk.  Expanding only the live positions is
+  exact: the reference's empty slots are masked;
+- absorbed (``mla_absorb=True``): ``wkv_b`` folded into the query and
+  the output, the scores taken in the latent space, in plain torch
+  einsums with f32 logits, as the reference computes it outside any
+  Pallas kernel.  Its score head dim (kv_lora + rope, 576) and value dim
+  (kv_lora, 512) are past every flash kernel's 256; a latent decode
+  kernel is a ROADMAP Queue 2 follow-up.  Its mask follows the flash
+  contract: keys at positions 0..Sk−1, queries the last Sq of them.
+
+Cross-attention, prefix-LM masks and sequence-parallel decode are not
+ported here; they raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -56,37 +77,60 @@ NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor            # (B, C, Kh, hd)
-    v: torch.Tensor            # (B, C, Kh, hd)
+    k: torch.Tensor            # (B, C, Kh, hd)  or MLA: c_kv (B, C, r)
+    v: torch.Tensor            # (B, C, Kh, hd)  or MLA: k_rope (B, C, rope)
     pos: torch.Tensor          # (B, C) int32 absolute positions, -1 empty
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    a = cfg.attn
-    if a.mla is not None:
-        raise NotImplementedError(f"MLA attention is {LATER}")
-    if a.seq_parallel:
+def _no_seq_parallel(cfg: ModelConfig) -> None:
+    if cfg.attn.seq_parallel:
         raise NotImplementedError(f"sequence-parallel decode is {LATER}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                device: DeviceLike = "cuda") -> KVCache:
-    _dense_only(cfg)
+    _no_seq_parallel(cfg)
     a, dev = cfg.attn, resolve_device(device)
-    k = torch.zeros((batch, cache_len, a.n_kv_heads, a.head_dim),
-                    dtype=dtype, device=dev)
+    if a.mla is not None:
+        k = torch.zeros((batch, cache_len, a.mla.kv_lora_rank), dtype=dtype,
+                        device=dev)
+        v = torch.zeros((batch, cache_len, a.mla.qk_rope_head_dim),
+                        dtype=dtype, device=dev)
+    else:
+        k = torch.zeros((batch, cache_len, a.n_kv_heads, a.head_dim),
+                        dtype=dtype, device=dev)
+        v = torch.zeros_like(k)
     pos = torch.full((batch, cache_len), -1, dtype=torch.int32, device=dev)
-    return KVCache(k, torch.zeros_like(k), pos)
+    return KVCache(k, v, pos)
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False,
               device: DeviceLike = "cuda"):
     """GQA projections wq (d, H, hd), wk and wv (d, Kh, hd), wo (H·hd, d),
-    drawn in that order, plus zero ``q_scale``/``k_scale`` with qk_norm."""
-    _dense_only(cfg)
+    drawn in that order, plus zero ``q_scale``/``k_scale`` with qk_norm.
+    MLA: wq_a (d, q_lora), wq_b (q_lora, H, nope + rope), wkv_a (d,
+    kv_lora + rope), wkv_b (kv_lora, H, nope + v), wo (H·v, d), drawn in
+    that order, and zero ``q_norm``/``kv_norm``."""
+    _no_seq_parallel(cfg)
     if cross:
         raise NotImplementedError(f"cross-attention is {LATER}")
     a, d, dt = cfg.attn, cfg.d_model, cfg.pdtype
+    if a.mla is not None:
+        m, dev = a.mla, resolve_device(device)
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        p = {"wq_a": dense_init(gen, d, m.q_lora_rank, dt, device=device),
+             "q_norm": torch.zeros((m.q_lora_rank,), dtype=dt, device=dev)}
+        p["wq_b"] = dense_init(gen, m.q_lora_rank, (a.n_heads, qk_dim), dt,
+                               device=device)
+        p["wkv_a"] = dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                                dt, device=device)
+        p["kv_norm"] = torch.zeros((m.kv_lora_rank,), dtype=dt, device=dev)
+        p["wkv_b"] = dense_init(gen, m.kv_lora_rank,
+                                (a.n_heads, m.qk_nope_head_dim +
+                                 m.v_head_dim), dt, device=device)
+        p["wo"] = dense_init(gen, a.n_heads * m.v_head_dim, d, dt,
+                             device=device)
+        return p
     p = {
         "wq": dense_init(gen, d, (a.n_heads, a.head_dim), dt, device=device),
         "wk": dense_init(gen, d, (a.n_kv_heads, a.head_dim), dt,
@@ -252,11 +296,14 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
     Returns (out (B, S, d), cache) with the cache updated in place; with
     no cache, the plain `_sdpa_chunked` path (module docstring)."""
     a, cd = cfg.attn, cfg.cdtype
-    _dense_only(cfg)
+    _no_seq_parallel(cfg)
     if kv_input is not None:
         raise NotImplementedError(f"cross-attention (kv_input) is {LATER}")
     if prefix_len:
         raise NotImplementedError(f"prefix-LM masks (prefix_len) are {LATER}")
+    if a.mla is not None:
+        return _mla_attention(params, cfg, x, start, cache=cache,
+                              window=window, absorb=a.mla_absorb)
     b, s, _ = x.shape
     q = dense_apply(params["wq"], x, cd)                     # (B,S,H,hd)
     k = dense_apply(params["wk"], x, cd)                     # (B,S,Kh,hd)
@@ -282,4 +329,83 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
                               causal=True, window=window,
                               softcap=a.attn_logit_softcap)
     out = out.transpose(1, 2).reshape(b, s, -1)
+    return dense_apply(params["wo"], out, cd), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+
+
+def _mla_qkv(params, cfg: ModelConfig, x: torch.Tensor, start: int):
+    """q_nope (B, S, H, nope), q_rope (B, S, H, rope) after RoPE, the
+    normed latent c_kv (B, S, r) and the shared k_rope (B, S, rope)."""
+    a, m, cd = cfg.attn, cfg.attn.mla, cfg.cdtype
+    positions = torch.arange(start, start + x.shape[1], device=x.device)
+    cq = _rms(dense_apply(params["wq_a"], x, cd), params["q_norm"])
+    q = dense_apply(params["wq_b"], cq, cd)             # (B,S,H,nope+rope)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, a.rope_theta)
+    kv = dense_apply(params["wkv_a"], x, cd)            # (B,S,r+rope)
+    c_kv = _rms(kv[..., :m.kv_lora_rank], params["kv_norm"])
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
+                        a.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+
+
+def _mla_attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
+                   cache: Optional[KVCache], window: Optional[int],
+                   absorb: bool = False):
+    """MLA of x (B, S, d) at positions start..start+S−1 (module
+    docstring).  Returns (out (B, S, d), cache), the latent ring updated
+    in place."""
+    a, m, cd = cfg.attn, cfg.attn.mla, cfg.cdtype
+    b, s, _ = x.shape
+    nope = m.qk_nope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, start)
+    if cache is None:
+        c_all, r_all = c_kv, k_rope
+        q_pos = k_pos = torch.arange(start, start + s, device=x.device)
+    else:
+        cache = _cache_update(cache, c_kv, k_rope, start)
+        c_all, r_all = _keys(cache, c_kv, k_rope, start, window)
+        c_all, r_all = c_all.to(cd), r_all.to(cd)
+        sk = c_all.shape[1]            # the flash contract's positions
+        k_pos = torch.arange(sk, device=x.device)
+        q_pos = k_pos[sk - s:]
+    scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+
+    if absorb:
+        # score in the latent space; K and V are never expanded
+        bias = mask_bias(q_pos, k_pos, kind="causal", window=window)
+        wkv = params["wkv_b"].to(cd)                    # (r, H, nope+v)
+        wk, wv = wkv[..., :nope], wkv[..., nope:]
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)
+        s_nope = torch.einsum("bqhr,bsr->bhqs", q_lat.float(),
+                              c_all.float())
+        s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope.float(),
+                              r_all.float())
+        logits = (s_nope + s_rope) * scale + bias
+        probs = torch.softmax(logits, dim=-1).to(cd)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_all.to(cd))
+        out = torch.einsum("bqhr,rhv->bqhv", o_lat, wv)
+    else:
+        # expand the latent into per-head keys (dk = nope + rope) and
+        # values (dv = v_head_dim)
+        kv = dense_apply(params["wkv_b"], c_all, cd)    # (B,Sk,H,nope+v)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, r_all[:, :, None, :].expand(
+            *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        cap = a.attn_logit_softcap
+        if cache is None:
+            qp = q_pos.expand(b, s)
+            out = _sdpa_chunked(q, k, v, qp, qp, kind="causal",
+                                window=window, prefix_len=0, cap=cap,
+                                cdtype=cd, scale=scale)
+        else:
+            out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=True,
+                                      window=window, softcap=cap
+                                      ).transpose(1, 2)
+    out = out.reshape(b, s, a.n_heads * m.v_head_dim)
     return dense_apply(params["wo"], out, cd), cache

@@ -17,9 +17,11 @@ Params are the reference's dict: ``embed`` (V, d), ``layers`` (a list of
 (`models/moe.py`) on a MoE layer: a MoE config's first
 ``n_dense_layers`` keep an ``mlp`` of ``dense_d_ff``), ``final_norm``
 and, untied, ``lm_head`` (d, V).  A MoE layer's aux loss is summed into
-`forward`'s and `loss_fn`'s aux.  MLA (the deepseek-v3 config), SSM,
-hybrid, vlm and audio raise, as does the reference's ``long_context``
-serving mode (ROADMAP.md Queue 1 item 16b).
+`forward`'s and `loss_fn`'s aux.  An MLA config (deepseek-v3) keeps the
+MLA projections in each layer's ``attn`` and a ring of the compressed
+latent a layer (`models/attention.py`).  SSM, hybrid, vlm and audio
+raise, as does the reference's ``long_context`` serving mode
+(ROADMAP.md Queue 1 item 16b).
 
 The training path (`forward_hidden`, `chunked_ce`, `loss_fn`) runs no
 cache, so its attention is the plain `attention._sdpa_chunked` and every
@@ -50,9 +52,6 @@ def check_family(cfg: ModelConfig) -> None:
     """Raise for what this stack does not run yet (ROADMAP item 16b)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family} family is {LATER}")
-    if cfg.attn.mla is not None:
-        raise NotImplementedError(f"MLA attention (the deepseek-v3 config) "
-                                  f"is {LATER}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.pos_embedding} positions are {LATER}")
 
@@ -99,8 +98,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
                 device: DeviceLike = "cuda") -> List[KVCache]:
-    """One ring per layer; a windowed layer's ring is min(cache_len,
-    window) long."""
+    """One ring per layer (an MLA layer's holds the compressed latent); a
+    windowed layer's ring is min(cache_len, window) long."""
     check_family(cfg)
     caches = []
     for i in range(cfg.n_layers):

@@ -11,7 +11,11 @@ against the Pallas kernel too, with whole splits and rows masked.
 `flash_route`, the rule between the three CUDA kernels, and
 `decode_splits` are tested on both sides of each condition; the kernels
 are held against the plain version on the card in
-`tests/test_torch_gpu.py` and by `chip_smoke.py`.
+`tests/test_torch_gpu.py` and by `chip_smoke.py`.  A value head dim dv
+apart from dk (MLA) is held against the Pallas kernel on v zero-padded
+to dk (the output cropped) and against the reference's `_sdpa`, which
+takes dv != dk natively; `flash_decode_ref` at dv != dk against the
+plain version, and `flash_route` either side of the (192, 128) pair.
 """
 import functools
 
@@ -22,17 +26,19 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import decode_splits, flash_route
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
-def _inputs(seed, b, h, kh, sq, sk, hd):
+def _inputs(seed, b, h, kh, sq, sk, hd, dv=None):
+    """q, k of head dim hd and v of head dim dv (default hd)."""
     rng = np.random.default_rng(seed)
     q = (0.5 * rng.standard_normal((b, h, sq, hd))).astype(np.float32)
     k = (0.5 * rng.standard_normal((b, kh, sk, hd))).astype(np.float32)
-    v = rng.standard_normal((b, kh, sk, hd)).astype(np.float32)
+    v = rng.standard_normal((b, kh, sk, dv or hd)).astype(np.float32)
     return q, k, v
 
 
@@ -199,3 +205,91 @@ def test_flash_route(dtype, sq, hd):
             else "cuda_core")
     assert flash_route(dtype, sq, hd) == want
 
+
+
+# ---------------------------------------------------------------------------
+# a value head dim dv apart from the query/key head dim dk (MLA's naive
+# path: dk = qk_nope + rope, dv = v_head_dim).  The Pallas kernel takes
+# dk == dv only: v zero-padded to dk and the output cropped to dv is the
+# same function.  (G, causal, window, softcap, Sq, Sk, dk, dv, dtype):
+# the smoke config's (dk 24, dv 16; prefill and a decode step), MLA's
+# published pair at Kh = H (bf16, causal with Sq < Sk) and a capped,
+# windowed GQA case with dv > dk
+DV_CASES = [
+    (1, True, None, None, 40, 40, 24, 16, "float32"),
+    (1, True, None, None, 1, 41, 24, 16, "float32"),
+    (1, True, None, None, 24, 60, 192, 128, "bfloat16"),
+    (2, True, 16, 30.0, 33, 50, 32, 48, "float32"),
+]
+
+
+@pytest.mark.parametrize("group,causal,window,softcap,sq,sk,dk,dv,dtype",
+                         DV_CASES)
+def test_flash_attention_dv_matches_pallas_and_sdpa(group, causal, window,
+                                                    softcap, sq, sk, dk, dv,
+                                                    dtype):
+    kh = 2 if group < 4 else 1
+    q, k, v = _inputs(sq + sk + dk + dv, 1, kh * group, kh, sq, sk, dk, dv)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                for a in (q, k, v)), **kw)
+    assert got.dtype == tdt and got.shape == (1, kh * group, sq, dv)
+    got = got.float().numpy()
+    tol = TOL[dtype]
+    jdt = jnp.dtype(dtype)
+    pad = max(dk, dv)
+    widen = lambda a: np.pad(a, ((0, 0),) * 3 + ((0, pad - a.shape[-1]),))
+    # the Pallas kernel scales by 1/sqrt of its head dim: q carries the
+    # ratio when dv > dk widens q and k past dk
+    qs = widen(q) * np.float32(np.sqrt(pad / dk))
+    want = jops.flash_attention(*(jnp.asarray(a).astype(jdt)
+                                  for a in (qs, widen(k), widen(v))),
+                                qblk=64, kblk=64, **kw)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32)[..., :dv],
+                               rtol=tol, atol=tol)
+    # the reference's own attention takes hd' != hd natively
+    q_pos = jnp.arange(sq)[None] + (sk - sq)
+    k_pos = jnp.arange(sk)[None]
+    bias = jattn.mask_bias(q_pos, k_pos, kind="causal" if causal else "full",
+                           window=window)
+    sd = jattn._sdpa(*(jnp.asarray(a.transpose(0, 2, 1, 3)).astype(jdt)
+                       for a in (q, k, v)), bias, softcap, jdt)
+    sd = np.asarray(sd, np.float32).transpose(0, 2, 1, 3)
+    live = np.arange(sq) + (sk - sq) >= 0    # rows with a valid key
+    np.testing.assert_allclose(got[:, :, live], sd[:, :, live], rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, "sk"])
+@pytest.mark.parametrize("dk,dv", [(24, 16), (192, 128)])
+def test_flash_decode_ref_dv(n_split, dk, dv):
+    """The decode kernel's split-and-merge arithmetic at dv != dk against
+    the plain version, a window masking whole splits."""
+    q, k, v = _inputs(dk + dv, 2, 4, 4, 3, 70, dk, dv)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    for kw in (dict(causal=True), dict(causal=True, window=9,
+                                       softcap=30.0)):
+        got = ref.flash_decode_ref(qt, kt, vt, n_split=70 if n_split == "sk"
+                                   else n_split, **kw)
+        assert got.shape == (2, 4, 3, dv)
+        np.testing.assert_allclose(
+            got.numpy(), ref.flash_attention_ref(qt, kt, vt, **kw).numpy(),
+            rtol=2e-5, atol=2e-5)
+
+
+# MLA's (dk 192, dv 128) takes the tensor cores in bf16; a pair either
+# side of it (192 or 128 on one side only) and f32 do not
+@pytest.mark.parametrize("dtype,sq,dk,dv,want", [
+    (torch.bfloat16, 4064, 192, 128, "tc"),
+    (torch.bfloat16, 4064, 192, 192, "cuda_core"),
+    (torch.bfloat16, 4064, 128, 192, "cuda_core"),
+    (torch.bfloat16, 4064, 256, 128, "cuda_core"),
+    (torch.float32, 4064, 192, 128, "cuda_core"),
+    (torch.bfloat16, 17, 192, 128, "tc"),
+    (torch.bfloat16, 16, 192, 128, "decode"),
+    (torch.float32, 1, 24, 16, "decode"),
+    (torch.float32, 40, 24, 16, "cuda_core"),
+])
+def test_flash_route_dv(dtype, sq, dk, dv, want):
+    assert flash_route(dtype, sq, dk, dv) == want

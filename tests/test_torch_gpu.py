@@ -2129,3 +2129,106 @@ def test_federated_serve_cli_on_card_agrees_with_cpu(capsys):
     for a, b in zip(cpu, card):
         np.testing.assert_array_equal(a, b)
     assert capsys.readouterr().out.count("parity anchor OK") == 2
+
+
+# ---------------------------------------------------------------------------
+# a value head dim dv apart from dk (MLA's naive path), on all three
+# kernels: the CUDA-core kernel at any pair, the decode kernel at any
+# pair, the tensor-core kernel at (192, 128) in bf16
+
+
+def _qkv_dv(gen, b, h, kh, sq, sk, dk, dv, dtype, logit_std=LOGIT_STD):
+    """As `_qkv` at head dim dk, with v (B, Kh, Sk, dv) the tail of a
+    wider (B, C, Kh, 16 + dv) tensor, as MLA's expanded values are the
+    tail of ``wkv_b``'s (B, S, H, nope + v) product."""
+    q, k, _ = _qkv(gen, b, h, kh, sq, sk, dk, dtype, cache_len=sk + 5,
+                   logit_std=logit_std)
+    wide = torch.randn((b, sk + 5, kh, 16 + dv), generator=gen,
+                       device="cuda").to(dtype)
+    return q, k, wide[:, :sk, :, 16:].transpose(1, 2)
+
+
+def _dv_check(q, k, v, **kw):
+    """Through the op (one launch on its route) and on each kernel that
+    takes the shape, against the plain version; the output (B, H, Sq,
+    dv) in q's layout.  Returns the plain version's result."""
+    dk, dv = q.shape[3], v.shape[3]
+    route = flash_route(q.dtype, q.shape[2], dk, dv)
+    n0 = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {c: n - n0[c] for c, n in ops.LAUNCHES.items()
+            if n != n0[c]} == {ops.FLASH_COUNTERS[route]: 1}
+    assert got.shape == (*q.shape[:3], dv) and got.dtype == q.dtype
+    assert got.transpose(1, 2).is_contiguous()     # q's (B, S, H) order
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    _flash_close(got, want)
+    _flash_close(flash_attention_cuda(q, k, v, **kw), want)
+    if route == "decode":
+        for ns in (1, 2, k.shape[2]):
+            _flash_close(flash_decode_cuda(q, k, v, n_split=ns, **kw), want)
+    if route == "tc":
+        _flash_close(flash_attention_tc_cuda(q, k, v, **kw), want)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk,dv,dtype", [(24, 16, torch.float32),
+                                         (24, 16, torch.bfloat16),
+                                         (192, 128, torch.bfloat16),
+                                         (192, 128, torch.float32),
+                                         (32, 48, torch.float32)])
+@pytest.mark.parametrize("sq,sk", [(1, 70), (3, 333), (16, 40), (17, 300),
+                                   (77, 77), (130, 130), (96, 40)])
+def test_flash_kernels_dv_ragged(dk, dv, dtype, sq, sk):
+    """Every route at dv != dk on ragged shapes, Kh = H (MLA) and GQA
+    group 2, at both logit scales; past the softcap each kernel also
+    fails without it."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(dk + dv + sq + sk)
+    for h, kh in ((4, 4), (4, 2)):
+        q, k, v = _qkv_dv(gen, 2, h, kh, sq, sk, dk, dv, dtype)
+        _dv_check(q, k, v, causal=True)
+        _dv_check(q, k, v, causal=False)
+        _dv_check(q, k, v, causal=True, window=48, softcap=30.0)
+        q, k, v = _qkv_dv(gen, 2, h, kh, sq, sk, dk, dv, dtype,
+                          logit_std=CAP_LOGIT_STD)
+        kw = dict(causal=True, softcap=50.0)
+        want = _dv_check(q, k, v, **kw)
+        route = flash_route(dtype, sq, dk, dv)
+        _fails_without_softcap(ops.FLASH_KERNELS[route][0], q, k, v, want,
+                               **kw)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_dv_mla_shapes():
+    """MLA at its published heads (H = Kh = 128, dk 192, dv 128, bf16): a
+    prefill of 1,024 on the tensor cores and a decode step over 4,096
+    keys, against the plain version."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v = _qkv_dv(gen, 1, 128, 128, 1024, 1024, 192, 128,
+                      torch.bfloat16)
+    assert flash_route(q.dtype, 1024, 192, 128) == "tc"
+    _dv_check(q, k, v, causal=True)
+    q, k, v = _qkv_dv(gen, 2, 128, 128, 1, 4096, 192, 128, torch.bfloat16)
+    _dv_check(q, k, v, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(1, 300), (40, 40)])
+def test_vmapped_flash_op_dv_bitwise_per_user_on_card(sq, sk):
+    """The flash op under `torch.func.vmap` at dk 192, dv 128 (the
+    per-user MLA decode's call): one launch, bitwise the per-user calls."""
+    _require_cuda()
+    from torch.func import vmap
+    gen = torch.Generator(device="cuda").manual_seed(sq)
+    q, k, v = (t.unsqueeze(1) for t in _qkv_dv(
+        gen, 3, 4, 4, sq, sk, 192, 128, torch.bfloat16))
+    with ops.launches_set_aside() as made:
+        got = vmap(lambda a, b, c: ops.flash_attention(a, b, c))(q, k, v)
+        torch.cuda.synchronize()
+    assert made == {ops.FLASH_COUNTERS[flash_route(q.dtype, sq, 192,
+                                                   128)]: 1}
+    for i in range(3):
+        assert torch.equal(got[i], ops.flash_attention(q[i], k[i], v[i]))

@@ -66,11 +66,18 @@ def test_configs_match_reference(arch):
 
 def test_registry_refuses_other_families():
     for arch in ("mamba2-780m", "zamba2-2.7b", "nemotron-4-340b",
-                 "whisper-tiny", "paligemma-3b", "deepseek-v3-671b"):
+                 "whisper-tiny", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="item 16b"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
         configs.get_config("nope")
+    # deepseek-v3 (MLA) is ported: its configs are the reference's
+    arch = "deepseek-v3-671b"
+    assert arch not in configs.registry.NOT_PORTED
+    for got, want in ((configs.get_config(arch), jget_config(arch)),
+                      (configs.get_smoke_config(arch),
+                       jget_smoke_config(arch))):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 # ---------------------------------------------------------------------------
@@ -176,21 +183,34 @@ def test_attention_refuses_what_this_slice_lacks():
     with pytest.raises(NotImplementedError, match="item 16b"):
         attention.attention(p, pcfg, x, 0, prefix_len=2)
     mla = dataclasses.replace(pcfg, attn=dataclasses.replace(
-        pcfg.attn, mla=configs.base.MLAConfig()))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        attention.attn_init(gen, mla, device="cpu")
+        pcfg.attn, mla=configs.base.MLAConfig(
+            q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
+            qk_rope_head_dim=8, v_head_dim=8)))
     c = attention.init_cache(pcfg, 1, 8, torch.float32, "cpu")
     with pytest.raises(ValueError, match="wrap"):
         attention.attention(p, pcfg, x, 6, cache=c)
-    # the MoE family runs (tests/test_torch_moe.py); MLA, the
-    # deepseek-v3 config's attention, does not
+    # MLA, the deepseek-v3 config's attention, inits, makes its latent
+    # rings and runs (tests/test_torch_mla.py holds it to the reference);
+    # sequence-parallel decode still raises
     mla_moe = dataclasses.replace(configs.get_smoke_config("olmoe-1b-7b"),
                                   attn=mla.attn)
+    params = T.init_params(gen, mla_moe, device="cpu")
+    assert "wkv_b" in params["layers"][0]["attn"]
+    caches = T.make_caches(mla_moe, 1, 8, torch.float32, device="cpu")
+    assert caches[0].k.shape == (1, 8, 16) and caches[0].v.shape == (1, 8, 8)
+    logits, _ = T.prefill(params, mla_moe,
+                          {"tokens": torch.zeros((1, 3), dtype=torch.long)},
+                          caches)
+    assert logits.shape == (1, 1, mla_moe.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    sp = dataclasses.replace(mla_moe, attn=dataclasses.replace(
+        mla.attn, seq_parallel=True))
     for fn in (lambda c: T.init_params(gen, c, device="cpu"),
                lambda c: T.make_caches(c, 1, 8, torch.float32,
                                        device="cpu")):
-        with pytest.raises(NotImplementedError, match="MLA.*item 16b"):
-            fn(mla_moe)
+        with pytest.raises(NotImplementedError,
+                           match="sequence-parallel.*item 16b"):
+            fn(sp)
 
 
 # ---------------------------------------------------------------------------

@@ -92,11 +92,12 @@ def test_registry_serves_olmoe():
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got.family == "moe" and got.is_moe_layer(0)
     assert ARCH in configs.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        configs.get_config("deepseek-v3-671b")
-    for preset in ("cpu-small", "lm-100m", "full"):
-        assert dataclasses.asdict(train.preset_config(ARCH, preset)) == \
-            dataclasses.asdict(jtrain.preset_config(ARCH, preset))
+    # the MoE family's other config, deepseek-v3 (MLA), resolves too
+    assert configs.get_config("deepseek-v3-671b").family == "moe"
+    for arch in (ARCH, "deepseek-v3-671b"):
+        for preset in ("cpu-small", "lm-100m", "full"):
+            assert dataclasses.asdict(train.preset_config(arch, preset)) == \
+                dataclasses.asdict(jtrain.preset_config(arch, preset))
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,11 @@ Phases (any failure raises and the script exits non-zero):
                 head dim apart from the query's (dk 24 / dv 16 and 192 /
                 128 on ragged shapes, then MLA's prefill and decode step
                 at its published heads, timed beside their bounds and
-                SDPA, its backend named); the flash op under `torch.func.vmap`
+                SDPA, its backend named); the (192, 192) instance on the
+                same ragged shapes and nemotron-4-340b's prefill and
+                decode step (96 / 8 heads of 192), timed the same way,
+                the prefill beside the CUDA-core kernel it replaces;
+                the flash op under `torch.func.vmap`
                 (the per-user decode's call) bitwise the per-user calls,
                 one launch for all the users;
   4. agree    — a small label-shift run on the card against the same run
@@ -201,7 +205,17 @@ Phases (any failure raises and the script exits non-zero):
                 (three dense-first layers, one MoE layer; 15.11 B
                 params): 4 tensor-core, 124 decode and 0 CUDA-core
                 launches, the latent rings' bytes beside the expanded
-                K/V's, the same traces.  Before (c), one MLA layer at
+                K/V's, the same traces; mamba2-780m (48 SSD layers,
+                d_state 128, chunk 256; B 2, prompt 8,160, cache 8,192)
+                and zamba2-2.7b (54 layers, every 6th the one shared
+                attention block at hd 80; B 2, prompt 4,064) uncut, and
+                nemotron-4-340b (96 / 8 heads of 192, squared ReLU,
+                untied 256,000 vocab) at depth 96 -> 2 (16.35 B params):
+                one tensor-core launch an attention layer a prefill and
+                one decode launch an attention layer a step (mamba2:
+                none), prefill traces split flash / the SSD scans / the
+                other GEMMs / the rest, and decode traces with the idle
+                share.  Before (c), one MLA layer at
                 published widths: its flash path against its no-cache
                 plain path, the absorbed path against the naive one.
  12. train    — federated LM training (`launch.train`, the reference's
@@ -212,8 +226,8 @@ Phases (any failure raises and the script exits non-zero):
                 tokens, batch 4, on the host placement, the default mesh,
                 qsgd:8 over tiered:4, topk:0.1, async K = 2, a cohort of
                 2, fleets of 2 devices, crash:0.2 + median, and
-                olmoe-1b-7b and deepseek-v3-671b (the MoE family, MLA)
-                on the host: each run's
+                olmoe-1b-7b, deepseek-v3-671b (the MoE family, MLA) and
+                mamba2-780m (the SSM family) on the host: each run's
                 final CE, s/round and launches; (d) the three scenarios
                 drawn on the card at their default sizes (shapes, groups,
                 the padding rule, the covariate rotations, one label
@@ -245,9 +259,10 @@ Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at four smoke configs (olmoe's the MoE
-family, deepseek's MLA), `launch.serve.main --federated` at its smallest
-flags on stablelm-3b and deepseek-v3-671b (the same served tokens),
+the card against the CPU at six smoke configs (olmoe's the MoE
+family, deepseek's MLA, mamba2 and zamba2 the SSM and hybrid families),
+`launch.serve.main --federated` at its smallest flags on stablelm-3b,
+deepseek-v3-671b and mamba2-780m (the same served tokens),
 `launch.train.main` at
 cpu-small (host-drawn data and params, losses within rtol 1e-4), a buffered-async run on
 the card against the CPU, without a channel and with qsgd:8, and a
@@ -257,6 +272,7 @@ The last lines are the kernels JSON, the card line, and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -321,15 +337,16 @@ LM = dict(arch="gemma2-27b", batch=2, prompt=4608, tokens=32,
 # quarter of each head, LayerNorm, 4,096 context)
 LM_C = (
     dict(arch="gemma-2b", batch=2, prompt=8160, tokens=32, cache_len=8192,
-         seed=0, n_layers=2, reduced={"n_layers": "18 -> 2"}),
+         seed=0, n_layers=2, reduced={"n_layers": "18 -> 2"},
+         flash_row=True),
     dict(arch="stablelm-3b", batch=2, prompt=4064, tokens=32,
          cache_len=4096, seed=0, n_layers=2,
-         reduced={"n_layers": "32 -> 2"}),
+         reduced={"n_layers": "32 -> 2"}, flash_row=True),
     # OLMoE-1B-7B (arXiv:2409.02060): d_model 2,048, 16 heads of 128 with
     # qk_norm, 64 experts of 1,024, top 8, vocab 50,304, untied, RMSNorm
     dict(arch="olmoe-1b-7b", batch=2, prompt=4064, tokens=32,
          cache_len=4096, seed=0, n_layers=2,
-         reduced={"n_layers": "16 -> 2"}),
+         reduced={"n_layers": "16 -> 2"}, flash_row=True),
     # DeepSeek-V3-671B (arXiv:2412.19437): d_model 7,168, 128 heads of MLA
     # (q_lora 1,536, kv_lora 512, qk_nope 128, rope 64, v 128), 256
     # routed experts of 2,048, top 8, one shared, 3 dense-first layers of
@@ -337,7 +354,25 @@ LM_C = (
     # three dense-first layers and one MoE layer (15.11 B params)
     dict(arch="deepseek-v3-671b", batch=2, prompt=4064, tokens=32,
          cache_len=4096, seed=0, n_layers=4,
-         reduced={"n_layers": "61 -> 4"}),
+         reduced={"n_layers": "61 -> 4"}, free_first=True),
+    # Mamba2-780M (arXiv:2405.21060): 48 SSD layers of d_model 1,536
+    # (d_inner 3,072, 48 heads of 64, d_state 128, one group, conv 4,
+    # chunk 256), vocab 50,280, tied, no attention and no MLP; uncut
+    dict(arch="mamba2-780m", batch=2, prompt=8160, tokens=32,
+         cache_len=8192, seed=0, n_layers=48, reduced={}),
+    # Zamba2-2.7B (arXiv:2411.15242): 54 layers of d_model 2,560, every
+    # 6th the one shared attention block (32 heads of 80, GeGLU MLP of
+    # 10,240), the others Mamba2 (80 heads of 64, d_state 64), vocab
+    # 32,000, tied; uncut
+    dict(arch="zamba2-2.7b", batch=2, prompt=4064, tokens=32,
+         cache_len=4096, seed=0, n_layers=54, reduced={}),
+    # Nemotron-4-340B (arXiv:2402.16819): d_model 18,432, 96 query heads
+    # on 8 KV heads of 192, squared-ReLU MLP of 73,728, vocab 256,000,
+    # untied, LayerNorm; depth 2: two layers of 3.45 B and the two
+    # embeddings, 16.35 B params
+    dict(arch="nemotron-4-340b", batch=2, prompt=4064, tokens=32,
+         cache_len=4096, seed=0, n_layers=2,
+         reduced={"n_layers": "96 -> 2"}, free_first=True),
 )
 # [lm]: one MLA layer of deepseek-v3-671b at its published widths, bf16:
 # B 1, a 1,024-token prefill into a latent ring of 1,040, then a decode
@@ -1046,9 +1081,11 @@ def check_flash(gen) -> list:
          lm_runs(dict(causal=True, window=win, softcap=cap)), {}, None),
     ]
     for c in LM_C:
-        ac = get_config(c["arch"]).attn
-        if ac.mla is not None:         # MLA's pair: `check_flash_mla`
+        # MLA's pair: `check_flash_mla`; nemotron's heads:
+        # `check_flash_nemotron`; zamba2's prefill is stablelm-3b's shape
+        if not c.get("flash_row"):
             continue
+        ac = get_config(c["arch"]).attn
         cases.append((
             f"{c['arch']} prefill", (c["batch"], ac.n_heads, ac.n_kv_heads,
                                      c["prompt"], c["prompt"], ac.head_dim),
@@ -1316,7 +1353,7 @@ def check_flash(gen) -> list:
     order = ("flash_attention_decode", "flash_attention_tc",
              "flash_attention") + tuple(
         f"flash_attention_tc_hd{get_config(c['arch']).attn.head_dim}"
-        for c in LM_C if get_config(c["arch"]).attn.mla is None)
+        for c in LM_C if c.get("flash_row"))
     return [rows[r] for r in order]
 
 
@@ -1414,7 +1451,8 @@ def check_flash_mla(gen) -> list:
     """The three flash kernels at a value head dim dv apart from the
     query/key head dim dk (MLA's naive path): on ragged shapes at dk 24 /
     dv 16 (the smoke config's) and dk 192 / dv 128 (the published pair),
-    f32 and bf16, Kh = H and GQA group 4, Sq 1/3/16 (decode) and
+    and at nemotron-4-340b's dk = dv 192 (the tensor-core kernel's
+    (192, 192) instance), f32 and bf16, Kh = H and GQA group 4, Sq 1/3/16 (decode) and
     17/77/130/96 (prefill, 96 over 40 keys), both logit scales, through
     the op (each on its route) and on every kernel that takes the shape
     (the CUDA-core kernel always, the decode kernel at 1, 2 and Sk
@@ -1431,7 +1469,7 @@ def check_flash_mla(gen) -> list:
     n0 = dict(ops.LAUNCHES)
     n_ops = n_checks = n_faults = 0
     tally = {"inputs": 0, "plain outside": 0}
-    for dk, dv in ((24, 16), (192, 128)):
+    for dk, dv in ((24, 16), (192, 128), (192, 192)):
         for dt in (torch.float32, torch.bfloat16):
             for h, kh in ((4, 4), (8, 2)):
                 for sq, sk in ((1, 70), (3, 333), (16, 40), (17, 300),
@@ -1479,8 +1517,8 @@ def check_flash_mla(gen) -> list:
                                 n_faults += 1
     made = sum(ops.LAUNCHES[c] - n0[c] for c in ops.FLASH_COUNTERS.values())
     direct = ops.LAUNCHES["flash_attention"] - n0["flash_attention"]
-    print(f"  flash_attention dv != dk ragged: (dk, dv) (24, 16) and (192, "
-          f"128) x f32/bf16 x (H, Kh) (4, 4), (8, 2) x (Sq, Sk) (1, 70), "
+    print(f"  flash_attention (dk, dv) ragged: (24, 16), (192, 128) and "
+          f"(192, 192) x f32/bf16 x (H, Kh) (4, 4), (8, 2) x (Sq, Sk) (1, 70), "
           f"(3, 333), (16, 40), (17, 300), (77, 77), (130, 130), (96, 40); "
           f"logit sd {LOGIT_STD:g}: non-causal, causal, causal + window "
           f"48 + softcap 30; logit sd {CAP_LOGIT_STD:g}: causal + softcap "
@@ -1492,7 +1530,7 @@ def check_flash_mla(gen) -> list:
           f"tolerance of float64 on {tally['plain outside']} of "
           f"{tally['inputs']} f32 inputs", flush=True)
 
-    c = next(c for c in LM_C if get_config(c["arch"]).attn.mla is not None)
+    c = next(c for c in LM_C if c["arch"] == "deepseek-v3-671b")
     cfg = get_config(c["arch"])
     m, hh = cfg.attn.mla, cfg.attn.n_heads
     dk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
@@ -1560,6 +1598,96 @@ def check_flash_mla(gen) -> list:
         print(line, flush=True)
         rows.append(dict(
             name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/" +
+            {"tc": "flash_attention_tc.cu",
+             "decode": "flash_decode.cu"}[route],
+            replaces="src/repro/kernels/flash_attention.py:118",
+            counter=counter, max_abs_err=max(errs), ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=lib, phase=c["arch"]))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_nemotron(gen) -> list:
+    """nemotron-4-340b's two flash shapes at its published heads (B 2, 96
+    query heads on 8 KV heads of 192, bf16): the prefill of 4,064 on the
+    tensor-core kernel's (192, 192) instance and a decode step over 4,096
+    keys on the decode kernel, q transposed from (B, S, H, hd), k and v
+    slices of the serving cache.  Each is held against its plain version
+    at bf16's 3e-2 on the first two KV heads and their 24 query heads
+    (the full prefill's f32 logits would take 12.7 GB), at both logit
+    scales, through the op and its route's own wrapper, and past softcap
+    50 the route's kernel must fail without it; then timed at all 96
+    heads beside its bound, the plain version (by two KV heads at a
+    time), SDPA (its backend named) and, at the prefill, the CUDA-core
+    kernel the call took before the (192, 192) instance.  Returns the two
+    JSON rows, counted in [lm] (c)'s nemotron run."""
+    c = next(c for c in LM_C if c["arch"] == "nemotron-4-340b")
+    a = get_config(c["arch"]).attn
+    h, kh, hd = a.n_heads, a.n_kv_heads, a.head_dim
+    group = h // kh
+    b, sp, clen = c["batch"], c["prompt"], c["cache_len"]
+    held_kv = 2                 # KV heads held to the plain version
+    rows = []
+    for label, sq, sk, clen_in, counter in (
+            ("prefill (7a)", sp, sp, clen, "flash_attention_tc"),
+            ("decode step (7c)", 1, clen, None, "flash_attention_decode")):
+        kw = dict(causal=True)
+        q, k, v = flash_inputs(gen, b, h, kh, sq, sk, hd, torch.bfloat16,
+                               cache_len=clen_in)
+        route = flash_route(q.dtype, sq, hd)
+        if ops.FLASH_COUNTERS[route] != counter:
+            raise AssertionError(f"nemotron {label}: route {route}")
+        errs = []
+        for std, kws in ((LOGIT_STD, (kw,)),
+                         (CAP_LOGIT_STD, (kw, dict(kw, softcap=50.0)))):
+            qc, kc, vc = (q[:, :held_kv * group], k[:, :held_kv],
+                          v[:, :held_kv]) if std == LOGIT_STD else \
+                flash_inputs(gen, b, held_kv * group, held_kv, sq, sk, hd,
+                             torch.bfloat16, cache_len=clen_in,
+                             logit_std=std)
+            for kwc in kws:
+                tag = (f"nemotron {label} H={held_kv * group} "
+                       f"Kh={held_kv} logit sd {std:g} {kwc}")
+                want = ref.flash_attention_ref(qc, kc, vc, **kwc)
+                err, _ = flash_close(tag, ops.flash_attention(qc, kc, vc,
+                                                              **kwc), want)
+                errs.append(err)
+                flash_close(tag + " (own wrapper)",
+                            route_kernel(qc, vc)(qc, kc, vc, **kwc), want)
+                if "softcap" in kwc:
+                    flash_planted_fault(tag, qc, kc, vc, kwc, want)
+                del want
+            del qc, kc, vc
+        bnd, by, flops = flash_bound(q, k, kw)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        chunks = range(0, kh, held_kv)
+        plain = time_ms(lambda: [ref.flash_attention_ref(
+            q[:, i * group:(i + held_kv) * group], k[:, i:i + held_kv],
+            v[:, i:i + held_kv], **kw) for i in chunks], iters=3)
+        lib, backend = sdpa_backend_ms(q, k, v, causal=sq > 1)
+        line = (f"  flash_attention nemotron {label}: B={b} H={h} Kh={kh} "
+                f"Sq={sq} Sk={sk} hd={hd} bf16 route {route}: max|err| "
+                f"{max(errs):.2e} on {held_kv * group} heads (both logit "
+                f"scales, softcap 50 with its planted fault); kernel "
+                f"{ms:.4f} ms  plain {plain:.4f} ms ({len(chunks)} chunks of "
+                f"{held_kv} KV heads)  bound {bnd:.4f} ms ({by}, "
+                f"{flops:.3e} FLOP, {bnd / ms:.1%} of it)  SDPA ")
+        line += (f"{lib:.4f} ms (backend: {backend})" if lib is not None
+                 else f"not timed: {backend}")
+        if sq == 1:
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            line += (f"  ({decode_splits(b, kh, sk, n_sm)} splits; at " +
+                     ", ".join(f"{n}: {time_ms(lambda: flash_decode_cuda(q, k, v, n_split=n, **kw)):.4f} ms"
+                               for n in (4, 8, 16)) + ")")
+        else:
+            line += (f"  CUDA-core kernel "
+                     f"{time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=3):.4f}"
+                     " ms")
+        print(line, flush=True)
+        rows.append(dict(
+            name=f"{counter}_hd{hd}", route="cuda",
             source="src/repro_torch/kernels/csrc/" +
             {"tc": "flash_attention_tc.cu",
              "decode": "flash_decode.cu"}[route],
@@ -1840,11 +1968,14 @@ def lm_agreement() -> None:
     decode step), gemma-2b's (group 4, head_dim 64) and olmoe-1b-7b's (4
     experts, top 2, qk_norm: a MoE layer a block) and deepseek-v3-671b's
     (MLA at dk 24 / dv 16, its prefill on the CUDA-core kernel; a
-    dense-first layer and a MoE layer with a shared expert); prefill plus
-    8 decode steps, per-step logits within 1e-4 (f32, TF32 off) and equal
-    tokens."""
+    dense-first layer and a MoE layer with a shared expert), and the SSM
+    and hybrid families' (mamba2-780m: two SSD layers at chunk 32, the
+    96-token prompt three chunks; zamba2-2.7b: an SSD layer, then the
+    shared attention block at hd 64); prefill plus 8 decode steps,
+    per-step logits within 1e-4 (f32, TF32 off) and equal tokens, one
+    flash launch an attention layer a step."""
     for arch in ("gemma2-27b", "gemma-2b", "olmoe-1b-7b",
-                 "deepseek-v3-671b"):
+                 "deepseek-v3-671b", "mamba2-780m", "zamba2-2.7b"):
         cfg = get_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(3), cfg,
                                device="cpu")
@@ -1856,9 +1987,9 @@ def lm_agreement() -> None:
         b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
                      prompt.cuda(), 9, 128, return_logits=True)
         launched = sum(ops.LAUNCHES[c] for c in flash) - before
-        if launched != 9 * cfg.n_layers:
+        if launched != 9 * n_attn_layers(cfg):
             raise AssertionError(f"{arch}: {launched} flash launches, want "
-                                 f"{9 * cfg.n_layers}")
+                                 f"{9 * n_attn_layers(cfg)}")
         err = 0.0
         for i, (x, y) in enumerate(zip(a.logits, b.logits)):
             d = (y.cpu() - x).abs()
@@ -1868,22 +1999,45 @@ def lm_agreement() -> None:
                                      f"vs cpu by {float(d.max()):.3e}")
         if not torch.equal(a.tokens, b.tokens.cpu()):
             raise AssertionError(f"{arch}: tokens differ cuda vs cpu")
-        m = cfg.attn.mla
-        dims = (f"hd={cfg.attn.head_dim}" if m is None else
-                f"MLA dk={m.qk_nope_head_dim + m.qk_rope_head_dim} "
-                f"dv={m.v_head_dim}")
-        print(f"  {cfg.name} (H={cfg.attn.n_heads} Kh={cfg.attn.n_kv_heads} "
-              f"{dims}) prompt 96, 8 decode steps: cuda "
-              f"agrees with cpu (max |Δlogit| {err:.2e}, tokens equal, "
+        print(f"  {cfg.name} ({stack_dims(cfg)}) prompt 96, 8 decode steps: "
+              f"cuda agrees with cpu (max |Δlogit| {err:.2e}, tokens equal, "
               f"{launched} flash launches)", flush=True)
 
 
+def n_attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that run attention (each one flash launch a
+    prefill or decode step)."""
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def stack_dims(cfg) -> str:
+    """The attention heads and the SSM widths of ``cfg``, for a printout."""
+    out = []
+    a = cfg.attn
+    if a is not None:
+        m = a.mla
+        out.append(f"H={a.n_heads} Kh={a.n_kv_heads} " + (
+            f"hd={a.head_dim}" if m is None else
+            f"MLA dk={m.qk_nope_head_dim + m.qk_rope_head_dim} "
+            f"dv={m.v_head_dim}"))
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out.append(f"SSD d_inner={s.expand * cfg.d_model} "
+                   f"head_dim={s.head_dim} d_state={s.d_state} "
+                   f"chunk={s.chunk_size}")
+    if cfg.hybrid is not None:
+        out.append(f"attention every {cfg.hybrid.attn_every} layers, "
+                   f"shared={cfg.hybrid.shared_block}")
+    return "; ".join(out)
+
+
 # [agree]: `launch.serve --federated` at its smallest flags, on a dense
-# config and on deepseek's (MLA under the per-user vmap)
+# config, on deepseek's (MLA under the per-user vmap) and on mamba2's (the
+# SSM caches under the per-user vmap)
 FED_SMALL = ["--federated", "--rounds", "1", "--clients", "2", "--pool",
              "5", "--requests", "3", "--tokens", "3", "--prompt-len", "8",
              "--max-batch", "2"]
-FED_ARCHS = ("stablelm-3b", "deepseek-v3-671b")
+FED_ARCHS = ("stablelm-3b", "deepseek-v3-671b", "mamba2-780m")
 
 
 def federated_agreement() -> None:
@@ -1891,7 +2045,6 @@ def federated_agreement() -> None:
     data, params, draws and prompts drawn on the host): the same served
     tokens, the parity anchor on both, the per-user decode's flash
     launches one a layer a step for each batch."""
-    import contextlib
     import io
     from repro_torch.launch import serve as serve_cli
     for arch in FED_ARCHS:
@@ -1934,9 +2087,13 @@ def kernel_kind(name: str) -> str:
 def device_split(prof):
     """From a torch.profiler trace: (device-busy µs, the union of kernel
     spans; µs by flash / GEMM (cuBLAS) / other; µs by kernel name; the
-    number of kernels), or None when the trace holds no device events."""
+    number of kernels), or None when the trace holds no device events.
+    A `record_function` span's range on the device (`ssd_spans`') is no
+    kernel and is left out."""
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and not
+               (getattr(e, "is_user_annotation", False) or
+                e.name in SSD_SPANS)]
     if not kernels:
         return None
     split = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
@@ -1959,22 +2116,52 @@ def device_split(prof):
     return busy, split, by_name, len(kernels)
 
 
-def einsum_split(prof) -> dict:
+def kernels_under(prof, names) -> dict:
     """Device µs by kind (as `device_split` sorts them) of the kernels
-    launched under an ``aten::einsum`` op: on the serving path only
-    `models/moe.py` calls einsum (its dispatch, expert and combine
-    products, with their layout copies), so these are the MoE einsums'."""
+    launched under a CPU op or span whose name is in ``names``: on the
+    serving path ``aten::einsum`` is `models/moe.py`'s (its dispatch,
+    expert and combine products, with their layout copies; the SSD's
+    einsums run inside its spans), ``ssd_scan`` and ``ssd_decode_step``
+    the spans `ssd_spans` opens around `models/ssm.py`'s SSD."""
     out = {"flash": 0.0, "GEMM": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
         p = e
-        while p is not None and p.name != "aten::einsum":
+        while p is not None and p.name not in names:
             p = p.cpu_parent
         if p is not None:
             for k in e.kernels:
                 out[kernel_kind(k.name)] += k.duration
     return out
+
+
+SSD_SPANS = ("ssd_scan", "ssd_decode_step")
+
+
+@contextlib.contextmanager
+def ssd_spans():
+    """For a profiler trace only: `models/ssm.py`'s ``ssd_scan`` (the
+    chunked SSD: its einsums, the decay products and the recurrence over
+    the chunks) and ``ssd_decode_step`` run inside `record_function`
+    spans of their names, so `kernels_under` can split their kernels
+    off.  `ssm_apply` looks both up in its module at each call."""
+    from repro_torch.models import ssm
+
+    def span(name, fn):
+        def wrapped(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    orig = {n: getattr(ssm, n) for n in SSD_SPANS}
+    for n, fn in orig.items():
+        setattr(ssm, n, span(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ssm, n, fn)
 
 
 def _leaves(tree):
@@ -2005,7 +2192,7 @@ def profile_decode(params, cfg, prompt, clen: int, card: str,
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with ssd_spans(), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             logits, caches = T.decode_step(params, cfg, tok, caches,
@@ -2023,9 +2210,13 @@ def profile_decode(params, cfg, prompt, clen: int, card: str,
     busy_ms = busy / 1e3 / steps
     moe = ""
     if cfg.moe:
-        ein = einsum_split(prof)
+        ein = kernels_under(prof, ("aten::einsum",))
         moe = (f" (the MoE einsums {sum(ein.values()) / 1e3 / steps:.3f} "
                "ms of it)")
+    if cfg.ssm:
+        ssd = kernels_under(prof, SSD_SPANS)
+        moe = (f" (the SSD state updates {sum(ssd.values()) / 1e3 / steps:.3f}"
+               " ms of it)")
     print(f"  {label} profiler, {steps} decode steps ({card}): device busy "
           f"{busy_ms:.3f} ms a step: flash {split['flash'] / 1e3 / steps:.3f}"
           f" ms, GEMM {split['GEMM'] / 1e3 / steps:.3f} ms, other "
@@ -2186,22 +2377,25 @@ def mla_layer_check(card: str) -> None:
 
 def lm_c_path(card: str) -> dict:
     """[lm] (c): bf16 `generate` of each LM_C configuration at its full
-    width, depth 2, after a warm-up at the full prompt: prefill ms, decode
-    ms a step and tok/s, peak memory; exactly 2 tensor-core, 62 decode
-    and 0 CUDA-core flash launches; finite logits and in-range tokens;
-    then a profiler trace of one prefill (device time by flash / GEMM /
-    other).  Returns {arch: flash launches by counter}, each configuration
-    counted from 0."""
+    width and LM_C's depth, after a warm-up at the full prompt: prefill
+    ms, decode ms a step and tok/s, peak memory; exactly one tensor-core
+    flash launch an attention layer for the prefill, one decode launch an
+    attention layer a step and no CUDA-core launch (mamba2: none at all);
+    finite logits and in-range tokens; then a profiler trace of one
+    prefill (device time by flash / GEMM / other; a MoE config's einsums
+    and an SSM config's SSD apart) and, for a MoE or SSM config or one of
+    over 16 B params, of decode steps with the device's idle share.
+    Returns {arch: flash launches by counter}, each configuration counted
+    from 0."""
     counters = tuple(ops.FLASH_COUNTERS.values())
     out = {}
     for c in LM_C:
         cfg = dataclasses.replace(get_config(c["arch"]),
                                   n_layers=c["n_layers"])
         a = cfg.attn
-        if a.mla is not None:
-            # 30 GB of bf16 params, drawn a tensor at a time in f32 (one
-            # expert tensor: 15 GB): return what the earlier phases'
-            # captured graphs hold first
+        if c.get("free_first"):
+            # tens of GB of bf16 params, drawn a tensor at a time in f32:
+            # return what the earlier phases' captured graphs hold first
             _free_graphs()
         b, plen, n, clen = c["batch"], c["prompt"], c["tokens"], \
             c["cache_len"]
@@ -2211,22 +2405,27 @@ def lm_c_path(card: str) -> dict:
                                generator=torch.Generator(device="cuda")
                                .manual_seed(c["seed"] + 1))
         n_params = sum(t.numel() for t in _leaves(params))
-        moe_w = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_expert} top "
-                 f"{cfg.moe.top_k}, qk_norm {a.qk_norm}" if cfg.moe else "")
-        if cfg.moe and cfg.moe.n_shared_experts:
-            moe_w += (f", {cfg.moe.n_shared_experts} shared, "
-                      f"{cfg.moe.n_dense_layers} dense-first layers of d_ff "
-                      f"{cfg.moe.dense_d_ff}")
-        if a.mla is not None:
-            moe_w += (f", MLA q_lora {a.mla.q_lora_rank}, kv_lora "
-                      f"{a.mla.kv_lora_rank}, qk_nope "
-                      f"{a.mla.qk_nope_head_dim}, rope "
-                      f"{a.mla.qk_rope_head_dim}, v {a.mla.v_head_dim}")
-        print(f"[lm] (c) {cfg.name} d_model {cfg.d_model}, H {a.n_heads}, Kh "
-              f"{a.n_kv_heads}, hd {a.head_dim}, d_ff {cfg.d_ff}{moe_w}, "
-              f"vocab {cfg.vocab_size}, {cfg.activation}, {cfg.norm}; "
-              f"reduced {c['reduced']}; {n_params / 1e9:.3f} B params; B {b}, "
-              f"prompt {plen}, {n} tokens, cache {clen} ({card})", flush=True)
+        widths = [stack_dims(cfg)]
+        if cfg.moe:
+            widths.append(f"{cfg.moe.n_experts} experts of "
+                          f"{cfg.moe.d_expert} top {cfg.moe.top_k}, qk_norm "
+                          f"{a.qk_norm}")
+            if cfg.moe.n_shared_experts:
+                widths.append(f"{cfg.moe.n_shared_experts} shared, "
+                              f"{cfg.moe.n_dense_layers} dense-first layers "
+                              f"of d_ff {cfg.moe.dense_d_ff}")
+        if a is not None and a.mla is not None:
+            widths.append(f"MLA q_lora {a.mla.q_lora_rank}, kv_lora "
+                          f"{a.mla.kv_lora_rank}, qk_nope "
+                          f"{a.mla.qk_nope_head_dim}, rope "
+                          f"{a.mla.qk_rope_head_dim}, v {a.mla.v_head_dim}")
+        print(f"[lm] (c) {cfg.name} d_model {cfg.d_model}, "
+              f"{'; '.join(widths)}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.activation}, {cfg.norm}; "
+              f"{cfg.n_layers} layers ({n_attn_layers(cfg)} attention), "
+              f"reduced {c['reduced'] or 'nothing'}; {n_params / 1e9:.3f} B "
+              f"params; B {b}, prompt {plen}, {n} tokens, cache {clen} "
+              f"({card})", flush=True)
         # warm-up at the full prompt: the timed prefill finds the caching
         # allocator's blocks and cuBLAS's choices for its shapes in place,
         # as a serving process does after its first request
@@ -2237,8 +2436,9 @@ def lm_c_path(card: str) -> dict:
         res = generate(params, cfg, prompt, n, clen, return_logits=True)
         launches = {k: ops.LAUNCHES[k] for k in counters}
         peak = torch.cuda.max_memory_allocated()
-        want = {"flash_attention_decode": (n - 1) * cfg.n_layers,
-                "flash_attention_tc": cfg.n_layers, "flash_attention": 0}
+        n_attn = n_attn_layers(cfg)
+        want = {"flash_attention_decode": (n - 1) * n_attn,
+                "flash_attention_tc": n_attn, "flash_attention": 0}
         if launches != want:
             raise AssertionError(f"[lm] (c) {cfg.name}: flash launches "
                                  f"{launches}, want {want}")
@@ -2252,12 +2452,12 @@ def lm_c_path(card: str) -> dict:
         prefill_ms = res.prefill_s * 1e3
         step_ms = res.decode_s * 1e3 / steps
         print(f"  (c) {cfg.name} bf16: prefill {prefill_ms:.2f} ms ({b}x"
-              f"{plen} tokens); decode {res.decode_s * 1e3 / steps:.3f} "
+              f"{plen} tokens); decode {step_ms:.3f} "
               f"ms/token-step, {steps * b / res.decode_s:.1f} tok/s ({steps} "
               f"steps x{b}); flash launches {launches}; peak memory "
               f"{peak / 2**30:.2f} GiB ({peak / 2**20:.0f} MiB); sample "
               f"{res.tokens[0, :12].tolist()}", flush=True)
-        if a.mla is not None:
+        if a is not None and a.mla is not None:
             m, el = a.mla, torch.finfo(cfg.cdtype).bits // 8
             latent = cfg.n_layers * b * clen * (
                 m.kv_lora_rank + m.qk_rope_head_dim) * el
@@ -2279,7 +2479,7 @@ def lm_c_path(card: str) -> dict:
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with ssd_spans(), torch.profiler.profile(activities=acts) as prof:
             T.prefill(params, cfg, {"tokens": prompt}, caches)
             torch.cuda.synchronize()
         ops.LAUNCHES.update(counts)
@@ -2290,28 +2490,34 @@ def lm_c_path(card: str) -> dict:
                   "split not measured", flush=True)
         else:
             busy, split, by_name, n_kernels = split
-            moe_line = ""
-            if cfg.moe:
-                # the MoE einsums' kernels (GEMMs and their layout
-                # copies) apart from the other GEMMs and the rest
-                ein = einsum_split(prof)
-                rest = split["other"] - ein["other"]
-                moe_line = (f"; split four ways: flash "
-                            f"{split['flash'] / 1e3:.3f} ms, the MoE einsums "
-                            f"{sum(ein.values()) / 1e3:.3f} ms (GEMMs "
-                            f"{ein['GEMM'] / 1e3:.3f}), the other GEMMs "
-                            f"{(split['GEMM'] - ein['GEMM']) / 1e3:.3f} ms, "
-                            f"the rest {rest / 1e3:.3f} ms")
+            part = ""
+            for label, names, on in (
+                    ("the MoE einsums", ("aten::einsum",), cfg.moe),
+                    ("the SSD scans (einsums, decays, the recurrence)",
+                     SSD_SPANS, cfg.ssm)):
+                if not on:
+                    continue
+                # the part's kernels (GEMMs and the rest) apart from the
+                # other GEMMs and the rest
+                sub = kernels_under(prof, names)
+                part = (f"; split four ways: flash "
+                        f"{split['flash'] / 1e3:.3f} ms, {label} "
+                        f"{sum(sub.values()) / 1e3:.3f} ms (GEMMs "
+                        f"{sub['GEMM'] / 1e3:.3f}), the other GEMMs "
+                        f"{(split['GEMM'] - sub['GEMM']) / 1e3:.3f} ms, "
+                        f"the rest {(split['other'] - sub['other']) / 1e3:.3f}"
+                        " ms")
             print(f"  (c) {cfg.name} profiler, one prefill: device busy "
-                  f"{busy / 1e3:.3f} ms: flash {split['flash'] / 1e3:.3f} "
+                  f"{busy / 1e3:.3f} ms ({busy / 1e3 / prefill_ms:.1%} of "
+                  f"the timed prefill): flash {split['flash'] / 1e3:.3f} "
                   f"ms, GEMM {split['GEMM'] / 1e3:.3f} ms, other "
-                  f"{split['other'] / 1e3:.3f} ms{moe_line}; {n_kernels} "
+                  f"{split['other'] / 1e3:.3f} ms{part}; {n_kernels} "
                   "kernels", flush=True)
             for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
                 print(f"      {us / 1e3:8.4f} ms  {name[:110]}", flush=True)
-        if cfg.moe:
-            # where a MoE decode step's wall goes: its kernels a step
-            # against the device's busy time
+        if cfg.moe or cfg.ssm or n_params > 16e9:
+            # where a decode step's wall goes: its kernels a step against
+            # the device's busy time
             profile_decode(params, cfg, prompt, clen, card, step_ms,
                            label=f"(c) {cfg.name}")
         del params, prompt
@@ -3969,6 +4175,10 @@ TRAIN_A_RUNS = (
     # "pod" client axis: no momentum)
     ("deepseek-v3-671b", ["--arch", "deepseek-v3-671b", "--placement",
                           "host"]),
+    # mamba2-780m cut the same way (8 SSD layers of d_model 512, 32 heads
+    # of 16, d_state 16, chunk 32: eight chunks of the 256-token
+    # sequences)
+    ("mamba2-780m", ["--arch", "mamba2-780m", "--placement", "host"]),
 )
 # (b) stablelm-3b at its published widths (src/repro_torch/configs/
 # stablelm_3b.py: d_model 2,560, 32 heads of 80, rotary on a quarter of
@@ -4002,7 +4212,6 @@ def _free_graphs() -> None:
 def _cli(argv) -> tuple:
     """``launch.train.main(argv)`` with its printout kept: (its return,
     -CE of the last eval, the printout, wall s)."""
-    import contextlib
     import io
     from repro_torch.launch import train as train_cli
     buf = io.StringIO()
@@ -4606,7 +4815,8 @@ def main() -> int:
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_mixing(gen), check_gram(gen)] + \
-        check_channel_kernels(gen) + check_flash(gen) + check_flash_mla(gen)
+        check_channel_kernels(gen) + check_flash(gen) + \
+        check_flash_mla(gen) + check_flash_nemotron(gen)
     check_flash_vmap(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)

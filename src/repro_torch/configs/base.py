@@ -2,10 +2,10 @@
 
 Counterpart of `repro/configs/base.py`: a copy of its dataclasses (plain
 data, the same fields and defaults) and of `reduced`, with `pdtype` and
-`cdtype` returning torch dtypes.  The port runs the dense and MoE
-families (`models/transformer.py`, MLA attention included); the other
-family blocks are kept so that a config reads the same in both
-packages.
+`cdtype` returning torch dtypes.  The port runs the dense, MoE, SSM and
+hybrid families (`models/transformer.py`, MLA attention included,
+`models/ssm.py`); the audio and vision blocks are kept so that a config
+reads the same in both packages.
 """
 from __future__ import annotations
 

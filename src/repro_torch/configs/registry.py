@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the LM path.
 
 Counterpart of `repro/configs/registry.py` for the configs the port
-runs (the dense family, and the MoE family: olmoe-1b-7b, and
-deepseek-v3-671b with MLA).  The reference's other
+runs: the dense family (nemotron-4-340b among it), the MoE family
+(olmoe-1b-7b, and deepseek-v3-671b with MLA), the SSM family
+(mamba2-780m) and the hybrid family (zamba2-2.7b).  The reference's other
 architectures are known here and raise `NotImplementedError` naming the
 ROADMAP item that ports them; an unknown id raises `KeyError`, as in
 the reference.
@@ -19,13 +20,12 @@ _MODULES = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 # the reference's other architectures, by family
-NOT_PORTED = {
-    "mamba2-780m": "ssm", "zamba2-2.7b": "hybrid",
-    "nemotron-4-340b": "dense at 340B (relu2, sharded serving)",
-    "whisper-tiny": "audio", "paligemma-3b": "vlm",
-}
+NOT_PORTED = {"whisper-tiny": "audio", "paligemma-3b": "vlm"}
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -1,11 +1,12 @@
 // Flash attention on Hopper's tensor cores (sm_90a): bf16 prefill.
 //
 // Replaces, for bf16 inputs with Sq > 16 and head dims (dk, dv) of (64, 64),
-// (80, 80), (128, 128), (256, 256) or (192, 128), the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py, function `flash_attention` (:90,
-// pallas_call :118, body `_kernel` :30): every bf16 prefill of the served
-// configs (hd 128 gemma2-27b and olmoe-1b-7b, hd 256 gemma-2b, hd 80
-// stablelm-3b, and MLA's naive path in deepseek-v3-671b, whose queries and
+// (80, 80), (128, 128), (256, 256), (192, 192) or (192, 128), the Pallas TPU
+// kernel src/repro/kernels/flash_attention.py, function `flash_attention`
+// (:90, pallas_call :118, body `_kernel` :30): every bf16 prefill of the
+// served configs (hd 128 gemma2-27b and olmoe-1b-7b, hd 256 gemma-2b, hd 80
+// stablelm-3b and zamba2-2.7b's shared attention, hd 192 nemotron-4-340b's
+// GQA, and MLA's naive path in deepseek-v3-671b, whose queries and
 // keys are 192 wide, qk_nope 128 + rope 64, and its values 128; the Pallas
 // kernel takes dk == dv only, so the reference runs that product in jnp).
 // Decode steps (Sq <= 16) take flash_decode.cu; f32 prefill and bf16 at
@@ -36,9 +37,10 @@
 // Design (right and simple first: no TMA, producer warp or persistent
 // grid).  One block of one warpgroup (128 threads) per (64-row Q tile,
 // query head, batch row), two blocks an SM.  Q is staged once in shared
-// memory; K and V tiles of kBK keys (64; 32 at hd 256) go through a
-// 2-stage ring filled by 16-byte `cp.async.cg` copies (one commit group a
-// tile), so tile t+1's copies run under tile t's products and softmax.
+// memory; K and V tiles of kBK keys (64; 32 at hd 256 and at (192, 192))
+// go through a 2-stage ring filled by 16-byte `cp.async.cg` copies (one
+// commit group a tile), so tile t+1's copies run under tile t's products
+// and softmax.
 // The two blocks of an SM run unsynchronised, so one's softmax overlaps
 // the other's products; a block of two warpgroups that share each K/V
 // tile (half the copies per row) kept both in step at every tile's
@@ -78,6 +80,13 @@
 // 24 KB + a ring of two 24 KB K and 16 KB V tiles + 1 KB of slack = 105 KB:
 // two blocks an SM, with hd 128's registers (O 64, S 32).  Zero-padding V
 // to 192 instead would do 1.5x the P·V products and write a wider output.
+// At (192, 192), O is 96 registers, and P·V is `m64n128k16` on chunks 0-1
+// then `m64n64k16` on chunk 2, whose fragment continues the first's (as hd
+// 80's second product does).  Its K/V tiles are 32 keys: Q 24 KB + a ring
+// of two 12 KB K and 12 KB V tiles + 1 KB = 73 KB, two blocks an SM,
+// 178/180 registers, no spills.  At 64 keys (121 KB, one block an SM) it
+// took 4.58 ms at nemotron's prefill against 3.73 at 32 keys (NVIDIA H100
+// 80GB HBM3, 700 W; tools/tc_tile_ab.py times the two).
 // Keys past Sk and Q rows past Sq are zero-filled by the copy's src-size 0
 // form (0 × NaN would be NaN); such keys are masked and such rows are not
 // stored.  Under a causal mask the heaviest (last) Q tiles launch first.
@@ -102,7 +111,8 @@ __host__ __device__ constexpr int pad64() { return (D + 63) / 64 * 64; }
 // the tile geometry of the instance for head dims DK (q, k) and DV (v)
 template <int DK, int DV>
 struct Geom {
-  static constexpr int kBK = DK == 256 || DV == 256 ? 32 : 64;  // keys a tile
+  static constexpr int kBK =
+      DK == 256 || DV == 256 || (DK == 192 && DV == 192) ? 32 : 64;
   static constexpr uint32_t kQBytes = kBQ * pad64<DK>() * 2;  // the Q tile
   static constexpr uint32_t kKBytes = kBK * pad64<DK>() * 2;  // one K tile
   static constexpr uint32_t kVBytes = kBK * pad64<DV>() * 2;  // one V tile
@@ -488,6 +498,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       if constexpr (DV == 80) {
         mma_rs<64>(o, pa[kk], dvk);
         mma_rs<16, 32>(o, pa[kk], dvk + ((kBK * 128) >> 4));
+      } else if constexpr (DV == 192) {
+        mma_rs<128>(o, pa[kk], dvk);
+        mma_rs<64, 64>(o, pa[kk], dvk + ((2 * kBK * 128) >> 4));
       } else {
         mma_rs<DV>(o, pa[kk], dvk);
       }
@@ -545,7 +558,7 @@ int launch_capped(const Params& p, cudaStream_t s) {
 // element strides of (b, h, s) in `strides` (q, k, v, o; 12 values) with
 // unit stride on the head dim and 16-byte aligned rows; window 0 and
 // softcap 0 mean none.  Takes dtype 1 (bf16) and (hd, dv) of (64, 64),
-// (80, 80), (128, 128), (256, 256) or (192, 128) only.  Returns the
+// (80, 80), (128, 128), (192, 192), (256, 256) or (192, 128) only.  Returns the
 // cudaError_t of the attribute call or the launch.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* o,
@@ -573,6 +586,7 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
       case 64: return launch_capped<64, 64>(p, s);
       case 80: return launch_capped<80, 80>(p, s);
       case 128: return launch_capped<128, 128>(p, s);
+      case 192: return launch_capped<192, 192>(p, s);
       case 256: return launch_capped<256, 256>(p, s);
       default: return (int)cudaErrorInvalidValue;
     }

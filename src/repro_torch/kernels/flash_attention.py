@@ -32,7 +32,8 @@ MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535          # heads on the grid's y, batch rows on its z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (dk, dv) of the tensor-core kernel's instances
-TC_PAIRS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
+TC_PAIRS = ((64, 64), (80, 80), (128, 128), (192, 192), (256, 256),
+            (192, 128))
 DECODE_MAX_SQ = 16           # queries of the decode kernel (decode steps)
 DECODE_MIN_KEYS = 128        # keys a decode split keeps at least
 DECODE_BLOCKS_PER_SM = 3     # decode blocks a split count aims for
@@ -52,8 +53,9 @@ def flash_route(dtype: torch.dtype, sq: int, hd: int,
     value head dim ``dv`` (default ``hd``): ``"decode"`` (the split-key
     decode kernel) iff Sq <= 16, in either dtype and at any head dims;
     else ``"tc"`` (the tensor-core kernel) iff the inputs are bf16 and
-    (hd, dv) is (64, 64), (80, 80), (128, 128), (256, 256) or (192, 128)
-    (every bf16 prefill of the served configs, MLA's included); else
+    (hd, dv) is (64, 64), (80, 80), (128, 128), (192, 192), (256, 256) or
+    (192, 128) (every bf16 prefill of the served configs: nemotron's hd
+    192 and MLA's (192, 128) included); else
     ``"cuda_core"`` (f32 prefill, bf16 prefill at any other head dims).
     From Sq 17 up the tensor-core kernel is the faster of the two prefill
     kernels (both are timed at Sq 17, 32, 64 and 128 over the serving

@@ -216,8 +216,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     views are taken as they are on CUDA; the output has q's dtype (and
     layout).  On CUDA, `flash_route` picks the kernel on (dk, dv):
     decode steps (Sq <= 16) on the split-key decode kernel, bf16 prefill
-    at (64, 64), (80, 80), (128, 128), (256, 256) or (192, 128) on the
-    tensor cores, the other prefills on the CUDA cores.  Under
+    at (64, 64), (80, 80), (128, 128), (192, 192), (256, 256) or (192,
+    128) on the tensor cores, the other prefills on the CUDA cores.  Under
     `torch.func.vmap` one call serves the whole vmapped batch (module
     docstring), bitwise the per-user calls."""
     return _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap)

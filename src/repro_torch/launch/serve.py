@@ -1,9 +1,10 @@
 """Serving driver: prefill, then batched greedy decode in lockstep; and
 the personalised serving plane over a federated LM population.
 
-Counterpart of `repro/launch/serve.py` for the dense and MoE families:
+Counterpart of `repro/launch/serve.py` for the dense, MoE, SSM and
+hybrid families (``--arch`` defaults to mamba2-780m, as the reference's):
 
-    python -m repro_torch.launch.serve --arch gemma2-27b [--device cpu]
+    python -m repro_torch.launch.serve [--arch gemma2-27b] [--device cpu]
     python -m repro_torch.launch.serve --federated --arch stablelm-3b \
         --rounds 2 --clients 4 --codec qsgd:4 [--device cpu]
 
@@ -12,7 +13,10 @@ tokens, cache 128, the smoke config), draws params and prompt from
 `torch.Generator`s seeded with ``--seed``, and prints the prefill time,
 the decode rate and a sample, as the reference does.  `generate` also
 takes injected params and tokens, so a test can hand it the reference's.
-Caches are in the compute dtype.
+Caches are in the compute dtype: an attention layer's ring, updated in
+place, or an SSM layer's `SSMCache`, replaced each step (a bf16 config's
+SSM state rounds to bf16 every token, as in the reference's step
+builders).
 
 ``--federated`` (`federated_main`) trains a federated LM population with
 `run_federated(keep_state=True)` (`launch.train`'s data, params and
@@ -220,7 +224,7 @@ def federated_main(args, prompts: Optional[Dict[int, Any]] = None
 
 def main(argv=None, prompts: Optional[Dict[int, Any]] = None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="gemma2-27b")
+    p.add_argument("--arch", default="mamba2-780m")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--tokens", type=int, default=16)

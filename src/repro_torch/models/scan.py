@@ -7,8 +7,10 @@ reference regroups ``params["layers"]`` into a repeating block of
 list, and ``scan_layers``, a tuple of ``period`` trees whose leaves have
 a leading groups dim), and drives the block by ``lax.scan``.  Here the
 scan is a Python loop over the groups, with the same numerics: each
-group's slice of the stacked leaves runs through the dense block with
-the slot's representative layer index, as the scan body does.  ``remat``
+group's slice of the stacked leaves runs through the block with the
+slot's representative layer index, as the scan body does; a hybrid's
+attention slot runs the shared attention block (``shared_attn``, outside
+the stack), as the reference's `_make_body` passes it.  ``remat``
 (the reference's ``jax.checkpoint`` of the body) is not ported: it
 raises, naming ROADMAP.md Queue 1 item 18.
 
@@ -105,14 +107,16 @@ def forward_hidden(params: Dict[str, Any], cfg: ModelConfig,
     x = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.get("prefix_layers", [])):
-        x, aux, _ = _block_apply(lp, cfg, i, x, 0)
+        x, aux, _ = _block_apply(lp, cfg, i, x, 0,
+                                 shared=params.get("shared_attn"))
         aux_total = add_aux(aux_total, aux)
     slots = params["scan_layers"]
     for g in range(groups):
         for j in range(period):
             # the slot's representative index, as the scan body's
             x, aux, _ = _block_apply(_map(lambda leaf: leaf[g], slots[j]),
-                                     cfg, n_pre + j, x, 0)
+                                     cfg, n_pre + j, x, 0,
+                                     shared=params.get("shared_attn"))
             aux_total = add_aux(aux_total, aux)
     return x, aux_total
 

@@ -1,5 +1,5 @@
-"""Decoder stack of the dense and MoE families: init, caches, forward,
-prefill and decode.
+"""Decoder stack of the dense, MoE, SSM and hybrid families: init, caches,
+forward, prefill and decode.
 
 Counterpart of `repro/models/transformer.py` for those families, in its
 loop form (the reference's `models/scan.py` is numerically the loop's;
@@ -19,9 +19,13 @@ Params are the reference's dict: ``embed`` (V, d), ``layers`` (a list of
 and, untied, ``lm_head`` (d, V).  A MoE layer's aux loss is summed into
 `forward`'s and `loss_fn`'s aux.  An MLA config (deepseek-v3) keeps the
 MLA projections in each layer's ``attn`` and a ring of the compressed
-latent a layer (`models/attention.py`).  SSM, hybrid, vlm and audio
-raise, as does the reference's ``long_context`` serving mode
-(ROADMAP.md Queue 1 item 16b).
+latent a layer (`models/attention.py`).  An SSM layer (`cfg.layer_kind`,
+the ssm family's every layer, the hybrid's all but every ``attn_every``-th)
+holds ``norm1`` and ``ssm`` (`models/ssm.py`) and caches an `SSMCache`;
+a hybrid's attention layer holds ``norm1`` and ``norm2`` only, its
+attention and MLP weights living once in ``params["shared_attn"]``, which
+every such layer runs.  vlm and audio raise, as does the reference's
+``long_context`` serving mode (ROADMAP.md Queue 1 item 16b).
 
 The training path (`forward_hidden`, `chunked_ce`, `loss_fn`) runs no
 cache, so its attention is the plain `attention._sdpa_chunked` and every
@@ -46,11 +50,13 @@ from repro_torch.models.layers import (dense_apply, dense_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        norm_init, softcap, vmapped)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import (SSMCache, init_ssm_cache, ssm_apply,
+                                    ssm_init)
 
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for what this stack does not run yet (ROADMAP item 16b)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"the {cfg.family} family is {LATER}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.pos_embedding} positions are {LATER}")
@@ -60,11 +66,20 @@ def check_family(cfg: ModelConfig) -> None:
 # init
 
 
+def _shared_block(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid" and cfg.hybrid.shared_block
+
+
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
                 device: DeviceLike) -> Dict[str, Any]:
-    p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
-         "norm2": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device),
-         "attn": attn_init(gen, cfg, device=device)}
+    p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device)}
+    if cfg.layer_kind(i) == "ssm":
+        p["ssm"] = ssm_init(gen, cfg, device)
+        return p
+    p["norm2"] = norm_init(cfg.norm, cfg.d_model, cfg.pdtype, device)
+    if _shared_block(cfg):
+        return p            # attn / mlp weights live in params["shared_attn"]
+    p["attn"] = attn_init(gen, cfg, device=device)
     if cfg.is_moe_layer(i):
         p["moe"] = moe_init(gen, cfg, device)
     else:                       # a MoE config's dense-first layers
@@ -76,8 +91,10 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Random params in ``cfg.pdtype`` from ``gen`` (a generator on
-    ``device``): embedding, then each layer, then the untied head."""
+    """Random params in ``cfg.pdtype`` (an SSM layer's A_log, D and
+    dt_bias in f32) from ``gen`` (a generator on ``device``): embedding,
+    then each layer, then the untied head, then a hybrid's shared
+    attention block."""
     check_family(cfg)
     p: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype,
@@ -89,6 +106,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                   cfg.pdtype, device=device)
+    if _shared_block(cfg):
+        p["shared_attn"] = {
+            "attn": attn_init(gen, cfg, device=device),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                            cfg.pdtype, device)}
     return p
 
 
@@ -97,12 +119,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
-                device: DeviceLike = "cuda") -> List[KVCache]:
-    """One ring per layer (an MLA layer's holds the compressed latent); a
-    windowed layer's ring is min(cache_len, window) long."""
+                device: DeviceLike = "cuda") -> List[Union[KVCache, SSMCache]]:
+    """One cache per layer: an attention layer's ring (an MLA layer's
+    holds the compressed latent; a windowed layer's ring is min(cache_len,
+    window) long), an SSM layer's `SSMCache` (conv carry and state)."""
     check_family(cfg)
-    caches = []
+    caches: List[Union[KVCache, SSMCache]] = []
     for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "ssm":
+            caches.append(init_ssm_cache(cfg, batch, dtype, device))
+            continue
         w = cfg.attn_window(i)
         clen = min(cache_len, w) if w is not None else cache_len
         caches.append(init_cache(cfg, batch, clen, dtype, device))
@@ -110,21 +136,29 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
 
 
 def _block_apply(params, cfg: ModelConfig, i: int, x: torch.Tensor,
-                 start: int, *, cache=None
+                 start: int, *, cache=None, shared=None, decode: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
     """Pre-norm residual block.  Returns (x, aux, cache): aux the MoE
-    layer's load-balance loss, None on a dense layer (the reference's
-    zero)."""
+    layer's load-balance loss, None on a dense or SSM layer (the
+    reference's zero).  ``shared`` is a hybrid's shared attention block
+    (``params["shared_attn"]``: its ``attn`` and ``mlp``), which an
+    attention layer runs in place of its own; ``decode`` sends an SSM
+    layer down its one-token state update."""
     cd = cfg.cdtype
     h = norm_apply(cfg.norm, params["norm1"], x, cd)
-    y, cache = attention(params["attn"], cfg, h, start, cache=cache,
+    if cfg.layer_kind(i) == "ssm":
+        y, cache = ssm_apply(params["ssm"], cfg, h, cache, decode=decode)
+        return x + y, None, cache
+    blk = shared if shared is not None else params
+    y, cache = attention(blk["attn"], cfg, h, start, cache=cache,
                          window=cfg.attn_window(i))
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x, cd)
     if "moe" in params:
         y, aux = moe_apply(params["moe"], cfg, h)
         return x + y, aux, cache
-    return x + mlp_apply(params["mlp"], h, cfg.activation, cd), None, cache
+    return x + mlp_apply(blk["mlp"], h, cfg.activation, cd), None, cache
+
 
 
 def add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]
@@ -213,7 +247,8 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     x = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, aux, _ = _block_apply(lp, cfg, i, x, 0)
+        x, aux, _ = _block_apply(lp, cfg, i, x, 0,
+                                 shared=params.get("shared_attn"))
         aux_total = add_aux(aux_total, aux)
     return x, aux_total
 
@@ -244,13 +279,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            caches: List[KVCache]):
-    """Run a prompt from position 0, filling the caches in place.  Returns
+            caches: List[Union[KVCache, SSMCache]]):
+    """Run a prompt from position 0, filling the caches (the rings in
+    place, an SSM layer's cache replaced in the list).  Returns
     (last-position logits (B, 1, V) f32, caches)."""
     check_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     for i, lp in enumerate(params["layers"]):
-        x, _, caches[i] = _block_apply(lp, cfg, i, x, 0, cache=caches[i])
+        x, _, caches[i] = _block_apply(lp, cfg, i, x, 0, cache=caches[i],
+                                       shared=params.get("shared_attn"))
     return _unembed(params, cfg, x[:, -1:]), caches
 
 
@@ -266,7 +303,8 @@ def lockstep_position(pos: Union[int, torch.Tensor]) -> int:
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
-                caches: List[KVCache], pos: Union[int, torch.Tensor]):
+                caches: List[Union[KVCache, SSMCache]],
+                pos: Union[int, torch.Tensor]):
     """One decode step.  token (B, 1); pos the lockstep position (an int,
     or a (B,) tensor of equal entries).  Returns (logits (B, 1, V) f32,
     caches)."""
@@ -274,5 +312,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     p = lockstep_position(pos)
     x = _embed_inputs(params, cfg, {"tokens": token})
     for i, lp in enumerate(params["layers"]):
-        x, _, caches[i] = _block_apply(lp, cfg, i, x, p, cache=caches[i])
+        x, _, caches[i] = _block_apply(lp, cfg, i, x, p, cache=caches[i],
+                                       shared=params.get("shared_attn"),
+                                       decode=True)
     return _unembed(params, cfg, x), caches

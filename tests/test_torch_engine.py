@@ -252,7 +252,7 @@ def test_entry_points_refuse_what_this_slice_lacks():
     # entry point still refuses the families item 16b has not ported
     with pytest.raises(NotImplementedError, match="item 16b") as err:
         serve_cli.main(["--federated", "--device", "cpu", "--arch",
-                        "mamba2-780m"])
+                        "whisper-tiny"])
     assert "item 15" not in str(err.value)
 
 

@@ -15,7 +15,8 @@ are held against the plain version on the card in
 apart from dk (MLA) is held against the Pallas kernel on v zero-padded
 to dk (the output cropped) and against the reference's `_sdpa`, which
 takes dv != dk natively; `flash_decode_ref` at dv != dk against the
-plain version, and `flash_route` either side of the (192, 128) pair.
+plain version, and `flash_route` either side of the (192, 128) and
+(192, 192) pairs.
 """
 import functools
 
@@ -278,11 +279,12 @@ def test_flash_decode_ref_dv(n_split, dk, dv):
             rtol=2e-5, atol=2e-5)
 
 
-# MLA's (dk 192, dv 128) takes the tensor cores in bf16; a pair either
-# side of it (192 or 128 on one side only) and f32 do not
+# MLA's (dk 192, dv 128) and nemotron's (192, 192) take the tensor cores
+# in bf16; the pair with 128 on the key side only, (256, 128) and f32 do
+# not
 @pytest.mark.parametrize("dtype,sq,dk,dv,want", [
     (torch.bfloat16, 4064, 192, 128, "tc"),
-    (torch.bfloat16, 4064, 192, 192, "cuda_core"),
+    (torch.bfloat16, 4064, 192, 192, "tc"),
     (torch.bfloat16, 4064, 128, 192, "cuda_core"),
     (torch.bfloat16, 4064, 256, 128, "cuda_core"),
     (torch.float32, 4064, 192, 128, "cuda_core"),

@@ -653,7 +653,7 @@ def test_flash_attention_kernel_lm_decode_capped():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 192, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_ragged(hd, group, dtype):
@@ -853,7 +853,7 @@ TC_MASKS = [dict(causal=False), dict(causal=True),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 192, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
                                    (200, 333), (17, 300), (80, 64),
@@ -876,7 +876,7 @@ TC_CAPPED_MASKS = [kw for kw in TC_MASKS if "softcap" in kw] + \
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 192, 256])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("sq,sk", [(37, 101), (77, 77), (130, 130),
                                    (200, 333), (17, 300), (80, 64),
@@ -895,7 +895,7 @@ def test_flash_attention_tc_ragged_capped(hd, group, sq, sk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 192, 256])
 def test_flash_attention_tc_contiguous_layout(hd):
     """(B, H, S, hd) contiguous tensors, as well as the model's views."""
     _require_cuda()
@@ -952,6 +952,28 @@ def test_flash_attention_tc_lm_prefill_capped(layer):
               window=4096 if layer == "local" else None)
     want = _tc_check(q, k, v, **kw)
     _fails_without_softcap(flash_attention_tc_cuda, q, k, v, want, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(1, 4096), (1024, 1024)])
+def test_flash_nemotron_shapes(sq, sk):
+    """nemotron-4-340b's heads (GQA 96 / 8 of 192, bf16): a prefill of
+    1,024 on the tensor-core kernel's (192, 192) instance and a decode
+    step over 4,096 keys on the decode kernel, at both logit scales,
+    each kernel also failing without the softcap past it."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(sq + 192)
+    for std in (LOGIT_STD, CAP_LOGIT_STD):
+        q, k, v = _qkv(gen, 1, 96, 8, sq, sk, 192, torch.bfloat16,
+                       logit_std=std)
+        route = flash_route(q.dtype, sq, 192)
+        assert route == ("decode" if sq == 1 else "tc")
+        kw = dict(causal=True) if std == LOGIT_STD else \
+            dict(causal=True, softcap=50.0)
+        want = (_tc_check if route == "tc" else _flash_check)(q, k, v, **kw)
+        if "softcap" in kw:
+            _fails_without_softcap(ops.FLASH_KERNELS[route][0], q, k, v,
+                                   want, **kw)
 
 
 @pytest.mark.gpu
@@ -2108,6 +2130,36 @@ def test_olmoe_decode_on_card_agrees_with_cpu():
     a = generate(params, cfg, prompt, 6, 64, return_logits=True)
     b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
                  prompt.cuda(), 6, 64, return_logits=True)
+    for x, y in zip(a.logits, b.logits):
+        torch.testing.assert_close(y.cpu(), x, rtol=1e-4, atol=1e-4)
+    assert torch.equal(a.tokens, b.tokens.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_families_decode_on_card_agree_with_cpu(arch):
+    """mamba2's and zamba2's smoke configs (the SSD scan at chunk 32 over a
+    prompt of 40, zamba2's shared attention block) through `generate` on
+    the card against the CPU: f32, TF32 off, logits within 1e-4 of each
+    step's, the tokens equal, one flash launch an attention layer a
+    step."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import tree_from_numpy, tree_to_numpy
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config(arch)
+    params = T.init_params(torch.Generator().manual_seed(3), cfg,
+                           device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(4))
+    a = generate(params, cfg, prompt, 6, 64, return_logits=True)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    with ops.launches_set_aside() as made:
+        b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
+                     prompt.cuda(), 6, 64, return_logits=True)
+    assert sum(made.values()) == 6 * n_attn
     for x, y in zip(a.logits, b.logits):
         torch.testing.assert_close(y.cpu(), x, rtol=1e-4, atol=1e-4)
     assert torch.equal(a.tokens, b.tokens.cpu())

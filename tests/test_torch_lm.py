@@ -65,19 +65,22 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_refuses_other_families():
-    for arch in ("mamba2-780m", "zamba2-2.7b", "nemotron-4-340b",
-                 "whisper-tiny", "paligemma-3b"):
+    for arch in ("whisper-tiny", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="item 16b"):
             configs.get_config(arch)
+    assert sorted(configs.registry.NOT_PORTED) == ["paligemma-3b",
+                                                   "whisper-tiny"]
     with pytest.raises(KeyError):
         configs.get_config("nope")
-    # deepseek-v3 (MLA) is ported: its configs are the reference's
-    arch = "deepseek-v3-671b"
-    assert arch not in configs.registry.NOT_PORTED
-    for got, want in ((configs.get_config(arch), jget_config(arch)),
-                      (configs.get_smoke_config(arch),
-                       jget_smoke_config(arch))):
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # deepseek-v3 (MLA), the SSM and hybrid families and nemotron are
+    # ported: their configs are the reference's
+    for arch in ("deepseek-v3-671b", "mamba2-780m", "zamba2-2.7b",
+                 "nemotron-4-340b"):
+        assert arch not in configs.registry.NOT_PORTED
+        for got, want in ((configs.get_config(arch), jget_config(arch)),
+                          (configs.get_smoke_config(arch),
+                           jget_smoke_config(arch))):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,16 @@ from repro_torch.fl import FLConfig, run_federated
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_rotate_images_matches_reference():
     x = np.random.default_rng(0).standard_normal(
         (3, 2, 5, 5, 3)).astype(np.float32)

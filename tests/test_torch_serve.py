@@ -407,10 +407,10 @@ def test_engine_refusals(stores):
         ServeEngine(store, apply_one, max_batch=0)
     # --federated trains an LM population and serves it per user
     # (tests/test_torch_serve_lm.py holds it against the reference)
-    outs = serve_cli.main(["--federated", "--device", "cpu", "--rounds", "1",
-                           "--clients", "2", "--pool", "5", "--requests",
-                           "3", "--tokens", "2", "--prompt-len", "8",
-                           "--max-batch", "2"])
+    outs = serve_cli.main(["--federated", "--device", "cpu", "--arch",
+                           "gemma2-27b", "--rounds", "1", "--clients", "2",
+                           "--pool", "5", "--requests", "3", "--tokens", "2",
+                           "--prompt-len", "8", "--max-batch", "2"])
     assert [o.shape for o in outs] == [(2,)] * 3
     assert np.array_equal(outs[0], outs[2])       # user 0, twice
 

@@ -37,7 +37,12 @@ Phases (any failure raises and the script exits non-zero):
                 the prefill beside the CUDA-core kernel it replaces;
                 the flash op under `torch.func.vmap`
                 (the per-user decode's call) bitwise the per-user calls,
-                one launch for all the users;
+                one launch for all the users; `prefix_len` (a prefix-LM's
+                bidirectional prefix) on all three kernels with a planted
+                fault (the kernel without its prefix fails), non-causal
+                Sq > Sk, and whisper-tiny's encoder and cross-attention
+                step and paligemma-3b's prefix prefill timed beside
+                their bounds and SDPA;
   4. agree    — a small label-shift run on the card against the same run
                 on the CPU (same init, same draws; the CPU side on one
                 intra-op thread, so its bits repeat); one uplink crossing
@@ -215,9 +220,17 @@ Phases (any failure raises and the script exits non-zero):
                 one decode launch an attention layer a step (mamba2:
                 none), prefill traces split flash / the SSD scans / the
                 other GEMMs / the rest, and decode traces with the idle
-                share.  Before (c), one MLA layer at
-                published widths: its flash path against its no-cache
-                plain path, the absorbed path against the naive one.
+                share; whisper-tiny uncut (B 8, 1,500 audio frames,
+                prompt 32, 128 tokens: the encoder and the
+                cross-attention through the flash kernels, non-causal),
+                paligemma-3b uncut (256 image tokens before a 7,904-token
+                prompt, a prefix prefill) and gemma-2b under
+                ``long_context`` (a 32,768-token prefill into rings of
+                8,192, then decode steps over the wrapped rings), each
+                with its flash launches stated by `flash_calls`.  Before
+                (c), one MLA layer at published widths: its flash path
+                against its no-cache plain path, the absorbed path
+                against the naive one.
  12. train    — federated LM training (`launch.train`, the reference's
                 scanned layout as the engine's flat-key view) and the
                 scenario generators: (a) `launch.train.main` at the
@@ -259,10 +272,12 @@ Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
 kernel also bitwise against itself across calls; phase 4 the LM path on
-the card against the CPU at six smoke configs (olmoe's the MoE
-family, deepseek's MLA, mamba2 and zamba2 the SSM and hybrid families),
+the card against the CPU at nine smoke runs (olmoe's the MoE
+family, deepseek's MLA, mamba2 and zamba2 the SSM and hybrid families,
+whisper-tiny the audio family, paligemma-3b the vlm family, gemma2-27b
+under ``long_context``) and ``seq_parallel=True`` bitwise the flag off,
 `launch.serve.main --federated` at its smallest flags on stablelm-3b,
-deepseek-v3-671b and mamba2-780m (the same served tokens),
+deepseek-v3-671b, mamba2-780m and paligemma-3b (the same served tokens),
 `launch.train.main` at
 cpu-small (host-drawn data and params, losses within rtol 1e-4), a buffered-async run on
 the card against the CPU, without a channel and with qsgd:8, and a
@@ -312,7 +327,7 @@ from repro_torch.kernels import quantize as qsgd  # noqa: E402
 from repro_torch.kernels.topk_threshold import (  # noqa: E402
     row_path, topk_threshold_cuda)
 from repro_torch.launch.serve import (build_decode_one,  # noqa: E402
-                                      generate, user_prompts)
+                                      generate, smoke_embeds, user_prompts)
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -373,6 +388,23 @@ LM_C = (
     dict(arch="nemotron-4-340b", batch=2, prompt=4064, tokens=32,
          cache_len=4096, seed=0, n_layers=2,
          reduced={"n_layers": "96 -> 2"}, free_first=True),
+    # Whisper-tiny (arXiv:2212.04356): d_model 384, 4 encoder and 4
+    # decoder layers of 6 heads of 64, GELU MLP of 1,536, vocab 51,865,
+    # tied, LayerNorm; the stub frontend's 1,500 audio frames a row
+    # (`launch.serve.smoke_embeds`); uncut
+    dict(arch="whisper-tiny", batch=8, prompt=32, tokens=128,
+         cache_len=160, seed=0, n_layers=4, reduced={}),
+    # PaliGemma-3B (arXiv:2407.07726): gemma-2b's 18 layers behind the
+    # stub frontend's 256 SigLIP patch embeddings of 1,152, projected;
+    # uncut; a 7,904-token text prompt after the image, 8,160 in all
+    dict(arch="paligemma-3b", batch=2, prompt=7904, tokens=32,
+         cache_len=8192, seed=0, n_layers=18, reduced={}),
+    # gemma-2b in the reference's long_500k mode (``long_context``): every
+    # ring long_context_window = 8,192 slots; prefill_32k's 32,768 tokens,
+    # then decode steps over the wrapped rings
+    dict(arch="gemma-2b", key="gemma-2b long_context", batch=1,
+         prompt=32768, tokens=32, cache_len=32800, seed=0, n_layers=2,
+         reduced={"n_layers": "18 -> 2"}, long_context=True),
 )
 # [lm]: one MLA layer of deepseek-v3-671b at its published widths, bf16:
 # B 1, a 1,024-token prefill into a latent ring of 1,040, then a decode
@@ -882,11 +914,13 @@ def check_channel_kernels(gen) -> list:
     return rows
 
 
-def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps, q aligned to the end of k."""
+def attn_pairs(sq: int, sk: int, causal: bool, window, prefix: int = 0
+               ) -> int:
+    """(query, key) pairs the mask keeps, q aligned to the end of k (a
+    causal mask's first ``prefix`` keys seen by every query)."""
     q_pos = torch.arange(sq, dtype=torch.int64) + (sk - sq)
-    hi = torch.clamp(q_pos, max=sk - 1) if causal else \
-        torch.full_like(q_pos, sk - 1)
+    hi = torch.clamp(torch.clamp(q_pos, min=prefix - 1), max=sk - 1) \
+        if causal else torch.full_like(q_pos, sk - 1)
     lo = torch.clamp(q_pos - window + 1, min=0) if window else \
         torch.zeros_like(q_pos)
     return int(torch.clamp(hi - lo + 1, min=0).sum())
@@ -921,7 +955,8 @@ def flash_bound(q, k, kw, v=None):
         q.element_size()
     flops = 2.0 * (hd + dv) * b * h * attn_pairs(sq, k.shape[2],
                                                  kw["causal"],
-                                                 kw.get("window"))
+                                                 kw.get("window"),
+                                                 kw.get("prefix_len", 0))
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return (*bound_ms(n_bytes, flops, peak), flops)
 
@@ -979,7 +1014,8 @@ def flash_planted_fault(name, q, k, v, kw, want) -> None:
                              "passes the check; the inputs cannot tell")
 
 
-def attention_f64(q, k, v, causal, window=None, softcap=None):
+def attention_f64(q, k, v, causal, window=None, softcap=None,
+                  prefix_len=0):
     """Attention computed in float64 throughout: the yardstick of the f32
     ragged checks, since the plain version's own f32 rounding of large
     logits (q·k summed over up to 256 products) exceeds the f32
@@ -994,7 +1030,7 @@ def attention_f64(q, k, v, causal, window=None, softcap=None):
     k_pos = torch.arange(sk, device=q.device)[None, :]
     valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        valid &= k_pos <= q_pos
+        valid &= (k_pos <= q_pos) | (k_pos < prefix_len)
     if window:
         valid &= k_pos > q_pos - window
     p = torch.softmax(lg.masked_fill(~valid, -1e300), -1)
@@ -1399,15 +1435,16 @@ def check_flash_vmap(gen) -> None:
               f"{ms:.4f} ms against {each:.4f} for {u} calls", flush=True)
 
 
-def sdpa_backend_ms(q, k, v, causal: bool) -> tuple:
+def sdpa_backend_ms(q, k, v, causal: bool, attn_mask=None) -> tuple:
     """One SDPA call on contiguous copies of the same inputs, as
-    `sdpa_ms`, at a value head dim apart from the query's: (ms, the
-    backend that ran, named from its device kernels in a profiler trace),
-    or (None, why) where SDPA refuses the shape."""
+    `sdpa_ms` (or with a boolean ``attn_mask``, True where a key is
+    seen): (ms, the backend that ran, named from its device kernels in a
+    profiler trace), or (None, why) where SDPA refuses the shape."""
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
     def call():
-        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
+        return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=attn_mask,
+                                              is_causal=causal,
                                               enable_gqa=True)
     try:
         call()
@@ -1699,6 +1736,175 @@ def check_flash_nemotron(gen) -> list:
     return rows
 
 
+def prefix_fault(name, kernel, q, k, v, kw, want) -> None:
+    """The check must be able to fail: the kernel run without its prefix,
+    where the yardstick has one, must fail flash_close's elementwise
+    test (a row inside the prefix sees the later prefix keys)."""
+    bad = kernel(q, k, v, **dict(kw, prefix_len=0))
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    if bool(torch.all((bad.float() - want.float()).abs()
+                      <= tol + tol * want.float().abs())):
+        raise AssertionError(f"{name}: the kernel without its prefix "
+                             "passes the check; the inputs cannot tell")
+
+
+def prefix_mask(sq: int, sk: int, prefix: int) -> torch.Tensor:
+    """SDPA's boolean mask (True: seen) of the causal prefix-LM mask, q
+    aligned to the end of k."""
+    q_pos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device="cuda")[None, :]
+    return (k_pos <= q_pos) | (k_pos < prefix)
+
+
+def check_flash_slice(gen) -> list:
+    """The flash kernels on what whisper-tiny and paligemma-3b add.
+    First ``prefix_len`` (a prefix-LM's bidirectional prefix) on all
+    three kernels, through the op on its route and the kernel's own
+    wrapper: the tensor-core kernel in bf16 at (Sq, Sk) (256, 256) and
+    (64, 64), hd 64 and 256, the CUDA-core kernel in f32 at hd 64 and 80,
+    and the decode kernel at Sq 16 over 16 keys with a prefix of 8 (f32
+    and bf16) and at Sq 3 over 70; prefixes 8, 100 and 256, alone and
+    with window 48 + softcap 30; f32 against attention in float64, bf16
+    against the plain version, at FLASH_TOL; run without its prefix each
+    kernel must fail the check where the prefix reaches past the first
+    query.  Then non-causal attention with more queries than keys (Sq
+    2,048 over Sk 1,500: the offset Sk − Sq is negative) on the
+    tensor-core and CUDA-core kernels, and Sq 16 over 5 keys on the
+    decode kernel, with and without a window.  Then the slice's three
+    shapes, each held to the plain version and timed beside its bound,
+    the plain version and SDPA (non-causal, or with a boolean mask for
+    the prefix; its backend named): whisper-tiny's encoder
+    self-attention (B 8, H 6, S 1,500, hd 64, non-causal; tensor-core
+    kernel), its cross-attention decode step (Sq 1 over the 1,500
+    encoder positions; decode kernel) and paligemma-3b's prefix prefill
+    (B 2, H 8, Kh 1, hd 256, S 8,160, prefix 256; tensor-core kernel).
+    Returns their three JSON rows, counted in [lm] (c)'s whisper-tiny and
+    paligemma-3b runs."""
+    n_checks = n_faults = 0
+    tally = {"inputs": 0, "plain outside": 0}
+    kernels = {"tc": flash_attention_tc_cuda,
+               "cuda_core": flash_attention_cuda,
+               "decode": flash_decode_cuda}
+    for route, dt, hd, sq, sk in (
+            ("tc", torch.bfloat16, 64, 256, 256),
+            ("tc", torch.bfloat16, 64, 64, 64),
+            ("tc", torch.bfloat16, 256, 256, 256),
+            ("tc", torch.bfloat16, 256, 64, 64),
+            ("cuda_core", torch.float32, 64, 256, 256),
+            ("cuda_core", torch.float32, 80, 130, 333),
+            ("decode", torch.float32, 64, 16, 16),
+            ("decode", torch.bfloat16, 64, 16, 16),
+            ("decode", torch.bfloat16, 256, 3, 70)):
+        q, k, v = flash_inputs(gen, 2, 8, 2, sq, sk, hd, dt,
+                               cache_len=sk + 7)
+        if flash_route(dt, sq, hd) != route:
+            raise AssertionError(f"prefix check {route}: route "
+                                 f"{flash_route(dt, sq, hd)}")
+        for prefix in ((8,) if route == "decode" else (8, 100, 256)):
+            for kw in (dict(causal=True, prefix_len=prefix),
+                       dict(causal=True, prefix_len=prefix, window=48,
+                            softcap=30.0)):
+                tag = (f"flash prefix {route} hd={hd} Sq={sq} Sk={sk} "
+                       f"{kw} {dt}")
+                want = ragged_yardstick(q, k, v, kw, tally)
+                flash_close(tag, ops.flash_attention(q, k, v, **kw), want)
+                flash_close(tag + " (own wrapper)", kernels[route](
+                    q, k, v, **kw), want)
+                n_checks += 2
+                if "window" not in kw and sk - sq < min(prefix, sk) - 1:
+                    prefix_fault(tag, kernels[route], q, k, v, kw, want)
+                    n_faults += 1
+        del q, k, v
+    print(f"  flash_attention prefix_len: the tensor-core kernel (bf16, hd "
+          f"64 and 256, (Sq, Sk) (256, 256) and (64, 64)), the CUDA-core "
+          f"kernel (f32, hd 64 at (256, 256), hd 80 at (130, 333)) at "
+          f"prefixes 8, 100 and 256, the decode kernel at prefix 8 (Sq 16 "
+          f"over 16 keys in f32 and bf16, Sq 3 over 70); each alone and "
+          f"with window 48 + softcap 30, through the op and the kernel's "
+          f"own wrapper: {n_checks} checks within tolerance (bf16 of the "
+          f"plain version, f32 of float64 attention), {n_faults} runs "
+          f"without the prefix fail it; the f32 plain version itself lies "
+          f"outside the f32 tolerance of float64 on "
+          f"{tally['plain outside']} of {tally['inputs']} f32 inputs",
+          flush=True)
+    n_checks = 0
+    for route, dt, sq, sk in (("tc", torch.bfloat16, 2048, 1500),
+                              ("cuda_core", torch.float32, 2048, 1500),
+                              ("decode", torch.float32, 16, 5)):
+        q, k, v = flash_inputs(gen, 2, 6, 6, sq, sk, 64, dt)
+        for kw in (dict(causal=False), dict(causal=False, window=1000)):
+            tag = f"flash non-causal {route} Sq={sq} Sk={sk} {kw} {dt}"
+            want = ragged_yardstick(q, k, v, kw, tally)
+            flash_close(tag, ops.flash_attention(q, k, v, **kw), want)
+            flash_close(tag + " (own wrapper)", kernels[route](q, k, v, **kw),
+                        want)
+            n_checks += 2
+        del q, k, v
+    print(f"  flash_attention non-causal, Sq > Sk (a negative offset): "
+          f"Sq 2,048 over 1,500 keys on the tensor-core (bf16) and "
+          f"CUDA-core (f32) kernels, Sq 16 over 5 on the decode kernel, "
+          f"hd 64, with and without window 1,000: {n_checks} checks within "
+          f"tolerance", flush=True)
+    w = get_config("whisper-tiny")
+    wc = next(c for c in LM_C if c["arch"] == "whisper-tiny")
+    p = get_config("paligemma-3b")
+    pc = next(c for c in LM_C if c["arch"] == "paligemma-3b")
+    n_ctx, n_vis = w.encoder.n_ctx, p.vision.n_tokens
+    s_vlm = n_vis + pc["prompt"]
+    rows = []
+    for name, phase, shape, kw in (
+            ("flash_attention_tc_whisper_encoder", "whisper-tiny",
+             (wc["batch"], w.attn.n_heads, w.attn.n_kv_heads, n_ctx, n_ctx,
+              w.attn.head_dim), dict(causal=False)),
+            ("flash_attention_decode_whisper_cross", "whisper-tiny",
+             (wc["batch"], w.attn.n_heads, w.attn.n_kv_heads, 1, n_ctx,
+              w.attn.head_dim), dict(causal=False)),
+            ("flash_attention_tc_paligemma_prefix", "paligemma-3b",
+             (pc["batch"], p.attn.n_heads, p.attn.n_kv_heads, s_vlm, s_vlm,
+              p.attn.head_dim), dict(causal=True, prefix_len=n_vis))):
+        b, h, kh, sq, sk, hd = shape
+        q, k, v = flash_inputs(gen, *shape, torch.bfloat16)
+        route = flash_route(q.dtype, sq, hd)
+        counter = ops.FLASH_COUNTERS[route]
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err, rel = flash_close(name, ops.flash_attention(q, k, v, **kw),
+                               want)
+        flash_close(name + " (own wrapper)", kernels[route](q, k, v, **kw),
+                    want)
+        if kw.get("prefix_len"):
+            prefix_fault(name, kernels[route], q, k, v, kw, want)
+        del want
+        bnd, by, flops = flash_bound(q, k, kw)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                        iters=3)
+        mask = prefix_mask(sq, sk, kw["prefix_len"]) \
+            if kw.get("prefix_len") else None
+        lib, backend = sdpa_backend_ms(q, k, v, causal=False, attn_mask=mask)
+        del mask
+        print(f"  flash_attention {name}: B={b} H={h} Kh={kh} Sq={sq} "
+              f"Sk={sk} hd={hd} bf16 {kw} route {route}: max|err| "
+              f"{err:.2e} row-rel {rel:.2e}; kernel {ms:.4f} ms  plain "
+              f"{plain:.4f} ms  bound {bnd:.4f} ms ({by}, {flops:.3e} FLOP, "
+              f"{bnd / ms:.1%} of it)  SDPA ("
+              + ("boolean prefix mask" if kw.get("prefix_len") else
+                 "non-causal") + ") " +
+              (f"{lib:.4f} ms (backend: {backend})" if lib is not None
+               else f"not timed: {backend}"), flush=True)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/" +
+            {"tc": "flash_attention_tc.cu",
+             "decode": "flash_decode.cu"}[route],
+            replaces="src/repro/kernels/flash_attention.py:118",
+            counter=counter, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=lib, phase=phase))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the round engine
 
@@ -1961,6 +2167,16 @@ def channel_agreement() -> None:
           f"{b.time[-1]:.4f}, max |Δacc| {acc_err:.4f})", flush=True)
 
 
+# [agree]: the LM serving path on both devices, (arch, generate's
+# keywords): the families, then whisper-tiny (encoder-decoder),
+# paligemma-3b (8 vision tokens before the 96-token prompt) and
+# gemma2-27b under long_context
+AGREE_LM = (("gemma2-27b", {}), ("gemma-2b", {}), ("olmoe-1b-7b", {}),
+            ("deepseek-v3-671b", {}), ("mamba2-780m", {}),
+            ("zamba2-2.7b", {}), ("whisper-tiny", {}), ("paligemma-3b", {}),
+            ("gemma2-27b", {"long_context": True}))
+
+
 def lm_agreement() -> None:
     """The LM serving path on the card against the CPU, same params and
     prompt: gemma2-27b's smoke config (GQA group 1, window 64: a 96-token
@@ -1971,37 +2187,77 @@ def lm_agreement() -> None:
     dense-first layer and a MoE layer with a shared expert), and the SSM
     and hybrid families' (mamba2-780m: two SSD layers at chunk 32, the
     96-token prompt three chunks; zamba2-2.7b: an SSD layer, then the
-    shared attention block at hd 64); prefill plus 8 decode steps,
-    per-step logits within 1e-4 (f32, TF32 off) and equal tokens, one
-    flash launch an attention layer a step."""
-    for arch in ("gemma2-27b", "gemma-2b", "olmoe-1b-7b",
-                 "deepseek-v3-671b", "mamba2-780m", "zamba2-2.7b"):
+    shared attention block at hd 64), whisper-tiny's (2 encoder layers
+    over 32 audio frames, 2 decoder layers with cross-attention),
+    paligemma-3b's (8 vision tokens, a bidirectional prefix) and
+    gemma2-27b's under ``long_context`` (both rings 64 slots, the global
+    one wrapping every step); prefill plus 8 decode steps, per-step
+    logits within 1e-4 (f32, TF32 off) and equal tokens, one flash launch
+    an attention product a step (`flash_calls`).  Then a
+    ``seq_parallel=True`` copy of gemma2-27b's and deepseek-v3-671b's
+    smoke configs on the card: tokens and logits bitwise the flag-off
+    run's."""
+    for arch, kw in AGREE_LM:
         cfg = get_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(3), cfg,
                                device="cpu")
         prompt = torch.randint(0, cfg.vocab_size, (2, 96),
                                generator=torch.Generator().manual_seed(4))
+        extra = smoke_embeds(cfg, 2, 5, "cpu")
         flash = tuple(ops.FLASH_COUNTERS.values())
         before = sum(ops.LAUNCHES[c] for c in flash)
-        a = generate(params, cfg, prompt, 9, 128, return_logits=True)
+        a = generate(params, cfg, prompt, 9, 128, extra=extra,
+                     return_logits=True, **kw)
         b = generate(tree_from_numpy(tree_to_numpy(params), "cuda"), cfg,
-                     prompt.cuda(), 9, 128, return_logits=True)
+                     prompt.cuda(), 9, 128,
+                     extra={k_: v.cuda() for k_, v in extra.items()},
+                     return_logits=True, **kw)
         launched = sum(ops.LAUNCHES[c] for c in flash) - before
-        if launched != 9 * n_attn_layers(cfg):
-            raise AssertionError(f"{arch}: {launched} flash launches, want "
-                                 f"{9 * n_attn_layers(cfg)}")
+        n_pre, n_step = flash_calls(cfg)
+        if launched != n_pre + 8 * n_step:
+            raise AssertionError(f"{arch} {kw}: {launched} flash launches, "
+                                 f"want {n_pre + 8 * n_step}")
         err = 0.0
         for i, (x, y) in enumerate(zip(a.logits, b.logits)):
             d = (y.cpu() - x).abs()
             err = max(err, float(d.max()))
             if not bool(torch.all(d <= 1e-4 + 1e-4 * x.abs())):
-                raise AssertionError(f"{arch}: step {i} logits differ cuda "
-                                     f"vs cpu by {float(d.max()):.3e}")
+                raise AssertionError(f"{arch} {kw}: step {i} logits differ "
+                                     f"cuda vs cpu by {float(d.max()):.3e}")
         if not torch.equal(a.tokens, b.tokens.cpu()):
-            raise AssertionError(f"{arch}: tokens differ cuda vs cpu")
-        print(f"  {cfg.name} ({stack_dims(cfg)}) prompt 96, 8 decode steps: "
-              f"cuda agrees with cpu (max |Δlogit| {err:.2e}, tokens equal, "
-              f"{launched} flash launches)", flush=True)
+            raise AssertionError(f"{arch} {kw}: tokens differ cuda vs cpu")
+        what = (f", {cfg.encoder.n_ctx} audio frames" if cfg.encoder else
+                f", {cfg.vision.n_tokens} vision tokens" if cfg.vision else
+                "") + (", long_context" if kw else "")
+        print(f"  {cfg.name} ({stack_dims(cfg)}{what}) prompt 96, 8 decode "
+              f"steps: cuda agrees with cpu (max |Δlogit| {err:.2e}, tokens "
+              f"equal, {launched} flash launches)", flush=True)
+    for arch in ("gemma2-27b", "deepseek-v3-671b"):
+        cfg = get_smoke_config(arch)
+        sp = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, seq_parallel=True))
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(3),
+                               cfg, device="cuda")
+        prompt = torch.randint(0, cfg.vocab_size, (2, 96), device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(4))
+        off, on = (generate(params, c, prompt, 9, 128, return_logits=True)
+                   for c in (cfg, sp))
+        if not torch.equal(off.tokens, on.tokens) or not all(
+                torch.equal(x, y) for x, y in zip(off.logits, on.logits)):
+            raise AssertionError(f"{arch}: seq_parallel=True differs from "
+                                 "the flag off")
+        print(f"  {cfg.name} seq_parallel=True on the card: tokens and "
+              f"per-step logits bitwise the flag-off run's", flush=True)
+
+
+def flash_calls(cfg) -> tuple:
+    """(flash calls of a prefill, of a decode step) of `generate` on
+    ``cfg``: one an attention layer, or for the audio family one an
+    encoder layer at prefill and two a decoder layer (self and cross)."""
+    if cfg.family == "audio":
+        return cfg.encoder.n_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return n_attn_layers(cfg), n_attn_layers(cfg)
 
 
 def n_attn_layers(cfg) -> int:
@@ -2032,12 +2288,14 @@ def stack_dims(cfg) -> str:
 
 
 # [agree]: `launch.serve --federated` at its smallest flags, on a dense
-# config, on deepseek's (MLA under the per-user vmap) and on mamba2's (the
-# SSM caches under the per-user vmap)
+# config, on deepseek's (MLA under the per-user vmap), on mamba2's (the
+# SSM caches under the per-user vmap) and on paligemma's (a vlm trained
+# and served on tokens alone)
 FED_SMALL = ["--federated", "--rounds", "1", "--clients", "2", "--pool",
              "5", "--requests", "3", "--tokens", "3", "--prompt-len", "8",
              "--max-batch", "2"]
-FED_ARCHS = ("stablelm-3b", "deepseek-v3-671b", "mamba2-780m")
+FED_ARCHS = ("stablelm-3b", "deepseek-v3-671b", "mamba2-780m",
+             "paligemma-3b")
 
 
 def federated_agreement() -> None:
@@ -2385,8 +2643,11 @@ def lm_c_path(card: str) -> dict:
     prefill (device time by flash / GEMM / other; a MoE config's einsums
     and an SSM config's SSD apart) and, for a MoE or SSM config or one of
     over 16 B params, of decode steps with the device's idle share.
-    Returns {arch: flash launches by counter}, each configuration counted
-    from 0."""
+    whisper-tiny's and paligemma-3b's batches carry the stub frontends'
+    embeddings (`launch.serve.smoke_embeds`, drawn on the card); an entry
+    with ``long_context`` runs the reference's long_500k mode.  Returns
+    {arch, or the entry's key: flash launches by counter}, each
+    configuration counted from 0."""
     counters = tuple(ops.FLASH_COUNTERS.values())
     out = {}
     for c in LM_C:
@@ -2404,6 +2665,9 @@ def lm_c_path(card: str) -> dict:
         prompt = torch.randint(0, cfg.vocab_size, (b, plen), device="cuda",
                                generator=torch.Generator(device="cuda")
                                .manual_seed(c["seed"] + 1))
+        extra = smoke_embeds(cfg, b, c["seed"] + 2, "cuda")
+        lc = c.get("long_context", False)
+        gkw = dict(extra=extra, long_context=lc)
         n_params = sum(t.numel() for t in _leaves(params))
         widths = [stack_dims(cfg)]
         if cfg.moe:
@@ -2414,6 +2678,16 @@ def lm_c_path(card: str) -> dict:
                 widths.append(f"{cfg.moe.n_shared_experts} shared, "
                               f"{cfg.moe.n_dense_layers} dense-first layers "
                               f"of d_ff {cfg.moe.dense_d_ff}")
+        if cfg.encoder is not None:
+            widths.append(f"{cfg.encoder.n_layers} encoder layers over "
+                          f"{cfg.encoder.n_ctx} audio frames, learned "
+                          "decoder positions")
+        if cfg.vision is not None:
+            widths.append(f"{cfg.vision.n_tokens} vision tokens of "
+                          f"{cfg.vision.embed_dim}, a bidirectional prefix")
+        if lc:
+            widths.append(f"long_context: every ring and window "
+                          f"{a.long_context_window}")
         if a is not None and a.mla is not None:
             widths.append(f"MLA q_lora {a.mla.q_lora_rank}, kv_lora "
                           f"{a.mla.kv_lora_rank}, qk_nope "
@@ -2429,16 +2703,17 @@ def lm_c_path(card: str) -> dict:
         # warm-up at the full prompt: the timed prefill finds the caching
         # allocator's blocks and cuBLAS's choices for its shapes in place,
         # as a serving process does after its first request
-        generate(params, cfg, prompt, 2, clen)
+        generate(params, cfg, prompt, 2, clen, **gkw)
         torch.cuda.synchronize()
         ops.reset_launches()       # counts from here on are this config's
         torch.cuda.reset_peak_memory_stats()
-        res = generate(params, cfg, prompt, n, clen, return_logits=True)
+        res = generate(params, cfg, prompt, n, clen, return_logits=True,
+                       **gkw)
         launches = {k: ops.LAUNCHES[k] for k in counters}
         peak = torch.cuda.max_memory_allocated()
-        n_attn = n_attn_layers(cfg)
-        want = {"flash_attention_decode": (n - 1) * n_attn,
-                "flash_attention_tc": n_attn, "flash_attention": 0}
+        n_pre, n_step = flash_calls(cfg)
+        want = {"flash_attention_decode": (n - 1) * n_step,
+                "flash_attention_tc": n_pre, "flash_attention": 0}
         if launches != want:
             raise AssertionError(f"[lm] (c) {cfg.name}: flash launches "
                                  f"{launches}, want {want}")
@@ -2451,7 +2726,8 @@ def lm_c_path(card: str) -> dict:
         steps = n - 1
         prefill_ms = res.prefill_s * 1e3
         step_ms = res.decode_s * 1e3 / steps
-        print(f"  (c) {cfg.name} bf16: prefill {prefill_ms:.2f} ms ({b}x"
+        name = c.get("key", cfg.name)
+        print(f"  (c) {name} bf16: prefill {prefill_ms:.2f} ms ({b}x"
               f"{plen} tokens); decode {step_ms:.3f} "
               f"ms/token-step, {steps * b / res.decode_s:.1f} tok/s ({steps} "
               f"steps x{b}); flash launches {launches}; peak memory "
@@ -2472,21 +2748,23 @@ def lm_c_path(card: str) -> dict:
                   f"{expanded / 2**20:.1f} MiB ({expanded / latent:.1f}x)",
                   flush=True)
         del res
-        out[c["arch"]] = launches
+        out[c.get("key", c["arch"])] = launches
         # one prefill under the profiler: where its device time goes
-        caches = T.make_caches(cfg, b, clen, cfg.cdtype, device="cuda")
+        caches = T.make_caches(cfg, b, clen, cfg.cdtype, long_context=lc,
+                               device="cuda")
         counts = dict(ops.LAUNCHES)      # the traced run does not count
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with ssd_spans(), torch.profiler.profile(activities=acts) as prof:
-            T.prefill(params, cfg, {"tokens": prompt}, caches)
+            T.prefill(params, cfg, dict(extra, tokens=prompt), caches,
+                      long_context=lc)
             torch.cuda.synchronize()
         ops.LAUNCHES.update(counts)
         del caches
         split = device_split(prof)
         if split is None:
-            print(f"  (c) {cfg.name} profiler: no device events; prefill "
+            print(f"  (c) {name} profiler: no device events; prefill "
                   "split not measured", flush=True)
         else:
             busy, split, by_name, n_kernels = split
@@ -2507,7 +2785,7 @@ def lm_c_path(card: str) -> dict:
                         f"{(split['GEMM'] - sub['GEMM']) / 1e3:.3f} ms, "
                         f"the rest {(split['other'] - sub['other']) / 1e3:.3f}"
                         " ms")
-            print(f"  (c) {cfg.name} profiler, one prefill: device busy "
+            print(f"  (c) {name} profiler, one prefill: device busy "
                   f"{busy / 1e3:.3f} ms ({busy / 1e3 / prefill_ms:.1%} of "
                   f"the timed prefill): flash {split['flash'] / 1e3:.3f} "
                   f"ms, GEMM {split['GEMM'] / 1e3:.3f} ms, other "
@@ -2520,7 +2798,7 @@ def lm_c_path(card: str) -> dict:
             # the device's busy time
             profile_decode(params, cfg, prompt, clen, card, step_ms,
                            label=f"(c) {cfg.name}")
-        del params, prompt
+        del params, prompt, extra
         torch.cuda.empty_cache()
     return out
 
@@ -3541,6 +3819,7 @@ def paging_path(card: str) -> None:
     `run_async`, then K = 5 over the 1,000 clients.  Each run's launches
     are stated: a mix and a QSGD row pass a round, a Gram a cohort
     setup."""
+    import gc
     import shutil
     from repro_torch.fl import (FixedCohort, PagingConfig, RandomCohorts,
                                 run_async, sub_federated)
@@ -3660,10 +3939,15 @@ def paging_path(card: str) -> None:
     # of the bytes the run's tensors asked for.  The allocator's
     # allocated bytes add the unsplit tail of whichever cached block a
     # request lands in (up to 1 MiB a large request), which follows the
-    # blocks earlier phases left behind, not the run: printed beside it
+    # blocks earlier phases left behind, not the run: printed beside it.
+    # A keep_state run leaves reference cycles that hold tensors, freed
+    # whenever the collector next runs (inside either sweep, or neither):
+    # collected before each base read, so both peaks start from live
+    # tensors only
     peaks = {}
     for n_pop in (cfg["small"], fed.m):
         f = pop(n_pop)
+        gc.collect()
         torch.cuda.synchronize()
         base = torch.cuda.memory_stats()["requested_bytes.all.current"]
         torch.cuda.reset_peak_memory_stats()
@@ -4816,7 +5100,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_mixing(gen), check_gram(gen)] + \
         check_channel_kernels(gen) + check_flash(gen) + \
-        check_flash_mla(gen) + check_flash_nemotron(gen)
+        check_flash_mla(gen) + check_flash_nemotron(gen) + \
+        check_flash_slice(gen)
     check_flash_vmap(gen)
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows),
           flush=True)

@@ -73,7 +73,10 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     the reference, ``T.init_params``'s ``layers`` list or
     ``init_model_params``'s scanned ``prefix_layers`` + ``scan_layers``
     (a tuple of ``period`` trees, each leaf stacked over the groups),
-    becomes one ``layers`` list in layer order."""
+    becomes one ``layers`` list in layer order.  The other top-level
+    leaves come along as they are: a vlm's ``vision_proj``, and the audio
+    family's unscanned encoder-decoder tree (``enc_layers``,
+    ``enc_final_norm``, ``pos_emb``; ``layers`` its decoder's)."""
     if "layers" in tree:
         layers = list(tree["layers"])
     elif "scan_layers" in tree:

@@ -15,18 +15,27 @@ replays a superstep:
 * `stage_tree` copies the host rows (numpy arrays or CPU tensors) into
   pinned host tensors and issues ``.to(device, non_blocking=True)`` on a
   side stream, recording an event.  `Staged.wait` makes the CURRENT
-  stream wait on that event (the host does not block) and records the
-  device tensors' use on it, so the caching allocator does not hand
-  their memory to the side stream while the compute stream still reads
-  them.  The `Staged` holds its pinned sources; once it is dropped,
-  PyTorch's pinned-memory allocator, which records every non-blocking
-  copy's event on the block, reuses them only after the copy is done.
+  stream wait on that event (the host does not block), clones the
+  tensors there, and makes the side stream wait for the clones before
+  the side stream's buffers are dropped: the caching allocator then
+  hands that memory to no later side-stream copy before the compute
+  stream has read it.  The `Staged` holds its pinned sources; once it
+  is dropped, PyTorch's pinned-memory allocator, which records every
+  non-blocking copy's event on the block, reuses them only after the
+  copy is done.
 * `fetch_tree` first clones its tensors on the current stream: a
   captured chunk returns its static buffers, which the next replay
   overwrites, so the snapshot is taken before anything else is enqueued
   there.  The clone's D2H copy into pinned buffers then runs on a second
   side stream behind an event; `Fetched.wait` blocks the host on that
-  event only, so the writeback overlaps the next superstep.
+  event only, so the writeback overlaps the next superstep.  The
+  `Fetched` holds the snapshot until its `wait` has seen the copy end.
+
+Neither leg calls ``record_stream``: a tensor it records is freed when
+the allocator next finds its stream past the recorded point, so the
+device memory in use at any moment would follow the streams' progress.
+Without it every block is freed where the program drops it, and a run's
+peak device memory is the same from one run to the next.
 
 On the CPU both are plain: `stage_tree` wraps numpy rows with
 ``torch.from_numpy`` and `fetch_tree` hands its (fresh) tensors back.
@@ -38,7 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.fl.placement.graphs import leaves, tree_map
+from repro_torch.fl.placement.graphs import tree_map
 
 # one H2D and one D2H side stream per device
 _STREAMS: Dict[Tuple[int, str], torch.cuda.Stream] = {}
@@ -63,19 +72,23 @@ class Staged:
     stream."""
 
     def __init__(self, tree: Any, event: Optional[torch.cuda.Event] = None,
-                 device: Optional[torch.device] = None, source: Any = None):
+                 device: Optional[torch.device] = None, source: Any = None,
+                 side: Optional[torch.cuda.Stream] = None):
         self.tree, self.event, self.device = tree, event, device
         self.source = source        # the pinned host rows being copied
+        self.side = side            # the stream that copied them
 
     def wait(self) -> Any:
         """The device tree, ordered after its copy on the current stream
-        (no host block)."""
+        (no host block): the current stream's own clones of it."""
         if self.event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(self.event)
-            for t in leaves(self.tree):
-                t.record_stream(stream)
-            self.event = None
+            tree = tree_map(torch.clone, self.tree)
+            done = torch.cuda.Event()
+            done.record(stream)
+            self.side.wait_event(done)
+            self.tree, self.event = tree, None
         return self.tree
 
 
@@ -83,14 +96,17 @@ class Fetched:
     """A device tree's snapshot on its way to the host; `wait` blocks on
     that copy alone."""
 
-    def __init__(self, tree: Any, event: Optional[torch.cuda.Event] = None):
+    def __init__(self, tree: Any, event: Optional[torch.cuda.Event] = None,
+                 snap: Any = None):
         self.tree, self.event = tree, event
+        self.snap = snap            # the device snapshot being copied
 
     def wait(self) -> Any:
         """The host tree (pinned CPU tensors on the card's path)."""
         if self.event is not None:
             self.event.synchronize()
             self.event = None
+        self.snap = None
         return self.tree
 
 
@@ -106,7 +122,7 @@ def stage_tree(tree: Any, device: torch.device) -> Staged:
         out = tree_map(lambda t: t.to(device, non_blocking=True), pinned)
         event = torch.cuda.Event()
         event.record(side)
-    return Staged(out, event, device, pinned)
+    return Staged(out, event, device, pinned, side)
 
 
 def fetch_tree(tree: Any, device: torch.device) -> Fetched:
@@ -123,8 +139,6 @@ def fetch_tree(tree: Any, device: torch.device) -> Fetched:
         host = tree_map(lambda t: torch.empty(
             t.shape, dtype=t.dtype, pin_memory=True).copy_(
                 t, non_blocking=True), snap)
-        for t in leaves(snap):
-            t.record_stream(side)
         event = torch.cuda.Event()
         event.record(side)
-    return Fetched(host, event)
+    return Fetched(host, event, snap)

@@ -5,9 +5,10 @@
 // function `flash_attention` (:90, pallas_call :118, body `_kernel` :30):
 // out = softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query
 // head), with q aligned to the end of k (q_pos = i + Sk − Sq), a key valid
-// when k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
-// online softmax with the reference's guards for fully masked rows (m_safe,
-// alpha) and its denominator clamped at 1e-30.  Query head h reads KV head
+// when k_pos < Sk, k_pos <= q_pos or k_pos < prefix (causal; a prefix-LM's
+// bidirectional prefix, the reference's `mask_bias`) and k_pos > q_pos −
+// window, an online softmax with the reference's guards for fully masked
+// rows (m_safe, alpha) and its denominator clamped at 1e-30.  Query head h reads KV head
 // h / (H / Kh); K and V are never broadcast.  q and k have head dim dk, v
 // and the output their own head dim dv (MLA: dk = qk_nope + rope, dv =
 // v_head_dim; the scale is the caller's, 1/√dk).  Inputs f32 or bf16, all
@@ -58,8 +59,9 @@
 // c ^ ((r & SWM)·NH)), so the 8 lanes of a quarter-warp read 8 different
 // bank groups; Q and P reads are broadcasts within a quarter-warp and
 // need none.  The K loop starts and ends at the causal/window band of the
-// tile's rows; skipping the tiles outside it is exact, since a fully
-// masked tile leaves m, l and acc unchanged.  The q tiles run in reverse
+// tile's rows (under a causal mask it ends at the later of the last row's
+// diagonal and the prefix's end); skipping the tiles outside it is exact,
+// since a fully masked tile leaves m, l and acc unchanged.  The q tiles run in reverse
 // order, so the heaviest causal tiles start first.  Keys past Sk are
 // zero-filled and masked, query rows past Sq are computed and not stored,
 // and a warp whose rows all lie past Sq skips the arithmetic.  The softcap
@@ -89,6 +91,7 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
   int B, H, Kh, Sq, Sk, hd, dv, group;  // hd: dk, of q and k
   int causal, window;  // window 0: none
+  int prefix;           // keys below it visible to every query (causal)
   float scale, softcap;  // softcap 0: none
 };
 
@@ -237,10 +240,11 @@ __global__ void __launch_bounds__(Tile<HDM>::NT, 2)
   const T* vb = static_cast<const T*>(p.v) + b * p.vs[0] + kh * p.vs[1];
   T* ob = static_cast<T*>(p.o) + b * p.os[0] + hq * p.os[1];
 
-  // the band of keys this tile's rows can see
+  // the band of keys this tile's rows can see (off < 0 when Sq > Sk)
   const int off = p.Sk - p.Sq;
   int k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, min(q0 + BQ, p.Sq) - 1 + off + 1);
+  if (p.causal)
+    k_end = min(k_end, max(min(q0 + BQ, p.Sq) - 1 + off + 1, p.prefix));
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, q0 + off - p.window + 1);
   k_begin -= k_begin % BK;
@@ -325,6 +329,8 @@ __global__ void __launch_bounds__(Tile<HDM>::NT, 2)
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const int q_pos = q0 + rg * RPT + r + off;
+        // the causal mask's last key: the row's own, or the prefix's last
+        const int last = max(q_pos, p.prefix - 1);
         float mx = kNegInf;
         unsigned ok = 0u;
 #pragma unroll
@@ -334,7 +340,7 @@ __global__ void __launch_bounds__(Tile<HDM>::NT, 2)
                               ? p.softcap * tanhf(s[r][NH * u] * cap_scale)
                               : s[r][NH * u] * p.scale;
           bool valid = k_pos < p.Sk;
-          if (p.causal) valid = valid && k_pos <= q_pos;
+          if (p.causal) valid = valid && k_pos <= last;
           if (p.window > 0) valid = valid && k_pos > q_pos - p.window;
           ok |= valid ? 1u << u : 0u;
           s[r][NH * u] = valid ? x : kNegInf;
@@ -465,13 +471,15 @@ int launch_hd(const Params& p, cudaStream_t s) {
 // q (B, H, Sq, hd), k (B, Kh, Sk, hd), v (B, Kh, Sk, dv), o (B, H, Sq,
 // dv), as element strides of (b, h, s) in `strides` (q, k, v, o; 12
 // values) with unit stride on the head dim.  dtype 0: f32, 1: bf16.  hd
-// and dv multiples of 8 up to 256; window 0 and softcap 0 mean none.
+// and dv multiples of 8 up to 256; window 0, prefix 0 and softcap 0 mean
+// none.
 // Returns the cudaError_t of the attribute calls or the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int B, int H,
                                      int Kh, int Sq, int Sk, int hd, int dv,
-                                     int causal, int window, float scale,
+                                     int causal, int window, int prefix,
+                                     float scale,
                                      float softcap, int dtype, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -482,11 +490,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     p.os[e] = strides[9 + e];
   }
   p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd; p.dv = dv;
-  p.causal = causal; p.window = window;
+  p.causal = causal; p.window = window; p.prefix = prefix;
   p.scale = scale; p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 8 || hd > 256 || dv % 8 != 0 || dv < 8 ||
-      dv > 256 || Kh < 1 || H % Kh != 0)
+      dv > 256 || Kh < 1 || H % Kh != 0 || prefix < 0)
     return (int)cudaErrorInvalidValue;
   p.group = H / Kh;
   return dtype == 0 ? launch_hd<float>(p, s)

@@ -14,7 +14,9 @@
 // computes what `_kernel` computes:
 // out = softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query
 // head), q aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
-// k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, an
+// k_pos < Sk, k_pos <= q_pos or k_pos < prefix (causal; a prefix-LM's
+// bidirectional prefix, which the Pallas kernel lacks: the reference's
+// `mask_bias` in models/attention.py) and k_pos > q_pos − window, an
 // online softmax with the reference's m_safe / alpha guards and its
 // denominator clamped at 1e-30, query head h reading KV head h / (H / Kh),
 // the output in q's dtype and layout.
@@ -61,10 +63,12 @@
 //   Softmax in registers on the f32 accumulator fragment: thread t holds
 //     rows 16·(t/32) + (t%32)/4 and that + 8, columns 8j + 2(t%4) +
 //     {0, 1}; row max and sum are two xor shuffles inside the quad.  The
-//     mask is evaluated only on tiles that cross the causal diagonal, the
-//     window's edge or Sk; tiles outside the block's causal/window band
-//     are skipped, which is exact (a fully masked tile leaves m, l and O
-//     unchanged).  O is rescaled only when a row max of the warp moved.
+//     mask is evaluated only on tiles that cross the causal diagonal past
+//     the prefix, the window's edge or Sk (a tile wholly inside the
+//     prefix needs no causal mask); tiles outside the block's band, which
+//     under a causal mask ends at the later of its last row's diagonal and
+//     the prefix's end, are skipped, which is exact (a fully masked tile
+//     leaves m, l and O unchanged).  O is rescaled only when a row max of the warp moved.
 //   O += P·V: the S fragment, packed pairwise to bf16x2, is already the
 //     A-from-registers fragment of `wgmma ... m64n{DV}k16` (RS form); V
 //     (key, dv) is B read MN-major with the transpose bit, its 64-element
@@ -126,6 +130,7 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
   int B, H, Kh, Sq, Sk, hd, group;
   int causal, window;  // window 0: none
+  int prefix;           // keys below it visible to every query (causal)
   float scale, softcap;  // softcap 0: none
 };
 
@@ -366,10 +371,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                       h * p.os[1];
   const int off = p.Sk - p.Sq;
 
-  // the band of keys the block's rows can see, in whole tiles
+  // the band of keys the block's rows can see, in whole tiles (off < 0
+  // when Sq > Sk: q_first and q_last may be negative)
   const int q_first = q0 + off, q_last = min(q0 + kBQ, p.Sq) - 1 + off;
   int k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, q_last + 1);
+  if (p.causal) k_end = min(k_end, max(q_last + 1, p.prefix));
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
   k_begin -= k_begin % kBK;
@@ -394,6 +400,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // this thread's two rows (absolute q positions)
   const int row_a = q0 + warp * 16 + g;
   const int qpos[2] = {row_a + off, row_a + 8 + off};
+  // the causal mask's last key of each row: its own, or the prefix's last
+  const int qlast[2] = {max(qpos[0], p.prefix - 1),
+                        max(qpos[1], p.prefix - 1)};
   // a score s becomes x = mul·s, and its logit in log2 units is c·f(x),
   // f = tanh with the softcap (c = cap·log2 e, mul = scale / cap), else
   // the identity (c = 1, mul = scale·log2 e); c > 0, so the row max of
@@ -439,16 +448,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < kNS; ++e)
       s[e] = CAPPED ? tanh_approx(s[e] * mul) : s[e] * mul;
-    const bool need_mask = kt + kBK > p.Sk ||
-                           (p.causal && kt + kBK - 1 > q_first) ||
-                           (p.window > 0 && kt <= q_last - p.window);
+    const bool need_mask =
+        kt + kBK > p.Sk ||
+        (p.causal && kt + kBK - 1 > q_first && kt + kBK > p.prefix) ||
+        (p.window > 0 && kt <= q_last - p.window);
     if (need_mask) {
 #pragma unroll
       for (int e = 0; e < kNS; ++e) {
         const int k_pos = kt + (e >> 2) * 8 + 2 * c4 + (e & 1);
         const int q_pos = qpos[(e >> 1) & 1];
         bool valid = k_pos < p.Sk;
-        if (p.causal) valid = valid && k_pos <= q_pos;
+        if (p.causal) valid = valid && k_pos <= qlast[(e >> 1) & 1];
         if (p.window > 0) valid = valid && k_pos > q_pos - p.window;
         if (!valid) s[e] = kNegInf;
       }
@@ -556,8 +566,8 @@ int launch_capped(const Params& p, cudaStream_t s) {
 // The signature of repro_flash_attention (flash_attention.cu): q (B, H,
 // Sq, hd), k (B, Kh, Sk, hd), v (B, Kh, Sk, dv), o (B, H, Sq, dv), as
 // element strides of (b, h, s) in `strides` (q, k, v, o; 12 values) with
-// unit stride on the head dim and 16-byte aligned rows; window 0 and
-// softcap 0 mean none.  Takes dtype 1 (bf16) and (hd, dv) of (64, 64),
+// unit stride on the head dim and 16-byte aligned rows; window 0, prefix 0
+// and softcap 0 mean none.  Takes dtype 1 (bf16) and (hd, dv) of (64, 64),
 // (80, 80), (128, 128), (192, 192), (256, 256) or (192, 128) only.  Returns the
 // cudaError_t of the attribute call or the launch.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
@@ -565,7 +575,8 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const long long* strides, int B,
                                         int H, int Kh, int Sq, int Sk, int hd,
                                         int dv, int causal, int window,
-                                        float scale, float softcap, int dtype,
+                                        int prefix, float scale,
+                                        float softcap, int dtype,
                                         void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -577,9 +588,9 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
   }
   p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.hd = hd;
   p.group = H / Kh;
-  p.causal = causal; p.window = window;
+  p.causal = causal; p.window = window; p.prefix = prefix;
   p.scale = scale; p.softcap = softcap;
-  if (dtype != 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1)
+  if (dtype != 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1 || prefix < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == dv) switch (hd) {

@@ -8,9 +8,10 @@
 // longer queries.  It computes what `_kernel` computes: out =
 // softmax(mask(cap·tanh(q·kᵀ·scale / cap))) · v per (batch, query head), q
 // aligned to the end of k (q_pos = i + Sk − Sq), a key valid when
-// k_pos < Sk, k_pos <= q_pos (causal) and k_pos > q_pos − window, the
-// m_safe / alpha guards, the denominator clamped at 1e-30, so a row with no
-// valid key comes out 0; query head h reads KV head h / (H / Kh).  q and k
+// k_pos < Sk, k_pos <= q_pos or k_pos < prefix (causal; a prefix-LM's
+// bidirectional prefix, the reference's `mask_bias`) and k_pos > q_pos −
+// window, the m_safe / alpha guards, the denominator clamped at 1e-30, so
+// a row with no valid key comes out 0; query head h reads KV head h / (H / Kh).  q and k
 // have head dim dk (`hd` below), v and the output their own head dim dv
 // (MLA's naive decode: dk 192, dv 128; the scale is the caller's, 1/√dk).
 // Inputs f32 or bf16, all arithmetic f32, output in q's dtype and layout.
@@ -32,7 +33,8 @@
 //     i), RMAX of them (4, or 16 when G·Sq > 4; more rows take further row
 //     groups).  So each K/V row is read from HBM once per row group, not
 //     once per query head.  The key range is cut to the band of the
-//     block's rows (causal and window); a block with nothing left writes
+//     block's rows (causal, whose band reaches the prefix's end for every
+//     row, and window); a block with nothing left writes
 //     m = NEG_INF, l = 0, acc = 0 without reading K or V, which is exact.
 //     K and V stream through an NS-stage ring of 32-key tiles in shared
 //     memory (16-byte `cp.async.cg` copies, one commit group a tile; NS
@@ -86,6 +88,7 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, h, s)
   int B, H, Kh, Sq, Sk, hd, dv, group, n_split, chunk;  // hd: dk
   int causal, window;    // window 0: none
+  int prefix;            // keys below it visible to every query (causal)
   float scale, softcap;  // softcap 0: none
 };
 
@@ -217,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
     imin = min(imin, i);
     imax = max(imax, i);
   }
-  if (p.causal) hi = min(hi, imax + off + 1);
+  if (p.causal) hi = min(hi, max(imax + off + 1, p.prefix));
   if (p.window > 0) lo = max(lo, imin + off - p.window + 1);
   const int n_tiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
 
@@ -313,7 +316,8 @@ __global__ void __launch_bounds__(kThreads) decode_partials(const Params p) {
         float x = s[ii] * p.scale;
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
         bool valid = k_pos < hi;
-        if (p.causal) valid = valid && k_pos <= q_pos;
+        // the causal mask's last key: the row's own, or the prefix's last
+        if (p.causal) valid = valid && k_pos <= max(q_pos, p.prefix - 1);
         if (p.window > 0) valid = valid && k_pos > q_pos - p.window;
         x = valid ? x : kNegInf;
         float mx = x;
@@ -476,13 +480,14 @@ int launch_hd(const Params& p, cudaStream_t s) {
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   void* o, const long long* strides, int B,
                                   int H, int Kh, int Sq, int Sk, int hd,
-                                  int dv, int causal, int window, float scale,
+                                  int dv, int causal, int window, int prefix,
+                                  float scale,
                                   float softcap, int dtype, void* stream,
                                   float* ws, int n_split) {
   if (hd % 8 != 0 || hd < 8 || hd > 256 || dv % 8 != 0 || dv < 8 ||
       dv > 256 || Kh < 1 || H % Kh != 0 ||
       Sq < 1 || Sq > 16 || Sk < 1 || n_split < 1 || B < 1 || B > 65535 ||
-      H > 65535)
+      H > 65535 || prefix < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.ws = ws;
@@ -496,7 +501,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   p.group = H / Kh;
   p.n_split = n_split;
   p.chunk = (Sk + n_split - 1) / n_split;
-  p.causal = causal; p.window = window;
+  p.causal = causal; p.window = window; p.prefix = prefix;
   p.scale = scale; p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_hd<float>(p, s)

@@ -38,9 +38,9 @@ DECODE_MAX_SQ = 16           # queries of the decode kernel (decode steps)
 DECODE_MIN_KEYS = 128        # keys a decode split keeps at least
 DECODE_BLOCKS_PER_SM = 3     # decode blocks a split count aims for
 # the C entries: q, k, v, out, strides, B, H, Kh, Sq, Sk, dk, dv, causal,
-# window, scale, softcap, dtype, stream; the decode kernel's adds its
-# workspace and n_split
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+# window, prefix_len, scale, softcap, dtype, stream; the decode kernel's
+# adds its workspace and n_split
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
     [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
 _EXTRA_ARGTYPES = {"flash_decode": [ctypes.c_void_p, ctypes.c_int]}
 _bound = set()
@@ -122,7 +122,7 @@ def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
 
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: Optional[int], softcap: Optional[float],
-            dtypes: tuple, pairs: Optional[tuple],
+            prefix_len: int, dtypes: tuple, pairs: Optional[tuple],
             max_sq: Optional[int] = None,
             n_split: Optional[int] = None) -> torch.Tensor:
     """Check what kernel ``name`` takes (``dtypes``; ``pairs`` of (dk,
@@ -164,6 +164,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not float(softcap) > 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+    if int(prefix_len) < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(arg, t)
     extra = ()
@@ -184,7 +186,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  strides, b, h, kh, sq, sk, hd, dv, int(bool(causal)),
-                 0 if window is None else int(window), 1.0 / math.sqrt(hd),
+                 0 if window is None else int(window),
+                 min(int(prefix_len), sk), 1.0 / math.sqrt(hd),
                  0.0 if softcap is None else float(softcap),
                  _DTYPES[q.dtype], stream, *extra)
     _build.check(err, name)
@@ -194,28 +197,31 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
+                         softcap: Optional[float] = None,
+                         prefix_len: int = 0) -> torch.Tensor:
     """The CUDA-core kernel: q (B, H, Sq, dk), k (B, Kh, Sk, dk) and v
     (B, Kh, Sk, dv) on one CUDA device, one dtype (f32 or bf16),
     H % Kh == 0, dk and dv multiples of 8 up to 256 -> out (B, H, Sq, dv)
-    in q's dtype and layout."""
+    in q's dtype and layout; ``prefix_len`` as `ops.flash_attention`'s."""
     return _launch("flash_attention", q, k, v, causal, window, softcap,
-                   tuple(_DTYPES), None)
+                   prefix_len, tuple(_DTYPES), None)
 
 
 def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: Optional[int] = None,
-                            softcap: Optional[float] = None) -> torch.Tensor:
+                            softcap: Optional[float] = None,
+                            prefix_len: int = 0) -> torch.Tensor:
     """The tensor-core kernel: as `flash_attention_cuda`, for bf16 and
     the (dk, dv) pairs of `TC_PAIRS` only (raises on anything else)."""
     return _launch("flash_attention_tc", q, k, v, causal, window, softcap,
-                   (torch.bfloat16,), TC_PAIRS)
+                   prefix_len, (torch.bfloat16,), TC_PAIRS)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       softcap: Optional[float] = None,
+                      prefix_len: int = 0,
                       n_split: Optional[int] = None) -> torch.Tensor:
     """The split-key decode kernel: as `flash_attention_cuda`, for
     Sq <= 16 only (raises on more).  The keys are cut into ``n_split``
@@ -223,5 +229,5 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     whose partials are merged in split order, so the result is bitwise
     the same from call to call."""
     return _launch("flash_decode", q, k, v, causal, window, softcap,
-                   tuple(_DTYPES), None, max_sq=DECODE_MAX_SQ,
+                   prefix_len, tuple(_DTYPES), None, max_sq=DECODE_MAX_SQ,
                    n_split=n_split)

@@ -207,12 +207,16 @@ def topk_threshold(absx: torch.Tensor, *, k: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Attention of q (B, H, Sq, dk) over k (B, Kh, Sk, dk) and v (B, Kh,
     Sk, dv) -> (B, H, Sq, dv), the logits scaled by 1/√dk, q aligned to
     the end of k, GQA by h // (H / Kh); causal, sliding window
-    (k_pos > q_pos − window) and tanh logit softcap.  The value head dim
-    dv may differ from dk (MLA's naive path: dk 192, dv 128).  Strided
+    (k_pos > q_pos − window) and tanh logit softcap; under ``causal`` the
+    keys below ``prefix_len`` are visible to every query (a prefix-LM's
+    bidirectional prefix), the window still applying to them.  The value
+    head dim dv may differ from dk (MLA's naive path: dk 192, dv 128).
+    Strided
     views are taken as they are on CUDA; the output has q's dtype (and
     layout).  On CUDA, `flash_route` picks the kernel on (dk, dv):
     decode steps (Sq <= 16) on the split-key decode kernel, bf16 prefill
@@ -220,17 +224,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     128) on the tensor cores, the other prefills on the CUDA cores.  Under
     `torch.func.vmap` one call serves the whole vmapped batch (module
     docstring), bitwise the per-user calls."""
-    return _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap,
+                     prefix_len=prefix_len)
 
 
 def _flash_cpu(q, k, v, *, causal=True, window=None, softcap=None,
-               decode_rows=None):
+               decode_rows=None, prefix_len=0):
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, prefix_len=prefix_len)
 
 
 def _flash_cuda(q, k, v, *, causal=True, window=None, softcap=None,
-                decode_rows=None):
+                decode_rows=None, prefix_len=0):
     """``decode_rows``: the batch rows the decode kernel's split count is
     chosen for (default B): a vmapped call's are one user's, so each
     user's rows are summed as that user's own call sums them."""
@@ -241,7 +246,7 @@ def _flash_cuda(q, k, v, *, causal=True, window=None, softcap=None,
         kw["n_split"] = decode_splits(decode_rows, k.shape[1], k.shape[2],
                                       sm_count(q.device))
     out = kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                 **kw)
+                 prefix_len=prefix_len, **kw)
     LAUNCHES[counter] += 1
     return out
 
@@ -255,7 +260,7 @@ def _fold(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
 
 
 def _flash_vmap(info, in_dims, q, k, v, *, causal=True, window=None,
-                softcap=None, decode_rows=None):
+                softcap=None, decode_rows=None, prefix_len=0):
     """The batching rule: (n, B, ...) inputs run as one (n·B, ...) call
     (v's own head dim dv rides along: only the leading dims fold)."""
     n = info.batch_size
@@ -263,14 +268,14 @@ def _flash_vmap(info, in_dims, q, k, v, *, causal=True, window=None,
     if decode_rows is None:
         decode_rows = q.shape[0] // n
     out = _FLASH_OP(q, k, v, causal=causal, window=window, softcap=softcap,
-                    decode_rows=decode_rows)
+                    decode_rows=decode_rows, prefix_len=prefix_len)
     return out.unflatten(0, (n, -1)), 0
 
 
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, *, "
             "bool causal=True, int? window=None, float? softcap=None, "
-            "int? decode_rows=None) -> Tensor")
+            "int? decode_rows=None, int prefix_len=0) -> Tensor")
 _LIB.impl("flash_attention", _flash_cpu, "CPU")
 _LIB.impl("flash_attention", _flash_cuda, "CUDA")
 torch.library.register_vmap("repro_torch::flash_attention", _flash_vmap,

@@ -173,9 +173,12 @@ NEG_INF = -1e30
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
-            window: Optional[int], softcap: Optional[float]):
+            window: Optional[int], softcap: Optional[float],
+            prefix_len: int = 0):
     """The (B, Kh, G, Sq, Sk) f32 logits, scaled and capped, and the
-    (Sq, Sk) mask of valid keys (q aligned to the end of k)."""
+    (Sq, Sk) mask of valid keys (q aligned to the end of k): a key is
+    valid when k_pos <= q_pos or k_pos < ``prefix_len`` (causal), and
+    k_pos > q_pos − window (the window is not relaxed for the prefix)."""
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kh, h // kh, sq, hd).float()
@@ -187,7 +190,7 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
     k_pos = torch.arange(sk, device=q.device)[None, :]
     valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        valid &= k_pos <= q_pos
+        valid &= (k_pos <= q_pos) | (k_pos < prefix_len)
     if window is not None:
         valid &= k_pos > q_pos - window
     return logits, valid
@@ -195,15 +198,19 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        prefix_len: int = 0) -> torch.Tensor:
     """Plain SDPA: q (B, H, Sq, dk), k (B, Kh, Sk, dk) and v (B, Kh, Sk,
     dv), GQA group G = H / Kh, q aligned to the end of k; logits scaled by
-    1/√dk, f32 logits and softmax, output (B, H, Sq, dv) in q's dtype.  A
+    1/√dk, f32 logits and softmax, output (B, H, Sq, dv) in q's dtype.
+    Under ``causal`` the first ``prefix_len`` keys are visible to every
+    query (a prefix-LM's bidirectional prefix; the reference's
+    `mask_bias`), the window still applies to them.  A
     query row with no valid key (causal with Sq > Sk: the first Sq − Sk
     rows) comes out 0, as the Pallas kernel's guards give it.  The (B, Kh,
     G, Sq, Sk) logits are materialised, once."""
     b, h, sq = q.shape[:3]
-    logits, valid = _logits(q, k, causal, window, softcap)
+    logits, valid = _logits(q, k, causal, window, softcap, prefix_len)
     logits.masked_fill_(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     del logits
@@ -215,7 +222,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      n_split: int, causal: bool = True,
                      window: Optional[int] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None,
+                     prefix_len: int = 0) -> torch.Tensor:
     """`flash_attention_ref`'s function computed as the decode kernel
     computes it: the keys cut into ``n_split`` contiguous ranges of
     ``ceil(Sk / n_split)`` (the last ones may be short or empty); per
@@ -231,7 +239,7 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kh, sk = k.shape[1], k.shape[2]
     chunk = -(-sk // n_split)
     pad = n_split * chunk - sk
-    logits, valid = _logits(q, k, causal, window, softcap)
+    logits, valid = _logits(q, k, causal, window, softcap, prefix_len)
     logits = torch.nn.functional.pad(logits, (0, pad))
     valid = torch.nn.functional.pad(valid, (0, pad))      # pads False
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))

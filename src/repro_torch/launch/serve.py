@@ -1,18 +1,21 @@
 """Serving driver: prefill, then batched greedy decode in lockstep; and
 the personalised serving plane over a federated LM population.
 
-Counterpart of `repro/launch/serve.py` for the dense, MoE, SSM and
-hybrid families (``--arch`` defaults to mamba2-780m, as the reference's):
+Counterpart of `repro/launch/serve.py` for every family (``--arch``
+defaults to mamba2-780m, as the reference's):
 
     python -m repro_torch.launch.serve [--arch gemma2-27b] [--device cpu]
     python -m repro_torch.launch.serve --federated --arch stablelm-3b \
         --rounds 2 --clients 4 --codec qsgd:4 [--device cpu]
 
 `smoke_main` takes the reference CLI's defaults (batch 4, prompt 32, 16
-tokens, cache 128, the smoke config), draws params and prompt from
-`torch.Generator`s seeded with ``--seed``, and prints the prefill time,
-the decode rate and a sample, as the reference does.  `generate` also
-takes injected params and tokens, so a test can hand it the reference's.
+tokens, cache 128, the smoke config), draws params, prompt and (whisper,
+paligemma) the audio or vision embeddings from `torch.Generator`s of
+their own seeded with ``--seed``, and prints the prefill time, the
+decode rate and a sample, as the reference does.  `generate` also takes
+injected params and tokens, so a test can hand it the reference's; a
+vlm batch's image prefix shifts the decode positions by its length, as
+the reference's smoke loop does.
 Caches are in the compute dtype: an attention layer's ring, updated in
 place, or an SSM layer's `SSMCache`, replaced each step (a bf16 config's
 SSM state rounds to bf16 every token, as in the reference's step
@@ -64,21 +67,31 @@ def _sync(device: torch.device) -> None:
 
 def generate(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
              n_tokens: int, cache_len: int, *,
+             extra: Optional[Dict[str, torch.Tensor]] = None,
+             long_context: bool = False,
              return_logits: bool = False) -> Generation:
     """Greedy decode of ``n_tokens`` tokens after the prompt ``tokens``
     (B, P) on the prompt's device: one prefill, then ``n_tokens - 1``
-    decode steps at positions P, P+1, ... for every row at once.  With
-    ``return_logits`` the (B, V) f32 logits of each step are kept (the
-    prefill's last position first)."""
+    decode steps at positions n + P, n + P + 1, ... for every row at once,
+    n the image prefix's length (a vlm batch's vision tokens, else 0).
+    ``extra`` holds the batch's other inputs (``audio_embeds``,
+    ``vision_embeds``); ``long_context`` is the reference's long_500k
+    mode (`models.transformer`).  With ``return_logits`` the (B, V) f32
+    logits of each step are kept (the prefill's last position first)."""
     if n_tokens < 1:
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
     dev = tokens.device
     b, prompt_len = tokens.shape
-    caches = T.make_caches(cfg, b, cache_len, cfg.cdtype, device=dev)
+    batch = dict(extra or {}, tokens=tokens)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        prompt_len += batch["vision_embeds"].shape[1]
+    caches = T.make_caches(cfg, b, cache_len, cfg.cdtype,
+                           long_context=long_context, device=dev)
     kept = [] if return_logits else None
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = T.prefill(params, cfg, {"tokens": tokens}, caches)
+    logits, caches = T.prefill(params, cfg, batch, caches,
+                               long_context=long_context)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     out = [tok]
     if kept is not None:
@@ -87,7 +100,8 @@ def generate(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     t1 = time.perf_counter()
     for i in range(n_tokens - 1):
         logits, caches = T.decode_step(params, cfg, tok, caches,
-                                       prompt_len + i)
+                                       prompt_len + i,
+                                       long_context=long_context)
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         out.append(tok)
         if kept is not None:
@@ -107,13 +121,31 @@ def smoke_main(args) -> torch.Tensor:
     b = args.batch
     prompt = torch.randint(0, cfg.vocab_size, (b, args.prompt_len),
                            generator=gen, device=dev)
-    res = generate(params, cfg, prompt, args.tokens, args.cache_len)
+    res = generate(params, cfg, prompt, args.tokens, args.cache_len,
+                   extra=smoke_embeds(cfg, b, args.seed + 2, dev))
     print(f"prefill {args.prompt_len} tokens x{b}: {res.prefill_s:.2f}s")
     steps = args.tokens - 1
     print(f"decoded {steps} steps x{b} in {res.decode_s:.2f}s "
           f"({steps * b / max(res.decode_s, 1e-9):.1f} tok/s)")
     print("sample:", res.tokens[0][:16].tolist())
     return res.tokens
+
+
+def smoke_embeds(cfg: ModelConfig, b: int, seed: int, device
+                 ) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs of a smoke batch, N(0, 1) f32 from a
+    generator of their own: whisper's ``audio_embeds`` (B, n_ctx, d),
+    paligemma's ``vision_embeds`` (B, n_tokens, embed_dim); none
+    otherwise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "audio":
+        shape, key = (b, cfg.encoder.n_ctx, cfg.d_model), "audio_embeds"
+    elif cfg.family == "vlm":
+        shape = (b, cfg.vision.n_tokens, cfg.vision.embed_dim)
+        key = "vision_embeds"
+    else:
+        return {}
+    return {key: torch.randn(shape, generator=gen, device=device)}
 
 
 def build_decode_one(cfg: ModelConfig, prompt_len: int, n_tokens: int,

@@ -66,7 +66,14 @@ def preset_config(arch: str, preset: str) -> ModelConfig:
 
 def lm_fns(cfg: ModelConfig):
     """(loss_fn, acc_fn) of the engine over the flat-key view: the token
-    batch rides in the ``x`` slot; the score is −CE (higher is better)."""
+    batch rides in the ``x`` slot; the score is −CE (higher is better).
+    A vlm config trains on the tokens alone, as the reference's does.
+    The audio family raises `KeyError`: its loss needs the batch's
+    ``audio_embeds``, which the LM clients' data does not carry (the
+    reference's loss raises the same `KeyError` at its first call)."""
+    if cfg.family == "audio":
+        raise KeyError(f"audio_embeds: {cfg.name}'s loss needs audio "
+                       "frames, and the federated LM data holds tokens only")
     lm_loss = _loss_fn(cfg, remat=False)
     loss_fn = lambda p_, b: lm_loss(nest_params(p_),  # noqa: E731
                                     {"tokens": b["x"]})

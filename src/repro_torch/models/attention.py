@@ -1,9 +1,9 @@
-"""Self-attention: GQA, MLA (DeepSeek), logit softcap, sliding windows and
-ring caches.
+"""Attention: GQA, MLA (DeepSeek), cross-attention, prefix-LM masks, logit
+softcap, sliding windows and ring caches.
 
-Counterpart of `repro/models/attention.py` for the decoder stack.  Every
-layer's cache is a ring of ``C`` slots with an absolute-position array
-(``pos``, -1 empty), as in the reference, and ``slot = pos % C``.  The
+Counterpart of `repro/models/attention.py`.  Every layer's cache is a
+ring of ``C`` slots with an absolute-position array (``pos``, -1
+empty), as in the reference, and ``slot = pos % C``.  The
 cache tensors are updated in place (the reference returns new arrays),
 but for a ring's first write under `torch.func.vmap` (`_cache_update`).
 
@@ -29,11 +29,32 @@ of them:
   rolled into chronological order first.
 
 With no cache (training, and the full-sequence forward) attention is the
-reference's own jnp path instead, `_sdpa_chunked` (causal, window,
-softcap, GQA; q in chunks of ``Q_CHUNK``), written here in plain
-differentiable torch ops that `torch.func.vmap` and `grad` take: the
-reference trains through it, not through its flash kernel, and neither
-flash kernel has a backward.
+reference's own jnp path instead, `_sdpa_chunked` (causal or full,
+window, prefix, softcap, GQA; q in chunks of ``Q_CHUNK``), written here
+in plain differentiable torch ops that `torch.func.vmap` and `grad`
+take: the reference trains through it, not through its flash kernel,
+and neither flash kernel has a backward.  ``flash=True`` sends a
+no-cache product through the flash op instead (a served encoder's
+self-attention, `models/encdec.py`).
+
+``mask_kind`` is ``"causal"`` or ``"full"`` (non-causal: an encoder's
+self-attention); ``prefix_len`` makes the first positions visible to
+every query under the causal mask (PaliGemma's image prefix; the
+window still applies to them), in the flash op as in `mask_bias`.
+Cross-attention (``kv_input``, the encoder's output) is full over the
+encoder positions with no RoPE and no cache, on the plain path: the
+served decoder computes its cross K/V once and attends through the
+flash op (`models/encdec.py`).  ``attn_init(cross=True)`` gives the
+plain GQA projections, an MLA config's too.
+
+Sequence-parallel decode (``seq_parallel``) is, in the reference, a
+GSPMD sharding constraint that keeps a decode step's logits split along
+the key axis over the mesh's ``data`` axis (a distributed softmax
+instead of a gathered cache); its arithmetic is that of the unsharded
+step.  On one card there is nothing to shard, and the decode kernel
+already splits the keys over the SMs (`kernels.flash_attention.
+decode_splits`), so the flag changes nothing here: with it on, the GQA
+and MLA paths compute exactly what they compute with it off.
 
 MLA (`_mla_attention`, the deepseek-v3 config) caches the compressed
 latent, as the reference does: the ring's k holds c_kv (B, C,
@@ -54,9 +75,7 @@ Its two paths are the reference's:
   (kv_lora, 512) are past every flash kernel's 256; a latent decode
   kernel is a ROADMAP Queue 2 follow-up.  Its mask follows the flash
   contract: keys at positions 0..Sk−1, queries the last Sq of them.
-
-Cross-attention, prefix-LM masks and sequence-parallel decode are not
-ported here; they raise, naming their ROADMAP item.
+  MLA takes no prefix and no cross-attention, as in the reference.
 """
 from __future__ import annotations
 
@@ -72,7 +91,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        softcap, vmapped)
 
-LATER = "not ported yet: ROADMAP.md Queue 1 item 16b (LM path: the rest)"
 NEG_INF = -1e30
 
 
@@ -82,14 +100,8 @@ class KVCache(NamedTuple):
     pos: torch.Tensor          # (B, C) int32 absolute positions, -1 empty
 
 
-def _no_seq_parallel(cfg: ModelConfig) -> None:
-    if cfg.attn.seq_parallel:
-        raise NotImplementedError(f"sequence-parallel decode is {LATER}")
-
-
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                device: DeviceLike = "cuda") -> KVCache:
-    _no_seq_parallel(cfg)
     a, dev = cfg.attn, resolve_device(device)
     if a.mla is not None:
         k = torch.zeros((batch, cache_len, a.mla.kv_lora_rank), dtype=dtype,
@@ -110,12 +122,10 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False,
     drawn in that order, plus zero ``q_scale``/``k_scale`` with qk_norm.
     MLA: wq_a (d, q_lora), wq_b (q_lora, H, nope + rope), wkv_a (d,
     kv_lora + rope), wkv_b (kv_lora, H, nope + v), wo (H·v, d), drawn in
-    that order, and zero ``q_norm``/``kv_norm``."""
-    _no_seq_parallel(cfg)
-    if cross:
-        raise NotImplementedError(f"cross-attention is {LATER}")
+    that order, and zero ``q_norm``/``kv_norm``.  ``cross``: the GQA
+    projections, whatever the config's attention."""
     a, d, dt = cfg.attn, cfg.d_model, cfg.pdtype
-    if a.mla is not None:
+    if a.mla is not None and not cross:
         m, dev = a.mla, resolve_device(device)
         qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
         p = {"wq_a": dense_init(gen, d, m.q_lora_rank, dt, device=device),
@@ -290,44 +300,57 @@ def _keys(cache: KVCache, k: torch.Tensor, v: torch.Tensor, start: int,
 def attention(params, cfg: ModelConfig, x: torch.Tensor, start: int, *,
               cache: Optional[KVCache] = None,
               window: Optional[int] = None,
+              mask_kind: str = "causal",
               prefix_len: int = 0,
-              kv_input: Optional[torch.Tensor] = None):
-    """Causal self-attention of x (B, S, d) at positions start..start+S−1.
-    Returns (out (B, S, d), cache) with the cache updated in place; with
-    no cache, the plain `_sdpa_chunked` path (module docstring)."""
+              kv_input: Optional[torch.Tensor] = None,
+              flash: bool = False):
+    """Self- or cross-attention of x (B, S, d) at positions
+    start..start+S−1.  Returns (out (B, S, d), cache) with the cache
+    updated in place; with no cache, the plain `_sdpa_chunked` path, or
+    the flash op under ``flash``; with ``kv_input`` (B, Sk, d), full
+    attention over it on the plain path, the cache passed through
+    (module docstring)."""
     a, cd = cfg.attn, cfg.cdtype
-    _no_seq_parallel(cfg)
-    if kv_input is not None:
-        raise NotImplementedError(f"cross-attention (kv_input) is {LATER}")
-    if prefix_len:
-        raise NotImplementedError(f"prefix-LM masks (prefix_len) are {LATER}")
-    if a.mla is not None:
+    if a.mla is not None and kv_input is None:
         return _mla_attention(params, cfg, x, start, cache=cache,
                               window=window, absorb=a.mla_absorb)
     b, s, _ = x.shape
+    src = x if kv_input is None else kv_input
     q = dense_apply(params["wq"], x, cd)                     # (B,S,H,hd)
-    k = dense_apply(params["wk"], x, cd)                     # (B,S,Kh,hd)
-    v = dense_apply(params["wv"], x, cd)
+    k = dense_apply(params["wk"], src, cd)                   # (B,Sk,Kh,hd)
+    v = dense_apply(params["wv"], src, cd)
     if a.qk_norm:
         q = _rms(q, params["q_scale"])
         k = _rms(k, params["k_scale"])
-    if cfg.pos_embedding == "rope":
+    if kv_input is None and cfg.pos_embedding == "rope":
         positions = torch.arange(start, start + s, device=x.device)
         q = apply_rope(q, positions, a.rope_theta, a.rope_fraction)
         k = apply_rope(k, positions, a.rope_theta, a.rope_fraction)
-    if cache is None:
-        pos = torch.arange(start, start + s, device=x.device).expand(b, s)
-        out = _sdpa_chunked(q, k, v, pos, pos, kind="causal", window=window,
-                            prefix_len=0, cap=a.attn_logit_softcap,
-                            cdtype=cd)
+    cap = a.attn_logit_softcap
+    causal = mask_kind == "causal"
+    if kv_input is not None or (cache is None and not flash):
+        q_pos = torch.arange(start, start + s, device=x.device).expand(b, s)
+        if kv_input is None:
+            k_pos, kind, pre = q_pos, mask_kind, prefix_len
+        else:
+            sk = k.shape[1]
+            k_pos = torch.arange(sk, device=x.device).expand(b, sk)
+            kind, window, pre = "full", None, 0
+        out = _sdpa_chunked(q, k, v, q_pos, k_pos, kind=kind, window=window,
+                            prefix_len=pre, cap=cap, cdtype=cd)
         out = out.reshape(b, s, out.shape[2] * out.shape[3])
-        return dense_apply(params["wo"], out, cd), None
-    cache = _cache_update(cache, k, v, start)
-    k, v = _keys(cache, k, v, start, window)
+        return dense_apply(params["wo"], out, cd), cache
+    # the keys start at absolute position 0, but for the in-flight keys of
+    # a prefill longer than the ring (and of a no-cache call), which start
+    # at ``start``; a one-token step over a wrapped ring sees all its keys
+    first = start if cache is None or s > cache.pos.shape[1] else 0
+    if cache is not None:
+        cache = _cache_update(cache, k, v, start)
+        k, v = _keys(cache, k, v, start, window)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2).to(cd),
                               v.transpose(1, 2).to(cd),
-                              causal=True, window=window,
-                              softcap=a.attn_logit_softcap)
+                              causal=causal, window=window, softcap=cap,
+                              prefix_len=max(0, prefix_len - first))
     out = out.transpose(1, 2).reshape(b, s, -1)
     return dense_apply(params["wo"], out, cd), cache
 

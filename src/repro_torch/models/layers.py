@@ -1,5 +1,5 @@
 """Building blocks of the LM path: dense layers, norms, activations, MLPs,
-embeddings, RoPE and the logit softcap.
+embeddings, sinusoidal positions, RoPE and the logit softcap.
 
 Counterpart of `repro/models/layers.py`, over the same parameter dicts and
 layouts: a dense weight is ``(d_in, *d_out)`` and contracts x's last dim.
@@ -127,6 +127,18 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor,
                      cdtype) -> torch.Tensor:
     return table[tokens].to(cdtype)
+
+
+def sinusoidal_positions(n_ctx: int, dim: int,
+                         device: DeviceLike = "cpu") -> torch.Tensor:
+    """(n_ctx, dim) f32 sinusoids: angle pos / 10000^(2i / dim) for i <
+    dim / 2, the sines then the cosines (not interleaved), as the
+    reference's."""
+    dev = resolve_device(device)
+    pos = torch.arange(n_ctx, dtype=torch.float32, device=dev)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=dev)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,

@@ -104,11 +104,12 @@ def forward_hidden(params: Dict[str, Any], cfg: ModelConfig,
         raise NotImplementedError(f"remat is {ITEM_18}")
     check_family(cfg)
     n_pre, period, groups = layer_grouping(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    x, prefix_len = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.get("prefix_layers", [])):
         x, aux, _ = _block_apply(lp, cfg, i, x, 0,
-                                 shared=params.get("shared_attn"))
+                                 shared=params.get("shared_attn"),
+                                 prefix_len=prefix_len)
         aux_total = add_aux(aux_total, aux)
     slots = params["scan_layers"]
     for g in range(groups):
@@ -116,7 +117,8 @@ def forward_hidden(params: Dict[str, Any], cfg: ModelConfig,
             # the slot's representative index, as the scan body's
             x, aux, _ = _block_apply(_map(lambda leaf: leaf[g], slots[j]),
                                      cfg, n_pre + j, x, 0,
-                                     shared=params.get("shared_attn"))
+                                     shared=params.get("shared_attn"),
+                                     prefix_len=prefix_len)
             aux_total = add_aux(aux_total, aux)
     return x, aux_total
 

@@ -1,16 +1,19 @@
-"""Decoder stack of the dense, MoE, SSM and hybrid families: init, caches,
-forward, prefill and decode.
+"""Decoder stack of the dense, MoE, SSM, hybrid and vlm families: init,
+caches, forward, prefill and decode; the audio family (whisper's
+encoder-decoder) dispatches to `models/encdec.py`.
 
-Counterpart of `repro/models/transformer.py` for those families, in its
-loop form (the reference's `models/scan.py` is numerically the loop's;
+Counterpart of `repro/models/transformer.py`, in its loop form (the
+reference's `models/scan.py` is numerically the loop's;
 `convert.lm_params_from_numpy` unstacks its params):
 
     params          = init_params(gen, cfg, device=...)
     logits, aux     = forward(params, cfg, batch)
     loss, metrics   = loss_fn(params, cfg, batch)
-    caches          = make_caches(cfg, batch, cache_len, dtype, device=...)
-    logits, caches  = prefill(params, cfg, batch, caches)
-    logits, caches  = decode_step(params, cfg, token, caches, pos)
+    caches          = make_caches(cfg, batch, cache_len, dtype, device=...,
+                                  long_context=False)
+    logits, caches  = prefill(params, cfg, batch, caches, long_context=...)
+    logits, caches  = decode_step(params, cfg, token, caches, pos,
+                                  long_context=...)
 
 Params are the reference's dict: ``embed`` (V, d), ``layers`` (a list of
 ``norm1``/``attn``/``norm2`` dicts with an ``mlp``, or a ``moe``
@@ -24,8 +27,21 @@ the ssm family's every layer, the hybrid's all but every ``attn_every``-th)
 holds ``norm1`` and ``ssm`` (`models/ssm.py`) and caches an `SSMCache`;
 a hybrid's attention layer holds ``norm1`` and ``norm2`` only, its
 attention and MLP weights living once in ``params["shared_attn"]``, which
-every such layer runs.  vlm and audio raise, as does the reference's
-``long_context`` serving mode (ROADMAP.md Queue 1 item 16b).
+every such layer runs.  A vlm config (paligemma-3b) adds ``vision_proj``
+(embed_dim, d): a batch's ``vision_embeds`` (B, n_vision, embed_dim) are
+projected in the compute dtype (not scaled by √d) and put before the
+scaled text embedding, and that prefix is bidirectional under the
+causal mask (``prefix_len``, in the flash op's kernels too); the text
+positions follow it, so a decode step after a P-token prompt with an
+image runs at position n_vision + P.  A learned-positions config adds
+``pos_emb`` (max_seq_len, d).
+
+``long_context`` is the reference's long_500k serving mode: every
+attention layer's window is narrowed to ``attn.long_context_window``
+(a global layer's from none), and `make_caches` bounds its ring to it,
+so decode runs over rings that wrap.  For the audio family, as in the
+reference, only the ring length follows it: `prefill` and `decode_step`
+do not pass it on to `encdec.py`.
 
 The training path (`forward_hidden`, `chunked_ce`, `loss_fn`) runs no
 cache, so its attention is the plain `attention._sdpa_chunked` and every
@@ -43,8 +59,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models.attention import (LATER, KVCache, attn_init,
-                                          attention, init_cache)
+from repro_torch.models.attention import (KVCache, attn_init, attention,
+                                          init_cache)
 from repro_torch.models.layers import (dense_apply, dense_init,
                                        embedding_init, embedding_lookup,
                                        mlp_apply, mlp_init, norm_apply,
@@ -54,12 +70,16 @@ from repro_torch.models.ssm import (SSMCache, init_ssm_cache, ssm_apply,
                                     ssm_init)
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for what this stack does not run yet (ROADMAP item 16b)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family} family is {LATER}")
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.pos_embedding} positions are {LATER}")
+    """Raise for a family or position scheme no reference config has."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; known: "
+                         f"{FAMILIES}")
+    if cfg.pos_embedding not in ("rope", "none", "learned"):
+        raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +113,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Random params in ``cfg.pdtype`` (an SSM layer's A_log, D and
     dt_bias in f32) from ``gen`` (a generator on ``device``): embedding,
-    then each layer, then the untied head, then a hybrid's shared
-    attention block."""
+    then each layer, then the untied head, a hybrid's shared attention
+    block, a vlm's ``vision_proj`` and learned positions' ``pos_emb``.
+    The audio family: `encdec.encdec_init`."""
     check_family(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_init
+        return encdec_init(gen, cfg, device)
     p: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype,
                                 device),
@@ -111,6 +135,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
             "attn": attn_init(gen, cfg, device=device),
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                             cfg.pdtype, device)}
+    if cfg.family == "vlm":
+        p["vision_proj"] = dense_init(gen, cfg.vision.embed_dim,
+                                      cfg.d_model, cfg.pdtype, device=device)
+    if cfg.pos_embedding == "learned":
+        p["pos_emb"] = embedding_init(gen, cfg.max_seq_len, cfg.d_model,
+                                      cfg.pdtype, device)
     return p
 
 
@@ -118,32 +148,53 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 # caches and blocks
 
 
+def _window(cfg: ModelConfig, i: int, long_context: bool) -> Optional[int]:
+    """Layer i's attention window, narrowed to ``long_context_window``
+    under ``long_context``."""
+    w = cfg.attn_window(i)
+    if long_context:
+        lc = cfg.attn.long_context_window
+        w = min(w, lc) if w else lc
+    return w
+
+
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
-                device: DeviceLike = "cuda") -> List[Union[KVCache, SSMCache]]:
+                long_context: bool = False, device: DeviceLike = "cuda"
+                ) -> List[Any]:
     """One cache per layer: an attention layer's ring (an MLA layer's
     holds the compressed latent; a windowed layer's ring is min(cache_len,
-    window) long), an SSM layer's `SSMCache` (conv carry and state)."""
+    window) long, every layer's under ``long_context``), an SSM layer's
+    `SSMCache` (conv carry and state); the audio family's
+    `encdec.encdec_make_caches`, its rings min(cache_len,
+    long_context_window) long under ``long_context``."""
     check_family(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_make_caches
+        w = cfg.attn.long_context_window if long_context else cache_len
+        return encdec_make_caches(cfg, batch, min(cache_len, w), dtype,
+                                  device)
     caches: List[Union[KVCache, SSMCache]] = []
     for i in range(cfg.n_layers):
         if cfg.layer_kind(i) == "ssm":
             caches.append(init_ssm_cache(cfg, batch, dtype, device))
             continue
-        w = cfg.attn_window(i)
+        w = _window(cfg, i, long_context)
         clen = min(cache_len, w) if w is not None else cache_len
         caches.append(init_cache(cfg, batch, clen, dtype, device))
     return caches
 
 
 def _block_apply(params, cfg: ModelConfig, i: int, x: torch.Tensor,
-                 start: int, *, cache=None, shared=None, decode: bool = False
+                 start: int, *, cache=None, shared=None, decode: bool = False,
+                 prefix_len: int = 0, long_context: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
     """Pre-norm residual block.  Returns (x, aux, cache): aux the MoE
     layer's load-balance loss, None on a dense or SSM layer (the
     reference's zero).  ``shared`` is a hybrid's shared attention block
     (``params["shared_attn"]``: its ``attn`` and ``mlp``), which an
     attention layer runs in place of its own; ``decode`` sends an SSM
-    layer down its one-token state update."""
+    layer down its one-token state update; ``prefix_len`` and
+    ``long_context`` as in the module docstring."""
     cd = cfg.cdtype
     h = norm_apply(cfg.norm, params["norm1"], x, cd)
     if cfg.layer_kind(i) == "ssm":
@@ -151,7 +202,8 @@ def _block_apply(params, cfg: ModelConfig, i: int, x: torch.Tensor,
         return x + y, None, cache
     blk = shared if shared is not None else params
     y, cache = attention(blk["attn"], cfg, h, start, cache=cache,
-                         window=cfg.attn_window(i))
+                         window=_window(cfg, i, long_context),
+                         prefix_len=prefix_len)
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x, cd)
     if "moe" in params:
@@ -167,15 +219,27 @@ def add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]
     return total if aux is None else total + aux
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-                  ) -> torch.Tensor:
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  start: int = 0) -> Tuple[torch.Tensor, int]:
     """Token embedding, times sqrt(d_model) rounded to the compute dtype
-    where the config asks for it."""
+    where the config asks for it; a vlm batch's ``vision_embeds``
+    projected (not scaled) and put before it; learned positions from
+    ``start``.  Returns (x, prefix_len), prefix_len the vision tokens'
+    count (0 without them)."""
     cd = cfg.cdtype
     x = embedding_lookup(params["embed"], batch["tokens"], cd)
     if cfg.emb_scale_by_sqrt_dim:
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cd))
-    return x
+    prefix_len = 0
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        v = dense_apply(params["vision_proj"],
+                        batch["vision_embeds"].to(cd), cd)
+        x = torch.cat([v, x], dim=1)
+        prefix_len = v.shape[1]
+    if cfg.pos_embedding == "learned":
+        pos = torch.arange(start, start + x.shape[1], device=x.device)
+        x = x + params["pos_emb"][pos].to(cd)
+    return x, prefix_len
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor,
@@ -244,11 +308,12 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     and unembed.  Returns (hidden, aux), aux the MoE layers' summed
     load-balance loss (a zero in the dense family)."""
     check_family(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    x, prefix_len = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         x, aux, _ = _block_apply(lp, cfg, i, x, 0,
-                                 shared=params.get("shared_attn"))
+                                 shared=params.get("shared_attn"),
+                                 prefix_len=prefix_len)
         aux_total = add_aux(aux_total, aux)
     return x, aux_total
 
@@ -270,8 +335,12 @@ def _ce_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (+ aux).  Returns (loss, {"ce", "aux",
-    "loss"})."""
+    """Next-token cross-entropy (+ aux) over the text tokens.  Returns
+    (loss, {"ce", "aux", "loss"}); the audio family's is
+    `encdec.encdec_loss_fn`."""
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_loss_fn
+        return encdec_loss_fn(params, cfg, batch)
     hidden, aux = forward_hidden(params, cfg, batch)
     ce = _ce_from_hidden(params, cfg, hidden, batch["tokens"])
     loss = ce + aux
@@ -279,15 +348,21 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            caches: List[Union[KVCache, SSMCache]]):
-    """Run a prompt from position 0, filling the caches (the rings in
-    place, an SSM layer's cache replaced in the list).  Returns
-    (last-position logits (B, 1, V) f32, caches)."""
+            caches: List[Any], *, long_context: bool = False):
+    """Run a prompt from position 0 (a vlm batch's image prefix first),
+    filling the caches (the rings in place, an SSM layer's cache replaced
+    in the list).  Returns (last-position logits (B, 1, V) f32,
+    caches)."""
     check_family(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_prefill
+        return encdec_prefill(params, cfg, batch, caches)
+    x, prefix_len = _embed_inputs(params, cfg, batch)
     for i, lp in enumerate(params["layers"]):
         x, _, caches[i] = _block_apply(lp, cfg, i, x, 0, cache=caches[i],
-                                       shared=params.get("shared_attn"))
+                                       shared=params.get("shared_attn"),
+                                       prefix_len=prefix_len,
+                                       long_context=long_context)
     return _unembed(params, cfg, x[:, -1:]), caches
 
 
@@ -303,16 +378,20 @@ def lockstep_position(pos: Union[int, torch.Tensor]) -> int:
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
-                caches: List[Union[KVCache, SSMCache]],
-                pos: Union[int, torch.Tensor]):
+                caches: List[Any], pos: Union[int, torch.Tensor], *,
+                long_context: bool = False):
     """One decode step.  token (B, 1); pos the lockstep position (an int,
     or a (B,) tensor of equal entries).  Returns (logits (B, 1, V) f32,
     caches)."""
     check_family(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_decode_step
+        return encdec_decode_step(params, cfg, token, caches, pos)
     p = lockstep_position(pos)
-    x = _embed_inputs(params, cfg, {"tokens": token})
+    x, _ = _embed_inputs(params, cfg, {"tokens": token}, p)
     for i, lp in enumerate(params["layers"]):
         x, _, caches[i] = _block_apply(lp, cfg, i, x, p, cache=caches[i],
                                        shared=params.get("shared_attn"),
-                                       decode=True)
+                                       decode=True,
+                                       long_context=long_context)
     return _unembed(params, cfg, x), caches

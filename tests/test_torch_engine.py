@@ -248,11 +248,17 @@ def test_entry_points_refuse_what_this_slice_lacks():
     assert h.comm == [(1, 0)] and np.isfinite(h.mean_acc).all()
     with pytest.raises(ValueError, match="unknown mixing schedule"):
         MeshShardMap(schedule="ring", device="cpu")
-    # --federated is ported (tests/test_torch_serve_lm.py); the serving
-    # entry point still refuses the families item 16b has not ported
-    with pytest.raises(NotImplementedError, match="item 16b") as err:
-        serve_cli.main(["--federated", "--device", "cpu", "--arch",
-                        "whisper-tiny"])
+    # --federated is ported (tests/test_torch_serve_lm.py) for every
+    # family; on whisper both CLIs refuse with the same `KeyError`: its
+    # loss needs audio frames, and the LM clients hold tokens only
+    from repro.launch import serve as j_serve_cli
+    small = ["--federated", "--arch", "whisper-tiny", "--rounds", "1",
+             "--clients", "2", "--pool", "5", "--requests", "1",
+             "--tokens", "2", "--prompt-len", "8"]
+    with pytest.raises(KeyError, match="audio_embeds"):
+        j_serve_cli.main(small)
+    with pytest.raises(KeyError, match="audio_embeds") as err:
+        serve_cli.main(small + ["--device", "cpu"])
     assert "item 15" not in str(err.value)
 
 

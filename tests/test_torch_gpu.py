@@ -1651,6 +1651,31 @@ def test_paged_prefetch_on_equals_off_on_card(schedule):
 
 
 @pytest.mark.gpu
+def test_paged_peak_memory_is_the_same_each_run():
+    """The peak of the bytes a paged sweep's tensors ask for (prefetch
+    on, cohorts of 20 over 200 and 240 clients: every step a new cohort
+    past the setup cache) is the same in every run and at both sizes:
+    the copy legs free each block where the program drops it, not when
+    a stream gets past it."""
+    import gc
+    _require_cuda()
+    from repro_torch.fl import PagingConfig, run_federated, sub_federated
+    fed = _pg_fed(240)
+    kw = {**_pg_kw(fed, "qsgd:8", rounds=12), "keep_state": False}
+    run_federated("ucfl_k4", fed, **kw, paging=PagingConfig(cohort=20))
+    peaks = []
+    for m in (200, 240, 200):
+        f = fed if m == fed.m else sub_federated(fed, np.arange(m))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_federated("ucfl_k4", f, **kw, paging=PagingConfig(cohort=20))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.memory_stats()["requested_bytes.all.peak"])
+    assert len(set(peaks)) == 1, peaks
+
+
+@pytest.mark.gpu
 def test_paged_pending_rows_survive_the_next_replay(tmp_path):
     """Every store row after a 4-chunk disjoint sweep, with prefetch on
     and off, against the same sweep run one chunk an invocation (resumed
@@ -2284,3 +2309,71 @@ def test_vmapped_flash_op_dv_bitwise_per_user_on_card(sq, sk):
                                                    128)]: 1}
     for i in range(3):
         assert torch.equal(got[i], ops.flash_attention(q[i], k[i], v[i]))
+
+
+# prefix-LM masks: under ``causal`` the first ``prefix_len`` keys are
+# visible to every query (PaliGemma's bidirectional image prefix), the
+# window still applying to them
+
+
+def _fails_without_prefix(kernel, q, k, v, want, **kw):
+    """A planted fault: the kernel run with no prefix, where the plain
+    version has one, must fail `_flash_close`'s elementwise test: a row
+    inside the prefix does see the later prefix keys."""
+    bad = kernel(q, k, v, **dict(kw, prefix_len=0)).float()
+    w = want.float()
+    tol = FLASH_TOL[want.dtype]
+    assert not bool(torch.all((bad - w).abs() <= tol + tol * w.abs()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype,hd,sq,sk", [
+    ("tc", torch.bfloat16, 64, 64, 64),
+    ("tc", torch.bfloat16, 64, 256, 256),
+    ("tc", torch.bfloat16, 256, 256, 256),
+    ("tc", torch.bfloat16, 128, 130, 333),
+    ("cuda_core", torch.float32, 64, 256, 256),
+    ("cuda_core", torch.float32, 80, 130, 333),
+    ("decode", torch.float32, 64, 16, 16),
+    ("decode", torch.bfloat16, 64, 16, 16),
+    ("decode", torch.bfloat16, 256, 3, 70),
+])
+@pytest.mark.parametrize("prefix", [8, 100, 256, 400])
+def test_flash_kernels_prefix_mask(route, dtype, hd, sq, sk, prefix):
+    """Each kernel under a prefix (through the op on its route, and its
+    own wrapper), with and without a window and a softcap, at prefixes
+    inside one tile, across tiles, over all keys and past Sk; against
+    the plain version, and failing it when run without the prefix."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(hd + sq + prefix)
+    q, k, v = _qkv(gen, 2, 8, 2, sq, sk, hd, dtype, cache_len=sk + 7)
+    kernel = {"tc": flash_attention_tc_cuda, "cuda_core":
+              flash_attention_cuda, "decode": flash_decode_cuda}[route]
+    assert flash_route(dtype, sq, hd) == route
+    for kw in (dict(causal=True, prefix_len=prefix),
+               dict(causal=True, prefix_len=prefix, window=48,
+                    softcap=30.0)):
+        want = _flash_check(q, k, v, **kw)
+        _flash_close(kernel(q, k, v, **kw), want)
+        if "window" not in kw and sk - sq < min(prefix, sk) - 1:
+            _fails_without_prefix(kernel, q, k, v, want, **kw)
+    assert torch.equal(kernel(q, k, v, causal=True, prefix_len=0),
+                       kernel(q, k, v, causal=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype,hd,sq,sk", [
+    ("tc", torch.bfloat16, 64, 2048, 1500),
+    ("cuda_core", torch.float32, 64, 2048, 1500),
+    ("decode", torch.float32, 64, 16, 5),
+])
+def test_flash_kernels_noncausal_more_queries_than_keys(route, dtype, hd,
+                                                        sq, sk):
+    """Non-causal with Sq > Sk (the offset Sk − Sq is negative): every
+    query sees every key, with and without a window."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(sq)
+    q, k, v = _qkv(gen, 2, 6, 6, sq, sk, hd, dtype)
+    assert flash_route(dtype, sq, hd) == route
+    for kw in (dict(causal=False), dict(causal=False, window=1000)):
+        _flash_check(q, k, v, **kw)

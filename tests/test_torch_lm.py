@@ -65,18 +65,15 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_refuses_other_families():
-    for arch in ("whisper-tiny", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            configs.get_config(arch)
-    assert sorted(configs.registry.NOT_PORTED) == ["paligemma-3b",
-                                                   "whisper-tiny"]
+    """Every architecture of the reference's registry is ported: its
+    config and smoke config are the reference's, and ``NOT_PORTED`` is
+    empty; an unknown id still raises `KeyError`."""
+    from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
+    assert configs.registry.NOT_PORTED == {}
+    assert sorted(configs.ARCH_IDS) == sorted(J_ARCH_IDS)
     with pytest.raises(KeyError):
         configs.get_config("nope")
-    # deepseek-v3 (MLA), the SSM and hybrid families and nemotron are
-    # ported: their configs are the reference's
-    for arch in ("deepseek-v3-671b", "mamba2-780m", "zamba2-2.7b",
-                 "nemotron-4-340b"):
-        assert arch not in configs.registry.NOT_PORTED
+    for arch in J_ARCH_IDS:
         for got, want in ((configs.get_config(arch), jget_config(arch)),
                           (configs.get_smoke_config(arch),
                            jget_smoke_config(arch))):
@@ -177,43 +174,61 @@ def test_attention_with_cache_matches_reference(cache_len, window, prompt,
 
 
 def test_attention_refuses_what_this_slice_lacks():
+    """A ring still refuses a multi-token write that would wrap it; cross
+    attention (``kv_input``), prefix-LM masks (``prefix_len``) and
+    sequence-parallel decode (``seq_parallel``) run (tests/
+    test_torch_encdec.py and test_torch_vlm.py hold them to the
+    reference): a prefix changes the rows it makes bidirectional, and
+    ``seq_parallel`` changes no bit."""
     _, pcfg = _attn_cfg()
     gen = torch.Generator().manual_seed(0)
     p = attention.attn_init(gen, pcfg, device="cpu")
-    x = torch.zeros((1, 3, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        attention.attention(p, pcfg, x, 0, kv_input=x)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        attention.attention(p, pcfg, x, 0, prefix_len=2)
-    mla = dataclasses.replace(pcfg, attn=dataclasses.replace(
-        pcfg.attn, mla=configs.base.MLAConfig(
-            q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
-            qk_rope_head_dim=8, v_head_dim=8)))
+    x = torch.randn((1, 3, pcfg.d_model), generator=gen)
     c = attention.init_cache(pcfg, 1, 8, torch.float32, "cpu")
     with pytest.raises(ValueError, match="wrap"):
-        attention.attention(p, pcfg, x, 6, cache=c)
+        attention.attention(p, pcfg, torch.zeros((1, 3, pcfg.d_model)), 6,
+                            cache=c)
+    out, kept = attention.attention(p, pcfg, x, 0, kv_input=x[:, :2])
+    assert out.shape == x.shape and kept is None
+    causal, _ = attention.attention(p, pcfg, x, 0)
+    prefix, _ = attention.attention(p, pcfg, x, 0, prefix_len=2)
+    assert not torch.allclose(prefix[:, 0], causal[:, 0])
+    torch.testing.assert_close(prefix[:, 2], causal[:, 2])
+    cached, _ = attention.attention(
+        p, pcfg, x, 0, prefix_len=2,
+        cache=attention.init_cache(pcfg, 1, 8, torch.float32, "cpu"))
+    torch.testing.assert_close(cached, prefix)
     # MLA, the deepseek-v3 config's attention, inits, makes its latent
     # rings and runs (tests/test_torch_mla.py holds it to the reference);
-    # sequence-parallel decode still raises
+    # with sequence-parallel decode on, the GQA and MLA stacks give the
+    # bits they give with it off
+    mla = configs.base.MLAConfig(q_lora_rank=16, kv_lora_rank=16,
+                                 qk_nope_head_dim=8, qk_rope_head_dim=8,
+                                 v_head_dim=8)
     mla_moe = dataclasses.replace(configs.get_smoke_config("olmoe-1b-7b"),
-                                  attn=mla.attn)
-    params = T.init_params(gen, mla_moe, device="cpu")
-    assert "wkv_b" in params["layers"][0]["attn"]
-    caches = T.make_caches(mla_moe, 1, 8, torch.float32, device="cpu")
-    assert caches[0].k.shape == (1, 8, 16) and caches[0].v.shape == (1, 8, 8)
-    logits, _ = T.prefill(params, mla_moe,
-                          {"tokens": torch.zeros((1, 3), dtype=torch.long)},
-                          caches)
-    assert logits.shape == (1, 1, mla_moe.vocab_size)
-    assert bool(torch.isfinite(logits).all())
-    sp = dataclasses.replace(mla_moe, attn=dataclasses.replace(
-        mla.attn, seq_parallel=True))
-    for fn in (lambda c: T.init_params(gen, c, device="cpu"),
-               lambda c: T.make_caches(c, 1, 8, torch.float32,
-                                       device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="sequence-parallel.*item 16b"):
-            fn(sp)
+                                  attn=dataclasses.replace(pcfg.attn,
+                                                           mla=mla))
+    for base in (pcfg, mla_moe):
+        params = T.init_params(gen, base, device="cpu")
+        if base is mla_moe:
+            assert "wkv_b" in params["layers"][0]["attn"]
+        runs = []
+        for sp in (False, True):
+            cfg = dataclasses.replace(base, attn=dataclasses.replace(
+                base.attn, seq_parallel=sp))
+            caches = T.make_caches(cfg, 1, 8, torch.float32, device="cpu")
+            if base is mla_moe:
+                assert caches[0].k.shape == (1, 8, 16)
+                assert caches[0].v.shape == (1, 8, 8)
+            logits, caches = T.prefill(params, cfg, {"tokens": torch.zeros(
+                (1, 3), dtype=torch.long)}, caches)
+            assert logits.shape == (1, 1, cfg.vocab_size)
+            assert bool(torch.isfinite(logits).all())
+            step, _ = T.decode_step(params, cfg, torch.ones(
+                (1, 1), dtype=torch.long), caches, 3)
+            runs.append((logits, step))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -147,14 +147,28 @@ def test_mla_attention_matches_reference(absorb, cache_len, prompt, steps):
 
 
 def test_mla_refuses_sequence_parallel_decode():
-    _, pcfg = _cfgs()
-    sp = dataclasses.replace(pcfg, attn=dataclasses.replace(
-        pcfg.attn, seq_parallel=True))
-    for fn in (lambda: attention.init_cache(sp, 1, 8, torch.float32, "cpu"),
-               lambda: attention.attn_init(torch.Generator(), sp,
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            fn()
+    """Sequence-parallel decode runs on MLA: on one card it computes what
+    the flag off computes (`models/attention.py`), on both paths, a
+    prefill and decode steps over a latent ring, bitwise."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 9, TINY["d_model"])
+                                             ).astype(np.float32))
+    for absorb in (False, True):
+        _, pcfg = _cfgs(absorb)
+        p = attention.attn_init(torch.Generator().manual_seed(1), pcfg,
+                                device="cpu")
+        outs = []
+        for sp in (False, True):
+            cfg = dataclasses.replace(pcfg, attn=dataclasses.replace(
+                pcfg.attn, seq_parallel=sp))
+            c = attention.init_cache(cfg, 2, 12, torch.float32, "cpu")
+            got = [attention.attention(p, cfg, x[:, :6], 0, cache=c)[0]]
+            for i in range(6, 9):
+                got.append(attention.attention(p, cfg, x[:, i:i + 1], i,
+                                               cache=c)[0])
+            outs.append(got + [c.k, c.v])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -268,6 +268,34 @@ Phases (any failure raises and the script exits non-zero):
                 every flush: req/s, batch p50/max, peak MiB, launches;
                 a batch's gather, prefill and decode steps timed apart
                 (prefill ms, decode tok/s) and a batch traced.
+ 13. steps    — the mesh case builders (`launch/steps.py`), run second in a
+                process of its own (``--steps``): (a) gemma2-27b at its
+                published widths, bf16, depth 46 -> 4 (two groups of the
+                (local, global) pattern): `build_prefill_case`'s function
+                at prefill_32k cut to B 2 (the scanned `prefill`), then 16
+                steps of `build_decode_case`'s (the scanned `decode_step`)
+                on its caches, and long_500k (B 1, a 32,768-token prompt
+                into the rings, 16 steps), each held against the unrolled
+                `transformer.prefill` / `decode_step` on the same params
+                (tokens equal, logits bitwise or within [agree]'s 1e-4):
+                prefill ms, ms a step, peak MiB, and 4 tensor-core flash
+                launches a prefill and 4 decode calls a step; the smoke
+                stacks of mamba2-780m, zamba2-2.7b, deepseek-v3-671b and
+                paligemma-3b at 4 layers through the scanned prefill and 8
+                steps on the card against the CPU; (b) `build_train_case`'s
+                step at stablelm-3b's published widths on
+                `make_host_mesh()` (m = 1), train_4k cut to 2 x 4,096: at
+                depth 4 remat on at microbatch 1 and 2 and remat off at
+                microbatch 2 (loss bitwise across remat, params within
+                1e-5; microbatch 2 against 1 at rtol 2e-4), then uncut
+                (32 layers) with remat: step s, peak MiB, one
+                row-1 launch a step; (c) `launch.dryrun --all` on
+                `make_card_mesh()`, split over four processes
+                (``--shard``) beside (a) and (b): a line a case (roofline
+                terms, bottleneck, peak, fits), and the planner's FLOPs
+                and peak beside (a)'s and (b)'s measurements, with its
+                verdict on the runs not made (depth 4 without remat at
+                microbatch 1, uncut without remat).
 Phase 3 also holds the three flash-attention kernels at the [lm] shapes
 and on ragged shapes, at two logit scales, one past the softcaps (where
 the kernel run without its softcap must fail the check), the decode
@@ -291,6 +319,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -328,12 +358,15 @@ from repro_torch.kernels.topk_threshold import (  # noqa: E402
     row_path, topk_threshold_cuda)
 from repro_torch.launch.serve import (build_decode_one,  # noqa: E402
                                       generate, smoke_embeds, user_prompts)
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# the H100 SXM datasheet's HBM3 rate and dense peaks (launch/mesh.py)
+HBM_BYTES_PER_S = HBM_BW
+FP32_FLOP_PER_S = PEAK_FLOPS_F32
+BF16_FLOP_PER_S = PEAK_FLOPS_BF16
 D_LENET = 47571                # LeNet-5 on 28x28x1 with 47 classes
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 MAIN = dict(n=10000, m=20, rounds=20, local_steps=10, batch_size=64,
@@ -914,18 +947,6 @@ def check_channel_kernels(gen) -> list:
     return rows
 
 
-def attn_pairs(sq: int, sk: int, causal: bool, window, prefix: int = 0
-               ) -> int:
-    """(query, key) pairs the mask keeps, q aligned to the end of k (a
-    causal mask's first ``prefix`` keys seen by every query)."""
-    q_pos = torch.arange(sq, dtype=torch.int64) + (sk - sq)
-    hi = torch.clamp(torch.clamp(q_pos, min=prefix - 1), max=sk - 1) \
-        if causal else torch.full_like(q_pos, sk - 1)
-    lo = torch.clamp(q_pos - window + 1, min=0) if window else \
-        torch.zeros_like(q_pos)
-    return int(torch.clamp(hi - lo + 1, min=0).sum())
-
-
 def flash_inputs(gen, b, h, kh, sq, sk, hd, dtype, cache_len=None,
                  logit_std=LOGIT_STD, dv=None):
     """q as the model hands it over, (B, Sq, H, hd) transposed; k, v the
@@ -953,10 +974,9 @@ def flash_bound(q, k, kw, v=None):
     n_v = k.numel() if v is None else v.numel()
     n_bytes = (q.numel() + k.numel() + n_v + q.numel() // hd * dv) * \
         q.element_size()
-    flops = 2.0 * (hd + dv) * b * h * attn_pairs(sq, k.shape[2],
-                                                 kw["causal"],
-                                                 kw.get("window"),
-                                                 kw.get("prefix_len", 0))
+    flops = 2.0 * (hd + dv) * b * h * ops.attn_pairs(
+        sq, k.shape[2], kw["causal"], kw.get("window"),
+        kw.get("prefix_len", 0))
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return (*bound_ms(n_bytes, flops, peak), flops)
 
@@ -4931,6 +4951,428 @@ def train_serve(h, cfg) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: [steps] the mesh case builders (launch/steps.py) on the scanned
+# serving path, remat, and the planner (launch/dryrun.py)
+#
+# (a) gemma2-27b at its published widths (src/repro_torch/configs/
+# gemma2_27b.py: d_model 4,608, 32 / 16 heads of 128, window 4,096,
+# softcaps 50 / 30, bf16), random weights from a seed, depth 46 -> 4 (two
+# groups of the (local, global) pattern): prefill_32k cut to B 2, then
+# decode_32k's step on its caches; long_500k (B 1, a 32,768-token prompt
+# into rings of long_context_window), then its steps.  (b) stablelm-3b at
+# its published widths, train_4k cut to a global batch of 2 x 4,096 on
+# make_host_mesh() (m = 1 client): (depth, remat, microbatch) below.  At
+# depth 4 the run with remat off at microbatch 1 is not run: the planner
+# puts it at 83,164 MiB, past the card, so remat on and off meet at
+# microbatch 2 (48,478 MiB planned) and the planner's verdict stands for
+# the other.
+STEPS_GEMMA_LAYERS = 4
+STEPS_PROMPT = 32768
+STEPS_DECODE = 16
+STEPS_TRAIN = ((4, True, 1), (4, True, 2), (4, False, 2), (32, True, 1))
+# (a)'s scan layouts on the card against the CPU: period 1 SSM caches, a
+# shared attention slot, dense prefix layers, an image prefix
+STEPS_LAYOUTS = ("mamba2-780m", "zamba2-2.7b", "deepseek-v3-671b",
+                 "paligemma-3b")
+STEPS_MARK = "[steps] launches: "
+# (c): `dryrun --all` split over this many processes (`--shard`)
+STEPS_PLAN_PROCS = 4
+
+
+def _flash_now() -> dict:
+    return {c: ops.LAUNCHES[c] for c in ops.FLASH_COUNTERS.values()}
+
+
+def _flash_since(before: dict) -> dict:
+    return {c: ops.LAUNCHES[c] - n for c, n in before.items()}
+
+
+def _agree(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want|, held to [agree]'s 1e-4 + 1e-4·|want|."""
+    d = (got.float().cpu() - want.float().cpu()).abs()
+    if not bool(torch.all(d <= 1e-4 + 1e-4 * want.float().cpu().abs())):
+        raise AssertionError(f"{label}: logits differ by {float(d.max()):.3e}")
+    return float(d.max())
+
+
+def steps_serve(card: str) -> dict:
+    """(a): gemma2-27b's scanned prefill and decode steps through
+    `build_prefill_case` / `build_decode_case`'s functions, each held
+    against the unrolled `transformer.prefill` / `decode_step` on the same
+    params (the stack's views): tokens equal, logits bitwise or within
+    [agree]'s tolerance.  Returns each shape's measurements."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import scan as scan_mod
+    cfg = dataclasses.replace(get_config("gemma2-27b"),
+                              n_layers=STEPS_GEMMA_LAYERS)
+    mesh = make_host_mesh()
+    params = S.init_model_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    loop = scan_mod.unstack_layer_params(params, cfg)
+    n_params = sum(t.numel() for t in scan_mod.flat_params(params).values())
+    n_attn = n_attn_layers(cfg)
+    out = {}
+    shapes = (
+        ("prefill_32k", dataclasses.replace(S.INPUT_SHAPES["prefill_32k"],
+                                            global_batch=2),
+         dataclasses.replace(S.INPUT_SHAPES["decode_32k"], global_batch=2)),
+        ("long_500k", S.INPUT_SHAPES["long_500k"],
+         S.INPUT_SHAPES["long_500k"]))
+    for label, pshape, dshape in shapes:
+        lc = pshape.long_context
+        pre = S.build_prefill_case(cfg, mesh, pshape).fn
+        dec = S.build_decode_case(cfg, mesh, dshape).fn
+        b = pshape.global_batch
+        tokens = torch.randint(0, cfg.vocab_size, (b, STEPS_PROMPT),
+                               dtype=torch.int32, device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(1))
+        # warm: a short prompt and one step (kernel loads, cuBLAS handles)
+        _, wc = pre(params, {"tokens": tokens[:, :1024]})
+        dec(params, wc, tokens[:, :1], 1024)
+        del wc
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        f0 = _flash_now()
+        t0 = time.perf_counter()
+        logits, caches = pre(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        f_pre = _flash_since(f0)
+        scanned = [logits]
+        tok = logits.argmax(-1).to(torch.int32)
+        step_ms = []
+        f1 = _flash_now()
+        for i in range(STEPS_DECODE):
+            t0 = time.perf_counter()
+            logits, caches = dec(params, caches, tok, STEPS_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            scanned.append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+        f_dec = _flash_since(f1)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rings = sorted({c.k.shape[2] for c in caches["scan"]})
+        del caches
+        want_pre = {"flash_attention_tc": n_attn, "flash_attention": 0,
+                    "flash_attention_decode": 0}
+        want_dec = {"flash_attention_tc": 0, "flash_attention": 0,
+                    "flash_attention_decode": n_attn * STEPS_DECODE}
+        if f_pre != want_pre or f_dec != want_dec:
+            raise AssertionError(f"[steps] (a) {label}: flash launches "
+                                 f"{f_pre}, {f_dec}; want {want_pre}, "
+                                 f"{want_dec}")
+        # the unrolled path on the same params
+        uc = T.make_caches(cfg, b, S._cache_len(cfg, pshape), cfg.cdtype,
+                           long_context=lc, device="cuda")
+        lu, uc = T.prefill(loop, cfg, {"tokens": tokens}, uc,
+                           long_context=lc)
+        errs = [_agree(f"[steps] (a) {label} prefill", scanned[0], lu)]
+        for i in range(STEPS_DECODE):
+            tu = lu.argmax(-1)
+            if not torch.equal(tu, scanned[i].argmax(-1)):
+                raise AssertionError(f"[steps] (a) {label}: step {i} "
+                                     "tokens differ, scanned vs unrolled")
+            lu, uc = T.decode_step(loop, cfg, tu, uc, STEPS_PROMPT + i,
+                                   long_context=lc)
+            errs.append(_agree(f"[steps] (a) {label} step {i}",
+                               scanned[i + 1], lu))
+        if not torch.equal(lu.argmax(-1), scanned[-1].argmax(-1)):
+            raise AssertionError(f"[steps] (a) {label}: last tokens differ")
+        del uc, lu
+        held = "bitwise" if max(errs) == 0.0 else \
+            f"max |dlogit| {max(errs):.3e} (within [agree]'s 1e-4)"
+        step = statistics.median(step_ms)
+        print(f"  (a) {label}: gemma2-27b depth {STEPS_GEMMA_LAYERS} "
+              f"({n_params / 1e9:.3f} B bf16), B {b}, prompt "
+              f"{STEPS_PROMPT}, rings {rings}: prefill {pre_ms:.2f} ms "
+              f"({b * STEPS_PROMPT / pre_ms * 1e3:.0f} tok/s), decode "
+              f"{step:.3f} ms a step (median of {STEPS_DECODE}; "
+              f"{b / step * 1e3:.1f} tok/s), peak {peak:.0f} MiB; flash "
+              f"{f_pre['flash_attention_tc']} tensor-core a prefill, "
+              f"{f_dec['flash_attention_decode'] // STEPS_DECODE} decode "
+              f"calls a step (2 launches each); scanned = unrolled: "
+              f"tokens equal, logits {held} ({card})", flush=True)
+        out[label] = {"prefill_ms": pre_ms, "step_ms": step,
+                      "peak_mib": peak, "pshape": pshape, "dshape": dshape}
+    del params, loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_layouts() -> None:
+    """(a): the scan layouts of four smoke stacks (4 layers) through the
+    scanned prefill and 8 decode steps on the card against the CPU (one
+    intra-op thread): [agree]'s tolerance, tokens equal."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import scan as scan_mod
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch in STEPS_LAYOUTS:
+            cfg = dataclasses.replace(get_smoke_config(arch), n_layers=4)
+            params = tree_to_numpy(S.init_model_params(
+                torch.Generator().manual_seed(3), cfg))
+            prompt = torch.randint(0, cfg.vocab_size, (2, 24),
+                                   generator=torch.Generator().manual_seed(4))
+            extra = smoke_embeds(cfg, 2, 5, "cpu")
+            pos = 24 + (cfg.vision.n_tokens if cfg.family == "vlm" else 0)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_from_numpy(params, dev)
+                batch = {"tokens": prompt.to(dev),
+                         **{k: v.to(dev) for k, v in extra.items()}}
+                caches = scan_mod.stack_caches(T.make_caches(
+                    cfg, 2, 64, torch.float32, device=dev), cfg)
+                logits, caches = scan_mod.prefill(p, cfg, batch, caches)
+                outs = [logits]
+                for i in range(8):
+                    logits, caches = scan_mod.decode_step(
+                        p, cfg, logits.argmax(-1), caches, pos + i)
+                    outs.append(logits)
+                runs[dev] = outs
+            err = max(_agree(f"[steps] (a) {arch} call {i}", g, w)
+                      for i, (g, w) in enumerate(zip(runs["cuda"],
+                                                     runs["cpu"])))
+            for g, w in zip(runs["cuda"], runs["cpu"]):
+                if not torch.equal(g.argmax(-1).cpu(), w.argmax(-1)):
+                    raise AssertionError(f"[steps] (a) {arch}: tokens "
+                                         "differ cuda vs cpu")
+            print(f"  (a) scanned {cfg.name} at 4 layers "
+                  f"{scan_mod.layer_grouping(cfg)} (prefix, period, "
+                  f"groups): cuda agrees with cpu over a prefill and 8 "
+                  f"steps (max |dlogit| {err:.2e}, tokens equal)",
+                  flush=True)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _flat_f32(tree) -> torch.Tensor:
+    from repro_torch.models import scan as scan_mod
+    return torch.cat([t.float().reshape(-1) for _, t in
+                      sorted(scan_mod.flat_params(tree).items())])
+
+
+def steps_train(card: str) -> dict:
+    """(b): `build_train_case`'s step at stablelm-3b's published widths:
+    step s of a second step, the first step's peak MiB and its row-1
+    launches (one mix a step).  At depth 4 the loss with remat on is
+    bitwise the loss with it off (microbatch 2) and the updated params
+    agree within 1e-5 relative (in norm over the tree); microbatch 2
+    agrees with microbatch 1 (remat on) at the reference's test_scan.py
+    tolerance (the loss at rtol 2e-4, the updated bf16 params at 2e-4
+    relative in norm).  Returns each run's measurements."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    base = get_config("stablelm-3b")
+    mesh = make_host_mesh()
+    shape = dataclasses.replace(S.INPUT_SHAPES["train_4k"], global_batch=2)
+    out, first = {}, {}
+    for depth, remat, mb in STEPS_TRAIN:
+        cfg = dataclasses.replace(base, n_layers=depth)
+        case = S.build_train_case(cfg, mesh, shape, remat=remat,
+                                  microbatch=mb)
+        params = S.init_stacked_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, 1)
+        opt_state = S.init_opt_state(S.make_optimizer(cfg), params)
+        batch = S.sample_batch(torch.Generator(device="cuda").manual_seed(1),
+                               case.args[2], cfg.vocab_size)
+        w = torch.ones((1, 1), device="cuda")
+        assign = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mixes = ops.LAUNCHES["mixing_aggregate"]
+        t0 = time.perf_counter()
+        p1, o1, m1 = case.fn(params, opt_state, batch, w, assign)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        loss = float(m1["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"[steps] (b) depth {depth}: loss {loss}")
+        if depth == 4:
+            first[(remat, mb)] = (m1["loss"].clone(), _flat_f32(p1))
+        del params, opt_state
+        t0 = time.perf_counter()
+        p2, o2, m2 = case.fn(p1, o1, batch, w, assign)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        mixes = ops.LAUNCHES["mixing_aggregate"] - mixes
+        if mixes != 2:
+            raise AssertionError(f"[steps] (b): {mixes} mixes in 2 steps")
+        n = sum(t.numel() for t in _leaves(p2))
+        print(f"  (b) stablelm-3b depth {depth} ({n / 1e9:.3f} B bf16), "
+              f"remat {remat}, microbatch {mb}: loss {loss:.6f} then "
+              f"{float(m2['loss']):.6f}; step {step_s:.3f} s (first "
+              f"{first_s:.3f} s), peak {peak:.0f} MiB (the first step), "
+              f"{mixes} row-1 launches ({card})", flush=True)
+        out[(depth, remat, mb)] = {"step_s": step_s, "peak_mib": peak,
+                                   "cfg": cfg, "shape": shape}
+        del p1, o1, p2, o2, m1, m2, batch
+        torch.cuda.empty_cache()
+    (l_on, p_on), (l_off, p_off) = first[(True, 2)], first[(False, 2)]
+    rel = float((p_on - p_off).norm() / p_off.norm())
+    if not torch.equal(l_on, l_off) or rel > 1e-5:
+        raise AssertionError(f"[steps] (b): remat on against off: loss "
+                             f"{float(l_on)} vs {float(l_off)}, params "
+                             f"{rel:.3e} relative")
+    (l_1, p_1) = first[(True, 1)]
+    rel_mb = float((p_on - p_1).norm() / p_1.norm())
+    if abs(float(l_on) - float(l_1)) > 2e-5 + 2e-4 * abs(float(l_1)) or \
+            rel_mb > 2e-4:
+        raise AssertionError(f"[steps] (b): microbatch 2 against 1: loss "
+                             f"{float(l_on)} vs {float(l_1)}, params "
+                             f"{rel_mb:.3e} relative")
+    print(f"  (b) depth 4: remat on = off (microbatch 2): loss bitwise, "
+          f"params {rel:.3e} relative (max |d| "
+          f"{float((p_on - p_off).abs().max()):.3e}); microbatch 2 against 1 "
+          f"(remat on): loss {float(l_on):.6f} vs {float(l_1):.6f}, params "
+          f"{rel_mb:.3e} relative", flush=True)
+    return out
+
+
+def _plan_line(r: dict) -> str:
+    return (f"compute {r['t_compute'] * 1e3:.3f} ms, memory "
+            f"{r['t_memory'] * 1e3:.3f} ms, collective "
+            f"{r['t_collective'] * 1e3:.3f} ms -> {r['bottleneck']}; "
+            f"{r['flops_per_device']:.4g} FLOP, peak "
+            f"{r['peak_memory_per_device'] / 2**30:.2f} GiB, fits "
+            f"{r['fits']}")
+
+
+def steps_planner(card: str, procs: list, out_dir: str, serve: dict,
+                  train: dict) -> None:
+    """(c): the planner beside (a)'s and (b)'s measurements, its verdict
+    on the runs that were not made, then its line for every case of
+    ``--all`` (its processes, started with the phase)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+    mesh = make_card_mesh()
+    print(f"  (c) the planner on make_card_mesh() {mesh.shape}: counted on "
+          f"meta tensors, no device run; against measurement ({card}):",
+          flush=True)
+    cfg_a = dataclasses.replace(get_config("gemma2-27b"),
+                                n_layers=STEPS_GEMMA_LAYERS)
+    for label in ("prefill_32k",):
+        m = serve[label]
+        for kind, shape, ms in (("prefill", m["pshape"], m["prefill_ms"]),
+                                ("decode step", m["dshape"], m["step_ms"])):
+            r = dryrun.run_case("gemma2-27b", shape, mesh=mesh, cfg=cfg_a,
+                                out_dir=None, verbose=False)
+            print(f"    (a) {kind} B {shape.global_batch}: planned "
+                  f"{r['flops_per_device']:.4g} FLOP, compute bound "
+                  f"{r['t_compute'] * 1e3:.3f} ms, peak "
+                  f"{r['peak_memory_per_device'] / 2**20:.0f} MiB; "
+                  f"measured {ms:.3f} ms ("
+                  f"{r['flops_per_device'] / ms / 1e9:.1f} TFLOP/s)"
+                  + (f", peak {m['peak_mib']:.0f} MiB (prefill and steps)"
+                     if kind == "prefill" else ""), flush=True)
+    runs = dict(train)
+    runs[(4, False, 1)] = None
+    runs[(32, False, 1)] = None
+    for (depth, remat, mb), meas in runs.items():
+        cfg = dataclasses.replace(get_config("stablelm-3b"), n_layers=depth)
+        shape = (meas or next(iter(train.values())))["shape"]
+        r = dryrun.run_case("stablelm-3b", shape, mesh=mesh, cfg=cfg,
+                            remat=remat, microbatch=mb, out_dir=None,
+                            verbose=False)
+        what = (f"measured step {meas['step_s']:.3f} s "
+                f"({r['flops_per_device'] / meas['step_s'] / 1e12:.1f} "
+                f"TFLOP/s), peak {meas['peak_mib']:.0f} MiB") \
+            if meas else "not run (the planner's verdict)"
+        print(f"    (b) depth {depth}, remat {remat}, microbatch {mb}: "
+              f"planned {r['flops_per_device']:.4g} FLOP, peak "
+              f"{r['peak_memory_per_device'] / 2**20:.0f} MiB, fits "
+              f"{r['fits']}; {what}", flush=True)
+    for proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(text)
+            raise AssertionError(f"[steps] (c): dryrun --all exit "
+                                 f"{proc.returncode}")
+    arts = sorted(Path(out_dir).glob("*/*.json"))
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.steps import INPUT_SHAPES
+    if len(arts) != len(ARCH_IDS) * len(INPUT_SHAPES):
+        raise AssertionError(f"[steps] (c): {len(arts)} artifacts")
+    secs = 0.0
+    for a in arts:
+        r = json.loads(a.read_text())
+        secs += r["plan_seconds"]
+        print(f"    {r['arch']} x {r['shape']}: {_plan_line(r)}",
+              flush=True)
+    print(f"  (c) dryrun --all: {len(arts)} cases planned in {secs:.1f} s "
+          f"(summed over its {len(procs)} processes, beside (a) and (b))",
+          flush=True)
+
+
+def steps_path(card: str) -> dict:
+    """Phase 13; returns its launches (rows 1, 7a and 7c)."""
+    import tempfile
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ)
+    src = str(Path(__file__).resolve().parent / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--shard", f"{i}/{STEPS_PLAN_PROCS}", "--out", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for i in range(STEPS_PLAN_PROCS)]
+    try:
+        t0 = time.perf_counter()
+        serve = steps_serve(card)
+        steps_layouts()
+        print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        train = steps_train(card)
+        print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
+        launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        steps_planner(card, procs, tmp, serve, train)
+        print(f"  (c) {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  [steps] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def steps_isolated() -> dict:
+    """[steps] in a process of its own (this script with ``--steps``), its
+    lines passed through, started before this process holds a CUDA
+    context: (b)'s uncut step takes ~40 GB.  Returns its launches."""
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--steps"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    launches = None
+    for line in proc.stdout:
+        if line.startswith(STEPS_MARK):
+            launches = json.loads(line[len(STEPS_MARK):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or launches is None:
+        raise AssertionError(f"[steps] failed (exit {proc.returncode})")
+    return launches
+
+
+def _steps_child() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = steps_path(card_line())
+    print(STEPS_MARK + json.dumps(launches), flush=True)
+    return 0
+
+
 TRAIN_B_MARK = "[train] (b) launches: "
 
 
@@ -5095,6 +5537,12 @@ def main() -> int:
     b_launches = train_published_isolated()
     print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # [steps] needs ~40 GB of the card for (b)'s uncut step: a child
+    # process too, before this process creates its own CUDA context
+    print(f"[steps] the case builders on the scanned serving path, remat, "
+          f"and the planner, in a process of its own ({card})", flush=True)
+    steps_launches = steps_isolated()
+
     print("[kernels] kernel vs plain version on the card "
           f"(median CUDA-event ms, L2 flushed; {card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5226,6 +5674,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in train_launches.items():
         launches[name] += n
+    print(f"  [steps] (ran second, in a process of its own) launches "
+          f"{steps_launches}", flush=True)
+    for name, n in steps_launches.items():
+        launches[name] += n
     for r in rows:
         counts = by_arch[r["phase"]] if "phase" in r else launches
         r["launches"] = sum(counts[c] for c in
@@ -5237,7 +5689,7 @@ def main() -> int:
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel, faults, async, serve, paging, "
-                                 "hierarchy, mesh or lm path")
+                                 "hierarchy, mesh, lm, train or steps path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     # the mesh's process group (NCCL, with its gloo subgroup) ends here
     import torch.distributed as dist
@@ -5257,4 +5709,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--train-published"]:
         sys.exit(_train_published_child())
+    if sys.argv[1:] == ["--steps"]:
+        sys.exit(_steps_child())
     sys.exit(main())

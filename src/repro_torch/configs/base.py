@@ -2,7 +2,9 @@
 
 Counterpart of `repro/configs/base.py`: a copy of its dataclasses (plain
 data, the same fields and defaults) and of `reduced`, with `pdtype` and
-`cdtype` returning torch dtypes.  The port runs the dense, MoE, SSM and
+`cdtype` returning torch dtypes, and of `param_count` and
+`active_param_count`, the analytic counts behind the planner's model
+FLOPs (`roofline/analysis.py`).  The port runs the dense, MoE, SSM and
 hybrid families (`models/transformer.py`, MLA attention included,
 `models/ssm.py`); the audio and vision blocks are kept so that a config
 reads the same in both packages.
@@ -198,3 +200,96 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
     if cfg.hybrid is not None:
         updates["hybrid"] = replace(cfg.hybrid, attn_every=2)
     return replace(cfg, **updates)
+
+
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (the planner's model FLOPs)."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    total = V * d  # embedding
+    if not cfg.tie_embeddings:
+        total += V * d
+    for i in range(L):
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            total += _attn_params(cfg)
+            total += _ffn_params(cfg, i)
+        else:
+            total += _ssm_params(cfg)
+        total += 2 * d  # two norms
+    if cfg.family == "hybrid" and cfg.hybrid and cfg.hybrid.shared_block:
+        # shared attention block counted once (above loop counted per use; fix)
+        n_attn = sum(1 for i in range(L) if cfg.layer_kind(i) == "attn")
+        if n_attn > 1:
+            total -= (n_attn - 1) * (_attn_params(cfg) + _ffn_params(cfg, 0))
+    if cfg.encoder is not None:
+        enc = cfg.encoder.n_layers * (_attn_params(cfg) + _ffn_params(cfg, 0) + 4 * d)
+        # cross attention in each decoder layer
+        enc += L * _attn_params(cfg)
+        total += enc
+    if cfg.vision is not None:
+        total += cfg.vision.embed_dim * d  # projector
+    return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top_k + shared experts count)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    total = param_count(cfg)
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_expert
+    n_moe_layers = sum(1 for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+    inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+    return total - inactive
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    a = cfg.attn
+    d = cfg.d_model
+    if a is None:
+        return 0
+    if a.mla is not None:
+        mm = a.mla
+        qk_dim = mm.qk_nope_head_dim + mm.qk_rope_head_dim
+        n = d * mm.q_lora_rank + mm.q_lora_rank * a.n_heads * qk_dim
+        n += d * (mm.kv_lora_rank + mm.qk_rope_head_dim)
+        n += mm.kv_lora_rank * a.n_heads * (mm.qk_nope_head_dim + mm.v_head_dim)
+        n += a.n_heads * mm.v_head_dim * d
+        return n
+    q = d * a.n_heads * a.head_dim
+    kv = 2 * d * a.n_kv_heads * a.head_dim
+    o = a.n_heads * a.head_dim * d
+    return q + kv + o
+
+
+def _ffn_params(cfg: ModelConfig, i: int) -> int:
+    d = cfg.d_model
+    if cfg.moe is not None and cfg.is_moe_layer(i):
+        m = cfg.moe
+        n = m.n_experts * 3 * d * m.d_expert
+        n += m.n_shared_experts * 3 * d * m.d_expert
+        n += d * m.n_experts  # router
+        return n
+    if cfg.moe is not None:
+        return 3 * d * cfg.moe.dense_d_ff
+    mult = 3 if cfg.gated_mlp else 2
+    return mult * d * cfg.d_ff
+
+
+def _ssm_params(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d = cfg.d_model
+    if s is None:
+        return 0
+    d_in = s.expand * d
+    n_heads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    n = d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads)  # in_proj
+    n += conv_dim * s.d_conv                                    # conv1d
+    n += 2 * n_heads                                            # A_log, D
+    n += n_heads                                                # dt_bias
+    n += d_in * d                                               # out_proj
+    n += d_in                                                   # gated norm
+    return n

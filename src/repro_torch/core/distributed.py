@@ -19,7 +19,9 @@ Each collective moves one flat buffer: the leaves are laid side by side
 in a (rows, ΣD) matrix (sorted keys), and each product is one call of
 `kernels.ops.mixing_aggregate_leaves` on it (one launch of the Y = W Θ
 kernel on the card, its plain version on the CPU).  ``group`` None is
-the default process group.
+the default process group; ``ONE_PROCESS`` is this process alone (the
+one-rank mesh of `launch.mesh.make_host_mesh`), where every collective
+is the identity and none is issued, whatever group may be running.
 """
 from __future__ import annotations
 
@@ -41,14 +43,22 @@ _ALL_GATHER = (dist.all_gather_single if hasattr(dist, "all_gather_single")
                else dist.all_gather_into_tensor)
 
 
+# the group of this process alone
+ONE_PROCESS = object()
+
+
 def group_rank_size(group: Optional[Any]) -> Tuple[int, int]:
     """(this rank's index in ``group``, the group's size)."""
+    if group is ONE_PROCESS:
+        return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
 
 
 def all_gather_rows(local: torch.Tensor, group: Optional[Any]
                     ) -> torch.Tensor:
     """(mm, ...) on every rank -> (P·mm, ...), the ranks' rows in order."""
+    if group is ONE_PROCESS:
+        return local
     _, size = group_rank_size(group)
     local = local.contiguous()
     out = torch.empty((size * local.shape[0],) + tuple(local.shape[1:]),
@@ -97,7 +107,7 @@ def gather_tree(tree: Any, group: Optional[Any]) -> Any:
     ...): one collective per leaf dtype, the leaves of a dtype laid side
     by side in one buffer (``None`` stays)."""
     ls = _leaves(tree)
-    if not ls:
+    if not ls or group is ONE_PROCESS:
         return tree
     groups: Dict[torch.dtype, List[int]] = {}
     for i, t in enumerate(ls):
@@ -140,7 +150,8 @@ def mix_streams(group: Optional[Any], params: Dict[str, torch.Tensor],
     contrib = ops.mixing_aggregate_leaves(
         w_cols, [_flat(params, torch.float32)])[0]           # (k, ΣD)
     contrib = contrib.contiguous()
-    dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=group)
+    if group is not ONE_PROCESS:
+        dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=group)
     mine = assignment[r * mm:(r + 1) * mm].to(torch.int64)
     return _unflat(contrib.index_select(0, mine), params)
 

@@ -30,8 +30,10 @@ merge), ``flash_attention_tc`` (the tensor-core kernel, bf16 prefill) or
 ``flash_attention`` (the CUDA-core kernel, the other prefills).
 
 Flash attention is a registered operator, ``repro_torch::flash_attention``
-(`torch.library`: a CPU implementation, the plain version, and a CUDA one,
-`flash_route`'s kernel), so that it runs under `torch.func.vmap`: its
+(`torch.library`: a CPU implementation, the plain version, a CUDA one,
+`flash_route`'s kernel, and a Meta one, its output's shape for the
+planner, whose `torch.utils.flop_counter` formula counts the kept
+(query, key) pairs), so that it runs under `torch.func.vmap`: its
 batching rule folds the vmapped dimension into the kernel's batch
 dimension and launches once for every user of a served batch (one count),
 each user's rows with that user's own keys.  It is defined with
@@ -49,7 +51,9 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (decode_splits,
@@ -107,9 +111,12 @@ def add_launches(counts: Dict[str, int]) -> None:
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
+    """Whether ``t`` goes to the CUDA kernel; a CPU tensor goes to the
+    plain version, and so does a ``meta`` one (the planner's: shapes
+    only, no data)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{op}: unsupported device {t.device}")
 
@@ -276,15 +283,45 @@ _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, *, "
             "bool causal=True, int? window=None, float? softcap=None, "
             "int? decode_rows=None, int prefix_len=0) -> Tensor")
+def _flash_meta(q, k, v, *, causal=True, window=None, softcap=None,
+                decode_rows=None, prefix_len=0):
+    """The planner's: the (B, H, Sq, dv) output's shape, no work."""
+    return q.new_empty(tuple(q.shape[:3]) + (v.shape[3],))
+
+
+def attn_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+               prefix_len: int = 0) -> int:
+    """The (query, key) pairs the flash contract's mask keeps: q aligned
+    to the end of k, causal (the first ``prefix_len`` keys seen by every
+    query) or full, and the window."""
+    qp = np.arange(sk - sq, sk, dtype=np.int64)
+    hi = np.minimum(np.maximum(qp, prefix_len - 1), sk - 1) if causal \
+        else np.full_like(qp, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros_like(qp)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _flash_flops(q_shape, k_shape, v_shape, *, causal=True, window=None,
+                 softcap=None, decode_rows=None, prefix_len=0,
+                 out_shape=None, **_):
+    """`torch.utils.flop_counter`'s formula: 2·(dk + dv) FLOP a kept
+    (query, key) pair a head, the masked pairs not counted."""
+    b, h, sq, dk = q_shape
+    return 2 * (dk + v_shape[3]) * b * h * attn_pairs(
+        sq, k_shape[2], causal, window, prefix_len)
+
+
 _LIB.impl("flash_attention", _flash_cpu, "CPU")
 _LIB.impl("flash_attention", _flash_cuda, "CUDA")
+_LIB.impl("flash_attention", _flash_meta, "Meta")
 torch.library.register_vmap("repro_torch::flash_attention", _flash_vmap,
                             lib=_LIB)
 _FLASH_OP = torch.ops.repro_torch.flash_attention.default
+register_flop_formula(torch.ops.repro_torch.flash_attention)(_flash_flops)
 
 
 __all__ = ["FLASH_COUNTERS", "FLASH_KERNELS", "LAUNCHES", "add_launches",
-           "flash_attention", "flash_route", "gram_matrix",
+           "attn_pairs", "flash_attention", "flash_route", "gram_matrix",
            "launches_set_aside", "mixing_aggregate",
            "mixing_aggregate_leaves",
            "pairwise_sqdist", "qsgd_dequantize", "qsgd_quantize",

@@ -247,10 +247,11 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor,
     """x (.., d) @ w (d, V) with an f32 result from compute-dtype inputs
     (the reference's ``preferred_element_type=float32``); ``train``, or
     an ``x`` under vmap, upcasts the inputs (differentiable, vmappable:
-    ``torch.mm(..., out_dtype=)`` has no batching rule)."""
+    ``torch.mm(..., out_dtype=)`` has no batching rule); a ``meta`` x (the
+    planner's) takes the card's branch."""
     if x.dtype == torch.float32:
         return x @ w.float()
-    if x.is_cuda and not train and not vmapped(x):
+    if x.device.type in ("cuda", "meta") and not train and not vmapped(x):
         lead = x.shape[:-1]
         out = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
                        out_dtype=torch.float32)

@@ -268,7 +268,8 @@ def test_port_imports_no_jax():
             "repro_torch.fl.faults, repro_torch.fl.runtime, "
             "repro_torch.fl.serve, repro_torch.fl.population, "
             "repro_torch.fl.hierarchy, "
-            "repro_torch.core, "
+            "repro_torch.core, repro_torch.launch.dryrun, "
+            "repro_torch.roofline, "
             "repro_torch.checkpoint, repro_torch.convert, chip_smoke\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "

@@ -180,6 +180,28 @@ Phases (any failure raises and the script exits non-zero):
                 holds a small mesh run on the card against the same run
                 over a gloo group on the CPU.  The group is torn down
                 before the last lines;
+ 10f. examples — the reference's examples as the port's entry points
+                (`examples/*_torch.py`) at their defaults: the
+                quickstart (5 clients, d 16, k 2), comm_tradeoff
+                (covariate shift n 2,000, m 12, 12 rounds; fedavg,
+                ucfl_k2, ucfl_k4, ucfl under the identity channel, then
+                ucfl_k2 under qsgd:8, qsgd:4 and topk:0.25; silhouettes
+                at k 2, 3, 4, 6) and personalization_emnist (local,
+                fedavg, ucfl_k4, oracle; 18 rounds) on HostVmap and on
+                `MeshShardMap` over the NCCL group: their tables, each
+                run's wall, and the phase's launches of rows 1, 2, 3–5
+                and 6.  It fails when an accuracy is not finite or not
+                in [0, 1], a streams / time / DL-bits column differs
+                from `downlink_cost`, `SYSTEMS[...].round_time` and the
+                run's payload bits on its own `History.comm`, one of
+                those four rows never launched, the mesh sweep differs
+                from the host one, the ucfl_k2 run's W (the
+                silhouettes') differs from the ucfl run's by more than
+                1e-6, or the quickstart's W does not put 0.9 of every
+                row on its true group, or its W or assignment differs
+                from the CPU run's on the same data (W by more than
+                1e-6).  Phase 3 holds the mix and the Gram kernel
+                against their plain versions at the examples' shapes;
  11. lm       — dense-decoder serving at gemma2-27b's full width (depth
                 cut to one local and one global layer) through
                 `launch.serve.generate`: (a) bf16, B 2, a 4,608-token
@@ -345,6 +367,7 @@ from repro_torch.fl import (AsyncConfig, Channel, FLConfig,  # noqa: E402
                             MeshShardMap, SYSTEMS, TorchDraws,
                             UniformFraction, run_federated)
 from repro_torch.fl import DeltaStore, ServeEngine, check_parity  # noqa: E402
+from repro_torch.fl import downlink_cost  # noqa: E402
 from repro_torch.fl.serve.store import refined_delta  # noqa: E402
 from repro_torch.fl.channel import (get_codec, stacked_ravel,  # noqa: E402
                                     uplink_roundtrip)
@@ -614,9 +637,12 @@ def ragged_leaves(gen, m, dtype, n_leaves) -> list:
 
 
 def check_mixing(gen) -> dict:
+    # the examples' shapes too: the m = 12 sweeps at k = 1, 2, 4 and 12,
+    # the quickstart's (5, 5) rule over its (5, 16) leaf
     shapes = [(1, 20, D_LENET), (4, 20, D_LENET), (20, 20, D_LENET),
-              (100, 100, D_LENET), (4, 20, 1), (4, 20, 127), (20, 20, 129),
-              (7, 13, 4099), (130, 20, 4099)]
+              (100, 100, D_LENET), (1, 12, D_LENET), (2, 12, D_LENET),
+              (4, 12, D_LENET), (12, 12, D_LENET), (5, 5, 16), (4, 20, 1),
+              (4, 20, 127), (20, 20, 129), (7, 13, 4099), (130, 20, 4099)]
     for k, m, d in shapes:
         for dt in (torch.float32, torch.bfloat16):
             w = rand_rows(gen, k, m)
@@ -666,6 +692,21 @@ def check_mixing(gen) -> dict:
 
     # the main path's shapes: one ucfl round mixes the 10 LeNet leaves
     sizes = lenet_leaf_sizes()
+    # and the examples': LeNet-47's ten leaves in one call at m = 12
+    for k in (1, 2, 4, 12):
+        w = rand_rows(gen, k, 12)
+        thetas = [torch.randn((12, d), generator=gen, device="cuda")
+                  for d in sizes]
+        err = 0.0
+        for y, t in zip(ops.mixing_aggregate_leaves(w, thetas), thetas):
+            err = max(err, check_close(
+                f"mixing_aggregate LeNet leaves k={k} m=12", y,
+                ref.mixing_aggregate_ref(w, t), 1e-5, 1e-5))
+            same(f"mixing_aggregate LeNet leaves k={k} m=12 vs one-leaf "
+                 "call", y, ops.mixing_aggregate(w, t))
+        print(f"  mixing_aggregate LeNet's {len(sizes)} leaves k={k:2d} m=12 "
+              f"f32 max|err| {err:.2e}, bitwise equal to one-leaf calls",
+              flush=True)
     row = mix_round(gen, MAIN["m"], MAIN["m"], sizes, "k=m=20 (LeNet, f32)")
     mix_round(gen, 100, 100, sizes, "k=m=100 (LeNet, f32)")
     row.update(name="mixing_aggregate", route="cuda",
@@ -676,8 +717,9 @@ def check_mixing(gen) -> dict:
 
 def check_gram(gen) -> dict:
     row = None
-    for m, d in ((20, D_LENET), (100, D_LENET), (17, 31), (1, 5),
-                 (33, 4099), (129, 4099)):
+    # (12, D_LENET) and (5, 16): the examples' sweeps and quickstart
+    for m, d in ((20, D_LENET), (100, D_LENET), (12, D_LENET), (5, 16),
+                 (17, 31), (1, 5), (33, 4099), (129, 4099)):
         g = torch.randn((m, d), generator=gen, device="cuda")
         ptr = nan_landing(2 * m * m, torch.float32)
         before = ops.LAUNCHES["gram_matrix"]
@@ -4262,6 +4304,171 @@ def mesh_path(fed, fl, hists, card: str) -> None:
           f"{card})", flush=True)
 
 
+def _timed_runs(module, walls: list):
+    """Wrap an example module's `run_federated` so each run's wall
+    (card synced) lands in ``walls``; returns the unwrapping call."""
+    inner = module.run_federated
+
+    def timed(spec, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = inner(spec, *a, **kw)
+        torch.cuda.synchronize()
+        channel = kw.get("channel")
+        walls.append((spec if channel is None
+                      else f"{spec} {channel.codec.spec}",
+                      time.perf_counter() - t0))
+        return h
+
+    module.run_federated = timed
+    return lambda: setattr(module, "run_federated", inner)
+
+
+def _check_columns(label: str, spec: str, row: dict, m: int,
+                   streams: int) -> None:
+    """A row's streams, unicasts and round times against the table and
+    the system models; its DL bits against the run's own payload; every
+    eval's accuracies finite and in [0, 1]."""
+    h = row["history"]
+    want = downlink_cost(spec, m, n_streams=streams)
+    got = (row["n_streams"], row["n_unicasts"])
+    if got != want or tuple(h.comm[-1]) != want:
+        raise AssertionError(f"[examples] {label}: streams/unicasts {got} "
+                             f"(History.comm {tuple(h.comm[-1])}), "
+                             f"downlink_cost {want}")
+    times = [s.round_time(m, n_streams=want[0], n_unicasts=want[1])
+             for s in SYSTEMS.values()]
+    if row["times"] != times:
+        raise AssertionError(f"[examples] {label}: round times "
+                             f"{row['times']} against {times}")
+    if h.comm_bits:
+        payload = h.extra["channel"]["payload_bits"]
+        if (row["dl_round"] != sum(want) * payload
+                or row["dl_total"] != sum(c.dl_bits for c in h.comm_bits)
+                or any(c.dl_bits != sum(want) * payload
+                       for c in h.comm_bits)):
+            raise AssertionError(f"[examples] {label}: DL bits "
+                                 f"{row['dl_round']} / {row['dl_total']}"
+                                 f" against {sum(want)} x {payload}")
+    accs = list(h.mean_acc) + list(h.worst_acc)
+    if not accs or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                           for a in accs):
+        raise AssertionError(f"[examples] {label}: accuracies {accs}")
+
+
+def examples_path(card: str) -> None:
+    """[examples]: the reference's examples as the port's entry points at
+    their defaults; see the module docstring (phase 10f)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import comm_tradeoff_torch as comm_ex
+    import personalization_emnist_torch as pers_ex
+    import quickstart_torch as quick_ex
+
+    # the quickstart, and the same datasets on the CPU
+    datasets = quick_ex.make_datasets("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = quick_ex.quickstart(datasets, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    quick_ex.print_report(r)
+    cpu = quick_ex.quickstart([{k: v.cpu() for k, v in d.items()}
+                               for d in datasets], device="cpu")
+    groups = r["groups"]
+    inside = (r["W"] * (groups[:, None] == groups[None, :])).sum(1)
+    w_gap = float(np.abs(r["W"] - cpu["W"]).max())
+    print(f"  quickstart: {wall:.3f} s ({card}); W's mass on the true "
+          f"group {np.round(inside, 4).tolist()}; assignment "
+          f"{r['assignment'].tolist()} (CPU {cpu['assignment'].tolist()});"
+          f" W card - CPU {w_gap:.3g}", flush=True)
+    # the tolerance the CPU test holds the port's W to the reference's
+    if not w_gap <= 1e-6:
+        raise AssertionError(f"[examples] quickstart: W card - CPU {w_gap}"
+                             " > 1e-6")
+    if not (inside >= 0.9).all():
+        raise AssertionError("[examples] quickstart: W does not recover "
+                             f"the true groups: {inside.tolist()}")
+    if not np.array_equal(r["assignment"], cpu["assignment"]):
+        raise AssertionError("[examples] quickstart: assignment "
+                             f"{r['assignment']} on the card, "
+                             f"{cpu['assignment']} on the CPU")
+    if not all(math.isfinite(v) for v in r["mse_fedavg"] + r["mse_ucfl"]):
+        raise AssertionError("[examples] quickstart: MSE not finite")
+
+    # comm_tradeoff at its defaults
+    walls = []
+    undo = _timed_runs(comm_ex, walls)
+    try:
+        fed, fl = comm_ex.default_case("cuda")
+        t0 = time.perf_counter()
+        r = comm_ex.tradeoff(fed, fl, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    comm_ex.print_report(r)
+    m = r["m"]
+    for spec, k in comm_ex.SPECS:
+        _check_columns(f"comm_tradeoff {spec}", spec, r["streams"][spec], m,
+                       m if k is None else k)
+    for codec, row in r["codecs"].items():
+        _check_columns(f"comm_tradeoff {comm_ex.CODEC_SPEC} {codec}",
+                       comm_ex.CODEC_SPEC, row, m, 2)
+    # the silhouettes read W off the CODEC_SPEC run; the reference reads
+    # it off the ucfl run: the two setups must give the same W
+    w_sil, w_ucfl = (r["streams"][s]["history"].extras.mixing_matrix
+                     for s in (comm_ex.CODEC_SPEC, "ucfl"))
+    w_gap = float(np.abs(w_sil - w_ucfl).max())
+    print(f"  comm_tradeoff: W of {comm_ex.CODEC_SPEC} - W of ucfl "
+          f"{w_gap:.3g}", flush=True)
+    if not w_gap <= 1e-6:
+        raise AssertionError(f"[examples] comm_tradeoff: W of "
+                             f"{comm_ex.CODEC_SPEC} and of ucfl differ by "
+                             f"{w_gap}")
+    if sorted(r["silhouette"]) != list(comm_ex.KS) or not all(
+            math.isfinite(s) and -1.0 <= s <= 1.0
+            for s in r["silhouette"].values()):
+        raise AssertionError(f"[examples] silhouettes {r['silhouette']}")
+    print(f"  comm_tradeoff: {wall:.2f} s; runs "
+          + ", ".join(f"{s} {w:.2f} s" for s, w in walls)
+          + f" ({card})", flush=True)
+
+    # personalization_emnist at its defaults, on HostVmap, then on the
+    # mesh over the NCCL group [mesh] started
+    fed, fl = pers_ex.default_case(device="cuda")
+    n_groups = int(torch.unique(fed.group).numel())
+    streams = {"local": 0, "fedavg": 1, "ucfl_k4": 4, "oracle": n_groups}
+    sweeps = {}
+    for name, placement in (("host", None),
+                            ("mesh gspmd", MeshShardMap(schedule="gspmd"))):
+        walls = []
+        undo = _timed_runs(pers_ex, walls)
+        try:
+            t0 = time.perf_counter()
+            res = pers_ex.personalization(fed, fl, placement=placement,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        print(f"  personalization_emnist ({name}):", flush=True)
+        pers_ex.print_report(res)
+        for spec, row in res.items():
+            _check_columns(f"personalization {name} {spec}", spec, row,
+                           fed.m, streams[spec])
+        print(f"  personalization_emnist ({name}): {wall:.2f} s; runs "
+              + ", ".join(f"{s} {w:.2f} s" for s, w in walls)
+              + f" ({card})", flush=True)
+        sweeps[name] = res
+    for spec, row in sweeps["host"].items():
+        other = sweeps["mesh gspmd"][spec]
+        if (row["mean_acc"] != other["mean_acc"]
+                or row["worst_acc"] != other["worst_acc"]
+                or row["history"].comm != other["history"].comm):
+            raise AssertionError(f"[examples] personalization {spec}: the "
+                                 "mesh sweep differs from the host one")
+
+
 def hierarchy_path(fed, fl, base, card: str) -> None:
     """[hierarchy]: (a) `HierarchyConfig(devices_per_user=1)` with ucfl_k4
     on both engines bitwise [main]'s flat ucfl_k4 (``base``: history,
@@ -5659,6 +5866,19 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in ops.LAUNCHES.items():
         launches[name] += n
+    print(f"[examples] the examples as the port's entry points at the "
+          f"reference's defaults ({card})", flush=True)
+    ops.reset_launches()          # and from here on the examples' path's
+    t0 = time.perf_counter()
+    examples_path(card)
+    print(f"  [examples] launches {dict(ops.LAUNCHES)}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for row in ("mixing_aggregate", "gram_matrix", "qsgd_roundtrip",
+                "topk_threshold"):
+        if ops.LAUNCHES[row] < 1:
+            raise AssertionError(f"[examples] {row} never launched")
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
     for name, n in lm_path(card).items():
         launches[name] += n
     mla_layer_check(card)
@@ -5689,7 +5909,8 @@ def main() -> int:
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} never launched on the main, "
                                  "channel, faults, async, serve, paging, "
-                                 "hierarchy, mesh, lm, train or steps path")
+                                 "hierarchy, mesh, examples, lm, train or "
+                                 "steps path")
     print(f"  total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     # the mesh's process group (NCCL, with its gloo subgroup) ends here
     import torch.distributed as dist

@@ -11,3 +11,9 @@ Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise rather than run on the CPU (pass ``device="cpu"`` explicitly,
 as the tests do).  The package imports nothing from JAX or from `repro`.
 """
+
+# torch.func's first gradient imports torch._dynamo, and that import keeps
+# the frames that called it (a whole run's locals, its data pages among
+# them) in reference cycles until the cycle collector runs.  Imported
+# with the package, it holds only import-time frames.
+import torch._dynamo  # noqa: E402,F401

@@ -10,6 +10,7 @@ and the vlm family (paligemma-3b, a prefix-LM).  An unknown id raises
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, reduced
 
@@ -39,3 +40,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return reduced(get_config(arch))
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

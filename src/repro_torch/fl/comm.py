@@ -1,14 +1,21 @@
 """Communication/straggler time model (paper §IV-C).
 
 Copied from `repro/fl/comm.py` (`harmonic`, `SystemModel` with the async
-runtime's compute draws, `SYSTEMS`); it is pure Python, and the port
-keeps its own copy rather than importing the reference package.
+runtime's compute draws, `SYSTEMS`, `downlink_cost`); it is pure Python,
+and the port keeps its own copy rather than importing the reference
+package.
 
 Time unit = T_dl (one model broadcast on the downlink).
   * uplink per round: ρ = T_ul/T_dl ∈ [1, 4]   (clients upload in parallel)
-  * downlink per round: one T_dl per distinct model stream (group broadcast)
+  * downlink per round: one T_dl per distinct model stream (group broadcast);
+    client-side personalization (FedFOMO) needs unicasts — one per
+    (client, candidate model) pair.
   * compute: shifted exponential per client; the round waits for the slowest:
     E[max] = T_min + H_m/μ (H_m the m-th harmonic number).
+
+The per-algorithm downlink table lives on each Strategy class
+(`Strategy.downlink_cost`); `downlink_cost` here is the string entry
+point and resolves the spec through the registry.
 """
 from __future__ import annotations
 
@@ -73,3 +80,14 @@ WIRED = SystemModel(rho=1.0, t_min=1.0, inv_mu=0.0, name="wired rho=1")
 SYSTEMS = {"wireless_slow": WIRELESS_SLOW_UL,
            "wireless_fast": WIRELESS_FAST_UL,
            "wired": WIRED}
+
+
+def downlink_cost(algorithm: str, m: int, n_streams: int = 1,
+                  fomo_candidates: int = 5):
+    """(n_streams, n_unicasts) per round, a shim over the registry: each
+    Strategy class owns its entry (``Strategy.downlink_cost``).  An
+    unknown spec raises ValueError."""
+    from repro_torch.fl.strategies import get_strategy_class
+    cls = get_strategy_class(algorithm)
+    return tuple(cls.downlink_cost(m, n_streams=n_streams,
+                                   fomo_candidates=fomo_candidates))

@@ -23,6 +23,7 @@ from repro_torch.fl.hierarchy.config import (HierarchyConfig,
 from repro_torch.fl.hierarchy.edge import (EDGE_AGGREGATORS, DropStragglers,
                                            EdgeAggregator, EdgeState,
                                            FleetDraws, FleetUpdate, MeanEdge,
+                                           build_fleet_update,
                                            cached_fleet_update,
                                            get_edge_aggregator,
                                            register_edge_aggregator)
@@ -32,7 +33,7 @@ from repro_torch.fl.hierarchy.meter import (EdgeMeter, FleetPlan, fleet_plan,
 __all__ = [
     "EDGE_AGGREGATORS", "DropStragglers", "EdgeAggregator", "EdgeMeter",
     "EdgeState", "FleetDraws", "FleetPlan", "FleetUpdate", "HierarchyConfig",
-    "MeanEdge", "cached_fleet_update", "fleet_plan",
+    "MeanEdge", "build_fleet_update", "cached_fleet_update", "fleet_plan",
     "get_edge_aggregator", "init_fleet_run", "partition_fleet_data",
     "register_edge_aggregator", "resolve_fleet_spec", "resolve_hierarchy",
 ]

@@ -1,9 +1,9 @@
 """Edge sub-round: per-device local updates and edge aggregation.
 
-Counterpart of `repro/fl/hierarchy/edge.py`.  `FleetUpdate` (the
-reference's `build_fleet_update`) makes the whole edge sub-round of one
-user fleet into a drop-in replacement for the engine's per-user update
-step (`placement.host.ClientUpdate`),
+Counterpart of `repro/fl/hierarchy/edge.py`.  `FleetUpdate` (built by
+`build_fleet_update`, as in the reference) makes the whole edge
+sub-round of one user fleet into a drop-in replacement for the engine's
+per-user update step (`placement.host.ClientUpdate`),
 
     fleet_update(stacked, est, x, y, n, fd) -> (stacked', est')
 
@@ -374,6 +374,23 @@ class FleetUpdate:
         return combine(stacked, dec, w), EdgeState(new_opt, new_ef)
 
 
+def build_fleet_update(plan: Any, client_update: Callable, *, backend: str,
+                       edge_hook: Optional[Callable] = None,
+                       donate: bool = False) -> FleetUpdate:
+    """The edge sub-round as one engine-shaped update step: the
+    reference's factory under its name and signature, building the
+    `FleetUpdate` the engines run.  ``plan`` is the resolved `FleetPlan`,
+    ``client_update`` the per-row step (`placement.host.
+    make_client_update`), ``edge_hook`` a traced weight refiner.  Where
+    the reference's step derives its keys inside, this one takes them as
+    a `FleetDraws` (`FleetUpdate.draw`).  ``donate`` (XLA's buffer
+    donation) has no counterpart: the step is functional and allocates
+    its outputs; it is accepted and ignored.  The step sees every user's
+    rows (a mesh rank's cut is `cached_fleet_update`'s ``users``)."""
+    del donate
+    return FleetUpdate(plan, client_update, edge_hook, backend=backend)
+
+
 @functools.lru_cache(maxsize=16)
 def cached_fleet_update(loss_fn: Callable, local_steps: int, batch_size: int,
                         lr: float, momentum: float, state_dtype, plan: Any,
@@ -386,10 +403,11 @@ def cached_fleet_update(loss_fn: Callable, local_steps: int, batch_size: int,
     different fleets never share a step, while runs of one configuration
     reuse theirs.  The step's identity keys the superstep cache, so each
     hierarchy configuration gets its own captured graph."""
-    from repro_torch.fl.placement.host import ClientUpdate, _UpdateConfig
+    from repro_torch.fl.placement.host import (_UpdateConfig,
+                                               make_client_update)
     from repro_torch.optim import sgd
     opt = sgd(lr, momentum=momentum, state_dtype=state_dtype)
-    client_update = ClientUpdate(loss_fn, opt,
-                                 _UpdateConfig(local_steps, batch_size))
+    client_update = make_client_update(loss_fn, opt,
+                                       _UpdateConfig(local_steps, batch_size))
     return opt, FleetUpdate(plan, client_update, edge_hook, backend=backend,
                             users=users)

@@ -64,6 +64,17 @@ class ClientUpdate:
         return p, o
 
 
+def make_client_update(loss_fn: Callable, opt, fl) -> ClientUpdate:
+    """The local-SGD step of every client: the reference's factory under
+    its name and signature, building the `ClientUpdate` the engines run.
+    The reference's step is one client's, ``f(params_i, opt_i, x_i, y_i,
+    n_i, key)``, vmapped by the engine, and draws its minibatches from
+    ``key``; this one takes the whole stack and the drawn slots,
+    ``f(stacked, opt_state, x, y, n, idx)``, ``idx`` from
+    `ClientUpdate.draw` (the run's `TorchDraws`, or injected indices)."""
+    return ClientUpdate(loss_fn, opt, fl)
+
+
 class _UpdateConfig:
     """The FLConfig fields `ClientUpdate` closes over."""
 
@@ -78,8 +89,8 @@ def cached_update(loss_fn: Callable, local_steps: int, batch_size: int,
                   state_dtype=None) -> Tuple[Any, Callable]:
     """(opt, update) memoized on everything the step closes over."""
     opt = sgd(lr, momentum=momentum, state_dtype=state_dtype)
-    return opt, ClientUpdate(loss_fn, opt,
-                             _UpdateConfig(local_steps, batch_size))
+    return opt, make_client_update(loss_fn, opt,
+                                   _UpdateConfig(local_steps, batch_size))
 
 
 def score_stats(accs: torch.Tensor) -> torch.Tensor:

@@ -305,5 +305,14 @@ class Strategy(abc.ABC):
                                   schedule=ctx.staleness_schedule,
                                   alpha=ctx.staleness_alpha)
 
+    @classmethod
+    def downlink_cost(cls, m: int, *, n_streams: int = 1,
+                      fomo_candidates: int = 5) -> CommCost:
+        """The family's entry in the paper's downlink table: broadcast
+        streams and unicasts a round for ``m`` clients, the caller giving
+        ``n_streams`` for the stream and cluster families.  A run's
+        `comm` gives the same entry."""
+        raise NotImplementedError
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.spec!r})"

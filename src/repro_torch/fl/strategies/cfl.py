@@ -67,6 +67,11 @@ class CFL(Strategy):
     def comm(self, clusters: np.ndarray) -> CommCost:
         return CommCost(int(clusters.max()) + 1, 0)
 
+    @classmethod
+    def downlink_cost(cls, m, *, n_streams=1, fomo_candidates=5):
+        # one broadcast per current cluster; the caller passes the count
+        return CommCost(n_streams, 0)
+
     def membership(self, clusters: np.ndarray) -> np.ndarray:
         return np.asarray(clusters, np.int64)
 

@@ -29,3 +29,7 @@ class FedAvg(Strategy):
 
     def comm(self, state) -> CommCost:
         return CommCost(1, 0)
+
+    @classmethod
+    def downlink_cost(cls, m, *, n_streams=1, fomo_candidates=5):
+        return CommCost(n_streams, 0)

@@ -136,3 +136,7 @@ class FedFOMO(Strategy):
 
     def comm(self, state: FomoState) -> CommCost:
         return CommCost(0, state.m * state.candidates)
+
+    @classmethod
+    def downlink_cost(cls, m, *, n_streams=1, fomo_candidates=5):
+        return CommCost(0, m * fomo_candidates)

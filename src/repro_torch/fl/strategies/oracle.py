@@ -42,3 +42,8 @@ class Oracle(Strategy):
 
     def comm(self, state: OracleState) -> CommCost:
         return CommCost(state.n_streams, 0)
+
+    @classmethod
+    def downlink_cost(cls, m, *, n_streams=1, fomo_candidates=5):
+        # one broadcast per cluster; the caller passes the cluster count
+        return CommCost(n_streams, 0)

@@ -77,6 +77,10 @@ class UCFL(Strategy):
     def comm(self, state: UCFLState) -> CommCost:
         return CommCost(state.n_streams, 0)
 
+    @classmethod
+    def downlink_cost(cls, m, *, n_streams=1, fomo_candidates=5):
+        return CommCost(n_streams, 0)
+
     def membership(self, state: UCFLState) -> np.ndarray:
         if state.plan is None:          # full personalization: own stream
             return np.arange(state.w.shape[0], dtype=np.int64)

@@ -36,9 +36,12 @@ such a case fails here and names the op; it never records a zero.
 
     python -m repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--out DIR] [--shard I/N]
+        [--skip-existing]
 
 ``--shard I/N`` plans every N-th case of the list from the I-th, so N
-processes side by side plan ``--all`` between them.
+processes side by side plan ``--all`` between them.  ``--skip-existing``
+reports a case whose artifact is already under ``--out`` as skipped and
+does not plan it, as the reference's does.
 
 Artifacts: ``<out>/<mesh>/<arch>__<shape>[__tag].json`` (default ``out``
 ``build/dryrun_artifacts`` at the repo root), each with the
@@ -334,6 +337,9 @@ def main(argv=None) -> int:
     p.add_argument("--microbatch", type=int, default=1)
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--tag", default="")
+    p.add_argument("--skip-existing", action="store_true",
+                   help="report a case whose artifact is under --out as "
+                        "skipped and do not plan it")
     p.add_argument("--out", default=ARTIFACT_DIR)
     p.add_argument("--shard", default="0/1",
                    help="I/N: plan only every N-th case, from the I-th")
@@ -352,7 +358,13 @@ def main(argv=None) -> int:
     combos = combos[i::n]
     mesh = make_card_mesh(args.device)
     failures = []
+    suffix = f"__{args.tag}" if args.tag else ""
     for a, s in combos:
+        path = os.path.join(args.out, mesh_name(mesh),
+                            f"{a}__{s}{suffix}.json")
+        if args.skip_existing and os.path.exists(path):
+            print(f"skip {a} x {s} (artifact exists)")
+            continue
         try:
             run_case(a, s, mesh=mesh, schedule=args.schedule,
                      n_streams=args.streams, remat=not args.no_remat,

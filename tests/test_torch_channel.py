@@ -39,6 +39,16 @@ M = 4
 TINY = np.float32(np.finfo(np.float32).tiny)   # the smallest normal f32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

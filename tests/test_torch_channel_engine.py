@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.data.federated import scenario_label_shift as j_label_shift
 from repro.fl import Channel as JChannel
@@ -32,6 +33,16 @@ SEED = 0
 M, N = 4, 300
 FL_KW = dict(rounds=3, local_steps=2, batch_size=8, eval_every=1)
 NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,16 @@ INT_EDGES = [0, 1, 31, 32, 127, 128, 255, 256, 65535, 65536, 2**31 - 1,
 LEN_EDGES = [0, 1, 15, 16, 31, 32, 255, 256, 65535, 65536]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _same_bytes(obj):
     want = msgpack.packb(obj, use_bin_type=True)
     got = _msgpack.packb(obj)

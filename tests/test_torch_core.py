@@ -33,6 +33,16 @@ SEED = 0
 NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jfed = j_label_shift(jax.random.PRNGKey(0), n=400, m=6)

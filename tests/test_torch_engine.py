@@ -38,6 +38,16 @@ FL_KW = dict(rounds=3, local_steps=2, batch_size=8, eval_every=1)
 NARROW = jlenet.LeNetConfig(c1=2, c2=4, fc1=16, fc2=12)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 class ReplayDraws:
     """The reference engine's draws, replayed from its key chain:
     PRNGKey(seed) -> split -> (key, kinit); per round key, ksample =

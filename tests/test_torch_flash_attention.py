@@ -34,6 +34,16 @@ from repro_torch.kernels.flash_attention import decode_splits, flash_route
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(seed, b, h, kh, sq, sk, hd, dv=None):
     """q, k of head dim hd and v of head dim dv (default hd)."""
     rng = np.random.default_rng(seed)

@@ -23,6 +23,16 @@ from repro_torch.kernels.pairwise_sqdist import CLUSTER, gram_plan
 RNG = np.random.default_rng(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rows(k, m, rng):
     w = rng.uniform(size=(k, m)).astype(np.float32)
     return w / w.sum(1, keepdims=True)

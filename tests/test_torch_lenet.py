@@ -18,6 +18,16 @@ from repro_torch.models import lenet
 from repro_torch.optim import apply_updates, sgd
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def case():
     cfg = jlenet.LeNetConfig()

@@ -35,6 +35,16 @@ TOL = 2e-4
 DENSE = ("gemma2-27b", "gemma-2b", "stablelm-3b")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(x):
     return np.asarray(x.detach().float().numpy() if isinstance(x, torch.Tensor)
                       else x, np.float32)

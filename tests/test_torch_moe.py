@@ -51,6 +51,16 @@ TOL = 2e-4
 RTOL, GATOL = 1e-4, 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()

@@ -22,6 +22,16 @@ from repro_torch.convert import tree_from_numpy, tree_to_numpy
 RTOL, ATOL = 1e-6, 1e-7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _tree(seed, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return {"a": rng.standard_normal((3, 4)).astype(dtype),

@@ -63,6 +63,16 @@ SHAPE_ARCHS = ("gemma2-27b", "deepseek-v3-671b", "zamba2-2.7b",
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _meshes(name):
     sizes, axes = MESHES[name]
     return AbstractMesh(sizes, axes), pmesh.Mesh(axes, sizes,

@@ -20,6 +20,9 @@ reference's `run_async_paged`, the k=3, n=8 arrival order.
 """
 import dataclasses
 import os
+import pathlib
+import subprocess
+import sys
 import warnings
 
 import jax
@@ -678,3 +681,43 @@ def test_torch_draws_state_roundtrip():
            b.codec_noise(1, (3, 7)))
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+_CYCLES = """
+import gc
+import torch
+torch.set_num_threads(1)
+from repro_torch.data import scenario_label_shift
+from repro_torch.fl import (SYSTEMS, Channel, FLConfig, PagingConfig,
+                            run_federated)
+fed = scenario_label_shift(0, n=24 * 50, m=24, device="cpu")
+gc.collect()
+gc.disable()
+gc.set_debug(gc.DEBUG_SAVEALL)
+h = run_federated("ucfl_k4", fed, keep_state=True,
+                  paging=PagingConfig(cohort=8),
+                  fl=FLConfig(rounds=2, local_steps=1, batch_size=8,
+                              eval_every=1),
+                  system=SYSTEMS["wireless_slow"],
+                  channel=Channel(codec="qsgd:8"), seed=0, device="cpu")
+assert h.final_params is not None and h.final_residual is not None
+del h
+gc.collect()
+print(sum(isinstance(o, torch.Tensor) for o in gc.garbage))
+"""
+
+
+def test_paged_keep_state_leaves_no_tensor_in_cycles():
+    """The first paged ``keep_state`` run of a fresh process (population
+    24, cohorts of 8, 2 rounds, the collector off) leaves no tensor for
+    the cycle collector.  torch.func's first gradient would import
+    torch._dynamo, and that import keeps its caller's frames (the run's
+    data pages among their locals) alive; `repro_torch` imports it
+    first."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _CYCLES], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                                  OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0"]

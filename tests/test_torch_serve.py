@@ -50,6 +50,16 @@ FIX_AT = (("fc1_w", (0, 0), 1.0, 1e-9), ("fc1_w", (3, 2), -3.0, 2e-9),
           ("out_b", (5,), 0.75, -1e-10))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def japply_one(params, x):
     return jlenet.apply(params, x[None])[0]
 

@@ -54,6 +54,16 @@ CODECS = ["identity", "qsgd:4"]
 TOL = 2e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jtree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -27,6 +27,16 @@ from repro_torch.kernels.topk_threshold import CLUSTER, LEVELS
 TINY = np.float32(np.finfo(np.float32).tiny)   # the smallest normal f32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(name: str) -> np.ndarray:
     """(m, D) float32 magnitudes of one case, made from a seed."""
     rng = np.random.default_rng(sum(map(ord, name)))

@@ -23,6 +23,16 @@ TINY = ["--device", "cpu", "--clients", "4", "--pool", "6", "--seq", "16",
         "--batch", "2", "--steps", "2", "--eval-every", "1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small runs: PyTorch's intra-op threads only contend with the other
+    test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("spec,match", [
     ("ucfl_k", "unknown strategy spec"),
     ("fedprox", "unknown strategy spec"),

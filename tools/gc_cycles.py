@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """The tensors a paged federated run leaves in reference cycles: memory
-that stays held after the run returns until Python's cycle collector
-next runs.
+that would stay held after the run returns until Python's cycle
+collector next ran.  It prints 0 tensors for every run: the one cycle it
+found (torch.func's first gradient importing torch._dynamo, whose import
+kept the calling frames, and with them the first run's data pages,
+alive) is gone since `repro_torch` imports torch._dynamo itself.
 
     PYTHONPATH=src python3 tools/gc_cycles.py [--device cpu] [--population N]
 
